@@ -1,0 +1,41 @@
+"""The port's kernel layer: CUDA C++ kernels for Hopper (``csrc/``) behind
+wrappers that run the kernel on CUDA tensors and its plain PyTorch version
+on CPU tensors — and never fall back from one to the other.
+
+``ENGINE_NAMES`` is the single table mapping the reference's engine names to
+the port's: the reference's jnp/XLA paths become ``"torch"`` (plain tensor
+ops, on whatever device the data lies) and its Pallas kernels ``"cuda"``.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ENGINE_NAMES", "ENGINES", "PREDICATE_ENGINES", "launch_counts",
+           "reset_launch_counts", "require_kernel_operand"]
+
+# reference engine name -> port engine name
+ENGINE_NAMES = {"xla": "torch", "jnp": "torch", "pallas": "cuda",
+                "auto": "auto"}
+ENGINES = ("torch", "cuda")                   # executor (compaction) engines
+PREDICATE_ENGINES = ("torch", "cuda", "auto")
+
+# Launches of each kernel wrapper: one is added where the wrapper launches
+# its kernel, and nowhere else (plain-version calls do not count).
+launch_counts = {"predicate_bitset": 0, "filter_compact": 0, "bitset_op": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def require_kernel_operand(t: torch.Tensor, name: str) -> None:
+    """A kernel operand must be a contiguous CUDA tensor of 4-byte
+    int32/float32 elements."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: kernel operand must be a CUDA tensor")
+    if t.dtype not in (torch.int32, torch.float32):
+        raise ValueError(f"{name}: kernel operand must be int32 or float32, "
+                         f"got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernel operand must be contiguous")

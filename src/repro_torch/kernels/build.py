@@ -1,0 +1,128 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+
+Each source is compiled by its own ``nvcc`` process, all started together,
+for ``sm_90a`` into an object file; the objects link into ONE shared library
+with a plain C interface, loaded with ``ctypes``.  The library lands in
+``src/repro_torch/_build/`` under a name that hashes the sources and flags,
+so an edited source rebuilds and an unchanged one loads at once.  Nothing
+here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+__all__ = ["CSRC_DIR", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "library",
+           "build_info"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_STATE: dict = {"lib": None, "info": None}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+
+
+def _nvcc() -> str:
+    found = os.environ.get("NVCC") or shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set NVCC or put nvcc on PATH)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build() -> dict:
+    so = BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+    if so.exists():
+        return {"path": str(so), "seconds": 0.0, "built": False, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / name), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs, failed = [], []
+        for name, p in zip(SOURCES, procs):
+            out, _ = p.communicate()
+            logs.append(f"== {name}\n{out}")
+            if p.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp_so = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", tmp_so, *objs], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_so, so)
+    log = "\n".join(logs)
+    (BUILD_DIR / "ptxas.log").write_text(log)
+    return {"path": str(so), "seconds": time.perf_counter() - t0,
+            "built": True, "log": log}
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.repro_predicate_bitset.argtypes = [_P, _P, _I64, _P, _P, _P]
+    lib.repro_predicate_bitset.restype = _I32
+    lib.repro_word_popcount.argtypes = [_P, _I64, _P, _P]
+    lib.repro_word_popcount.restype = _I32
+    lib.repro_compact_scatter.argtypes = [_P, _P, _P, _I64, _I64, _P]
+    lib.repro_compact_scatter.restype = _I32
+    lib.repro_bitset_op.argtypes = [_P, _P, _P, _I64, _I32, _P, _P]
+    lib.repro_bitset_op.restype = _I32
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on the first call."""
+    with _LOCK:
+        if _STATE["lib"] is None:
+            info = _build()
+            lib = ctypes.CDLL(info["path"])
+            _declare(lib)
+            _STATE["info"], _STATE["lib"] = info, lib
+        return _STATE["lib"]
+
+
+def build_info() -> Optional[dict]:
+    """``{"path", "seconds", "built", "log"}`` of the loaded library, or
+    None before the first ``library()`` call."""
+    return _STATE["info"]
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {status}")

@@ -1,0 +1,91 @@
+"""B2: order-preserving compaction of a table's columns by a packed
+keep-mask.
+
+``filter_compact_bits`` launches the CUDA kernels of
+``csrc/filter_compact.cu`` (the port of
+``repro/kernels/filter_compact.py:filter_compact_bits_blocks`` plus the
+stitch in ``repro/kernels/ops.py:filter_compact``) over ALL given columns at
+once; ``filter_compact_plain`` is its plain PyTorch version.  Both leave
+slots past the count at 0.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import bitset as _bs
+from repro_torch.kernels import launch_counts, require_kernel_operand
+
+__all__ = ["MAX_COLS", "filter_compact_plain", "filter_compact_bits"]
+
+MAX_COLS = 32          # column pointers per scatter launch (csrc COMPACT_MAX_COLS)
+
+
+class _CompactArgs(ctypes.Structure):
+    _fields_ = [("inp", ctypes.c_void_p * MAX_COLS),
+                ("out", ctypes.c_void_p * MAX_COLS),
+                ("n_cols", ctypes.c_int32)]
+
+
+def filter_compact_plain(cols: Sequence[torch.Tensor], words: torch.Tensor
+                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Compact every column by the packed keep-mask ``words``; returns
+    ``(columns, count)``, slots past ``count`` zero."""
+    n = cols[0].shape[0] if cols else 0
+    mask = _bs.unpack(words, n)
+    cnt = mask.sum().to(torch.int32)
+    idx = torch.argsort((~mask).to(torch.int8), stable=True)
+    lane = torch.arange(n, device=words.device)
+    out = [torch.where(lane < cnt, c[idx], torch.zeros((), dtype=c.dtype,
+                                                       device=c.device))
+           for c in cols]
+    return out, cnt
+
+
+def filter_compact_bits(cols: Sequence[torch.Tensor], words: torch.Tensor
+                        ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Launch the compaction kernels on CUDA columns (int32/float32, equal
+    length ``n``) and ``ceil(n/32)`` int32 keep words; returns ``(columns,
+    count)`` with ``count`` a 0-d int32 device tensor."""
+    from repro_torch.kernels.build import check, library
+
+    require_kernel_operand(words, "filter_compact words")
+    if words.dtype != torch.int32:
+        raise ValueError("filter_compact words must be int32 bit patterns")
+    if not cols:
+        raise ValueError("filter_compact needs at least one column")
+    n = cols[0].shape[0]
+    for c in cols:
+        require_kernel_operand(c, "filter_compact column")
+        if c.shape != (n,) or c.device != words.device:
+            raise ValueError("filter_compact columns must share one length "
+                             "and the words' device")
+    nw = _bs.n_words(n)
+    if words.shape != (nw,):
+        raise ValueError(f"filter_compact: {n} rows need {nw} words, got "
+                         f"{tuple(words.shape)}")
+    outs = [torch.empty_like(c) for c in cols]
+    if n == 0:
+        return outs, torch.zeros((), dtype=torch.int32, device=words.device)
+    lib = library()
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    per_word = torch.empty((nw,), dtype=torch.int32, device=words.device)
+    check(lib.repro_word_popcount(words.data_ptr(), ctypes.c_longlong(nw),
+                                  per_word.data_ptr(), stream),
+          "filter_compact popcount")
+    incl = torch.cumsum(per_word, 0, dtype=torch.int32)
+    for lo in range(0, len(cols), MAX_COLS):
+        args = _CompactArgs()
+        chunk = range(lo, min(lo + MAX_COLS, len(cols)))
+        for k, j in enumerate(chunk):
+            args.inp[k] = cols[j].data_ptr()
+            args.out[k] = outs[j].data_ptr()
+        args.n_cols = len(chunk)
+        status = lib.repro_compact_scatter(
+            ctypes.byref(args), words.data_ptr(), incl.data_ptr(),
+            ctypes.c_longlong(n), ctypes.c_longlong(nw), stream)
+        launch_counts["filter_compact"] += 1
+        check(status, "filter_compact scatter")
+    return outs, incl[-1]

@@ -1,0 +1,45 @@
+"""Public wrappers around the CUDA kernels.
+
+Each wrapper takes the kernel for CUDA tensors and the kernel's plain
+PyTorch version for CPU tensors, chosen by the device of the data alone: a
+CUDA tensor launches the kernel or raises, and nothing falls back.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import bitset_ops as _bo
+from repro_torch.kernels import filter_compact as _fc
+from repro_torch.kernels.predicate import predicate_bitset  # noqa: F401 (re-export)
+
+__all__ = ["filter_compact", "filter_compact_table", "bitset_op",
+           "predicate_bitset"]
+
+
+def filter_compact_table(columns: Dict[str, torch.Tensor], words: torch.Tensor
+                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Compact every column of a table by its packed keep-mask in one pass;
+    returns ``(columns, count)`` with slots past ``count`` zero (the
+    reference's ``ops.filter_compact`` semantics, column by column)."""
+    names = list(columns)
+    cols = [columns[n] for n in names]
+    if words.device.type == "cuda":
+        out, cnt = _fc.filter_compact_bits(cols, words)
+    else:
+        out, cnt = _fc.filter_compact_plain(cols, words)
+    return dict(zip(names, out)), cnt
+
+
+def filter_compact(vals: torch.Tensor, words: torch.Tensor):
+    """Compact one column by packed ``words``; returns ``(vals, count)``."""
+    out, cnt = filter_compact_table({"v": vals}, words)
+    return out["v"], cnt
+
+
+def bitset_op(a: torch.Tensor, b: torch.Tensor, op: str):
+    """Fused bitwise op + total popcount; returns ``(words, count)``."""
+    if a.device.type == "cuda":
+        return _bo.bitset_op_popcount(a, b, op)
+    return _bo.bitset_op_plain(a, b, op)

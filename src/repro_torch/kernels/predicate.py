@@ -1,0 +1,710 @@
+"""B1: fused Expr predicate -> packed validity bitset.
+
+The port of ``repro/kernels/predicate.py``.  A serialized Expr tree
+(``Expr.to_param`` nested tuples — the object plan nodes carry) compiles
+once, on the host, into a short typed register ``Program``: opcodes are
+typed by jnp's promotion rules (``CMP_LT_F32``, ``CVT_I32_F32``,
+``FLOORDIV_I32``, ...) and the program is cached on the param tree and the
+operand dtypes.  Two engines run the same program:
+
+  * ``csrc/predicate.cu`` — the CUDA interpreter, one thread per row, the
+    result packed by warp ballot (``predicate_bitset`` on CUDA tensors);
+  * ``run_program_plain`` — the plain PyTorch version, the same program as
+    vectorized tensor ops (``predicate_bitset`` on CPU tensors).
+
+Hoisted ``hlit``/``hisin`` values are kernel arguments, never program text,
+so one build serves every Expr and every literal value.
+
+This module also holds the jnp-compatible elementwise arithmetic
+(``floordiv``/``remainder`` by zero, promotion against Python literals) that
+the ``torch`` predicate engine (``study.expr``) shares with the program
+interpreter.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import operator as _op
+import struct
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitset as _bs
+from repro_torch.kernels import (PREDICATE_ENGINES, launch_counts,
+                                 require_kernel_operand)
+
+__all__ = [
+    "DEFAULT_BLOCK", "MAX_ISIN_VALUES", "PREDICATE_ENGINES", "OPCODES",
+    "Program", "compilable", "compile_program", "resolve_engine",
+    "predicate_bitset", "predicate_bitset_plain", "run_program_plain",
+    "binary_arith", "binary_cmp", "floordiv", "remainder", "value_kind",
+]
+
+# Stamped into plans as ``bitset_block``, exactly as the reference stamps it;
+# the CUDA kernel has no block quantum of its own (one thread per row).
+DEFAULT_BLOCK = 1024
+
+# The reference's VMEM membership budget.  The CUDA binary search has no such
+# limit; the value is kept so that the port's optimized plans (and the
+# engine each predicate node is stamped with) stay identical to the
+# reference's.
+MAX_ISIN_VALUES = 1024
+
+_NULL_INT = -2_147_483_648 + 1      # mirrors core.columnar.NULL_INT
+_INT_MIN = -2_147_483_648
+
+# param tags whose value is boolean — the program packs bits, so the tree
+# ROOT must be one of these (interior arithmetic is unrestricted)
+_BOOL_TAGS = frozenset({"cmp", "bool", "not", "isin", "hisin",
+                        "isnull", "notnull"})
+_ISIN_PAD = 8          # whitelists are tail-padded with their own max
+
+# Budgets of the CUDA interpreter (csrc/predicate.cu); the host raises past
+# them.
+MAX_COLS, MAX_TABLES, MAX_LITS, MAX_INSTR, N_REGS = 16, 8, 16, 96, 16
+
+OPCODES = {name: i for i, name in enumerate((
+    "LOAD", "CONST", "LIT", "CVT_I32_F32",
+    "ADD_I32", "SUB_I32", "MUL_I32", "FLOORDIV_I32", "MOD_I32",
+    "ADD_F32", "SUB_F32", "MUL_F32", "FLOORDIV_F32", "MOD_F32",
+    "CMP_EQ_I32", "CMP_NE_I32", "CMP_LT_I32", "CMP_LE_I32", "CMP_GT_I32",
+    "CMP_GE_I32",
+    "CMP_EQ_F32", "CMP_NE_F32", "CMP_LT_F32", "CMP_LE_F32", "CMP_GT_F32",
+    "CMP_GE_F32",
+    "AND", "OR", "NOT", "ISNULL_I32", "ISNULL_F32", "ISIN_I32", "ISIN_F32",
+))}
+_ARITH_SUFFIX = {"+": "ADD", "-": "SUB", "*": "MUL", "//": "FLOORDIV",
+                 "%": "MOD"}
+_CMP_SUFFIX = {"==": "EQ", "!=": "NE", "<": "LT", "<=": "LE", ">": "GT",
+               ">=": "GE"}
+_CMP_FNS = {"==": _op.eq, "!=": _op.ne, "<": _op.lt, "<=": _op.le,
+            ">": _op.gt, ">=": _op.ge}
+_PY_ARITH = {"+": _op.add, "-": _op.sub, "*": _op.mul, "//": _op.floordiv,
+             "%": _op.mod}
+_TORCH_DTYPE = {"i": torch.int32, "f": torch.float32, "b": torch.bool}
+
+
+# ---------------------------------------------------------------------------
+# engine selection
+# ---------------------------------------------------------------------------
+def resolve_engine(predicate_engine: Optional[str] = None,
+                   engine: str = "torch", device=None) -> str:
+    """Resolve the predicate engine of ``fused_mask``/``predicate`` nodes.
+
+    ``"torch"``/``"cuda"`` are explicit; ``"auto"`` (or None) picks the CUDA
+    bitset kernel when the executor engine is ``"cuda"`` or the data lies on
+    a CUDA device, and torch mask algebra otherwise."""
+    pe = predicate_engine or "auto"
+    if pe not in PREDICATE_ENGINES:
+        raise ValueError(f"predicate engine must be one of "
+                         f"{PREDICATE_ENGINES}, got {pe!r}")
+    if pe != "auto":
+        return pe
+    if engine == "cuda" or (device is not None
+                            and torch.device(device).type == "cuda"):
+        return "cuda"
+    return "torch"
+
+
+def _isin_sizes(p, out: list) -> None:
+    if not isinstance(p, tuple) or not p:
+        return
+    if p[0] == "isin":
+        out.append(len(p[2]))
+        _isin_sizes(p[1], out)
+        return
+    if p[0] == "hisin":
+        out.append(int(p[3]))
+        _isin_sizes(p[1], out)
+        return
+    for x in p[1:]:
+        _isin_sizes(x, out)
+
+
+def compilable(expr_param) -> bool:
+    """True when the serialized Expr compiles to the bitset kernel: a
+    boolean-valued root and every whitelist within ``MAX_ISIN_VALUES`` (the
+    reference's rule, kept so that plans stamp identical engines)."""
+    if not (isinstance(expr_param, tuple) and len(expr_param) > 0
+            and expr_param[0] in _BOOL_TAGS):
+        return False
+    sizes: list = []
+    _isin_sizes(expr_param, sizes)
+    return all(s <= MAX_ISIN_VALUES for s in sizes)
+
+
+# ---------------------------------------------------------------------------
+# jnp-compatible elementwise arithmetic
+# ---------------------------------------------------------------------------
+def value_kind(v) -> str:
+    """'b' (bool), 'i' (int32) or 'f' (float32): the jnp type a tensor or a
+    Python/numpy literal takes part in promotion as."""
+    if isinstance(v, torch.Tensor):
+        if v.dtype == torch.bool:
+            return "b"
+        return "f" if v.dtype.is_floating_point else "i"
+    if isinstance(v, (bool, np.bool_)):
+        return "b"
+    if isinstance(v, (int, np.integer)):
+        return "i"
+    if isinstance(v, (float, np.floating)):
+        return "f"
+    raise TypeError(f"unsupported expression value {type(v).__name__}")
+
+
+def _promote(ka: str, kb: str) -> str:
+    if "f" in (ka, kb):
+        return "f"
+    if "i" in (ka, kb):
+        return "i"
+    return "b"
+
+
+def _as_kind(v, kind: str, device) -> torch.Tensor:
+    dt = _TORCH_DTYPE[kind]
+    if isinstance(v, torch.Tensor):
+        return v if v.dtype == dt else v.to(dt)
+    if isinstance(v, np.generic):
+        v = v.item()
+    return torch.tensor(v, dtype=dt, device=device)
+
+
+def _sign_f(v: torch.Tensor) -> torch.Tensor:
+    # lax.sign on floats: -1, +1, the (signed) zero itself, NaN for NaN
+    one = torch.ones_like(v)
+    return torch.where(v > 0, one, torch.where(v < 0, -one, v))
+
+
+def _fmod(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Exact C ``fmod`` (XLA's ``rem``).  torch's vectorized CPU float fmod
+    loses exactness for huge quotients (``1e30 % 3e-30`` gives NaN), so CPU
+    floats go through numpy; CUDA's ``fmodf`` is exact."""
+    if x.dtype.is_floating_point and x.device.type == "cpu":
+        with np.errstate(invalid="ignore"):      # fmod(x, 0) is NaN
+            return torch.from_numpy(np.asarray(np.fmod(x.numpy(), y.numpy())))
+    return torch.fmod(x, y)
+
+
+def floordiv(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``jnp.floor_divide`` on same-dtype int32 or float32 tensors.
+
+    int32 follows XLA: ``x // 0 == -1`` before the floor adjustment (so
+    ``5 // 0 == -2``), and ``INT_MIN // -1`` wraps.  float32 is jnp's
+    ``_float_divmod``: ``(x - fmod(x, y)) / y`` adjusted and rounded half
+    away from zero (``5.0 // 0.0`` is NaN)."""
+    if x.dtype.is_floating_point:
+        mod = _fmod(x, y)
+        div = (x - mod) / y
+        ind = (mod != 0) & (_sign_f(y) != _sign_f(mod))
+        div = torch.where(ind, div - 1, div)
+        t = torch.trunc(div)
+        step = torch.where(div > 0, torch.ones_like(t), -torch.ones_like(t))
+        return torch.where((div - t).abs() >= 0.5, t + step, t)
+    zero = y == 0
+    ovf = (x == _INT_MIN) & (y == -1)
+    ys = torch.where(zero | ovf, torch.ones_like(y), y)
+    q = torch.div(x, ys, rounding_mode="trunc")
+    r = torch.fmod(x, ys)
+    q = torch.where(zero, torch.full_like(q, -1), q)
+    r = torch.where(zero, x, r)
+    sel = (torch.sign(x) != torch.sign(y)) & (r != 0)
+    return torch.where(sel, q - 1, q)
+
+
+def remainder(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``jnp.remainder`` on same-dtype int32 or float32 tensors: the result
+    takes the divisor's sign; an int32 zero divisor is replaced by one
+    (``5 % 0 == 0``); float32 ``5.0 % 0.0`` is NaN."""
+    if not x.dtype.is_floating_point:
+        y = torch.where(y == 0, torch.ones_like(y), y)
+        ys = torch.where((x == _INT_MIN) & (y == -1), torch.ones_like(y), y)
+        t = torch.fmod(x, ys)
+    else:
+        t = _fmod(x, y)
+    plus = ((t < 0) != (y < 0)) & (t != 0)
+    return torch.where(plus, t + y, t)
+
+
+_TENSOR_ARITH = {"+": torch.add, "-": torch.sub, "*": torch.mul,
+                 "//": floordiv, "%": remainder}
+_OP_ARITH = {v: k for k, v in _ARITH_SUFFIX.items()}
+_OP_CMP = {v: k for k, v in _CMP_SUFFIX.items()}
+
+
+def _device_of(*vs):
+    for v in vs:
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return None
+
+
+def binary_arith(op: str, lhs, rhs):
+    """``lhs OP rhs`` with jnp's promotion and jnp's ``//``/``%``.  Two
+    Python literals combine with Python semantics (as in the reference)."""
+    if not isinstance(lhs, torch.Tensor) and not isinstance(rhs, torch.Tensor):
+        return _PY_ARITH[op](lhs, rhs)
+    kind = _promote(value_kind(lhs), value_kind(rhs))
+    if kind == "b":
+        raise NotImplementedError(f"arithmetic {op!r} on two booleans")
+    dev = _device_of(lhs, rhs)
+    return _TENSOR_ARITH[op](_as_kind(lhs, kind, dev), _as_kind(rhs, kind, dev))
+
+
+def binary_cmp(op: str, lhs, rhs):
+    """``lhs OP rhs`` compared in jnp's promoted type (bools as ints)."""
+    if not isinstance(lhs, torch.Tensor) and not isinstance(rhs, torch.Tensor):
+        return _CMP_FNS[op](lhs, rhs)
+    kind = _promote(value_kind(lhs), value_kind(rhs))
+    kind = "i" if kind == "b" else kind
+    dev = _device_of(lhs, rhs)
+    return _CMP_FNS[op](_as_kind(lhs, kind, dev), _as_kind(rhs, kind, dev))
+
+
+# ---------------------------------------------------------------------------
+# Expr-param -> typed register program
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """A typed register program for one Expr over given operand dtypes.
+
+    ``instrs`` holds ``(opcode name, dst, a, b, imm, kind of dst)``; ``columns`` maps a
+    column slot to its name; ``tables`` maps a whitelist slot to
+    ``("static", sorted padded ndarray)`` or ``("vec", hoisted slot, kind)``;
+    ``lits`` maps a literal slot to ``(hoisted slot, kind)``; ``result`` is
+    the register holding the boolean outcome."""
+
+    columns: Tuple[str, ...]
+    instrs: Tuple[Tuple[str, int, int, int, int, str], ...]
+    tables: Tuple[Tuple, ...]
+    lits: Tuple[Tuple[int, str], ...]
+    result: int
+    device_tables: Dict = dataclasses.field(default_factory=dict,
+                                            compare=False, hash=False)
+
+
+def _bits_of(value, kind: str) -> int:
+    """32-bit pattern of a literal, as a signed int32."""
+    if kind == "f":
+        u = struct.unpack("<I", struct.pack("<f", float(value)))[0]
+    elif kind == "b":
+        u = 1 if value else 0
+    else:
+        v = int(value)
+        if not _INT_MIN <= v < 2 ** 31:
+            raise OverflowError(f"literal {v} does not fit int32")
+        u = v & 0xFFFFFFFF
+    return u - 2 ** 32 if u >= 2 ** 31 else u
+
+
+def referenced(expr_param: Tuple):
+    """``(columns, hlit slots, hisin slots)`` an Expr reads, in first-use
+    order (the operands its program needs)."""
+    cols: List[str] = []
+    lits: List[int] = []
+    vecs: List[int] = []
+
+    def walk(p):
+        tag = p[0]
+        if tag == "col" and p[1] not in cols:
+            cols.append(p[1])
+        elif tag == "hlit" and int(p[1]) not in lits:
+            lits.append(int(p[1]))
+        elif tag == "hisin" and int(p[3]) > 0 and int(p[2]) not in vecs:
+            vecs.append(int(p[2]))
+        if tag in ("cmp", "arith", "bool"):
+            walk(p[2])
+            walk(p[3])
+        elif tag in ("not", "isnull", "notnull", "isin", "hisin"):
+            walk(p[1])
+    walk(expr_param)
+    return tuple(cols), tuple(lits), tuple(vecs)
+
+
+@functools.lru_cache(maxsize=512)
+def compile_program(expr_param: Tuple, col_kinds: Tuple[Tuple[str, str], ...],
+                    lit_kinds: Tuple[Tuple[int, str], ...] = (),
+                    vec_kinds: Tuple[Tuple[int, str], ...] = ()) -> Program:
+    """Compile a serialized Expr into a typed register ``Program``.
+
+    ``col_kinds``/``lit_kinds``/``vec_kinds`` give the kind ('i'/'f'/'b') of
+    each column, hoisted literal slot and hoisted whitelist slot.  Raises
+    ``ValueError`` for a non-boolean root, an operation the interpreter does
+    not type (bitwise logic on numbers, arithmetic on two booleans) or a
+    program past the interpreter's budgets."""
+    if not (isinstance(expr_param, tuple) and expr_param
+            and expr_param[0] in _BOOL_TAGS):
+        raise ValueError(
+            f"cuda predicate engine needs a boolean-valued expression root, "
+            f"got tag {expr_param[0]!r} (use the torch engine)")
+    ckind = dict(col_kinds)
+    lkind = dict(lit_kinds)
+    vkind = dict(vec_kinds)
+    columns: List[str] = []
+    tables: List[Tuple] = []
+    lits: List[Tuple[int, str]] = []
+    instrs: List[Tuple[str, int, int, int, int, str]] = []
+    free = list(range(N_REGS))
+
+    def alloc() -> int:
+        if not free:
+            raise ValueError(f"predicate program needs more than {N_REGS} "
+                             f"registers (use the torch engine)")
+        free.sort()
+        return free.pop(0)
+
+    def release(v) -> None:
+        if v[0] == "reg":
+            free.append(v[1])
+
+    def emit(op: str, kind: str, a: int = 0, b: int = 0, imm: int = 0) -> int:
+        d = alloc()
+        instrs.append((op, d, a, b, imm, kind))
+        return d
+
+    def materialize(v, kind: str) -> int:
+        """Register holding ``v`` as ``kind`` (consumes ``v``)."""
+        if v[0] == "py":
+            return emit("CONST", kind, imm=_bits_of(v[1], kind))
+        reg, vk = v[1], v[2]
+        if kind == "f" and vk != "f":
+            release(v)
+            return emit("CVT_I32_F32", "f", a=reg)
+        return reg       # b -> i is free: a bool register holds 0/1
+
+    def kind_of(v) -> str:
+        return value_kind(v[1]) if v[0] == "py" else v[2]
+
+    def walk(p):
+        tag = p[0]
+        if tag == "col":
+            name = p[1]
+            if name not in columns:
+                columns.append(name)
+            return ("reg", emit("LOAD", ckind[name], imm=columns.index(name)),
+                    ckind[name])
+        if tag == "lit":
+            return ("py", p[1])
+        if tag == "hlit":
+            slot = int(p[1])
+            if (slot, lkind[slot]) not in lits:
+                lits.append((slot, lkind[slot]))
+            return ("reg", emit("LIT", lkind[slot],
+                                imm=lits.index((slot, lkind[slot]))),
+                    lkind[slot])
+        if tag in ("cmp", "arith"):
+            lv, rv = walk(p[2]), walk(p[3])
+            if lv[0] == "py" and rv[0] == "py":
+                fn = _CMP_FNS[p[1]] if tag == "cmp" else _PY_ARITH[p[1]]
+                return ("py", fn(lv[1], rv[1]))
+            kind = _promote(kind_of(lv), kind_of(rv))
+            if tag == "arith" and kind == "b":
+                raise ValueError(f"arithmetic {p[1]!r} on two booleans")
+            kind = "i" if kind == "b" else kind
+            a, b = materialize(lv, kind), materialize(rv, kind)
+            for r in (a, b):
+                free.append(r)
+            suffix = "_F32" if kind == "f" else "_I32"
+            if tag == "cmp":
+                return ("reg", emit("CMP_" + _CMP_SUFFIX[p[1]] + suffix, "b",
+                                    a, b), "b")
+            return ("reg", emit(_ARITH_SUFFIX[p[1]] + suffix, kind, a, b), kind)
+        if tag == "bool":
+            lv, rv = walk(p[2]), walk(p[3])
+            for v in (lv, rv):
+                if kind_of(v) != "b":
+                    raise ValueError("cuda predicate engine: '&'/'|' need "
+                                     "boolean operands")
+            if lv[0] == "py" and rv[0] == "py":
+                return ("py", (lv[1] and rv[1]) if p[1] == "and"
+                        else (lv[1] or rv[1]))
+            a, b = materialize(lv, "b"), materialize(rv, "b")
+            free.extend((a, b))
+            return ("reg", emit("AND" if p[1] == "and" else "OR", "b", a, b),
+                    "b")
+        if tag == "not":
+            v = walk(p[1])
+            if kind_of(v) != "b":
+                raise ValueError("cuda predicate engine: '~' needs a boolean "
+                                 "operand")
+            if v[0] == "py":
+                return ("py", not v[1])
+            release(v)
+            return ("reg", emit("NOT", "b", v[1]), "b")
+        if tag in ("isnull", "notnull"):
+            v = walk(p[1])
+            if v[0] == "py":
+                x = v[1]
+                null = (x != x) if isinstance(x, float) else x == _NULL_INT
+                return ("py", bool(null) if tag == "isnull" else not null)
+            if v[2] == "b":
+                raise ValueError("null test on a boolean value")
+            release(v)
+            r = emit("ISNULL_F32" if v[2] == "f" else "ISNULL_I32", "b", v[1])
+            if tag == "notnull":
+                free.append(r)
+                r = emit("NOT", "b", r)
+            return ("reg", r, "b")
+        if tag in ("isin", "hisin"):
+            v = walk(p[1])
+            if tag == "isin":
+                vals = p[2]
+                if not vals:
+                    release(v)
+                    return ("py", False)
+                tkind = "f" if any(isinstance(c, float) for c in vals) else "i"
+            else:
+                slot, n = int(p[2]), int(p[3])
+                if n == 0:
+                    release(v)
+                    return ("py", False)
+                tkind = vkind[slot]
+            if v[0] == "py":
+                if tag == "hisin":
+                    raise ValueError("hoisted whitelist probed by a literal")
+                return ("py", any(v[1] == c for c in p[2]))
+            kind = _promote("i" if v[2] == "b" else v[2], tkind)
+            if tag == "isin":
+                tbl = np.sort(np.asarray(p[2], np.float32 if tkind == "f"
+                                         else np.int32))
+                tbl = tbl.astype(np.float32 if kind == "f" else np.int32)
+                pad = (-tbl.size) % _ISIN_PAD
+                if pad:
+                    tbl = np.concatenate([tbl, np.full(pad, tbl[-1],
+                                                       tbl.dtype)])
+                tables.append(("static", tbl))
+            else:
+                tables.append(("vec", slot, kind))
+            a = materialize(v, kind)
+            free.append(a)
+            op = "ISIN_F32" if kind == "f" else "ISIN_I32"
+            return ("reg", emit(op, "b", a, imm=len(tables) - 1), "b")
+        raise ValueError(f"unknown Expr param tag {tag!r}")
+
+    root = walk(expr_param)
+    result = materialize(root, "b")
+    if len(columns) > MAX_COLS or len(tables) > MAX_TABLES \
+            or len(lits) > MAX_LITS or len(instrs) > MAX_INSTR:
+        raise ValueError(
+            f"predicate program past the interpreter's budget ({len(columns)} "
+            f"columns, {len(tables)} whitelists, {len(lits)} literals, "
+            f"{len(instrs)} instructions; limits {MAX_COLS}/{MAX_TABLES}/"
+            f"{MAX_LITS}/{MAX_INSTR}); use the torch engine")
+    return Program(tuple(columns), tuple(instrs), tuple(tables), tuple(lits),
+                   result)
+
+
+def _kinds(columns: Dict[str, torch.Tensor], expr_param: Tuple,
+           params: Optional[Tuple[Sequence, Sequence]]):
+    """Operand kinds for ``compile_program``, checking every operand
+    exists."""
+    names, lit_slots, vec_slots = referenced(expr_param)
+    missing = [nm for nm in names if nm not in columns]
+    if missing:
+        raise KeyError(f"predicate reads absent column(s) {missing}")
+    b_lits, b_vecs = params if params is not None else ((), ())
+    if any(s >= len(b_lits) for s in lit_slots) or \
+            any(s >= len(b_vecs) for s in vec_slots):
+        raise RuntimeError(
+            "expr has hoisted slot refs with no bound value; pass "
+            "params=(lits, vecs) (see expr.bound_params)")
+    col_kinds = tuple((nm, value_kind(columns[nm])) for nm in names)
+    lit_kinds = tuple((s, value_kind(_scalar(b_lits[s]))) for s in lit_slots)
+    vec_kinds = tuple((s, value_kind(_as_vector(b_vecs[s])))
+                      for s in vec_slots)
+    return col_kinds, lit_kinds, vec_kinds
+
+
+def _as_vector(v) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+
+def _scalar(v):
+    """A bound hoisted literal as a Python scalar (a tensor is read back)."""
+    return v.item() if isinstance(v, (torch.Tensor, np.ndarray, np.generic)) \
+        else v
+
+
+def _staged_vec(v, kind: str, device) -> torch.Tensor:
+    """A hoisted whitelist as the program reads it: sorted in ``kind``,
+    tail-padded with its own max."""
+    t = _as_vector(v).to(device=device, dtype=_TORCH_DTYPE[kind])
+    t = torch.sort(t).values
+    pad = (-t.shape[0]) % _ISIN_PAD
+    if pad:
+        t = torch.cat([t, t[-1:].expand(pad)])
+    return t.contiguous()
+
+
+def _table_operands(prog: Program, vecs: Sequence, device) -> List[torch.Tensor]:
+    out = []
+    key = str(device)
+    for i, spec in enumerate(prog.tables):
+        if spec[0] == "static":
+            cached = prog.device_tables.get((key, i))
+            if cached is None:
+                cached = torch.from_numpy(spec[1]).to(device)
+                prog.device_tables[(key, i)] = cached
+            out.append(cached)
+        else:
+            out.append(_staged_vec(vecs[spec[1]], spec[2], device))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the plain version: the same program as tensor ops
+# ---------------------------------------------------------------------------
+def run_program_plain(prog: Program, columns: Dict[str, torch.Tensor],
+                      n: int, params: Optional[Tuple[Sequence, Sequence]] = None
+                      ) -> torch.Tensor:
+    """Evaluate ``prog`` over ``columns`` with tensor ops; the ``(n,) bool``
+    outcome (validity not applied)."""
+    device = next(iter(columns.values())).device if columns else \
+        torch.device("cpu")
+    b_lits, b_vecs = params if params is not None else ((), ())
+    tables = _table_operands(prog, b_vecs, device)
+    regs: List = [None] * N_REGS
+    i32, f32 = torch.int32, torch.float32
+
+    def as_int(t):
+        return t.to(i32) if t.dtype == torch.bool else t
+
+    for op, d, a, b, imm, kind in prog.instrs:
+        ra, rb = regs[a], regs[b]
+        if op == "LOAD":
+            out = columns[prog.columns[imm]]
+        elif op == "CONST":
+            out = torch.tensor(imm, dtype=i32, device=device)
+            out = out.view(f32) if kind == "f" else \
+                (out != 0) if kind == "b" else out
+        elif op == "LIT":
+            slot, lk = prog.lits[imm]
+            out = torch.tensor(_scalar(b_lits[slot]), device=device).to(
+                _TORCH_DTYPE[lk])
+        elif op == "CVT_I32_F32":
+            out = ra.to(f32)
+        elif op.startswith(("ADD", "SUB", "MUL", "FLOORDIV", "MOD")):
+            fn, suffix = op.rsplit("_", 1)
+            x, y = (as_int(ra), as_int(rb)) if suffix == "I32" else (ra, rb)
+            out = _TENSOR_ARITH[_OP_ARITH[fn]](x, y)
+        elif op.startswith("CMP_"):
+            fn = _CMP_FNS[_OP_CMP[op[4:6]]]
+            out = fn(as_int(ra), as_int(rb)) if op.endswith("_I32") \
+                else fn(ra, rb)
+        elif op == "AND":
+            out = ra & rb
+        elif op == "OR":
+            out = ra | rb
+        elif op == "NOT":
+            out = ~ra
+        elif op == "ISNULL_I32":
+            out = ra == _NULL_INT
+        elif op == "ISNULL_F32":
+            out = torch.isnan(ra)
+        elif op in ("ISIN_I32", "ISIN_F32"):
+            x = as_int(ra) if op == "ISIN_I32" else ra
+            out = torch.isin(x, tables[imm])
+        else:
+            raise ValueError(f"unknown opcode {op}")
+        regs[d] = out
+    return torch.broadcast_to(regs[prog.result], (n,))
+
+
+def predicate_bitset_plain(prog: Program, columns: Dict[str, torch.Tensor],
+                           valid: torch.Tensor, capacity: int,
+                           params=None):
+    """Plain version of the kernel: ``(words, count)`` of ``valid & expr``."""
+    mask = run_program_plain(prog, columns, capacity, params)
+    mask = mask & _bs.unpack(valid, capacity)
+    return _bs.pack(mask), mask.sum().to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA launch
+# ---------------------------------------------------------------------------
+class _Instr(ctypes.Structure):
+    _fields_ = [("op", ctypes.c_uint8), ("dst", ctypes.c_uint8),
+                ("a", ctypes.c_uint8), ("b", ctypes.c_uint8),
+                ("imm", ctypes.c_int32)]
+
+
+class _PredArgs(ctypes.Structure):
+    _fields_ = [("cols", ctypes.c_void_p * MAX_COLS),
+                ("tables", ctypes.c_void_p * MAX_TABLES),
+                ("table_len", ctypes.c_int32 * MAX_TABLES),
+                ("lits", ctypes.c_uint32 * MAX_LITS),
+                ("prog", _Instr * MAX_INSTR),
+                ("n_instr", ctypes.c_int32),
+                ("result", ctypes.c_int32)]
+
+
+def _launch(prog: Program, columns: Dict[str, torch.Tensor],
+            valid: torch.Tensor, capacity: int, params):
+    from repro_torch.kernels.build import check, library
+
+    require_kernel_operand(valid, "predicate valid words")
+    if valid.dtype != torch.int32 or valid.shape != (_bs.n_words(capacity),):
+        raise ValueError("predicate valid must be the table's int32 words")
+    device = valid.device
+    b_lits, b_vecs = params if params is not None else ((), ())
+    args = _PredArgs()
+    keep = []                       # operands that must outlive the launch
+    for k, name in enumerate(prog.columns):
+        c = columns[name]
+        require_kernel_operand(c, f"predicate column {name!r}")
+        if c.shape != (capacity,) or c.device != device:
+            raise ValueError(f"predicate column {name!r} must have "
+                             f"{capacity} rows on {device}")
+        args.cols[k] = c.data_ptr()
+    for k, t in enumerate(_table_operands(prog, b_vecs, device)):
+        keep.append(t)
+        args.tables[k] = t.data_ptr()
+        args.table_len[k] = t.shape[0]
+    for k, (slot, kind) in enumerate(prog.lits):
+        args.lits[k] = _bits_of(_scalar(b_lits[slot]), kind) & 0xFFFFFFFF
+    for k, (op, d, a, b, imm, _) in enumerate(prog.instrs):
+        args.prog[k] = _Instr(OPCODES[op], d, a, b, imm)
+    args.n_instr = len(prog.instrs)
+    args.result = prog.result
+    nw = _bs.n_words(capacity)
+    words = torch.empty((nw,), dtype=torch.int32, device=device)
+    cnt = torch.zeros((1,), dtype=torch.int32, device=device)
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = lib.repro_predicate_bitset(
+        ctypes.byref(args), valid.data_ptr(), ctypes.c_longlong(capacity),
+        words.data_ptr(), cnt.data_ptr(), stream)
+    launch_counts["predicate_bitset"] += 1
+    check(status, "predicate_bitset")
+    return words, cnt[0]
+
+
+def predicate_bitset(columns: Dict[str, torch.Tensor], valid: torch.Tensor, *,
+                     expr_param: Tuple, capacity: Optional[int] = None,
+                     params: Optional[Tuple[Sequence, Sequence]] = None):
+    """Fused predicate -> packed bitset over a table's columns.
+
+    ``valid`` is the table's packed int32 words (or a ``(n,) bool`` mask,
+    packed at the boundary).  Returns ``(words, count)`` of ``valid & expr``
+    — ``count`` a 0-d int32 tensor.  CUDA operands launch the kernel; CPU
+    operands run the plain version.  ``params`` is the bound ``(lits,
+    vecs)`` pair backing hoisted slot refs."""
+    if valid.dtype == torch.bool:
+        capacity = int(valid.shape[0])
+        valid = _bs.pack(valid)
+    elif capacity is None:
+        names = referenced(expr_param)[0]
+        if not names:
+            raise ValueError("packed valid needs an explicit capacity when "
+                             "the predicate reads no columns")
+        capacity = int(columns[names[0]].shape[0])
+    kinds = _kinds(columns, expr_param, params)
+    prog = compile_program(expr_param, *kinds)
+    if capacity == 0:
+        return (torch.zeros((0,), dtype=torch.int32, device=valid.device),
+                torch.zeros((), dtype=torch.int32, device=valid.device))
+    if valid.device.type == "cuda":
+        return _launch(prog, columns, valid, capacity, params)
+    return predicate_bitset_plain(prog, columns, valid, capacity, params)

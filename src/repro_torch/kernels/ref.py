@@ -1,0 +1,14 @@
+"""The plain PyTorch version of every CUDA kernel (the correctness
+contract).  On the CPU each one is held against the reference's Pallas path;
+on the card each kernel is held against it, bit for bit.  Each lives beside
+its kernel; this module gathers them under the reference's names.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.bitset_ops import bitset_op_plain as bitset_op_ref
+from repro_torch.kernels.filter_compact import \
+    filter_compact_plain as filter_compact_ref
+from repro_torch.kernels.predicate import \
+    predicate_bitset_plain as predicate_bitset_ref
+
+__all__ = ["bitset_op_ref", "filter_compact_ref", "predicate_bitset_ref"]

@@ -1,0 +1,249 @@
+"""Each kernel module of the port, through its plain PyTorch path on the CPU,
+against the reference's Pallas kernel in interpret mode (and its jnp path).
+
+* B1 ``predicate_bitset``: the three-way Expr battery of
+  ``tests/test_differential.py``, plus division and modulo by zero, NaN
+  membership, promotion against Python literals and hoisted ``hlit``/
+  ``hisin`` slots bound through ``bound_params``;
+* B2 ``ops.filter_compact`` with a packed keep-mask (slots past the count
+  are zero);
+* B3 ``ops.bitset_op`` for all four ops at ragged word counts.
+
+Every comparison is exact: nothing here computes in floating point beyond
+IEEE elementwise operations and comparisons.
+"""
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core.columnar import ColumnarTable as RTable
+from repro.kernels import ops as rops
+from repro.kernels.predicate import predicate_bitset as r_predicate_bitset
+from repro.study import col
+from repro.study import expr as rexpr
+from repro.study.expr import HoistedIsIn, HoistedLit, lit
+from repro_torch.core import bitset as pbs
+from repro_torch.core.columnar import NULL_INT, ColumnarTable
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels import ops as pops
+from repro_torch.kernels.predicate import (binary_arith, binary_cmp,
+                                           compilable, floordiv, remainder,
+                                           predicate_bitset)
+from repro_torch.study import expr as pexpr
+from test_differential import CASES
+
+BLOCK = 64
+
+
+def _cols(rng, n: int) -> dict:
+    """The columns of ``test_differential._rand_table`` plus two divisors."""
+    a = rng.integers(-5, 15, n)
+    a[rng.random(n) < 0.25] = NULL_INT
+    x = rng.normal(size=n).astype(np.float32)
+    x[rng.random(n) < 0.2] = np.nan
+    y = rng.normal(size=n).astype(np.float32)
+    y[rng.random(n) < 0.2] = 0.0
+    return {"id": np.arange(n, dtype=np.int32), "a": a.astype(np.int32),
+            "b": rng.integers(-5, 15, n).astype(np.int32), "x": x, "y": y,
+            "z": rng.integers(-2, 3, n).astype(np.int32)}
+
+
+def _tables(seed: int, n: int):
+    rng = np.random.default_rng(seed)
+    cols = _cols(rng, n)
+    valid = rng.random(n) < 0.85
+    return (RTable.from_columns(cols, valid=jnp.asarray(valid)),
+            ColumnarTable.from_columns(cols, valid=torch.from_numpy(valid),
+                                       device="cpu"))
+
+
+def _assert_predicate_parity(rt, pt, e, params=None) -> None:
+    """Reference Pallas (interpret) == port plain kernel path, and reference
+    jnp mask == port torch mask, on the packed words and the count."""
+    param = e.to_param()
+    with rexpr.bound_params(*(params or ((), ()))):
+        want_mask = np.asarray(e.mask(rt)).astype(bool)
+    with pexpr.bound_params(*(params or ((), ()))):
+        got_mask = pexpr.expr_from_param(param).mask(pt)
+    assert got_mask.to(torch.bool).numpy().tolist() == want_mask.tolist()
+    if not compilable(param):
+        return
+    words, cnt = r_predicate_bitset(rt.columns, rt.valid, expr_param=param,
+                                    block=BLOCK, interpret=True,
+                                    capacity=rt.capacity, params=params)
+    before = dict(launch_counts)
+    pw, pc = predicate_bitset(pt.columns, pt.valid, expr_param=param,
+                              capacity=pt.capacity, params=params)
+    assert launch_counts == before        # CPU tensors: the plain version
+    np.testing.assert_array_equal(pw.numpy().view(np.uint32),
+                                  np.asarray(words))
+    assert int(pc) == int(cnt)
+
+
+@pytest.mark.parametrize("name,n,mk", CASES, ids=[c[0] for c in CASES])
+def test_predicate_battery(name, n, mk):
+    rt, pt = _tables(zlib.crc32(name.encode()), n)
+    from repro.study.expr import all_of
+
+    _assert_predicate_parity(rt, pt, all_of(*mk()))
+
+
+EXTRA = [
+    ("int_floordiv_zero", lambda: col("a") // 0 == -2),
+    ("int_floordiv_mixed", lambda: col("b") // col("z") <= 1),
+    ("int_mod_zero", lambda: col("b") % col("z") == 0),
+    ("int_mod_lit_zero", lambda: col("b") % 0 == 0),
+    ("float_floordiv_zero", lambda: col("x") // 0.0 != col("x") // 0.0),
+    ("float_mod_zero", lambda: col("x") % 0.0 != col("x") % 0.0),
+    ("float_floordiv", lambda: col("x") // col("y") >= 1.0),
+    ("float_mod", lambda: col("x") % col("y") < 0.5),
+    ("promote_int_float_lit", lambda: col("b") == 2.5),
+    ("promote_arith", lambda: col("a") - col("b") * 3 < col("x")),
+    ("int_plus_float_lit", lambda: col("b") + 0.5 > 3),
+    ("isin_padded_tail", lambda: col("b").isin([1, 2, 9])),
+    ("isin_float_values", lambda: col("x").isin([0.5, -1.25, 2.0])),
+    ("isin_int_probe_float_set", lambda: col("b").isin([1.0, 2.5])),
+    ("isin_nan_probe", lambda: col("x").isin([float("nan"), 0.0])),
+    ("const_root", lambda: (lit(1) < lit(2)) & (col("b") > 0)),
+]
+
+
+@pytest.mark.parametrize("name,mk", EXTRA, ids=[c[0] for c in EXTRA])
+@pytest.mark.parametrize("n", [33, 1025])
+def test_predicate_jnp_semantics(name, mk, n):
+    rt, pt = _tables(n, n)
+    _assert_predicate_parity(rt, pt, mk())
+
+
+def test_predicate_hoisted_slots():
+    rt, pt = _tables(5, 200)
+    lits = (np.int32(4), np.float32(-0.5))
+    vecs = (np.array([7, -3, 2, 2, 11], np.int32),
+            np.array([0.25, np.nan, -1.0], np.float32))
+    for e in (HoistedLit(0) < col("b"),
+              col("x") >= HoistedLit(1),
+              HoistedIsIn(col("b"), 0, 5, False),
+              HoistedIsIn(col("x"), 1, 3, True) | (col("a") == HoistedLit(0)),
+              HoistedIsIn(col("b"), 1, 3, True)):
+        _assert_predicate_parity(rt, pt, e, params=(lits, vecs))
+    with pytest.raises(RuntimeError):
+        predicate_bitset(pt.columns, pt.valid,
+                         expr_param=(HoistedLit(0) < col("b")).to_param())
+
+
+def test_predicate_empty_table_and_bad_root():
+    words, cnt = predicate_bitset({"a": torch.zeros((0,), dtype=torch.int32)},
+                                  torch.zeros((0,), dtype=torch.bool),
+                                  expr_param=(col("a") >= 0).to_param())
+    assert words.shape == (0,) and int(cnt) == 0
+    with pytest.raises(ValueError):
+        predicate_bitset({"a": torch.zeros((4,), dtype=torch.int32)},
+                         torch.ones((4,), dtype=torch.bool),
+                         expr_param=(col("a") + 1).to_param())
+
+
+_I32 = np.array([0, 1, -1, 2, -2, 5, -5, 7, -7, 2 ** 31 - 1, -2 ** 31,
+                 -2 ** 31 + 1], np.int32)
+# normal floats only: XLA's CPU flushes denormals to zero, the port keeps them
+_F32 = np.array([0.0, -0.0, 1.0, -1.0, 2.5, -2.5, 7.5, -7.5, 1e30, -1e30,
+                 3e-30, np.inf, -np.inf, np.nan, 0.1, 3.0], np.float32)
+
+
+@pytest.mark.parametrize("vals", [_I32, _F32], ids=["int32", "float32"])
+def test_floordiv_remainder_match_jnp(vals):
+    """jnp's // and % on every pair, by zero included (int32 5 // 0 == -2,
+    5 % 0 == 0; float32 5.0 // 0.0 and 5.0 % 0.0 are NaN)."""
+    x, y = np.meshgrid(vals, vals)
+    x, y = x.ravel(), y.ravel()
+    for ours, theirs in ((floordiv, jnp.floor_divide),
+                         (remainder, jnp.remainder)):
+        got = ours(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+        want = np.asarray(theirs(jnp.asarray(x), jnp.asarray(y)))
+        assert got.dtype == want.dtype
+        if got.dtype == np.float32:
+            both_nan = np.isnan(got) & np.isnan(want)
+            np.testing.assert_array_equal(got.view(np.int32)[~both_nan],
+                                          want.view(np.int32)[~both_nan])
+            assert (np.isnan(got) == np.isnan(want)).all()
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+def test_promotion_against_python_literals():
+    i = np.array([1, 2, -3], np.int32)
+    f = np.array([0.5, -1.5, 2.0], np.float32)
+    for a, lit_ in ((i, 0.5), (i, 2), (f, 2), (f, 0.25)):
+        for op in ("+", "-", "*", "//", "%"):
+            got = binary_arith(op, torch.from_numpy(a), lit_)
+            want = {"+": jnp.add, "-": jnp.subtract, "*": jnp.multiply,
+                    "//": jnp.floor_divide, "%": jnp.remainder}[op](
+                jnp.asarray(a), lit_)
+            assert str(got.dtype).split(".")[-1] == str(want.dtype)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        got = binary_cmp("<", torch.from_numpy(a), lit_)
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(jnp.asarray(a) < lit_))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1025])
+def test_filter_compact_packed_mask(n):
+    rng = np.random.default_rng(n)
+    cols = _cols(rng, n)
+    keep = rng.random(n) < 0.4
+    rwords = jnp.asarray(np.asarray(
+        RTable.from_columns(cols, valid=jnp.asarray(keep)).valid))
+    pwords = pbs.pack(torch.from_numpy(keep))
+    got, cnt = pops.filter_compact_table(
+        {k: torch.from_numpy(v) for k, v in cols.items()}, pwords)
+    for k, v in cols.items():
+        want, wcnt = rops.filter_compact(jnp.asarray(v), rwords,
+                                         interpret=True)
+        assert int(cnt) == int(wcnt)
+        g, w = got[k].numpy(), np.asarray(want)
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w, err_msg=k)
+    one, one_cnt = pops.filter_compact(torch.from_numpy(cols["a"]), pwords)
+    np.testing.assert_array_equal(one.numpy(), got["a"].numpy())
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 1025])
+@pytest.mark.parametrize("op", ["and", "or", "andnot", "xor"])
+def test_bitset_op(n, op):
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    want, wcnt = rops.bitset_op(jnp.asarray(a), jnp.asarray(b), op,
+                                interpret=True)
+    got, cnt = pops.bitset_op(torch.from_numpy(a.view(np.int32)),
+                              torch.from_numpy(b.view(np.int32)), op)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want))
+    assert int(cnt) == int(wcnt)
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    """No fallback: a kernel launcher given CPU tensors raises."""
+    from repro_torch.kernels import bitset_ops, filter_compact
+
+    w = torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        bitset_ops.bitset_op_popcount(w, w, "and")
+    with pytest.raises(ValueError, match="CUDA"):
+        filter_compact.filter_compact_bits([torch.zeros(128, dtype=torch.int32)],
+                                           w)
+
+
+def test_cuda_engine_refuses_bitwise_logic_on_numbers():
+    """``&``/``|``/``~`` over int columns pass the reference's
+    ``compilable`` (the root tag is boolean) but its kernel then packs
+    integer values as bits; the port's program compiler refuses them."""
+    e = col("a") & col("b")
+    assert compilable(e.to_param())
+    _, pt = _tables(1, 40)
+    with pytest.raises(ValueError, match="boolean operands"):
+        predicate_bitset(pt.columns, pt.valid, expr_param=e.to_param())
