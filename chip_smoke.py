@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--n-patients N]
+    python3 chip_smoke.py [--n-patients N] [--cohort-patients N]
 
-Phases (any failure exits nonzero; no phase catches its own failure):
+Phases (any failure exits nonzero; no phase catches its own failure, and
+nothing falls back to the CPU):
 
   1. environment: torch/CUDA versions, the card's name and power limit, and
      the build of the CUDA kernels from ``src/repro_torch/csrc``;
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, bit for bit, at edge sizes with NULLs, NaNs, an Expr battery,
-     hoisted literals and ragged whitelists;
-  3. study: the quickstart study (synthetic DCIR star, flatten, two
+     hoisted literals and ragged whitelists; the segmented scan (B4) over
+     flag patterns, runs spanning many blocks and values beyond its ±2e9
+     fills;
+  3. quickstart: the quickstart study (synthetic DCIR star, flatten, two
      extractors, patients, cohort algebra, flow) at ``--n-patients`` on the
-     card with the ``cuda`` engines; every kernel must have launched, the
-     no-loss audit must pass, and the ``torch`` engines must give the same
-     answer; each kernel is timed at the shapes that run gave it, and one
-     warm run is traced with torch.profiler: device time by kernel, the
-     device's busy and idle share of the run's wall time, and a Chrome
-     trace in ``chiprun_out/quickstart_trace.json``;
-  4. card against CPU: the same study at 20,000 patients on the card and on
+     card with the ``cuda`` engines; every kernel of the path must have
+     launched, the no-loss audit must pass, and the ``torch`` engines must
+     give the same answer; each kernel is timed at the shapes that run gave
+     it, and one warm run is traced with torch.profiler: device time by
+     kernel, the device's busy and idle share of the run's wall time, and a
+     Chrome trace in ``chiprun_out/quickstart_trace.json``;
+  4. cohort study: ``examples/cohort_study.py``'s plan (DCIR and PMSI,
+     exposures, fractures, follow-up, cohort algebra, flow, the dense and
+     token featurizes) at ``--cohort-patients``, checked, timed and traced
+     the same way (``chiprun_out/cohort_study_trace.json``), with B4 timed at
+     the shapes ``exposures`` gave it;
+  5. card against CPU: both studies at 20,000 patients on the card and on
      the CPU (the plain versions) must agree bit for bit.
 
-The last lines of standard output are the card's name and power limit, one
-JSON line with the kernel records, and ``{"ok": true, "device": {...}}``.
+Each kernel's launches are counted over the two studies' first runs, with
+the counts set to 0 just before each.  The last lines of standard output
+are the card's name and power limit, one JSON line with the kernel records,
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -206,9 +216,55 @@ def kernel_battery(device) -> None:
         f"at n in {EDGE_SIZES}")
 
 
+SCAN_SIZES = (1, 31, 511, 512, 513, 4096 + 7)
+# values beyond the reference kernel's ±2e9 fills, where its clamp shows
+EXTREMES = (2 ** 31 - 1, -2 ** 31, -2 ** 31 + 1, 2_000_000_000,
+            -2_000_000_000, 2_100_000_000, -2_100_000_000, 0, 7)
+
+
+def segment_scan_battery(device) -> None:
+    """B4 against its plain version, bit for bit: random, all and only-first
+    flags, runs spanning many blocks, extreme values, both fills."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bitset as bs
+    from repro_torch.kernels import segment_scan as ss
+
+    checked = 0
+    for n in SCAN_SIZES:
+        rng = np.random.default_rng(n)
+        flag_sets = {"random": rng.random(n) < 0.05,
+                     "all": np.ones(n, bool),
+                     "first": np.arange(n) == 0,
+                     "none": np.zeros(n, bool),
+                     "sparse": rng.random(n) < 2e-3}
+        val_sets = {"dates": rng.integers(14_000, 16_000, n),
+                    "extreme": rng.choice(np.array(EXTREMES, np.int64), n)}
+        for fname, f in flag_sets.items():
+            words = bs.pack(torch.from_numpy(f).to(device))
+            for vname, v in val_sets.items():
+                vals = torch.from_numpy(v.astype(np.int32)).to(device)
+                for block in (32, 512):
+                    for fill in (ss.DEFAULT_FILL, ss.EXACT_FILL):
+                        got = ss.segmented_scan_kernel(words, vals, block, fill)
+                        want = ss.segmented_scan_plain(words, vals, block, fill)
+                        torch.cuda.synchronize()
+                        if not all(_same(g, w) for g, w in zip(got, want)):
+                            fail(f"segmented_scan kernel != plain at n={n} "
+                                 f"flags={fname} values={vname} "
+                                 f"block={block} fill={fill}")
+                        checked += 1
+    log(f"kernels: {checked} segmented_scan kernel-vs-plain checks "
+        f"bit-identical at n in {SCAN_SIZES}")
+
+
 # ---------------------------------------------------------------------------
-# phases 3-4: the quickstart study
+# phases 3-5: the quickstart and the cohort study
 # ---------------------------------------------------------------------------
+STUDY_END = 14_600 + 3 * 365
+
+
 def build_study(n_patients: int):
     from repro_torch.core import DCIR_SCHEMA, drug_dispenses, medical_acts_dcir
     from repro_torch.study import Study
@@ -224,11 +280,58 @@ def build_study(n_patients: int):
             .flow("base", "drugged", "final"))
 
 
+def build_cohort_study(n_patients: int):
+    """``examples/cohort_study.py``'s plan, tasks (a)-(g), over the port."""
+    from repro_torch.core import (diagnoses, drug_dispenses, hospital_stays,
+                                  medical_acts_dcir, medical_acts_pmsi)
+    from repro_torch.study import Study, col
+
+    end = STUDY_END
+    return (Study(n_patients=n_patients, window=(14_600, end))
+            .patients("IR_BEN")
+            .extract(drug_dispenses(), name="drug_purchases")
+            .extract(drug_dispenses()
+                     .filtered(col("cip13").isin(range(65))
+                               & col("execution_date").between(14_600, end)),
+                     name="prevalent_drugs")
+            .extract(medical_acts_dcir(), name="acts")
+            .extract(medical_acts_pmsi(), name="hospital_acts")
+            .extract(diagnoses(), name="diagnoses")
+            .extract(hospital_stays(), name="stays")
+            .transform("exposures", "drug_purchases", name="exposures",
+                       purview_days=60)
+            .concat("all_acts", "acts", "hospital_acts")
+            .transform("fractures", "all_acts", "diagnoses", name="fractures",
+                       fracture_act_codes=list(range(30)),
+                       fracture_diag_codes=list(range(40)))
+            .transform("follow_up", "extract_patients", "drug_purchases",
+                       name="follow_up", study_end=end)
+            .cohort("base", "extract_patients")
+            .cohort("exposed", "exposures")
+            .cohort("fractured", "fractures")
+            .cohort("final", "(exposed & base) - fractured")
+            .flow("base", "exposed", "final")
+            .featurize("X", cohort="final", kind="dense",
+                       n_buckets=36, bucket_days=31, n_features=128)
+            .featurize("tokens", cohort="final", kind="tokens", seq_len=256))
+
+
+def snds_tables(n_patients: int, device):
+    """The flat DCIR and PMSI tables plus IR_BEN, as the example feeds them."""
+    from repro_torch.core import DCIR_SCHEMA, PMSI_MCO_SCHEMA, flatten_star
+    from repro_torch.data.synthetic import SyntheticConfig, generate_snds
+
+    dcir, pmsi = generate_snds(SyntheticConfig(n_patients=n_patients,
+                                               seed=42), device=device)
+    return {"DCIR": flatten_star(DCIR_SCHEMA, dcir)[0],
+            "PMSI_MCO": flatten_star(PMSI_MCO_SCHEMA, pmsi)[0],
+            "IR_BEN": dcir["IR_BEN"]}
+
+
 def compare_results(a, b, what: str, full_columns: bool) -> None:
     """Events (valid rows in order; every slot when ``full_columns``),
-    validity words, counts, FlatteningStats, cohort words and flow."""
-    import torch
-
+    validity words, counts, FlatteningStats, cohort words, flow and
+    features (bit for bit; feature checks equal)."""
     if sorted(a.events) != sorted(b.events):
         fail(f"{what}: different outputs")
     for name in a.events:
@@ -249,6 +352,14 @@ def compare_results(a, b, what: str, full_columns: bool) -> None:
             fail(f"{what}: cohort {name} differs")
     if a.flow.flowchart() != b.flow.flowchart():
         fail(f"{what}: flow differs")
+    if sorted(a.features) != sorted(b.features) \
+            or a.feature_checks != b.feature_checks:
+        fail(f"{what}: features or feature checks differ")
+    for name, fa in a.features.items():
+        fb = b.features[name]
+        pairs = zip(fa, fb) if isinstance(fa, tuple) else [(fa, fb)]
+        if not all(_same(x, y) for x, y in pairs):
+            fail(f"{what}: feature {name} differs")
 
 
 class Recorder:
@@ -274,85 +385,142 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def study_phase(n_patients: int, reps: int, rate: float):
+def recorders():
+    from repro_torch.kernels import (bitset_ops, filter_compact, predicate,
+                                     segment_scan)
+
+    return {"predicate_bitset": Recorder(
+                predicate, "_launch", lambda prog, cols, valid, cap, p: cap),
+            "filter_compact": Recorder(
+                filter_compact, "filter_compact_bits",
+                lambda cols, words: cols[0].shape[0] * len(cols)),
+            "bitset_op": Recorder(bitset_ops, "bitset_op_popcount",
+                                  lambda a, b, op: a.shape[0]),
+            "segmented_scan": Recorder(
+                segment_scan, "segmented_scan_kernel",
+                lambda words, vals, block, fill: vals.shape[0])}
+
+
+def drive(label: str, study, tables, kernels, reps: int, rate: float):
+    """The main path of one study: its first run on the card with the cuda
+    engines (launch counts set to 0 just before and read just after; every
+    kernel in ``kernels`` must launch), a warm rerun, the torch engines, and
+    the timing of each kernel at the largest shape the first run gave it."""
     import torch
 
-    from repro_torch.data.synthetic import SyntheticConfig, generate_dcir
-    from repro_torch.kernels import (bitset_ops, filter_compact, launch_counts,
-                                     predicate, reset_launch_counts)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    cfg = SyntheticConfig(n_patients=n_patients, seed=0)
-    t0 = time.perf_counter()
-    dcir = generate_dcir(cfg, device="cuda")
-    torch.cuda.synchronize()
-    log(f"study: generated DCIR for {n_patients} patients "
-        f"({int(dcir['ER_PRS'].count)} ER_PRS rows) in "
-        f"{time.perf_counter() - t0:.3f} s")
-    study = build_study(n_patients)
-
-    recs = [Recorder(predicate, "_launch", lambda prog, cols, valid, cap, p:
-                     cap),
-            Recorder(filter_compact, "filter_compact_bits",
-                     lambda cols, words: cols[0].shape[0] * len(cols)),
-            Recorder(bitset_ops, "bitset_op_popcount",
-                     lambda a, b, op: a.shape[0])]
+    recs = recorders()
     torch.cuda.reset_peak_memory_stats()
-    for r in recs:
+    for r in recs.values():
         r.__enter__()
     try:
         reset_launch_counts()
         t0 = time.perf_counter()
-        res = study.run(dict(dcir), engine="cuda", predicate_engine="cuda",
+        res = study.run(dict(tables), engine="cuda", predicate_engine="cuda",
                         device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(launch_counts)
     finally:
-        for r in recs:
+        for r in recs.values():
             r.__exit__()
     peak = torch.cuda.max_memory_allocated()
     res.assert_no_loss()
-    log(f"study: cuda engines wall {wall:.3f} s (first run, kernel library "
-        f"loaded), peak device memory {peak / 2**30:.3f} GiB, "
-        f"launches {launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            fail(f"kernel {k} was never launched on the main path")
-    log("study: final cohort " + str(res.cohorts["final"].subject_count())
-        + " subjects\n" + res.flow.render())
+    log(f"{label}: cuda engines wall {wall:.3f} s (first run), peak device "
+        f"memory {peak / 2**30:.3f} GiB, launches {launches}")
+    for k in kernels:
+        if launches[k] <= 0:
+            fail(f"{label}: kernel {k} was never launched on the main path")
+    log(f"{label}: final cohort {res.cohorts['final'].subject_count()} "
+        f"subjects\n" + res.flow.render())
     # time the kernels on the recorded inputs, then let those inputs go
-    timing = time_kernels(recs, reps, rate)
+    timing = time_kernels({k: recs[k] for k in kernels}, reps, rate)
     del recs
 
     t0 = time.perf_counter()
-    res2 = study.run(dict(dcir), engine="cuda", predicate_engine="cuda",
+    res2 = study.run(dict(tables), engine="cuda", predicate_engine="cuda",
                      device="cuda")
     torch.cuda.synchronize()
-    log(f"study: cuda engines wall {time.perf_counter() - t0:.3f} s (warm)")
+    log(f"{label}: cuda engines wall {time.perf_counter() - t0:.3f} s (warm)")
     compare_results(res, res2, "cuda run vs cuda rerun", full_columns=True)
     del res2
     t0 = time.perf_counter()
-    ref = study.run(dict(dcir), engine="torch", predicate_engine="torch",
+    ref = study.run(dict(tables), engine="torch", predicate_engine="torch",
                     device="cuda")
     torch.cuda.synchronize()
-    log(f"study: torch engines wall {time.perf_counter() - t0:.3f} s")
+    log(f"{label}: torch engines wall {time.perf_counter() - t0:.3f} s")
     compare_results(res, ref, "cuda vs torch engines on the card",
                     full_columns=False)
-    log("study: cuda engines == torch engines (valid rows, words, counts, "
-        "FlatteningStats, cohorts, flow)")
+    log(f"{label}: cuda engines == torch engines (valid rows, words, counts, "
+        f"FlatteningStats, cohorts, flow, features)")
+    return launches, timing, res
+
+
+def study_phase(n_patients: int, reps: int, rate: float):
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticConfig, generate_dcir
+
+    t0 = time.perf_counter()
+    dcir = generate_dcir(SyntheticConfig(n_patients=n_patients, seed=0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    log(f"quickstart: generated DCIR for {n_patients} patients "
+        f"({int(dcir['ER_PRS'].count)} ER_PRS rows) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    study = build_study(n_patients)
+    launches, timing, _ = drive(
+        "quickstart", study, dcir,
+        ("predicate_bitset", "filter_compact", "bitset_op"), reps, rate)
     return launches, timing, study, dcir
 
 
-def profile_phase(study, dcir) -> None:
-    """torch.profiler over one warm run of the study with the cuda engines."""
+def cohort_phase(n_patients: int, reps: int, rate: float):
+    import torch
+
+    t0 = time.perf_counter()
+    tables = snds_tables(n_patients, "cuda")
+    torch.cuda.synchronize()
+    rows = {k: int(t.count) for k, t in tables.items()}
+    log(f"cohort: generated and flattened the SNDS star for {n_patients} "
+        f"patients ({rows} rows) in {time.perf_counter() - t0:.3f} s")
+    study = build_cohort_study(n_patients)
+    # the design matrix alone: patients x 36 x 128 float32, once per engine
+    x_bytes = n_patients * 36 * 128 * 4
+    log(f"cohort: design matrix {x_bytes / 2**30:.3f} GiB per copy; the "
+        f"phase holds two (cuda and torch engines)")
+    launches, timing, res = drive(
+        "cohort", study, tables, ("predicate_bitset", "filter_compact",
+                                  "bitset_op", "segmented_scan"), reps, rate)
+    X = res.features["X"]
+    toks, mask = res.features["tokens"]
+    if tuple(X.shape) != (n_patients, 36, 128) or not bool(
+            torch.isfinite(X).all()) or float(X.sum()) <= 0:
+        fail(f"cohort: design matrix {tuple(X.shape)} is not finite and "
+             f"non-empty")
+    if tuple(toks.shape) != (n_patients, 256) or \
+            int(res.events["exposures"].count) <= 0 or \
+            int(res.events["fractures"].count) <= 0:
+        fail("cohort: empty exposures/fractures or a bad token shape")
+    log(f"cohort: exposures {int(res.events['exposures'].count)}, fractures "
+        f"{int(res.events['fractures'].count)}, design matrix "
+        f"{tuple(X.shape)} sum {float(X.sum())}, tokens {tuple(toks.shape)} "
+        f"(mask {int(mask.sum())} true), checks {res.feature_checks}")
+    del res, X, toks, mask
+    return launches, timing, study, tables
+
+
+def profile_phase(label: str, run_once) -> None:
+    """torch.profiler over one warm run: device time by kernel, idle share,
+    and a Chrome trace in ``chiprun_out/{label}_trace.json``."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     def run():
-        study.run(dict(dcir), engine="cuda", predicate_engine="cuda",
-                  device="cuda")
+        run_once()
         torch.cuda.synchronize()
 
     run()
@@ -363,7 +531,7 @@ def profile_phase(study, dcir) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    trace = out / "quickstart_trace.json"
+    trace = out / f"{label}_trace.json"
     prof.export_chrome_trace(str(trace))
     # device time = kernels, copies and fills on the device timeline
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
@@ -373,64 +541,79 @@ def profile_phase(study, dcir) -> None:
         by_name[e["name"][:90]] += e["dur"]
         calls[e["name"][:90]] += 1
     busy_us = sum(by_name.values())
-    log(f"profile: wall {wall_us / 1e3:.3f} ms, device busy "
+    log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({len(events)} device events), idle share "
         f"{1 - busy_us / wall_us:.4f}")
     for name, us in by_name.most_common(25):
-        log(f"profile: {us / 1e3:9.3f} ms device {calls[name]:6d} calls  "
-            f"{name}")
+        log(f"profile {label}: {us / 1e3:9.3f} ms device {calls[name]:6d} "
+            f"calls  {name}")
 
 
 def time_kernels(recs, reps: int, rate: float):
-    import torch
-
+    """Each recorded kernel against its plain version at the recorded shape
+    (bit for bit), then timed: kernel, plain version, library call."""
     from repro_torch.core import bitset as bs
-    from repro_torch.kernels import bitset_ops, filter_compact, predicate
+    from repro_torch.kernels import (bitset_ops, filter_compact, predicate,
+                                     segment_scan)
 
     out = {}
-    # B1 predicate
-    _, args, _ = recs[0].best
-    prog, cols, valid, cap, params = args
-    kern = lambda: recs[0].fn(prog, cols, valid, cap, params)  # noqa: E731
-    plain = lambda: predicate.predicate_bitset_plain(  # noqa: E731
-        prog, cols, valid, cap, params)
-    got, want = kern(), plain()
-    if not (_same(got[0], want[0]) and int(got[1]) == int(want[1])):
-        fail("predicate kernel != plain at the main path's shape")
-    nbytes = (4 * len(prog.columns) + 0.25) * cap
-    out["predicate_bitset"] = dict(
-        n=cap, columns=len(prog.columns), ms=cuda_ms(kern, reps),
-        plain_ms=cuda_ms(plain, reps), library_ms=None,
-        bound_ms=nbytes / rate * 1e3,
-        max_abs_err=0.0)
-    # B2 compaction
-    _, args, _ = recs[1].best
-    cs, words = args
-    n = cs[0].shape[0]
-    kern = lambda: recs[1].fn(cs, words)  # noqa: E731
-    plain = lambda: filter_compact.filter_compact_plain(cs, words)  # noqa: E731
-    mask = bs.unpack(words, n)
-    library = lambda: [c[mask] for c in cs]  # noqa: E731
-    (g, gc), (w, wc) = kern(), plain()
-    if int(gc) != int(wc) or not all(_same(x, y) for x, y in zip(g, w)):
-        fail("filter_compact kernel != plain at the main path's shape")
-    nbytes = (8 * len(cs) + 0.125) * n
-    out["filter_compact"] = dict(
-        n=n, columns=len(cs), ms=cuda_ms(kern, reps),
-        plain_ms=cuda_ms(plain, reps), library_ms=cuda_ms(library, reps),
-        bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
-    # B3 bitset op
-    _, args, _ = recs[2].best
-    a, b, op = args
-    kern = lambda: recs[2].fn(a, b, op)  # noqa: E731
-    plain = lambda: bitset_ops.bitset_op_plain(a, b, op)  # noqa: E731
-    (g, gc), (w, wc) = kern(), plain()
-    if not _same(g, w) or int(gc) != int(wc):
-        fail("bitset_op kernel != plain at the main path's shape")
-    out["bitset_op"] = dict(
-        n=a.shape[0], columns=None, ms=cuda_ms(kern, reps),
-        plain_ms=cuda_ms(plain, reps), library_ms=None,
-        bound_ms=12 * a.shape[0] / rate * 1e3, max_abs_err=0.0)
+    if "predicate_bitset" in recs:
+        rec = recs["predicate_bitset"]
+        prog, cols, valid, cap, params = rec.best[1]
+        kern = lambda: rec.fn(prog, cols, valid, cap, params)  # noqa: E731
+        plain = lambda: predicate.predicate_bitset_plain(  # noqa: E731
+            prog, cols, valid, cap, params)
+        got, want = kern(), plain()
+        if not (_same(got[0], want[0]) and int(got[1]) == int(want[1])):
+            fail("predicate kernel != plain at the main path's shape")
+        nbytes = (4 * len(prog.columns) + 0.25) * cap
+        out["predicate_bitset"] = dict(
+            n=cap, columns=len(prog.columns), ms=cuda_ms(kern, reps),
+            plain_ms=cuda_ms(plain, reps), library_ms=None,
+            bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
+    if "filter_compact" in recs:
+        rec = recs["filter_compact"]
+        cs, words = rec.best[1]
+        n = cs[0].shape[0]
+        kern = lambda: rec.fn(cs, words)  # noqa: E731
+        plain = lambda: filter_compact.filter_compact_plain(cs, words)  # noqa: E731
+        mask = bs.unpack(words, n)
+        library = lambda: [c[mask] for c in cs]  # noqa: E731
+        (g, gc), (w, wc) = kern(), plain()
+        if int(gc) != int(wc) or not all(_same(x, y) for x, y in zip(g, w)):
+            fail("filter_compact kernel != plain at the main path's shape")
+        nbytes = (8 * len(cs) + 0.125) * n
+        out["filter_compact"] = dict(
+            n=n, columns=len(cs), ms=cuda_ms(kern, reps),
+            plain_ms=cuda_ms(plain, reps), library_ms=cuda_ms(library, reps),
+            bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
+    if "bitset_op" in recs:
+        rec = recs["bitset_op"]
+        a, b, op = rec.best[1]
+        kern = lambda: rec.fn(a, b, op)  # noqa: E731
+        plain = lambda: bitset_ops.bitset_op_plain(a, b, op)  # noqa: E731
+        (g, gc), (w, wc) = kern(), plain()
+        if not _same(g, w) or int(gc) != int(wc):
+            fail("bitset_op kernel != plain at the main path's shape")
+        out["bitset_op"] = dict(
+            n=a.shape[0], columns=None, ms=cuda_ms(kern, reps),
+            plain_ms=cuda_ms(plain, reps), library_ms=None,
+            bound_ms=12 * a.shape[0] / rate * 1e3, max_abs_err=0.0)
+    if "segmented_scan" in recs:
+        rec = recs["segmented_scan"]
+        words, vals, block, fill = rec.best[1]
+        n = vals.shape[0]
+        kern = lambda: rec.fn(words, vals, block, fill)  # noqa: E731
+        plain = lambda: segment_scan.segmented_scan_plain(  # noqa: E731
+            words, vals, block, fill)
+        if not all(_same(x, y) for x, y in zip(kern(), plain())):
+            fail("segmented_scan kernel != plain at the main path's shape")
+        # packed flags 1/8 B, values 4 B in; min, max, count 12 B out
+        nbytes = 4 * words.shape[0] + 16 * n
+        out["segmented_scan"] = dict(
+            n=n, columns=None, ms=cuda_ms(kern, reps),
+            plain_ms=cuda_ms(plain, reps), library_ms=None,
+            bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
     for k, v in out.items():
         log(f"timing: {k} n={v['n']} columns={v['columns']} "
             f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
@@ -439,6 +622,7 @@ def time_kernels(recs, reps: int, rate: float):
 
 
 def cpu_phase(n_patients: int) -> None:
+    """Both studies on the card and on the CPU, bit for bit."""
     import torch
 
     from repro_torch.data.synthetic import SyntheticConfig, generate_dcir
@@ -450,9 +634,49 @@ def cpu_phase(n_patients: int) -> None:
     torch.cuda.synchronize()
     cpu = study.run(generate_dcir(cfg, device="cpu"), engine="cuda",
                     predicate_engine="cuda", device="cpu")
-    compare_results(card, cpu, "card vs CPU", full_columns=True)
-    log(f"cpu: {n_patients} patients, card == CPU bit for bit "
+    compare_results(card, cpu, "quickstart card vs CPU", full_columns=True)
+    log(f"cpu: quickstart at {n_patients} patients, card == CPU bit for bit "
         f"(final cohort {card.cohorts['final'].subject_count()} subjects)")
+    study = build_cohort_study(n_patients)
+    card = study.run(snds_tables(n_patients, "cuda"), engine="cuda",
+                     predicate_engine="cuda", device="cuda")
+    torch.cuda.synchronize()
+    cpu = study.run(snds_tables(n_patients, "cpu"), engine="cuda",
+                    predicate_engine="cuda", device="cpu")
+    compare_results(card, cpu, "cohort study card vs CPU", full_columns=True)
+    compare_stats(card, cpu)
+    log(f"cpu: cohort study at {n_patients} patients, card == CPU bit for "
+        f"bit (final cohort {card.cohorts['final'].subject_count()} "
+        f"subjects, {int(card.events['exposures'].count)} exposures)")
+
+
+# statistics that sum float32 values, whose order differs between devices
+FLOAT_SUM_STATS = ("age_mean", "age_at_first_event", "weight_total")
+
+
+def compare_stats(card, cpu) -> None:
+    """The stats battery and the Supplementary-A distribution of the cohort
+    study's cohorts, card against CPU: exact, except the float32 sums to a
+    relative 1e-5."""
+    from repro_torch.core import stats
+
+    pc, pp = card.events["extract_patients"], cpu.events["extract_patients"]
+    for name in ("exposed", "fractured", "final"):
+        a = stats.compute(card.cohorts[name], pc)
+        b = stats.compute(cpu.cohorts[name], pp)
+        if a.keys() != b.keys():
+            fail(f"stats of {name}: different statistics")
+        for k in a:
+            close = all(abs(a[k][f] - b[k][f]) <= 1e-5 * abs(b[k][f])
+                        for f in a[k]) if k in FLOAT_SUM_STATS else False
+            if a[k] != b[k] and not close:
+                fail(f"stats of {name}.{k}: card {a[k]} vs CPU {b[k]}")
+    for sa, sb in zip(card.flow.steps, cpu.flow.steps):
+        if stats.distribution_by_gender_age_bucket(sa, pc) != \
+                stats.distribution_by_gender_age_bucket(sb, pp):
+            fail(f"gender x age distribution of {sa.name} differs")
+    log(f"cpu: stats of exposed/fractured/final and the flow's gender x age "
+        f"distributions, card == CPU ({len(stats.STATISTICS)} statistics)")
 
 
 KERNELS = {
@@ -462,12 +686,17 @@ KERNELS = {
                        "src/repro/kernels/filter_compact.py:72"),
     "bitset_op": ("src/repro_torch/csrc/bitset_ops.cu",
                   "src/repro/kernels/bitset_ops.py:42"),
+    "segmented_scan": ("src/repro_torch/csrc/segment_scan.cu",
+                       "src/repro/kernels/segment_scan.py:89"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-patients", type=int, default=2_000_000)
+    # the reference's design-matrix index is int32 and wraps above 466,033
+    # patients at (36, 128) (ROADMAP C7); 400,000 stays below it
+    ap.add_argument("--cohort-patients", type=int, default=400_000)
     args = ap.parse_args()
 
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
@@ -482,6 +711,7 @@ def main() -> int:
         return 2
 
     # phase 1: environment + kernel build
+    t_all = time.perf_counter()
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
     log(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -497,18 +727,45 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
     rate = mem_rate(name)
+    seconds = {"build": time.perf_counter() - t_all}
 
-    kernel_battery(torch.device("cuda"))
-    launches, timing, study, dcir = study_phase(args.n_patients, REPS, rate)
-    profile_phase(study, dcir)
+    def timed(phase, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[phase] = time.perf_counter() - t
+        log(f"phase {phase}: {seconds[phase]:.3f} s")
+        return out
+
+    timed("kernels", kernel_battery, torch.device("cuda"))
+    timed("segmented_scan", segment_scan_battery, torch.device("cuda"))
+    q_launches, timing, study, dcir = timed(
+        "quickstart", study_phase, args.n_patients, REPS, rate)
+    timed("quickstart_profile", profile_phase, "quickstart",
+          lambda: study.run(dict(dcir), engine="cuda",
+                            predicate_engine="cuda", device="cuda"))
     del study, dcir
-    cpu_phase(CPU_PATIENTS)
+    torch.cuda.empty_cache()
+    c_launches, c_timing, cstudy, ctables = timed(
+        "cohort", cohort_phase, args.cohort_patients, REPS, rate)
+    timed("cohort_profile", profile_phase, "cohort_study",
+          lambda: cstudy.run(dict(ctables), engine="cuda",
+                             predicate_engine="cuda", device="cuda"))
+    del cstudy, ctables
+    torch.cuda.empty_cache()
+    timed("cpu", cpu_phase, CPU_PATIENTS)
+    # B1-B3 are timed at the quickstart's (larger) shapes, B4 at the cohort
+    # study's; launches are summed over both studies' first runs
+    timing.update({"segmented_scan": c_timing["segmented_scan"]})
+    log(f"launches: quickstart {q_launches}, cohort study {c_launches}")
+    log(f"phases: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
+        f", total {time.perf_counter() - t_all:.3f} s")
 
     records = []
     for k, (source, replaces) in KERNELS.items():
         t = timing[k]
         records.append({"name": k, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[k],
+                        "replaces": replaces,
+                        "launches": q_launches[k] + c_launches[k],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": "bytes", "library_ms": t["library_ms"]})

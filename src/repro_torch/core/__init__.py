@@ -1,4 +1,5 @@
-"""SCALPEL3 core in PyTorch: tables, flattening, extraction, cohorts."""
+"""SCALPEL3 core in PyTorch: tables, flattening, extraction, transformers,
+cohorts, statistics and the FeatureDriver."""
 from repro_torch.core.columnar import (ColumnarTable, NULL_INT, NULL_FLOAT,
                                        is_null, resolve_device)
 from repro_torch.core.schema import (
@@ -15,5 +16,12 @@ from repro_torch.core.extraction import (
     practitioner_encounters, csarr_acts, ssr_stays, takeover_reasons,
     long_term_diseases,
 )
+from repro_torch.core.transformers import (
+    observation_period, follow_up, trackloss, exposures, fractures,
+    drug_prescriptions, drug_interactions, bladder_cancer, infarctus,
+    heart_failure,
+)
 from repro_torch.core.cohort import Bitset, Cohort, CohortCollection, CohortFlow
 from repro_torch.core.metadata import OperationLog, git_hash
+from repro_torch.core.feature_driver import FeatureDriver, TokenizerSpec
+from repro_torch.core import stats

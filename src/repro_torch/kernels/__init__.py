@@ -21,7 +21,8 @@ PREDICATE_ENGINES = ("torch", "cuda", "auto")
 
 # Launches of each kernel wrapper: one is added where the wrapper launches
 # its kernel, and nowhere else (plain-version calls do not count).
-launch_counts = {"predicate_bitset": 0, "filter_compact": 0, "bitset_op": 0}
+launch_counts = {"predicate_bitset": 0, "filter_compact": 0, "bitset_op": 0,
+                 "segmented_scan": 0}
 
 
 def reset_launch_counts() -> None:

@@ -26,7 +26,8 @@ __all__ = ["CSRC_DIR", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "library",
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu")
+SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu",
+           "segment_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -103,6 +104,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_compact_scatter.restype = _I32
     lib.repro_bitset_op.argtypes = [_P, _P, _P, _I64, _I32, _P, _P]
     lib.repro_bitset_op.restype = _I32
+    lib.repro_segmented_scan.argtypes = [_P, _P, _I64, _I64, _I32, _I32, _P,
+                                         _P, _P, _P, _P]
+    lib.repro_segmented_scan.restype = _I32
 
 
 def library() -> ctypes.CDLL:

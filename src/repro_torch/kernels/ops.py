@@ -10,12 +10,14 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core import bitset as _bs
 from repro_torch.kernels import bitset_ops as _bo
 from repro_torch.kernels import filter_compact as _fc
+from repro_torch.kernels import segment_scan as _ss
 from repro_torch.kernels.predicate import predicate_bitset  # noqa: F401 (re-export)
 
 __all__ = ["filter_compact", "filter_compact_table", "bitset_op",
-           "predicate_bitset"]
+           "segmented_scan", "predicate_bitset"]
 
 
 def filter_compact_table(columns: Dict[str, torch.Tensor], words: torch.Tensor
@@ -43,3 +45,14 @@ def bitset_op(a: torch.Tensor, b: torch.Tensor, op: str):
     if a.device.type == "cuda":
         return _bo.bitset_op_popcount(a, b, op)
     return _bo.bitset_op_plain(a, b, op)
+
+
+def segmented_scan(flags: torch.Tensor, vals: torch.Tensor, block: int = 512,
+                   fill: Tuple[int, int] = _ss.DEFAULT_FILL):
+    """Inclusive segmented (min, max, count) scan; ``(n,) bool`` flags start
+    runs.  The default ``fill`` is the reference kernel's (its ``±2e9`` clamp
+    at block edges); ``segment_scan.EXACT_FILL`` gives exact run aggregates."""
+    words = _bs.pack(flags.to(torch.bool))
+    if vals.device.type == "cuda":
+        return _ss.segmented_scan_kernel(words, vals, block, fill)
+    return _ss.segmented_scan_plain(words, vals, block, fill)

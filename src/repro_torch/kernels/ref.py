@@ -10,5 +10,9 @@ from repro_torch.kernels.filter_compact import \
     filter_compact_plain as filter_compact_ref
 from repro_torch.kernels.predicate import \
     predicate_bitset_plain as predicate_bitset_ref
+# the Pallas kernel's semantics, which differ from the reference's sequential
+# oracle ``segmented_scan_ref`` beyond ±2e9 (ROADMAP C8) — hence its own name
+from repro_torch.kernels.segment_scan import segmented_scan_plain
 
-__all__ = ["bitset_op_ref", "filter_compact_ref", "predicate_bitset_ref"]
+__all__ = ["bitset_op_ref", "filter_compact_ref", "predicate_bitset_ref",
+           "segmented_scan_plain"]

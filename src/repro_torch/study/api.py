@@ -2,9 +2,9 @@
 features (the paper's three layers) behind one Plan.
 
 The port of ``repro.study.api``.  ``run`` puts the tables on ``device``
-(None means CUDA) and executes the optimized plan there.  Transforms and
-featurize (ROADMAP A4), static checks (A5), chunked runs (A6) and mesh runs
-(A8) are not ported yet and raise ``NotImplementedError``.
+(None means CUDA) and executes the optimized plan there.  Static checks
+(ROADMAP A5), chunked runs (A6) and mesh runs (A8) are not ported yet and
+raise ``NotImplementedError``.
 
 User code reads like the paper's supplementary notebooks::
 
@@ -34,6 +34,7 @@ import numpy as np
 
 from repro_torch.core.cohort import Cohort, CohortCollection, CohortFlow
 from repro_torch.core.columnar import ColumnarTable, resolve_device
+from repro_torch.core.feature_driver import FeatureDriver
 from repro_torch.core.metadata import OperationLog
 from repro_torch.study import executor as _executor
 from repro_torch.study import optimizer as _optimizer
@@ -132,6 +133,7 @@ class StudyResult:
     features: Dict[str, Any]                  # named featurize outputs
     log: OperationLog                         # automatic provenance
     plan: Plan                                # the plan that actually ran
+    feature_checks: Dict[str, Dict[str, int]] = dataclasses.field(default_factory=dict)
     flatten_stats: Dict[int, Dict[str, int]] = dataclasses.field(default_factory=dict)
     # ^ per-join FlatteningStats (host ints, keyed by plan node id; each dict
     #   carries a "stage" label) — also recorded in ``log`` automatically
@@ -160,6 +162,7 @@ class Study:
         self._kinds: Dict[str, str] = {}      # name -> events|table|cohort|feature
         self._sources: Dict[str, ColumnarTable] = {}
         self._flow_names: Optional[List[str]] = None
+        self._feature_names: List[str] = []
         self._flatten_keep: Dict[str, Optional[bool]] = {}  # name -> keep mode
         self._chained: set = set()            # flatten names extractors read
         self._opt_cache: Optional[Tuple[Tuple, Plan]] = None  # (key, optimized)
@@ -253,10 +256,16 @@ class Study:
 
     def transform(self, fn: str, *inputs: str, name: Optional[str] = None,
                   **kwargs: Any) -> "Study":
-        """Registered transformers are not ported yet (ROADMAP A4)."""
-        raise NotImplementedError(
-            f"transform {fn!r}: the transformers are not ported yet "
-            f"(ROADMAP A4)")
+        """Defer a registered transformer (``executor.TRANSFORMS``) over named
+        upstream outputs; ``n_patients`` (and, for the transforms that take
+        it, the run's ``engine``) is injected at execution."""
+        if fn not in _executor.TRANSFORMS:
+            raise ValueError(f"unknown transform {fn!r}; registered: "
+                             f"{sorted(_executor.TRANSFORMS)}")
+        ids = [self._node_of(x) for x in inputs]
+        nid = self._b.transform(fn, ids, name=name or fn, **kwargs)
+        self._register(name or fn, nid, "events")
+        return self
 
     def concat(self, name: str, *inputs: str) -> "Study":
         """Stack named event outputs into one table (schemas must match)."""
@@ -306,9 +315,15 @@ class Study:
 
     def featurize(self, name: str, cohort: str, kind: str = "dense",
                   patients: Optional[str] = None, **kwargs: Any) -> "Study":
-        """FeatureDriver exports are not ported yet (ROADMAP A4)."""
-        raise NotImplementedError(
-            "featurize: FeatureDriver is not ported yet (ROADMAP A4)")
+        """Defer a FeatureDriver export (``dense`` or ``tokens``) of a cohort."""
+        if kind not in ("dense", "tokens"):
+            raise ValueError(f"featurize kind must be dense|tokens, got {kind!r}")
+        cid = self._cohort_node(cohort)
+        pid = self._node_of(patients) if patients else None
+        nid = self._b.featurize(cid, name=name, kind=kind, patients=pid, **kwargs)
+        self._feature_names.append(name)
+        self._register(name, nid, "feature")
+        return self
 
     def window(self, start: int, end: int) -> "Study":
         self._window = (int(start), int(end))
@@ -441,7 +456,7 @@ class Study:
                        log: OperationLog) -> StudyResult:
         """Realize a StudyResult from executed node values: events from named
         table outputs, cohorts by replaying the algebra on wrapped operands,
-        then the host op (flow).  ``vals`` must cover
+        then the host ops (flow, featurize).  ``vals`` must cover
         ``executor.keep_ids(plan)`` — exactly what ``execute`` returns."""
         nodes = plan.nodes
         out_ids = plan.output_ids
@@ -501,9 +516,28 @@ class Study:
                            outputs={nm: _Count(n)}, params={})
                 prev = n
 
+        features: Dict[str, Any] = {}
+        checks: Dict[str, Dict[str, int]] = {}
+        for name in self._feature_names:
+            fnode = nodes[out_ids[name]]
+            cohort = _realize(fnode.inputs[0])
+            pats = vals.get(fnode.inputs[1]) if len(fnode.inputs) > 1 else None
+            fd = FeatureDriver(cohort, pats)
+            kwargs = {k: v for k, v in (fnode.get("kwargs") or ())}
+            if fnode.get("kind") == "dense":
+                features[name] = fd.dense_features(**kwargs)
+            else:
+                features[name] = fd.token_sequences(**kwargs)
+            checks[name] = dict(fd.checks)
+            log.record(op=f"featurize:{name}",
+                       inputs={cohort.name: _Count(cohort.subject_count())},
+                       outputs={name: _Count(checks[name].get(
+                           "events_total", 0))},
+                       params={"kind": fnode.get("kind")})
+
         return StudyResult(events=events, cohorts=cohorts, flow=flow,
-                           features={}, log=log, plan=plan,
-                           flatten_stats=join_stats)
+                           features=features, log=log, plan=plan,
+                           feature_checks=checks, flatten_stats=join_stats)
 
 
 class _Count:

@@ -3,22 +3,27 @@
 The port of ``repro.study.executor``.  The executor walks a (usually
 optimizer-rewritten) ``Plan`` and evaluates each node eagerly with torch
 ops — scans, joins, masks, dedupe, event conformance, compaction, cohort
-bitset algebra; host-side nodes (``flow``) run after, in the Study layer.
+bitset algebra, registered transformers; host-side nodes (``featurize``,
+``flow``) run after, in the Study layer.
 
 Engines (``kernels.ENGINE_NAMES``): ``engine="torch"`` compacts by gather
 and combines cohorts with tensor ops; ``engine="cuda"`` runs the compaction
-and bitset-op kernels.  Predicate nodes follow their stamped engine (or the
-run-level ``predicate_engine``): ``"torch"`` mask algebra or the ``"cuda"``
+and bitset-op kernels, and the segmented-scan kernel inside ``exposures``.
+Predicate nodes follow their stamped engine (or the run-level
+``predicate_engine``): ``"torch"`` mask algebra or the ``"cuda"``
 Expr->bitset kernel.  A ``cuda`` engine on CPU tensors runs each kernel's
 plain version, which is how the tests here hold it against the reference.
 
 PyTorch runs eagerly, so there is nothing to jit: ``cached_executable`` keeps
 the reference's cache key and its compile/hit counting over the port's plan
-runner.  The body waits for the device nowhere: per-node counts and stats
-leave as one stacked tensor each, read back once in ``execute``.
+runner.  Per-node counts and stats leave as one stacked tensor each, read
+back once in ``execute``; the body waits for the device only where
+``fractures`` reads its frontier's size, once per link of its longest
+washout chain.
 """
 from __future__ import annotations
 
+import inspect
 import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -26,6 +31,7 @@ import torch
 
 from repro_torch.core import bitset as _bs
 from repro_torch.core import flattening as _fl
+from repro_torch.core import transformers as _tr
 from repro_torch.core.cohort import Bitset
 from repro_torch.core.columnar import ColumnarTable, is_null, max_key
 from repro_torch.core.events import make_events
@@ -40,9 +46,25 @@ __all__ = ["execute", "TRANSFORMS", "jit_cache_info", "clear_jit_cache",
            "cached_executable", "run_plan_body", "record_plan", "keep_ids",
            "traced_ids"]
 
-# Registered transformer functions usable from ``transform`` nodes.  The
-# transformers are not ported yet (ROADMAP A4), so the registry is empty.
-TRANSFORMS: Dict[str, Tuple[Callable, bool]] = {}
+# Registered transformer free functions usable from ``transform`` nodes.
+# Values are (fn, wants_n_patients); params must stay hashable in the plan.
+def _registry() -> Dict[str, Tuple[Callable, bool]]:
+    fns = {}
+    for name in ("observation_period", "follow_up", "trackloss", "exposures",
+                 "fractures", "drug_prescriptions", "drug_interactions",
+                 "bladder_cancer", "infarctus", "heart_failure"):
+        fn = getattr(_tr, name)
+        wants = "n_patients" in inspect.signature(fn).parameters
+        fns[name] = (fn, wants)
+    return fns
+
+
+TRANSFORMS = _registry()
+# transforms that take the executor's engine as a keyword (never a plan
+# param, so optimized plans stay node-for-node equal to the reference's)
+_ENGINE_TRANSFORMS = frozenset(
+    name for name, (fn, _) in TRANSFORMS.items()
+    if "engine" in inspect.signature(fn).parameters)
 
 _JIT_CACHE: Dict[Tuple, Callable] = {}
 _JIT_STATS: Dict[str, int] = {"compiles": 0, "hits": 0}
@@ -236,9 +258,14 @@ def _eval_node(node, ins, env: Dict[str, ColumnarTable], n_patients: int,
     if op == "compact":
         return _compact_table(ins[0], node.get("engine") or engine)
     if op == "transform":
-        raise NotImplementedError(
-            f"transform {node.get('fn')!r}: the transformers are not ported "
-            f"yet (ROADMAP A4)")
+        fn, wants_np = TRANSFORMS[node.get("fn")]
+        kwargs = {k: (list(v) if isinstance(v, tuple) else v)
+                  for k, v in (node.get("kwargs") or ())}
+        if wants_np:
+            kwargs.setdefault("n_patients", n_patients)
+        if node.get("fn") in _ENGINE_TRANSFORMS:
+            kwargs["engine"] = engine
+        return fn(*ins, **kwargs)
     if op == "concat":
         return ColumnarTable.concat(list(ins))
     if op == "cohort_from_events":
