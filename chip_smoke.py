@@ -27,10 +27,29 @@ nothing falls back to the CPU):
      the same way (``chiprun_out/cohort_study_trace.json``), with B4 timed at
      the shapes ``exposures`` gave it;
   5. card against CPU: both studies at 20,000 patients on the card and on
-     the CPU (the plain versions) must agree bit for bit.
+     the CPU (the plain versions) must agree bit for bit;
+  6. attention: B6 (flash attention) against its plain version on the card
+     over the reference's test sweep and h2o-danube-1.8b's shapes (prefill
+     to 8,192 tokens with window 4,096, full-cache decode offsets, the
+     ring-buffer mode, ragged shapes), fp32 within 2e-5 and bf16 within
+     2e-2;
+  7. serving: h2o-danube-1.8b at full width (24 layers, bf16, random weights
+     from a seeded generator on the card): a 2 x 8,192-token prefill under
+     the cuda and torch attention engines (B6 launched once per layer, the
+     last-token logits within 0.1), the continuous batcher (4 slots, every
+     cache a 4,096-slot ring, 8 requests of 16-256 prompt tokens, 32 new
+     each: all finish), a teacher-forced decode past position 4,096 (the
+     ring wraps) under both engines in fp32 (within 1e-3) and bf16 (within
+     0.1), cut to 4 layers at full width, and the reduced config on the card
+     against the CPU (within 1e-5); B6 is timed at the prefill's shape and
+     at the batcher's decode shape over a full ring, beside its plain
+     version, torch's scaled_dot_product_attention with a boolean mask (a
+     yardstick the port never calls) and its bound, and one prefill and one
+     warm batcher step are traced (``chiprun_out/serving_*_trace.json``).
 
-Each kernel's launches are counted over the two studies' first runs, with
-the counts set to 0 just before each.  The last lines of standard output
+Each kernel's launches are counted over the two studies' first runs and
+the serving path (prefill and batcher), with the counts set to 0 just
+before each.  The last lines of standard output
 are the card's name and power limit, one JSON line with the kernel records,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -679,6 +698,377 @@ def compare_stats(card, cpu) -> None:
         f"distributions, card == CPU ({len(stats.STATISTICS)} statistics)")
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: attention (B6) and the serving path
+# ---------------------------------------------------------------------------
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's own bounds
+# and each row's max abs error over that row's largest |output|: with randn
+# inputs a row that sees 4,096 keys has outputs of ~0.03, where 2e-2 of
+# absolute error would pass a kernel off by tens of percent.  In bf16 the
+# output's rounding flips at most one ulp, under 2**-7 of the row's largest;
+# B6's bf16 rounding of the probabilities for P V moves the fp32 result far
+# less than an ulp.
+ATTN_ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# peak rates of the H100 SXM (data sheet): bf16 on the tensor cores, fp32 on
+# the CUDA cores (B6's fp32 path uses no TF32)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+DANUBE = "h2o-danube-1.8b"
+SERVE_GATE = {"float32": 1e-3, "bfloat16": 0.1}  # cuda vs torch engines
+TF_LAYERS = 4              # teacher-forced decode depth, at full width
+TF_STEPS = 4096 + 64       # past the 4,096-slot ring, so that it wraps
+CPU_GATE = 1e-5            # reduced config, card against CPU, fp32
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len)
+ATTN_SWEEP = [             # tests/test_kernels.py's sweep
+    (2, 4, 2, 128, 128, 64, True, 0, None, None),
+    (1, 8, 2, 256, 256, 64, True, 64, None, None),
+    (2, 4, 4, 1, 384, 64, True, 0, None, None),
+    (1, 4, 1, 1, 512, 128, True, 128, None, None),
+    (2, 2, 2, 96, 96, 32, False, 0, None, None),
+    (1, 2, 1, 80, 160, 32, True, 0, None, None),
+]
+ATTN_DANUBE = (            # h2o-danube-1.8b: Hq 32, Hkv 8, D 80, window 4096
+    [(1, 32, 8, s, s, 80, True, 4096, None, None)             # prefill
+     for s in (1, 63, 4097, 8192)]
+    + [(1, 32, 8, 1, 8192, 80, True, 4096, off, 8192)          # full cache
+       for off in (0, 4095, 4096, 8191)]
+    + [(4, 32, 8, 1, 4096, 80, False, 0, 9000, kv)             # ring
+       for kv in (1, 17, 4096)]
+    + [(2, 32, 8, 100, 300, 80, True, 50, 200, None),          # ragged
+       (1, 32, 8, 77, 4099, 80, True, 4096, 4022, None),
+       (3, 32, 8, 5, 33, 80, True, 0, -2, None)])
+
+
+def _attn_kwargs(case):
+    causal, window, q_offset, kv_len = case[6:]
+    return dict(causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len)
+
+
+def check_attention(got, want, what: str):
+    """(max abs error, worst row error): fails past ATTN_TOL or
+    ATTN_ROW_TOL.  A row with no visible key must come out exactly 0."""
+    import torch
+
+    d = (got.float() - want.float()).abs().amax(dim=-1)
+    s = want.float().abs().amax(dim=-1)
+    row = torch.where(s > 0, d / s.clamp_min(1e-30),
+                      torch.where(d > 0, float("inf"), 0.0))
+    err, row = float(d.max()), float(row.max())
+    dname = str(want.dtype).replace("torch.", "")
+    if not (err <= ATTN_TOL[dname] and row <= ATTN_ROW_TOL[dname]):
+        fail(f"flash_attention kernel != plain ({dname}, {what}): max abs "
+             f"error {err} (gate {ATTN_TOL[dname]}), worst row error {row} "
+             f"(gate {ATTN_ROW_TOL[dname]})")
+    return err, row
+
+
+def attention_battery(device) -> None:
+    """B6 against its plain version on the card (allow_tf32 is off, so the
+    plain version's products are full fp32), in fp32 and bf16; also through
+    transposed (B, S, H, D) views, as the model passes them."""
+    import torch
+
+    from repro_torch.kernels import swa_attention as swa
+
+    worst = {}
+    for i, case in enumerate(ATTN_SWEEP + ATTN_DANUBE):
+        errs = []
+        for dname in ATTN_TOL:
+            dt = getattr(torch, dname)
+            B, Hq, Hkv, Sq, Skv, D = case[:6]
+            g = torch.Generator(device=device).manual_seed(i)
+            q, k, v = (torch.randn(sh, generator=g, device=device).to(dt)
+                       for sh in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                                  (B, Hkv, Skv, D)))
+            if i % 2:
+                q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                           for x in (q, k, v))
+            kw = _attn_kwargs(case)
+            got = swa.flash_swa_attention(q, k, v, **kw)
+            want = swa.flash_swa_attention_plain(q, k, v, **kw)
+            err = check_attention(got, want, str(case))
+            w = worst.get(dname, (0.0, 0.0))
+            worst[dname] = (max(w[0], err[0]), max(w[1], err[1]))
+            errs.append(f"{dname} {err[0]:.3g} / {err[1]:.3g}")
+            del q, k, v, got, want
+        log(f"attention: {case}: max abs / worst row error {', '.join(errs)}")
+    n = len(ATTN_SWEEP) + len(ATTN_DANUBE)
+    log(f"attention: {2 * n} flash_attention kernel-vs-plain checks, max abs "
+        f"/ worst row error fp32 {worst['float32'][0]} / "
+        f"{worst['float32'][1]} (gates {ATTN_TOL['float32']} / "
+        f"{ATTN_ROW_TOL['float32']}), bf16 {worst['bfloat16'][0]} / "
+        f"{worst['bfloat16'][1]} (gates {ATTN_TOL['bfloat16']} / "
+        f"{ATTN_ROW_TOL['bfloat16']})")
+
+
+def attention_bound(q, k, kw, rate):
+    """(bound ms, 'bytes' or 'operations', visible pairs): the larger of the
+    bytes B6 must move (q and o once, the K/V rows some query can see once)
+    over the memory rate, and 4 D flops per visible (query, key) pair and
+    query head over the peak rate of the type."""
+    import numpy as np
+
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    kv_len = Skv if kw["kv_len"] is None else kw["kv_len"]
+    q_off = kv_len - Sq if kw["q_offset"] is None else kw["q_offset"]
+    qpos = q_off + np.arange(Sq, dtype=np.int64)
+    lo = np.maximum(0, qpos - kw["window"] + 1) if kw["window"] > 0 \
+        else np.zeros(Sq, np.int64)
+    hi = np.minimum(kv_len - 1, qpos) if kw["causal"] \
+        else np.full(Sq, kv_len - 1)
+    n = np.maximum(0, hi - lo + 1)
+    pairs = int(n.sum())
+    keys = int(hi.max() - lo.min() + 1) if pairs else 0
+    esize = q.element_size()
+    nbytes = esize * (2 * B * Hq * Sq * D + 2 * B * Hkv * keys * D)
+    flops = 4 * D * pairs * B * Hq
+    dname = str(q.dtype).replace("torch.", "")
+    t_bytes, t_ops = nbytes / rate, flops / PEAK_FLOPS[dname]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", pairs * B * Hq)
+
+
+def time_attention(label, q, k, v, kw, reps, rate) -> dict:
+    """B6 at one shape: kernel, plain version, and torch's
+    scaled_dot_product_attention with an explicit boolean mask (on
+    contiguous copies, K/V repeated over the group; a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import swa_attention as swa
+
+    kern = lambda: swa.flash_swa_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda: swa.flash_swa_attention_plain(q, k, v, **kw)  # noqa: E731
+    err, row = check_attention(kern(), plain(), label)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    kv_len = Skv if kw["kv_len"] is None else kw["kv_len"]
+    q_off = kv_len - Sq if kw["q_offset"] is None else kw["q_offset"]
+    qpos = q_off + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = (kpos < kv_len).expand(Sq, Skv)
+    if kw["causal"]:
+        mask = mask & (kpos <= qpos)
+    if kw["window"] > 0:
+        mask = mask & (kpos > qpos - kw["window"])
+    qc = q.contiguous()
+    kr = k.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+    vr = v.repeat_interleave(Hq // Hkv, dim=1).contiguous()
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qc, kr, vr, attn_mask=mask, scale=D ** -0.5)
+    lib_err = float((lib().float() - plain().float()).abs().max())
+    bound_ms, bound_by, pairs = attention_bound(q, k, kw, rate)
+    out = dict(shape=(B, Hq, Hkv, Sq, Skv, D), kv_len=kv_len, pairs=pairs,
+               ms=cuda_ms(kern, reps), plain_ms=cuda_ms(plain, reps),
+               library_ms=cuda_ms(lib, reps), bound_ms=bound_ms,
+               bound_by=bound_by, max_abs_err=err, row_err=row)
+    log(f"timing: flash_attention {label} {out['shape']} kv_len {kv_len} "
+        f"({pairs} visible pairs x heads), kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, sdpa+mask {out['library_ms']:.4f} ms "
+        f"(its max abs error {lib_err}), bound {bound_ms:.4f} ms "
+        f"({bound_by}), kernel-vs-plain max abs error {err}, worst row "
+        f"error {row}")
+    return out
+
+
+def teacher_forced(cfg, toks) -> float:
+    """Decode ``toks`` one by one from position 0 under the cuda and the
+    torch engines (a ring cache: kv_len 8,192 > window); the max abs logit
+    difference over every step."""
+    import torch
+
+    from repro_torch.models.registry import ModelBundle
+
+    b = ModelBundle(cfg)
+    params = b.init(1, device="cuda")
+    caches = {e: b.init_cache(1, 8192, device="cuda")
+              for e in ("cuda", "torch")}
+    if caches["cuda"][0][0].shape[1] != cfg.window:
+        fail("teacher-forced decode: the cache is not a ring")
+    worst = torch.zeros((), device="cuda")
+    t0 = time.perf_counter()
+    for t in range(toks.shape[1]):
+        batch = {"tokens": toks[:, t:t + 1], "pos": t}
+        lc, _ = b.decode(params, caches["cuda"], batch, engine="cuda")
+        lt, _ = b.decode(params, caches["torch"], batch, engine="torch")
+        worst = torch.maximum(worst, (lc.float() - lt.float()).abs().max())
+    torch.cuda.synchronize()
+    err = float(worst)
+    if err != err:
+        fail(f"teacher-forced decode ({cfg.dtype}): NaN logits")
+    log(f"serving: teacher-forced decode, {cfg.n_layers} layers at full "
+        f"width, {cfg.dtype}, {toks.shape[1]} steps per engine in "
+        f"{time.perf_counter() - t0:.3f} s: max abs logit difference cuda vs "
+        f"torch engines {err} (gate {SERVE_GATE[cfg.dtype]})")
+    return err
+
+
+def serving_phase(reps: int, rate: float):
+    """h2o-danube-1.8b at full width: prefill, the batcher, the
+    teacher-forced decode, card against CPU, B6's timings and two traces.
+    Returns B6's launches on the main path (prefill + batcher) and its
+    timing at the prefill's shape."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.interop import tree_map
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    bundle = get_bundle(DANUBE)
+    cfg = bundle.cfg
+    t0 = time.perf_counter()
+    params = bundle.init(0, device="cuda")
+    torch.cuda.synchronize()
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    log(f"serving: {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+        f"{cfg.window}), {sum(sizes)} {cfg.dtype} parameters drawn on "
+        f"the card in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(0)
+    V = cfg.vocab_size
+
+    # prefill, B = 2, S = 8,192: the main path's first part
+    toks = torch.from_numpy(rng.integers(3, V, (2, 8192)).astype(np.int32)
+                            ).cuda()
+    rec = Recorder(swa, "flash_swa_attention",
+                   lambda q, k, v, **kw: q.numel())
+    with rec:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = bundle.prefill(params, {"tokens": toks}, engine="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(launch_counts)
+    if launches["flash_attention"] != cfg.n_layers:
+        fail(f"prefill launched B6 {launches['flash_attention']} times, not "
+             f"once per layer ({cfg.n_layers})")
+    t0 = time.perf_counter()
+    want = bundle.prefill(params, {"tokens": toks}, engine="torch")
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
+    err = float((got.float() - want.float()).abs().max())
+    if not bool(torch.isfinite(got).all()) or got.shape != (2, 1,
+                                                            cfg.padded_vocab):
+        fail(f"prefill logits {tuple(got.shape)} not finite")
+    # how far bf16 itself moves these logits: the same weights in fp32
+    b32 = ModelBundle(dataclasses.replace(cfg, dtype="float32"))
+    p32 = tree_map(lambda t: t.float(), params)
+    l32 = b32.prefill(p32, {"tokens": toks}, engine="cuda")
+    spread = float((want.float() - l32).abs().max())
+    del p32, l32
+    torch.cuda.empty_cache()
+    log(f"serving: prefill 2 x 8192 wall {wall:.3f} s (cuda engine, first "
+        f"call), {twall:.3f} s (torch engine); B6 launches {launches['flash_attention']}"
+        f"; last-token logits max |cuda - torch| {err} (gate "
+        f"{SERVE_GATE['bfloat16']}), max |logit| {float(want.abs().max())}, "
+        f"bf16 torch engine vs the fp32 model {spread}")
+    if not err <= SERVE_GATE["bfloat16"]:
+        fail(f"prefill: cuda vs torch engines differ by {err}")
+
+    # the continuous batcher: 4 slots, every cache a 4,096-slot ring
+    engine = ContinuousBatcher(bundle, params, n_slots=4, kv_len=8192)
+    if engine.cache[0][0].shape[1] != cfg.window:
+        fail("batcher: the caches are not rings")
+    reqs = [Request(rid=i, prompt=[1] + rng.integers(
+        8, V, size=rng.integers(16, 256)).tolist(), max_new=32)
+        for i in range(8)]
+    for r in reqs:
+        engine.submit(r)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = 0
+    while any(not r.done for r in reqs) and steps < 10_000:
+        engine.step()
+        steps += 1
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    blaunch = dict(launch_counts)
+    n_tok = sum(len(r.out) for r in reqs)
+    if not all(r.done and 1 <= len(r.out) <= 32 for r in reqs):
+        fail("batcher: not every request finished")
+    if blaunch["flash_attention"] <= 0:
+        fail("batcher: B6 was never launched")
+    for k in launches:
+        launches[k] += blaunch[k]
+    passes = blaunch["flash_attention"] // cfg.n_layers
+    log(f"serving: batcher {len(reqs)} requests "
+        f"({sum(len(r.prompt) for r in reqs)} prompt tokens), {n_tok} tokens "
+        f"in {bwall:.3f} s ({n_tok / bwall:.1f} tok/s, {steps} engine steps, "
+        f"{passes} forward passes of 4 slots, {1e3 * bwall / passes:.3f} ms "
+        f"each), B6 launches {blaunch['flash_attention']}")
+
+    # teacher-forced decode past the ring's wrap, both engines
+    tf_toks = torch.from_numpy(rng.integers(3, V, (1, TF_STEPS)).astype(
+        np.int32)).cuda()
+    tf = {}
+    for dname in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dname, n_layers=TF_LAYERS)
+        tf[dname] = teacher_forced(c, tf_toks)
+        if not tf[dname] <= SERVE_GATE[dname]:
+            fail(f"teacher-forced decode ({dname}): cuda vs torch engines "
+                 f"differ by {tf[dname]}")
+
+    # card against CPU: the reduced config in fp32 (the CPU runs B6's plain
+    # version through the same cuda engine)
+    rb = ModelBundle(dataclasses.replace(get_bundle(DANUBE, reduced=True).cfg,
+                                         dtype="float32"))
+    pc = rb.init(0, device="cpu")
+    pg = tree_map(lambda t: t.cuda(), pc)
+    ct = torch.from_numpy(rng.integers(3, rb.cfg.vocab_size, (2, 40)).astype(
+        np.int32))
+    gt = ct.cuda()
+    cerr = float((rb.prefill(pg, {"tokens": gt}, engine="cuda").cpu()
+                  - rb.prefill(pc, {"tokens": ct}, engine="cuda")).abs().max())
+    caches = (rb.init_cache(2, 32, device="cuda"),
+              rb.init_cache(2, 32, device="cpu"))
+    for t in range(24):
+        lg, _ = rb.decode(pg, caches[0], {"tokens": gt[:, t:t + 1], "pos": t},
+                          engine="cuda")
+        lc, _ = rb.decode(pc, caches[1], {"tokens": ct[:, t:t + 1], "pos": t},
+                          engine="cuda")
+        cerr = max(cerr, float((lg.cpu() - lc).abs().max()))
+    log(f"cpu: reduced {DANUBE} fp32, prefill + 24 decode steps (ring of "
+        f"{rb.cfg.window} wraps): max abs logit difference card vs CPU {cerr}"
+        f" (gate {CPU_GATE})")
+    if not cerr <= CPU_GATE:
+        fail(f"serving card vs CPU: logits differ by {cerr}")
+
+    # B6 at the prefill's shape (the recorded call) and at the batcher's
+    # decode shape over a full ring (its layer-0 cache, 4 slots)
+    (q, k, v), kw = rec.best[1], rec.best[2]
+    timing = time_attention("prefill", q, k, v, kw, reps, rate)
+    del rec, q, k, v
+    kc, vc = engine.cache[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dq = torch.randn((4, 1, cfg.n_heads, cfg.head_dim_), generator=g,
+                     device="cuda").to(kc.dtype).transpose(1, 2)
+    decode = time_attention(
+        "decode (batcher, full ring)", dq, kc.transpose(1, 2),
+        vc.transpose(1, 2), dict(causal=False, window=0, q_offset=8191,
+                                 kv_len=cfg.window), reps, rate)
+
+    # traces: one prefill, one warm batcher step (4 live slots)
+    profile_phase("serving_prefill",
+                  lambda: bundle.prefill(params, {"tokens": toks},
+                                         engine="cuda"))
+    for i in range(4):
+        engine.submit(Request(rid=100 + i, prompt=[1] + rng.integers(
+            8, V, size=16).tolist(), max_new=32))
+    engine.step()
+    profile_phase("serving_decode", engine.step)
+    return launches, timing, decode, tf, err, cerr
+
+
 KERNELS = {
     "predicate_bitset": ("src/repro_torch/csrc/predicate.cu",
                          "src/repro/kernels/predicate.py:358"),
@@ -688,6 +1078,8 @@ KERNELS = {
                   "src/repro/kernels/bitset_ops.py:42"),
     "segmented_scan": ("src/repro_torch/csrc/segment_scan.cu",
                        "src/repro/kernels/segment_scan.py:89"),
+    "flash_attention": ("src/repro_torch/csrc/swa_attention.cu",
+                        "src/repro/kernels/swa_attention.py:98"),
 }
 
 
@@ -709,6 +1101,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    # full fp32 products for every plain version and the torch engines
+    # (the default, stated): TF32 would keep about three decimal digits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # phase 1: environment + kernel build
     t_all = time.perf_counter()
@@ -753,10 +1149,19 @@ def main() -> int:
     del cstudy, ctables
     torch.cuda.empty_cache()
     timed("cpu", cpu_phase, CPU_PATIENTS)
+    timed("attention", attention_battery, torch.device("cuda"))
+    s_launches, s_timing, decode, tf, prefill_err, cpu_err = timed(
+        "serving", serving_phase, REPS, rate)
     # B1-B3 are timed at the quickstart's (larger) shapes, B4 at the cohort
-    # study's; launches are summed over both studies' first runs
-    timing.update({"segmented_scan": c_timing["segmented_scan"]})
-    log(f"launches: quickstart {q_launches}, cohort study {c_launches}")
+    # study's, B6 at the prefill's; launches are summed over both studies'
+    # first runs and the serving path (prefill + batcher)
+    timing.update({"segmented_scan": c_timing["segmented_scan"],
+                   "flash_attention": s_timing})
+    log(f"launches: quickstart {q_launches}, cohort study {c_launches}, "
+        f"serving {s_launches}")
+    log(f"serving: B6 at the batcher's decode shape {json.dumps(decode)}")
+    log(f"serving: gates prefill {prefill_err}, teacher-forced "
+        f"{json.dumps(tf)}, card vs CPU {cpu_err}")
     log(f"phases: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
         f", total {time.perf_counter() - t_all:.3f} s")
 
@@ -765,10 +1170,12 @@ def main() -> int:
         t = timing[k]
         records.append({"name": k, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": q_launches[k] + c_launches[k],
+                        "launches": q_launches[k] + c_launches[k]
+                        + s_launches[k],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": "bytes", "library_ms": t["library_ms"]})
+                        "bound_by": t.get("bound_by", "bytes"),
+                        "library_ms": t["library_ms"]})
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

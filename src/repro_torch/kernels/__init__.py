@@ -22,7 +22,7 @@ PREDICATE_ENGINES = ("torch", "cuda", "auto")
 # Launches of each kernel wrapper: one is added where the wrapper launches
 # its kernel, and nowhere else (plain-version calls do not count).
 launch_counts = {"predicate_bitset": 0, "filter_compact": 0, "bitset_op": 0,
-                 "segmented_scan": 0}
+                 "segmented_scan": 0, "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -30,13 +30,17 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def require_kernel_operand(t: torch.Tensor, name: str) -> None:
-    """A kernel operand must be a contiguous CUDA tensor of 4-byte
-    int32/float32 elements."""
+def require_kernel_operand(t: torch.Tensor, name: str,
+                           dtypes=(torch.int32, torch.float32),
+                           contiguous: bool = True) -> None:
+    """A kernel operand must be a CUDA tensor of one of ``dtypes`` (by
+    default the 4-byte int32/float32 of B1-B4) and, unless the kernel takes
+    strides (``contiguous=False``), contiguous."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name}: kernel operand must be a CUDA tensor")
-    if t.dtype not in (torch.int32, torch.float32):
-        raise ValueError(f"{name}: kernel operand must be int32 or float32, "
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{name}: kernel operand must be {names}, "
                          f"got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: kernel operand must be contiguous")

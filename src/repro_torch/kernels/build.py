@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu",
-           "segment_scan.cu")
+           "segment_scan.cu", "swa_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -107,6 +107,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_segmented_scan.argtypes = [_P, _P, _I64, _I64, _I32, _I32, _P,
                                          _P, _P, _P, _P]
     lib.repro_segmented_scan.restype = _I32
+    # q, k, v, o; 12 strides; B, Hq, Hkv, Sq, Skv, D, causal, window;
+    # q_offset; kv_len, is_bf16; stream
+    lib.repro_flash_attention.argtypes = ([_P] * 4 + [_I64] * 12 + [_I32] * 8
+                                          + [_I64, _I32, _I32, _P])
+    lib.repro_flash_attention.restype = _I32
 
 
 def library() -> ctypes.CDLL:

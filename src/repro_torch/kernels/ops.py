@@ -6,7 +6,7 @@ CUDA tensor launches the kernel or raises, and nothing falls back.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -14,10 +14,11 @@ from repro_torch.core import bitset as _bs
 from repro_torch.kernels import bitset_ops as _bo
 from repro_torch.kernels import filter_compact as _fc
 from repro_torch.kernels import segment_scan as _ss
+from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels.predicate import predicate_bitset  # noqa: F401 (re-export)
 
 __all__ = ["filter_compact", "filter_compact_table", "bitset_op",
-           "segmented_scan", "predicate_bitset"]
+           "segmented_scan", "predicate_bitset", "flash_attention"]
 
 
 def filter_compact_table(columns: Dict[str, torch.Tensor], words: torch.Tensor
@@ -56,3 +57,18 @@ def segmented_scan(flags: torch.Tensor, vals: torch.Tensor, block: int = 512,
     if vals.device.type == "cuda":
         return _ss.segmented_scan_kernel(words, vals, block, fill)
     return _ss.segmented_scan_plain(words, vals, block, fill)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: Optional[int] = None,
+                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Flash attention (GQA, causal, sliding window) in the reference's
+    ``(B, H, S, D)`` layout; ``q_offset`` defaults to ``kv_len - Sq`` and
+    ``kv_len`` (keys at or past it are never attended) to ``Skv``."""
+    if q.device.type == "cuda":
+        return _swa.flash_swa_attention(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset, kv_len=kv_len)
+    return _swa.flash_swa_attention_plain(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset,
+                                          kv_len=kv_len)

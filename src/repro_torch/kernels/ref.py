@@ -1,6 +1,7 @@
 """The plain PyTorch version of every CUDA kernel (the correctness
 contract).  On the CPU each one is held against the reference's Pallas path;
-on the card each kernel is held against it, bit for bit.  Each lives beside
+on the card each kernel is held against it, bit for bit (B6, attention,
+within the reference's fp32/bf16 tolerances: it sums in another order).  Each lives beside
 its kernel; this module gathers them under the reference's names.
 """
 from __future__ import annotations
@@ -13,6 +14,8 @@ from repro_torch.kernels.predicate import \
 # the Pallas kernel's semantics, which differ from the reference's sequential
 # oracle ``segmented_scan_ref`` beyond ±2e9 (ROADMAP C8) — hence its own name
 from repro_torch.kernels.segment_scan import segmented_scan_plain
+from repro_torch.kernels.swa_attention import \
+    flash_swa_attention_plain as attention_ref
 
-__all__ = ["bitset_op_ref", "filter_compact_ref", "predicate_bitset_ref",
-           "segmented_scan_plain"]
+__all__ = ["attention_ref", "bitset_op_ref", "filter_compact_ref",
+           "predicate_bitset_ref", "segmented_scan_plain"]

@@ -44,7 +44,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_scan_sees_the_whole_package():
     names = {os.path.relpath(p, PKG) for p in _port_files()}
     for mod in ("core/columnar.py", "kernels/predicate.py",
-                "study/executor.py", "data/synthetic.py", "interop.py"):
+                "study/executor.py", "data/synthetic.py", "interop.py",
+                "models/lm.py", "serving/batching.py", "launch/serve.py",
+                "configs/archs.py"):
         assert mod in names
 
 
@@ -78,12 +80,26 @@ def test_tables_and_study_default_to_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("name", ["predicate.cu", "filter_compact.cu",
-                                  "bitset_ops.cu"])
+                                  "bitset_ops.cu", "swa_attention.cu"])
 def test_cuda_sources_carry_their_note(name):
     text = open(os.path.join(PKG, "csrc", name)).read()
     assert "Replaces the Pallas TPU kernel repro/kernels/" in text
     assert "Bound:" in text and "Design" in text
     assert "extern \"C\" int repro_" in text
+
+
+def test_serving_entry_points_default_to_cuda(no_cuda):
+    from repro_torch.interop import lm_params_from_numpy
+    from repro_torch.models import get_bundle
+
+    b = get_bundle("h2o-danube-1.8b", reduced=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        b.init(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        b.init_cache(1, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_params_from_numpy({}, b.cfg)
+    assert b.init(0, device="cpu")["embed"].device.type == "cpu"
 
 
 def test_engine_table_maps_reference_names():

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
-version, bit for bit.  Marked ``cuda``: skipped where no CUDA device is
-present; run them on the GPU machine with
+version, bit for bit (B6, attention, within 2e-5 in fp32 and 2e-2 in
+bf16, the reference's tolerances: it sums in another order).  Marked
+``cuda``: skipped where no CUDA device is present; run them on the GPU
+machine with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -15,6 +17,7 @@ from repro_torch.core import transformers as tr
 from repro_torch.kernels import bitset_ops, filter_compact, launch_counts
 from repro_torch.kernels import predicate as pk
 from repro_torch.kernels import segment_scan as ss
+from repro_torch.kernels import swa_attention as swa
 from repro_torch.study import col
 
 pytestmark = pytest.mark.cuda
@@ -113,3 +116,75 @@ def test_exposures_on_cuda_launch_the_segmented_scan(device):
     for k in want.columns:
         assert torch.equal(got.columns[k].view(torch.int32),
                            want.columns[k].view(torch.int32)), k
+
+
+# B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len: the sweep of
+# tests/test_kernels.py, decode offsets, the ring mode, every head dim
+ATTN_CASES = [
+    (2, 4, 2, 128, 128, 64, True, 0, None, None),
+    (1, 8, 2, 256, 256, 64, True, 64, None, None),
+    (2, 4, 4, 1, 384, 64, True, 0, None, None),
+    (1, 4, 1, 1, 512, 128, True, 128, None, None),
+    (2, 2, 2, 96, 96, 32, False, 0, None, None),
+    (1, 2, 1, 80, 160, 32, True, 0, None, None),
+    (2, 32, 8, 1, 300, 80, True, 64, 200, None),
+    (2, 32, 8, 1, 64, 80, False, 0, 900, 17),
+    (1, 4, 2, 33, 70, 16, True, 8, 20, 60),
+    (1, 6, 2, 5, 40, 16, True, 0, -3, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(device, case, dtype):
+    B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
+    g = torch.Generator(device=device).manual_seed(Sq + Skv)
+    q, k, v = (torch.randn(s, generator=g, device=device).to(dtype)
+               for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    before = launch_counts["flash_attention"]
+    got = swa.flash_swa_attention(q, k, v, **kw)
+    assert launch_counts["flash_attention"] == before + 1
+    want = swa.flash_swa_attention_plain(q, k, v, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # the model's layout: transposed (B, S, H, D) views, no copies
+    tq, tk, tv = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    strided = swa.flash_swa_attention(tq, tk, tv, **kw)
+    assert strided.stride() == tq.stride()
+    torch.testing.assert_close(strided, got, rtol=0, atol=0)
+
+
+def test_flash_attention_kernel_refuses_other_head_dims(device):
+    q = torch.zeros(1, 2, 4, 240, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 240"):
+        swa.flash_swa_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_on_cuda_launches_b6_per_layer(device, dtype):
+    """Reduced h2o-danube on the card: a prefill and a ring decode launch
+    B6 once per layer, and agree with the torch engine."""
+    import dataclasses
+
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+
+    b = ModelBundle(dataclasses.replace(
+        get_bundle("h2o-danube-1.8b", reduced=True).cfg, dtype=dtype))
+    params = b.init(0, device=device)
+    toks = torch.randint(3, 500, (2, 40), device=device, dtype=torch.int32)
+    before = launch_counts["flash_attention"]
+    got = b.prefill(params, {"tokens": toks}, engine="cuda")
+    assert launch_counts["flash_attention"] == before + b.cfg.n_layers
+    want = b.prefill(params, {"tokens": toks}, engine="torch")
+    tol = 1e-4 if dtype == "float32" else 0.1
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    caches = {e: b.init_cache(2, 32, device=device) for e in ("cuda", "torch")}
+    for t in range(24):
+        out = {e: b.decode(params, caches[e], {"tokens": toks[:, t:t + 1],
+                                               "pos": t}, engine=e)[0]
+               for e in caches}
+        assert float((out["cuda"].float() - out["torch"].float()).abs().max()
+                     ) <= tol

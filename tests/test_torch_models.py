@@ -1,0 +1,329 @@
+"""The port's dense decoder LM against the reference (``repro.models``) on
+the same numpy-seeded weights and inputs: the layers in fp32 at 1e-5 under
+both attention engines and in all three attention modes (prefill,
+full-cache decode, ring-buffer decode); whole-model logits for reduced
+h2o-danube-1.8b, llama3.2-3b and qwen2-1.5b; decode against the parallel
+forward with the ring wrapping; the weight converter; and the registry's
+refusal of unported families.
+
+Weights come from the reference's own initialisers, with every norm scale
+and QKV bias (zero at init) replaced by seeded noise so that both are
+exercised, and cross into the port through ``interop``."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.archs import reduced_config as ref_reduced_config
+from repro.kernels import ops as RO
+from repro.models import layers as RL
+from repro.models import lm as RLM
+from repro_torch.configs import reduced_config
+from repro_torch.interop import lm_params_from_numpy
+from repro_torch.kernels import launch_counts
+from repro_torch.models import get_bundle
+from repro_torch.models import layers as L
+from repro_torch.models import lm as LM
+
+ARCHS = ["h2o-danube-1.8b", "llama3.2-3b", "qwen2-1.5b"]
+ENGINES = ["torch", "cuda"]
+
+
+def _configs(arch, dtype="float32"):
+    return (dataclasses.replace(ref_reduced_config(arch), dtype=dtype),
+            dataclasses.replace(reduced_config(arch), dtype=dtype))
+
+
+def _noisy(tree, rng):
+    """Replace every 1-d leaf (norm scales, QKV biases) with noise."""
+    return jax.tree.map(
+        lambda a: (0.1 * rng.normal(size=a.shape)).astype(a.dtype)
+        if a.ndim == 1 else a, tree)
+
+
+def _params(rcfg, pcfg, seed):
+    rng = np.random.default_rng(seed)
+    ref = _noisy(jax.tree.map(np.asarray,
+                              RLM.init_params(rcfg, jax.random.key(seed))),
+                 rng)
+    return ref, lm_params_from_numpy(ref, pcfg, "cpu")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+def test_rmsnorm_rope_ffn_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 7, 4, 16)).astype(np.float32)
+    scale = (0.3 * rng.normal(size=16)).astype(np.float32)
+    np.testing.assert_allclose(
+        _np(L.rmsnorm(_t(scale), _t(x), 1e-6)),
+        np.asarray(RL.rmsnorm(jnp.asarray(scale), jnp.asarray(x), 1e-6)),
+        rtol=1e-5, atol=1e-5)
+    pos = (np.arange(7)[None] + np.array([[0], [3000]])).astype(np.int32)
+    for theta in (10_000.0, 500_000.0):
+        np.testing.assert_allclose(
+            _np(L.rope(_t(x), torch.from_numpy(pos), theta)),
+            np.asarray(RL.rope(jnp.asarray(x), jnp.asarray(pos), theta)),
+            rtol=1e-5, atol=1e-5)
+    p = jax.tree.map(np.asarray, RL.ffn_params(jax.random.key(1), 16, 40,
+                                               jnp.float32))
+    h = x.reshape(2, 28, 16)
+    np.testing.assert_allclose(
+        _np(L.ffn({k: _t(v) for k, v in p.items()}, _t(h))),
+        np.asarray(RL.ffn(p, jnp.asarray(h))), rtol=1e-5, atol=1e-5)
+
+
+# (kind, S, kv_len of the cache or None, cache_pos): prefill, prefill long
+# enough for the chunked formulation, full-cache decode ('attn', and 'swa'
+# with kv_len < window), a clamped two-token write, and ring-buffer decode
+# before and after the ring wraps
+ATTN_CASES = [
+    ("attn", 24, None, None),
+    ("swa", 24, None, None),
+    ("swa", 3072, None, None),
+    ("attn", 1, 32, 20),
+    ("swa", 1, 12, 9),
+    ("attn", 2, 32, 31),
+    ("swa", 1, 32, 5),
+    ("swa", 1, 32, 40),
+]
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("kind,S,kv_len,pos", ATTN_CASES)
+def test_attention_matches_reference(kind, S, kv_len, pos, engine):
+    rcfg, pcfg = _configs("qwen2-1.5b")            # QKV bias
+    rcfg = dataclasses.replace(rcfg, window=16)
+    pcfg = dataclasses.replace(pcfg, window=16)
+    rng = np.random.default_rng(S + (pos or 0))
+    p = _noisy(jax.tree.map(np.asarray, RL.attn_params(
+        jax.random.key(2), rcfg, jnp.float32)), rng)
+    B = 2
+    x = rng.normal(size=(B, S, rcfg.d_model)).astype(np.float32)
+    start = pos or 0
+    positions = np.broadcast_to(start + np.arange(S, dtype=np.int32), (B, S))
+    cache = rcache = None
+    if kv_len is not None:
+        s_cache = min(rcfg.window, kv_len) if kind == "swa" else kv_len
+        shape = (B, s_cache, rcfg.n_kv_heads, rcfg.head_dim_)
+        kc = rng.normal(size=shape).astype(np.float32)
+        vc = rng.normal(size=shape).astype(np.float32)
+        rcache = (jnp.asarray(kc), jnp.asarray(vc))
+        cache = (_t(kc), _t(vc))
+    want, wcache = RL.attention(p, jnp.asarray(x), rcfg, kind=kind,
+                                positions=jnp.asarray(positions),
+                                cache=rcache,
+                                cache_pos=None if pos is None
+                                else jnp.int32(pos))
+    got, gcache = L.attention({k: _t(v) for k, v in p.items()}, _t(x), pcfg,
+                              kind=kind,
+                              positions=torch.from_numpy(positions.copy()),
+                              cache=cache, cache_pos=pos, engine=engine)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    if kv_len is not None:
+        assert gcache[0] is cache[0]                   # written in place
+        for g, w in zip(gcache, wcache):
+            np.testing.assert_allclose(_np(g), np.asarray(w), rtol=1e-6,
+                                       atol=1e-6)
+
+
+def test_cuda_engine_ring_decode_takes_one_query():
+    _, pcfg = _configs("h2o-danube-1.8b")
+    p = LM.init_params(pcfg, torch.Generator().manual_seed(0))
+    kc = torch.zeros(1, pcfg.window, pcfg.n_kv_heads, pcfg.head_dim_)
+    x = torch.zeros(1, 2, pcfg.d_model)
+    with pytest.raises(ValueError, match="one query"):
+        L.attention(p["layers"][0]["mixer"], x, pcfg, kind="swa",
+                    positions=torch.zeros(1, 2, dtype=torch.int32),
+                    cache=(kc, kc.clone()), cache_pos=3, engine="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the whole model
+# ---------------------------------------------------------------------------
+# XLA on the CPU may drop the bf16 roundings between the elementwise ops it
+# fuses ("excess precision"): the reference's jit'd layer then differs from
+# its own op-by-op result in half its bf16 outputs.  Compiled without it, the
+# reference rounds after every op, as the port does.
+_NO_EXCESS_PRECISION = {"xla_allow_excess_precision": False}
+
+
+def _flash_sdpa(q, k, v, *, causal, window, q_positions, kv_valid_len=None):
+    """The reference's prefill attention through its own Pallas kernel B6
+    (interpret mode): fp32 probabilities times V, where ``sdpa`` rounds the
+    probabilities to bf16 first.  The port's cuda engine computes this."""
+    B, Sq, Hq, D = q.shape
+    o = RO.flash_attention(*(a.transpose(0, 2, 1, 3) for a in (q, k, v)),
+                           causal=causal, window=window, q_offset=0,
+                           interpret=True)
+    return o.transpose(0, 2, 1, 3).reshape(B, Sq, Hq * D)
+
+
+def _ref_logits(ref, rcfg, toks, dtype):
+    rp = jax.tree.map(lambda a: jnp.asarray(a, jnp.dtype(dtype)), ref)
+    rcfg = dataclasses.replace(rcfg, dtype=dtype)
+    f = jax.jit(lambda p, t: RLM.forward(p, rcfg, t)[0])
+    exe = f.lower(rp, toks).compile(compiler_options=_NO_EXCESS_PRECISION)
+    return np.asarray(exe(rp, toks), np.float32)
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def _max_rms(d):
+    return float(np.abs(d).max()), float(np.sqrt((d * d).mean()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_reference(arch, dtype, monkeypatch):
+    """Logits of a 32-token prefill.  The torch engine against the
+    reference; the cuda engine against the reference with B6's Pallas kernel
+    at its attention sites.  fp32 at 1e-4.  bf16 at 2 ulps of the largest
+    logit in the max and a quarter ulp in the root mean square: sums in
+    another order flip an ulp here and there (measured: at most 1 ulp, 0.031
+    for reduced h2o-danube's logits of ~4.8 and 0.004 for llama3.2's and
+    qwen2's of ~0.65, and an rms under 0.1 ulp).  Both gates sit below the
+    reference's own bf16-vs-fp32 spread (max 0.079-0.090 and 0.011-0.014,
+    rms 0.37 and 0.45-0.48 ulp), so a part of the model computed in another
+    precision fails them: F.silu, which rounds once where jax.nn.silu rounds
+    its logistic first, gives an rms of 0.27-0.36 ulp."""
+    rcfg, pcfg = _configs(arch, dtype)
+    ref, params = _params(rcfg, pcfg, seed=1)
+    toks = np.random.default_rng(1).integers(3, rcfg.vocab_size, (2, 32)
+                                             ).astype(np.int32)
+    for engine in ENGINES:
+        if engine == "cuda":
+            monkeypatch.setattr(RL, "sdpa", _flash_sdpa)
+        want = _ref_logits(ref, rcfg, toks, dtype)
+        tol = (1e-4, np.inf)
+        if dtype == "bfloat16":
+            ulp = _bf16_ulp(float(np.abs(want).max()))
+            tol = (2 * ulp, ulp / 4)
+            spread = _max_rms(_ref_logits(ref, rcfg, toks, "float32") - want)
+            assert spread[0] > tol[0] and spread[1] > tol[1], \
+                (arch, engine, spread, tol)
+        got, cache = LM.forward(params, pcfg, torch.from_numpy(toks),
+                                engine=engine)
+        assert cache is None and got.dtype == getattr(torch, dtype)
+        err = _max_rms(_np(got) - want)
+        assert err[0] <= tol[0] and err[1] <= tol[1], \
+            (arch, dtype, engine, err, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("engine", ENGINES)
+def test_decode_matches_parallel_with_ring_wrap(engine, dtype):
+    """Token-by-token decode against the parallel forward, in the port:
+    reduced h2o-danube (window 16) with a 32-slot kv_len, so every layer's
+    cache is a 16-slot ring that wraps after position 15 (the reference's
+    ``test_models.py::test_decode_matches_parallel``, same bound in bf16)."""
+    b = get_bundle("h2o-danube-1.8b", reduced=True)
+    cfg = dataclasses.replace(b.cfg, dtype=dtype)
+    bundle = type(b)(cfg)
+    params = bundle.init(1, device="cpu")
+    B, S = 2, 24
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        3, cfg.vocab_size, (B, S)).astype(np.int32))
+    full, _ = LM.forward(params, cfg, toks, engine=engine)
+    cache = bundle.init_cache(B, 32, device="cpu")
+    assert cache[0][0].shape == (B, cfg.window, cfg.n_kv_heads, cfg.head_dim_)
+    maxerr = 0.0
+    for t in range(S):
+        logits, cache = bundle.decode(params, cache,
+                                      {"tokens": toks[:, t:t + 1], "pos": t},
+                                      engine=engine)
+        maxerr = max(maxerr, float((logits[:, 0].float()
+                                    - full[:, t].float()).abs().max()))
+    assert maxerr < (1e-4 if dtype == "float32" else 0.05), maxerr
+
+
+def test_decode_matches_reference_decode():
+    """Reduced h2o-danube in fp32: 24 decode steps through the reference's
+    and the port's caches (ring wrapping at 16) give the same logits."""
+    rcfg, pcfg = _configs("h2o-danube-1.8b")
+    ref, params = _params(rcfg, pcfg, seed=3)
+    rp = jax.tree.map(jnp.asarray, ref)
+    toks = np.random.default_rng(3).integers(3, rcfg.vocab_size, (2, 24)
+                                             ).astype(np.int32)
+    rcache = RLM.init_cache(rcfg, 2, 32)
+    dec = jax.jit(lambda p, c, t, pos: RLM.forward(p, rcfg, t, cache=c,
+                                                   cache_pos=pos))
+    caches = {e: LM.init_cache(pcfg, 2, 32, torch.device("cpu"))
+              for e in ENGINES}
+    for t in range(24):
+        want, rcache = dec(rp, rcache, jnp.asarray(toks[:, t:t + 1]),
+                           jnp.int32(t))
+        for e in ENGINES:
+            got, caches[e] = LM.forward(params, pcfg,
+                                        torch.from_numpy(toks[:, t:t + 1]),
+                                        cache=caches[e], cache_pos=t,
+                                        engine=e)
+            np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4,
+                                       atol=1e-4)
+
+
+def test_cpu_forward_launches_no_kernel():
+    rcfg, pcfg = _configs("h2o-danube-1.8b")
+    params = LM.init_params(pcfg, torch.Generator().manual_seed(0))
+    before = dict(launch_counts)
+    LM.forward(params, pcfg, torch.ones(1, 8, dtype=torch.int32),
+               engine="cuda")
+    assert launch_counts == before
+
+
+# ---------------------------------------------------------------------------
+# weights and registry
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ARCHS + ["gemma3-12b"])
+def test_converter_round_trip(arch):
+    """Every leaf of the reference's pytree reaches the port unchanged (bf16
+    by its bits), and the layers come out in the reference's order: head
+    layers, then period i's slot j as layer i * len(pattern) + j, then tail
+    layers."""
+    rcfg = ref_reduced_config(arch)
+    ref = jax.tree.map(np.asarray, RLM.init_params(rcfg, jax.random.key(4)))
+    params = lm_params_from_numpy(ref, reduced_config(arch), "cpu")
+    assert params["embed"].dtype == torch.bfloat16
+    head, pattern, npd, tail = RLM._layer_plan(rcfg)
+    P = len(pattern)
+    layers = list(ref["head_layers"]) + [
+        jax.tree.map(lambda a: a[n // P], ref["periods"][f"slot{n % P}"])
+        for n in range(npd * P)] + list(ref["tail_layers"])
+    want = {k: v for k, v in ref.items()
+            if k not in ("head_layers", "periods", "tail_layers")}
+    want["layers"] = layers
+    got = jax.tree.map(lambda t: t.float().numpy(), params)
+    assert len(params["layers"]) == rcfg.n_layers
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
+        np.testing.assert_array_equal(np.asarray(a, np.float32), b)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-2b",
+                                  "xlstm-125m", "phi-3-vision-4.2b",
+                                  "seamless-m4t-medium"])
+def test_unported_family_raises(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        get_bundle(arch, reduced=True)
+
+
+def test_bad_engine_raises():
+    with pytest.raises(ValueError, match="attention engine"):
+        L.resolve_attention_engine("pallas", "cpu")
+    assert L.resolve_attention_engine("auto", "cpu") == "torch"
+    assert L.resolve_attention_engine("auto", "cuda") == "cuda"
