@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-patients N] [--cohort-patients N]
+                          [--sharded-patients N]
 
 Phases (any failure exits nonzero; no phase catches its own failure, and
 nothing falls back to the CPU):
@@ -46,10 +47,28 @@ nothing falls back to the CPU):
      version, torch's scaled_dot_product_attention with a boolean mask (a
      yardstick the port never calls) and its bound, and one prefill and one
      warm batcher step are traced (``chiprun_out/serving_*_trace.json``).
+  8. partition: B5 (the shuffle's plan) against its plain version, bit for
+     bit, over 1-64 destinations, blocks 256/512/1024, ragged lengths,
+     invalid rows, NULL and negative keys; B2b (compaction by a bool mask)
+     through ``ops.filter_compact`` against its plain version up to 48M
+     rows, and timed there;
+  9. sharded: the quickstart through ``Study.run(mesh=group)`` on 4 gloo
+     ranks of one process group, all on the one card, at
+     ``--sharded-patients``: every rank launches B5 once per exchange (5),
+     no exchange overflows, the cuda engines equal the torch engines, the
+     sharded result equals the single-card run of the same seed (event rows
+     as multisets, cohort words, flow, join stats), and at 20,000 patients
+     the quickstart, ``distributed_flatten`` and ``exposures_sharded`` on
+     the card equal the same 4 ranks on the CPU (through the package's
+     rank functions in ``distributed.launch``); B5 is timed at rank 0's
+     largest exchange beside its plain version, its bound and the torch
+     engine's ``hash_partition`` (the argsort route, a yardstick).
 
-Each kernel's launches are counted over the two studies' first runs and
-the serving path (prefill and batcher), with the counts set to 0 just
-before each.  The last lines of standard output
+Each kernel's launches are counted over the two studies' first runs, the
+serving path (prefill and batcher) and the sharded run's first cuda run
+(summed over ranks), with the counts set to 0 just before each.  B2b runs
+on none of these paths (no caller compacts by a bool mask): its count is
+0.  The last lines of standard output
 are the card's name and power limit, one JSON line with the kernel records,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -69,8 +88,13 @@ REPO = Path(__file__).resolve().parent
 _MEM_RATE = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 
 
+LOG = {"file": None}       # main() also writes every line to a log file
+
+
 def log(*a) -> None:
     print(*a, flush=True)
+    if LOG["file"] is not None:
+        print(*a, file=LOG["file"], flush=True)
 
 
 def fail(msg: str) -> None:
@@ -533,21 +557,33 @@ def cohort_phase(n_patients: int, reps: int, rate: float):
 def profile_phase(label: str, run_once) -> None:
     """torch.profiler over one warm run: device time by kernel, idle share,
     and a Chrome trace in ``chiprun_out/{label}_trace.json``."""
-    import collections
-
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     def run():
         run_once()
         torch.cuda.synchronize()
 
     run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
+    for line in trace_report(label, prof, wall_us):
+        log(line)
+
+
+def profiled():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def trace_report(label: str, prof, wall_us: float) -> list:
+    """The trace as ``{label}_trace.json`` beside the log, and lines with the
+    device's busy time and idle share of ``wall_us`` and the device time of
+    the 25 largest kernels, copies and fills."""
+    import collections
+
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     trace = out / f"{label}_trace.json"
@@ -560,12 +596,13 @@ def profile_phase(label: str, run_once) -> None:
         by_name[e["name"][:90]] += e["dur"]
         calls[e["name"][:90]] += 1
     busy_us = sum(by_name.values())
-    log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms ({len(events)} device events), idle share "
-        f"{1 - busy_us / wall_us:.4f}")
+    lines = [f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+             f"{busy_us / 1e3:.3f} ms ({len(events)} device events), idle "
+             f"share {1 - busy_us / wall_us:.4f}"]
     for name, us in by_name.most_common(25):
-        log(f"profile {label}: {us / 1e3:9.3f} ms device {calls[name]:6d} "
-            f"calls  {name}")
+        lines.append(f"profile {label}: {us / 1e3:9.3f} ms device "
+                     f"{calls[name]:6d} calls  {name}")
+    return lines
 
 
 def time_kernels(recs, reps: int, rate: float):
@@ -1069,6 +1106,424 @@ def serving_phase(reps: int, rate: float):
     return launches, timing, decode, tf, err, cerr
 
 
+# ---------------------------------------------------------------------------
+# phases 8-9: B5 and B2b, and the sharded quickstart
+# ---------------------------------------------------------------------------
+HP_DESTS = (1, 2, 4, 8, 15, 64)
+HP_BLOCKS = (256, 512, 1024)
+MASK_SIZES = (0, 1, 31, 33, 1025, 100_003, 48_000_000)
+SHARDS = 4                 # ranks of the sharded phase, all on the one card
+SHARDED_TIMEOUT = 600.0    # seconds for the sharded phase's ranks
+EXPOSURE_KW = {"purview_days": 60}   # exposures_sharded in the small runs
+
+
+def partition_battery(device, reps: int, rate: float) -> dict:
+    """B5 against its plain version, bit for bit: every destination count
+    of HP_DESTS at blocks 256/512/1024, ragged lengths, invalid rows, NULL
+    and negative keys.  B2b against its plain version through
+    ``ops.filter_compact`` with bool masks (all-false, all-true, ragged) up
+    to 48M rows; B2b timed at 48M rows with a ragged mask."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bitset as bs
+    from repro_torch.core.columnar import NULL_INT
+    from repro_torch.kernels import filter_compact as fc
+    from repro_torch.kernels import hash_partition as hp
+    from repro_torch.kernels import ops
+
+    checked = 0
+    for n_dest in HP_DESTS:
+        for block in HP_BLOCKS:
+            for n in (1, 31, block - 1, block + 1, 5 * block + 77, 1_000_003):
+                rng = np.random.default_rng(n * 131 + n_dest)
+                keys = rng.integers(-2 ** 31, 2 ** 31, n,
+                                    dtype=np.int64).astype(np.int32)
+                keys[rng.random(n) < 0.05] = NULL_INT
+                k = torch.from_numpy(keys).to(device)
+                w = bs.pack(torch.from_numpy(rng.random(n) < 0.8).to(device))
+                got = hp.hash_partition_plan_kernel(k, w, n_dest, block)
+                want = hp.hash_partition_plan_plain(k, w, n_dest, block)
+                torch.cuda.synchronize()
+                if not all(_same(g, x) for g, x in zip(got, want)):
+                    fail(f"hash_partition kernel != plain at n={n} "
+                         f"n_dest={n_dest} block={block}")
+                checked += 1
+    log(f"kernels: {checked} hash_partition_plan kernel-vs-plain checks "
+        f"bit-identical (n_dest in {HP_DESTS}, blocks {HP_BLOCKS})")
+    checked = 0
+    g = torch.Generator(device=device).manual_seed(3)
+    for n in MASK_SIZES:
+        for kind in ("none", "all", "ragged"):
+            for dtype in (torch.int32, torch.float32):
+                if dtype == torch.int32:
+                    vals = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,),
+                                         generator=g, device=device,
+                                         dtype=torch.int32)
+                else:
+                    vals = torch.randn((n,), generator=g, device=device)
+                    vals[torch.rand((n,), generator=g, device=device)
+                         < 0.1] = float("nan")
+                mask = {"none": torch.zeros(n, dtype=torch.bool,
+                                            device=device),
+                        "all": torch.ones(n, dtype=torch.bool, device=device),
+                        "ragged": torch.rand((n,), generator=g, device=device)
+                        < 0.5}[kind]
+                got, gc = ops.filter_compact(vals, mask)
+                want, wc = fc.filter_compact_mask_plain([vals], mask)
+                torch.cuda.synchronize()
+                if int(gc) != int(wc) or not _same(got, want[0]):
+                    fail(f"filter_compact (bool mask) kernel != plain at "
+                         f"n={n} mask={kind} {dtype}")
+                checked += 1
+    log(f"kernels: {checked} bool-mask filter_compact kernel-vs-plain "
+        f"checks bit-identical at n in {MASK_SIZES}")
+    n = MASK_SIZES[-1]
+    vals = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g,
+                         device=device, dtype=torch.int32)
+    mask = torch.rand((n,), generator=g, device=device) < 0.5
+    kern = lambda: fc.filter_compact_mask([vals], mask)  # noqa: E731
+    plain = lambda: fc.filter_compact_mask_plain([vals], mask)  # noqa: E731
+    library = lambda: vals[mask]  # noqa: E731
+    # the byte mask once, the column read once and written once
+    nbytes = 9 * n
+    out = dict(n=n, columns=1, ms=cuda_ms(kern, reps),
+               plain_ms=cuda_ms(plain, reps), library_ms=cuda_ms(library, reps),
+               bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
+    log(f"timing: filter_compact_mask n={n} columns=1 kernel "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, library "
+        f"(vals[mask]) {out['library_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms")
+    return out
+
+
+def digest(res) -> dict:
+    """What the sharded phase compares of one result, small enough to keep
+    while the next run holds the card: each event table's validity words,
+    count and valid rows, the cohort words, the flow and the stats."""
+    events = {}
+    for name, t in res.events.items():
+        keep = t.valid_bool()
+        events[name] = (t.valid, int(t.count),
+                        {c: v[keep] for c, v in t.columns.items()})
+    return dict(events=events, stats=res.flatten_stats,
+                cohorts={k: c.subjects for k, c in res.cohorts.items()},
+                flow=res.flow.flowchart())
+
+
+def compare_digests(a: dict, b: dict, what: str) -> None:
+    """Valid rows in order, validity words, counts, FlatteningStats, cohort
+    words and flow, bit for bit."""
+    if sorted(a["events"]) != sorted(b["events"]):
+        fail(f"{what}: different outputs")
+    for name, (wa, na, ca) in a["events"].items():
+        wb, nb, cb = b["events"][name]
+        if na != nb or not _same(wa, wb) or not all(
+                _same(ca[c], cb[c]) for c in ca):
+            fail(f"{what}: {name} differs")
+    if a["stats"] != b["stats"] or a["flow"] != b["flow"] or not all(
+            _same(w, b["cohorts"][k]) for k, w in a["cohorts"].items()):
+        fail(f"{what}: FlatteningStats, cohorts or flow differ")
+
+
+def compare_multisets(sharded: dict, single: dict, what: str) -> None:
+    """Digests of the sharded and the single-card result of one study:
+    event rows as multisets, cohort words, flow, and the joins'
+    FlatteningStats (the sharded plan adds its exchanges)."""
+    import torch
+
+    for name, (_, n, cols) in single["events"].items():
+        rows = []
+        for cs in (cols, sharded["events"][name][2]):
+            cs = [cs[c].view(torch.int32) for c in sorted(cs)]
+            idx = torch.arange(cs[0].shape[0], device=cs[0].device)
+            for c in reversed(cs):                   # lexicographic sort
+                idx = idx[torch.argsort(c[idx], stable=True)]
+            rows.append(torch.stack([c[idx] for c in cs]))
+        if rows[0].shape != rows[1].shape or not torch.equal(*rows):
+            fail(f"{what}: {name} rows differ as multisets")
+    if sharded["flow"] != single["flow"] or not all(
+            _same(sharded["cohorts"][k], w)
+            for k, w in single["cohorts"].items()):
+        fail(f"{what}: cohorts or flow differ")
+    joins = [d for _, d in sorted(sharded["stats"].items())
+             if not d["stage"].startswith("exchange")]
+    if joins != [d for _, d in sorted(single["stats"].items())]:
+        fail(f"{what}: join FlatteningStats differ")
+
+
+def time_partition(rec, reps: int, rate: float) -> dict:
+    """B5 at the largest exchange the recorded rank ran, beside its plain
+    version and its bound; and the whole ``hash_partition`` at that shape
+    under the torch engine (the reference's argsort route, a yardstick) and
+    the cuda engine (B5, the offsets and the scatter)."""
+    import torch
+
+    from repro_torch.kernels import hash_partition as hp
+
+    (table, key, n_dest, per), _ = rec.best[1], rec.best[2]
+    keys, words = table.columns[key], table.valid
+    kern = lambda: hp.hash_partition_plan_kernel(  # noqa: E731
+        keys, words, n_dest, hp.DEFAULT_BLOCK)
+    plain = lambda: hp.hash_partition_plan_plain(  # noqa: E731
+        keys, words, n_dest, hp.DEFAULT_BLOCK)
+    if not all(_same(g, w) for g, w in zip(kern(), plain())):
+        fail("hash_partition kernel != plain at the sharded path's shape")
+    route = {e: (lambda e=e: rec.fn(table, key, n_dest, per, engine=e))
+             for e in ("torch", "cuda")}
+    (ct, vt, ot), (cc, vc, oc) = route["torch"](), route["cuda"]()
+    if int(ot) != int(oc) or not torch.equal(vt, vc) or not all(
+            _same(ct[k], cc[k]) for k in ct):
+        fail("hash_partition torch and cuda routes differ")
+    cap = table.capacity
+    n_blocks = -(-cap // hp.DEFAULT_BLOCK)
+    # keys 4 B + validity 1/8 B in, dest and rank 8 B out per row; one
+    # histogram row of n_dest ints per block
+    nbytes = (12 + 1 / 8) * cap + 4 * n_dest * n_blocks
+    return dict(n=cap, n_dest=n_dest, per_dest=per,
+                ms=cuda_ms(kern, reps), plain_ms=cuda_ms(plain, reps),
+                torch_route_ms=cuda_ms(route["torch"], reps),
+                cuda_route_ms=cuda_ms(route["cuda"], reps), library_ms=None,
+                bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
+
+
+def small_sharded(group, device, star: dict, n_patients: int,
+                  drugs=None) -> list:
+    """The sharded entry points on a small numpy ``star`` through the
+    package's rank functions (``distributed.launch``), all under the cuda
+    engines: the quickstart, ``distributed_flatten``, and
+    ``exposures_sharded`` of ``drugs`` (by default the quickstart's drug
+    events, which its exchanges left patient-partitioned)."""
+    from repro_torch.core import DCIR_SCHEMA
+    from repro_torch.distributed import launch
+
+    out = launch.tasks_rank(group, device, [
+        (launch.study_rank, (build_study(n_patients), star,
+                             [("cuda", "cuda")])),
+        (launch.flatten_rank, (DCIR_SCHEMA, star, "cuda"))])
+    if drugs is None:
+        drugs = out[0][0]["events"]["drug_purchases"]
+    out.append(launch.exposures_rank(group, device, drugs, n_patients,
+                                     dict(EXPOSURE_KW, engine="cuda")))
+    return out
+
+
+def same_host(a, b) -> bool:
+    """Host data (dicts, sequences, numpy arrays, scalars) equal bit for
+    bit."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            same_host(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            map(same_host, a, b))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def comparable(small: list) -> list:
+    """``small_sharded``'s results without what differs between devices by
+    design (launch counts, collectives, seconds); the plan as its nodes."""
+    study = [{k: v for k, v in r.items()
+              if k not in ("launches", "comm", "seconds", "plan")}
+             | {"plan": [(n.op, n.inputs, n.params) for n in r["plan"].nodes]}
+             for r in small[0]]
+    return [study] + small[1:]
+
+
+def sharded_rank(group, device, n_patients: int, star: dict,
+                 cpu_patients: int, reps: int, rate: float) -> dict:
+    """One rank of the sharded phase (run by ``distributed.launch.spawn``):
+    the quickstart through ``Study.run(mesh=group)`` at ``n_patients``
+    under the cuda engines (launch counts set to 0 just before, read just
+    after: B5 once per exchange), a warm rerun, the torch engines (equal
+    bit for bit), on rank 0 the single-card run of the same seed (equal as
+    multisets) and B5's timing, then ``small_sharded`` of the
+    ``cpu_patients`` star on the card (the parent holds it against the
+    same ranks on the CPU).  Returns host data and its log lines."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import flattening as pfl
+    from repro_torch.data.synthetic import SyntheticConfig, generate_dcir
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    me = dist.get_rank(group)
+    lines = []
+    t0 = time.perf_counter()
+    dcir = generate_dcir(SyntheticConfig(n_patients=n_patients, seed=0),
+                         device=device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    study = build_study(n_patients)
+    rec = Recorder(pfl, "hash_partition",
+                   lambda table, key, n, per, engine="torch": table.capacity)
+
+    def run(study, tables, engine):
+        comm.reset_stats()
+        dist.barrier(group)
+        t = time.perf_counter()
+        res = study.run(dict(tables), engine=engine, predicate_engine=engine,
+                        mesh=group, device=device)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, dict(comm.stats)
+
+    torch.cuda.reset_peak_memory_stats()
+    if me == 0:
+        rec.__enter__()
+    try:
+        reset_launch_counts()
+        res, wall, staging = run(study, dcir, "cuda")
+        launches = dict(launch_counts)
+    finally:
+        if me == 0:
+            rec.__exit__()
+    peak = torch.cuda.max_memory_allocated()
+    res.assert_no_loss()
+    n_ex = sum(n.op == "exchange" for n in res.plan.nodes)
+    ex_stats = [d for d in res.flatten_stats.values()
+                if d["stage"].startswith("exchange")]
+    if n_ex != 5 or launches["hash_partition_plan"] != n_ex:
+        fail(f"rank {me}: {n_ex} exchanges, B5 launched "
+             f"{launches['hash_partition_plan']} times")
+    if any(d["overflow"] for d in ex_stats):
+        fail(f"rank {me}: an exchange overflowed")
+    for k in ("predicate_bitset", "filter_compact", "bitset_op"):
+        if launches[k] <= 0:
+            fail(f"rank {me}: kernel {k} was never launched")
+    final = res.cohorts["final"].subject_count()
+    flow = res.flow.render()
+    caps = {k: t.capacity for k, t in res.events.items()}
+    first = digest(res)
+    del res                          # the next run needs the card's memory
+    torch.cuda.empty_cache()
+    rows = int(dcir["ER_PRS"].count)
+    lines.append(
+        f"rank {me}: generated DCIR ({rows} ER_PRS rows, {rows // SHARDS} "
+        f"a shard) in {gen_s:.3f} s; cuda engines wall {wall:.3f} s (first "
+        f"run), peak device memory {peak / 2**30:.3f} GiB, {n_ex} exchanges, "
+        f"output capacities {caps}, launches {launches}, collectives "
+        f"{staging['collectives']}, host staging "
+        f"{staging['staged_bytes'] / 2**30:.3f} GiB in "
+        f"{staging['staging_s']:.3f} s")
+    res, warm, staging2 = run(study, dcir, "cuda")
+    compare_digests(first, digest(res), f"rank {me}: sharded cuda run vs "
+                    f"rerun")
+    del res
+    torch.cuda.empty_cache()
+    res, twall, _ = run(study, dcir, "torch")
+    compare_digests(first, digest(res), f"rank {me}: sharded cuda vs torch "
+                    f"engines")
+    del res
+    torch.cuda.empty_cache()
+    # one more warm cuda run, traced on rank 0
+    if me == 0:
+        with profiled() as prof:
+            res, pwall, _ = run(study, dcir, "cuda")
+        lines += trace_report("sharded_rank0", prof, pwall * 1e6)
+    else:
+        res, _, _ = run(study, dcir, "cuda")
+    del res
+    torch.cuda.empty_cache()
+    lines.append(
+        f"rank {me}: cuda engines wall {warm:.3f} s (warm; host staging "
+        f"{staging2['staging_s']:.3f} s), torch engines wall {twall:.3f} s; "
+        f"cuda == torch engines (valid rows, words, counts, FlatteningStats, "
+        f"cohorts, flow)")
+    timing = None
+    if me == 0:
+        t = time.perf_counter()
+        single = study.run(dict(dcir), engine="cuda", predicate_engine="cuda",
+                           device=device)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t
+        single = digest(single)
+        compare_multisets(first, single, "sharded vs single card")
+        lines.append(
+            f"rank {me}: single-card run {swall:.3f} s; sharded == single "
+            f"card (event rows as multisets, cohort words, flow, join "
+            f"FlatteningStats); final cohort {final} subjects\n" + flow)
+        del single
+        timing = time_partition(rec, reps, rate)
+    del rec, first, dcir
+    torch.cuda.empty_cache()
+    dist.barrier(group)
+    small = small_sharded(group, device, star, cpu_patients)
+    return dict(lines=lines, launches=launches, wall=wall, warm=warm,
+                staging=staging, staging_warm=staging2, timing=timing,
+                small=small)
+
+
+def sharded_phase(n_patients: int, cpu_patients: int, reps: int,
+                  rate: float):
+    """The quickstart sharded over SHARDS ranks of one gloo process group,
+    all on the one card (``sharded_rank``); the ranks load the kernel
+    library this process built.  Then ``small_sharded`` on the same number
+    of CPU ranks, held against the card's.  Returns the launches summed
+    over ranks and B5's timing on rank 0."""
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticConfig, generate_dcir
+    from repro_torch.distributed import launch
+    from repro_torch.interop import tables_to_numpy
+
+    torch.cuda.empty_cache()
+    star = tables_to_numpy(generate_dcir(
+        SyntheticConfig(n_patients=cpu_patients, seed=0), device="cpu"))
+    t0 = time.perf_counter()
+    ranks = launch.spawn(sharded_rank, SHARDS,
+                         (n_patients, star, cpu_patients, reps, rate),
+                         device="cuda", timeout=SHARDED_TIMEOUT)
+    log(f"sharded: {SHARDS} ranks on one card, quickstart at {n_patients} "
+        f"patients, {time.perf_counter() - t0:.3f} s with the ranks' start")
+    for r in ranks:
+        for line in r["lines"]:
+            log("sharded: " + line)
+    # card against CPU: the same small runs on the same ranks on the CPU
+    t0 = time.perf_counter()
+    drugs = ranks[0]["small"][0][0]["events"]["drug_purchases"]
+    cpu = launch.spawn(small_sharded, SHARDS, (star, cpu_patients, drugs),
+                       device="cpu", timeout=SHARDED_TIMEOUT)
+    for me, (r, c) in enumerate(zip(ranks, cpu)):
+        card_b5 = r["small"][0][0]["launches"]["hash_partition_plan"]
+        if card_b5 != 5 or c[0][0]["launches"]["hash_partition_plan"]:
+            fail(f"rank {me}: B5 launched {card_b5} times in the small "
+                 f"sharded run on the card (5 expected, none on the CPU)")
+        if not same_host(comparable(r["small"]), comparable(c)):
+            fail(f"rank {me}: sharded quickstart, distributed_flatten or "
+                 f"exposures_sharded at {cpu_patients} patients differ "
+                 f"between the card and the CPU")
+    small = ranks[0]["small"]
+    log(f"sharded: at {cpu_patients} patients the card equals the same "
+        f"{SHARDS} ranks on the CPU bit for bit (quickstart: events, "
+        f"cohorts, flow, FlatteningStats, log, plan; distributed_flatten "
+        f"{small[1]['flat']['count']} rows; exposures_sharded "
+        f"{small[2]['count']} rows; final cohort "
+        f"{small[0][0]['cohorts']['final']['count']} subjects), "
+        f"{time.perf_counter() - t0:.3f} s for the CPU ranks")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    timing = ranks[0]["timing"]
+    log(f"sharded: launches summed over ranks {launches}; wall per rank "
+        f"{[round(r['wall'], 3) for r in ranks]} s (first), "
+        f"{[round(r['warm'], 3) for r in ranks]} s (warm), host staging per "
+        f"rank {[round(r['staging']['staging_s'], 3) for r in ranks]} s "
+        f"(first), {[round(r['staging_warm']['staging_s'], 3) for r in ranks]}"
+        f" s (warm)")
+    log(f"timing: hash_partition_plan n={timing['n']} n_dest="
+        f"{timing['n_dest']} kernel {timing['ms']:.4f} ms, plain "
+        f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms; "
+        f"hash_partition per_dest={timing['per_dest']}: torch route "
+        f"(argsort) {timing['torch_route_ms']:.4f} ms, cuda route (B5) "
+        f"{timing['cuda_route_ms']:.4f} ms")
+    return launches, timing
+
+
 KERNELS = {
     "predicate_bitset": ("src/repro_torch/csrc/predicate.cu",
                          "src/repro/kernels/predicate.py:358"),
@@ -1080,6 +1535,10 @@ KERNELS = {
                        "src/repro/kernels/segment_scan.py:89"),
     "flash_attention": ("src/repro_torch/csrc/swa_attention.cu",
                         "src/repro/kernels/swa_attention.py:98"),
+    "hash_partition_plan": ("src/repro_torch/csrc/hash_partition.cu",
+                            "src/repro/kernels/hash_partition.py:44"),
+    "filter_compact_mask": ("src/repro_torch/csrc/filter_compact.cu",
+                            "src/repro/kernels/filter_compact.py:113"),
 }
 
 
@@ -1089,6 +1548,11 @@ def main() -> int:
     # the reference's design-matrix index is int32 and wraps above 466,033
     # patients at (36, 128) (ROADMAP C7); 400,000 stays below it
     ap.add_argument("--cohort-patients", type=int, default=400_000)
+    # four ranks share the card and each holds the shard-concatenated event
+    # tables (4x the global rows after two exchanges at slack 2): a peak of
+    # 8.3 GiB a rank at 1,000,000 patients; at 2,000,000 the 80 GB ran out
+    # (PERF.md)
+    ap.add_argument("--sharded-patients", type=int, default=1_000_000)
     args = ap.parse_args()
 
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
@@ -1101,6 +1565,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    # the whole log, for runners that keep only the tail of the output
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    LOG["file"] = open(out / "chip_smoke.log", "w")
     # full fp32 products for every plain version and the torch engines
     # (the default, stated): TF32 would keep about three decimal digits
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1152,13 +1620,21 @@ def main() -> int:
     timed("attention", attention_battery, torch.device("cuda"))
     s_launches, s_timing, decode, tf, prefill_err, cpu_err = timed(
         "serving", serving_phase, REPS, rate)
+    torch.cuda.empty_cache()
+    mask_timing = timed("partition", partition_battery, torch.device("cuda"),
+                        REPS, rate)
+    h_launches, h_timing = timed("sharded", sharded_phase,
+                                 args.sharded_patients, CPU_PATIENTS, REPS,
+                                 rate)
     # B1-B3 are timed at the quickstart's (larger) shapes, B4 at the cohort
     # study's, B6 at the prefill's; launches are summed over both studies'
     # first runs and the serving path (prefill + batcher)
     timing.update({"segmented_scan": c_timing["segmented_scan"],
-                   "flash_attention": s_timing})
+                   "flash_attention": s_timing,
+                   "hash_partition_plan": h_timing,
+                   "filter_compact_mask": mask_timing})
     log(f"launches: quickstart {q_launches}, cohort study {c_launches}, "
-        f"serving {s_launches}")
+        f"serving {s_launches}, sharded (summed over ranks) {h_launches}")
     log(f"serving: B6 at the batcher's decode shape {json.dumps(decode)}")
     log(f"serving: gates prefill {prefill_err}, teacher-forced "
         f"{json.dumps(tf)}, card vs CPU {cpu_err}")
@@ -1171,7 +1647,7 @@ def main() -> int:
         records.append({"name": k, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": q_launches[k] + c_launches[k]
-                        + s_launches[k],
+                        + s_launches[k] + h_launches[k],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t.get("bound_by", "bytes"),
@@ -1181,6 +1657,7 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+    LOG["file"].close()
     return 0
 
 

@@ -8,7 +8,8 @@ from repro_torch.core.schema import (
 )
 from repro_torch.core.events import Category, make_events, sort_events
 from repro_torch.core.flattening import (
-    flatten_star, flatten_sliced, lookup_join, expand_join, FlatteningStats,
+    flatten_star, flatten_sliced, distributed_flatten, lookup_join,
+    expand_join, exchange, hash_partition, FlatteningStats,
 )
 from repro_torch.core.extraction import (
     Extractor, drug_dispenses, medical_acts_dcir, medical_acts_pmsi, diagnoses,
@@ -17,7 +18,8 @@ from repro_torch.core.extraction import (
     long_term_diseases,
 )
 from repro_torch.core.transformers import (
-    observation_period, follow_up, trackloss, exposures, fractures,
+    observation_period, follow_up, trackloss, exposures, exposures_sharded,
+    fractures,
     drug_prescriptions, drug_interactions, bladder_cancer, infarctus,
     heart_failure,
 )

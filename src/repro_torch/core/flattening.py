@@ -8,14 +8,13 @@ columnar scans.
   * 1:N join       -> offset-expansion join (prefix sum over match counts)
   * temporal slice -> per-slice flatten, appended (``flatten_sliced``)
   * monitoring     -> per-stage row counts + modular uint32 key checksums
-
-The distributed exchange (``exchange``/``hash_partition``/
-``distributed_flatten``) is not ported yet (ROADMAP A8).
+  * exchange       -> hash partition + all-to-all over a ``torch.distributed``
+                      process group (the Spark shuffle), ``distributed_flatten``
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -33,6 +32,9 @@ __all__ = [
     "STAT_FIELDS",
     "stats_from_dict",
     "key_checksum",
+    "hash_partition",
+    "exchange",
+    "distributed_flatten",
 ]
 
 
@@ -228,7 +230,7 @@ def _run_flatten_plan(plan, out_id, tables):
     from repro_torch.study.executor import run_plan_body
 
     env = {s: tables[s] for s in plan.sources()}
-    vals, _, stats = run_plan_body(plan, env, 0, "torch")
+    vals, _, stats = run_plan_body(plan, env, 0, "torch", keep=(out_id,))
     stats_list = [stats_from_dict(plan.nodes[i].label(), stats[i])
                   for i in sorted(stats)]
     return vals[out_id], stats_list
@@ -268,3 +270,132 @@ def flatten_sliced(schema: StarSchema, tables: Mapping[str, ColumnarTable],
     b.set_output("flat", out)
     plan = plan_capacities(b.build(), tables)
     return _run_flatten_plan(plan, plan.output_ids["flat"], tables)
+
+
+# ---------------------------------------------------------------------------
+# Distributed exchange: the Spark shuffle over a torch.distributed group
+# ---------------------------------------------------------------------------
+def hash_partition(table: ColumnarTable, key: str, n_shards: int,
+                   per_dest_capacity: int, engine: str = "torch"
+                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                              torch.Tensor]:
+    """Bucket rows by ``hash(key) % n_shards`` into a fixed send layout.
+
+    Returns ``(send_cols, send_valid, overflow)``: each send array has shape
+    ``(n_shards, per_dest_capacity)``, a destination's rows in their table
+    order, empty slots NULL and invalid; rows past a destination's capacity
+    are dropped and counted in ``overflow``.  ``engine="torch"`` is the
+    reference's route op for op (a stable argsort groups the rows by
+    destination); ``engine="cuda"`` takes each row's place from B5 — its
+    in-block rank plus its block's offset, an exclusive cumsum of the
+    histograms over blocks — and scatters the rows there unsorted, which
+    gives the same buffers, since a stable order within a destination is
+    the table order."""
+    from repro_torch.kernels import hash_partition as _hp
+    from repro_torch.kernels import ops as _kops
+
+    if engine not in ("torch", "cuda"):
+        raise ValueError(f"unknown engine {engine!r}")
+    cap = table.capacity
+    dev = table.device
+    n, per = int(n_shards), int(per_dest_capacity)
+    oob = n * per                       # scatter target for dropped rows
+    rows = _arange(cap, dev)
+    if engine == "torch":
+        dest = _hp.hash_dest(table.columns[key], table.valid_bool(), n)
+        order = torch.argsort(dest, stable=True)
+        dsort = dest[order]
+        group_start = _searchsorted(
+            dsort, torch.arange(n + 1, dtype=torch.int32, device=dev), "left")
+        pos = rows - group_start[dsort.to(torch.int64)].to(torch.int64)
+        ok = (dsort < n) & (pos < per)
+        slot = torch.where(ok, dsort.to(torch.int64) * per + pos, oob)
+        overflow = ((dsort < n) & ~ok).sum().to(torch.int32)
+    else:
+        dest, rank, hist = _kops.hash_partition_plan(
+            table.columns[key], table.valid, n, block=_hp.DEFAULT_BLOCK)
+        # per destination, the scan over blocks runs along the inner axis
+        # (torch's scan along the outer axis of (blocks, n) is serial)
+        hist_t = hist.t().contiguous()
+        incl = torch.cumsum(hist_t, 1, dtype=torch.int64)
+        offs = (incl - hist_t).reshape(-1)
+        routed = dest < n
+        d = dest.to(torch.int64).clamp(max=n - 1)
+        pos = offs[d * hist.shape[0] + rows // _hp.DEFAULT_BLOCK] + rank
+        ok = routed & (pos < per)
+        slot = torch.where(ok, d * per + pos, oob)
+        order = None
+        overflow = torch.clamp(incl[:, -1:] - per, min=0).sum() \
+            .to(torch.int32)
+
+    send_valid = torch.zeros((oob + 1,), dtype=torch.bool, device=dev)
+    send_valid[slot] = True
+    send_cols = {}
+    for name, col in table.columns.items():
+        buf = torch.full((oob + 1,), _sentinel(col.dtype), dtype=col.dtype,
+                         device=dev)
+        buf[slot] = col if order is None else col[order]
+        send_cols[name] = buf[:oob].reshape(n, per)
+    return send_cols, send_valid[:oob].reshape(n, per), overflow
+
+
+def exchange(table: ColumnarTable, key: str, group, n_shards: int,
+             per_dest_capacity: int, engine: str = "torch"
+             ) -> Tuple[ColumnarTable, torch.Tensor]:
+    """One shuffle: hash-partition + all-to-all + local concatenation.
+
+    Every rank of ``group`` (a ``torch.distributed`` process group of
+    ``n_shards`` ranks) calls it; afterwards each holds exactly the rows
+    whose key hashes to it, shard ``s``'s block first.  One all-to-all per
+    column, and one for the validity (as int8, like the reference's)."""
+    from repro_torch.distributed import comm
+
+    if comm.world_size(group) != n_shards:
+        raise ValueError(f"exchange over {n_shards} shards needs a group of "
+                         f"{n_shards} ranks, got {comm.world_size(group)}")
+    send_cols, send_valid, overflow = hash_partition(
+        table, key, n_shards, per_dest_capacity, engine=engine)
+    cols = {k: comm.all_to_all(v, group).reshape(-1)
+            for k, v in send_cols.items()}
+    valid = comm.all_to_all(send_valid.to(torch.int8), group).reshape(-1) \
+        .to(torch.bool)
+    return (ColumnarTable(cols, valid, valid.sum().to(torch.int32)),
+            overflow)
+
+
+def distributed_flatten(schema: StarSchema,
+                        tables: Mapping[str, ColumnarTable], mesh,
+                        axis_name: str = "data", slack: float = 2.0,
+                        min_per_dest: int = 64,
+                        expand_capacity: Optional[int] = None,
+                        engine: str = "torch"
+                        ) -> Tuple[ColumnarTable, torch.Tensor]:
+    """Multi-shard denormalization: shuffle every table onto the join key,
+    then flatten locally — the SCALPEL-Flattening plan over a process group.
+
+    Builds the exchange-aware flatten plan (exchange both sides of every
+    join onto the join key, then one final exchange onto ``patient_id``),
+    prunes exchanges whose input is already partitioned on the key, and
+    runs it with ``execute_plan_sharded`` on every rank of ``mesh`` (a
+    process group).  Returns ``(flat, overflow)``: the flat table,
+    patient-partitioned and shard-concatenated in rank order, and the
+    summed overflow of every exchange and join."""
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.pipeline import execute_plan_sharded
+    from repro_torch.study.api import contribute_flatten
+    from repro_torch.study.optimizer import dce, prune_exchanges
+    from repro_torch.study.plan import PlanBuilder
+
+    n = comm.world_size(mesh)
+    b = PlanBuilder()
+    out = contribute_flatten(b, schema, expand_capacity=expand_capacity,
+                             exchange=True, exchange_slack=slack,
+                             min_per_dest=min_per_dest)
+    b.set_output("flat", out)
+    plan = dce(prune_exchanges(b.build(), n_shards=n))
+    vals, _, stats = execute_plan_sharded(plan, tables, 0, mesh,
+                                          axis_name=axis_name, engine=engine)
+    flat = vals[plan.output_ids["flat"]]
+    overflow = torch.tensor(sum(s["overflow"] for s in stats.values()),
+                            dtype=torch.int32, device=flat.device)
+    return flat, overflow

@@ -31,6 +31,7 @@ __all__ = [
     "observation_period", "follow_up", "trackloss", "exposures", "fractures",
     "drug_prescriptions", "drug_interactions", "bladder_cancer", "infarctus",
     "heart_failure", "drop_index", "scatter_set", "SPARE_SLOTS",
+    "exposures_sharded",
 ]
 
 _BIG = 2_000_000_000
@@ -263,6 +264,30 @@ def exposures(dispenses: ColumnarTable, n_patients: int,
         patient_id=e_pid, category=Category.EXPOSURE, value=e_val,
         start=first, end=end, weight=n_disp.to(torch.float32), valid=valid,
     ).compact()
+
+
+def exposures_sharded(dispenses: ColumnarTable, n_patients: int, mesh,
+                      axis_name: str = "data", **kw) -> ColumnarTable:
+    """Shard-local ``exposures`` over a *patient-partitioned* event table.
+
+    ``distributed_flatten`` keys its output on ``patient_id``, so every
+    patient's events live on one shard and the per-patient fold needs no
+    collective: each rank of ``mesh`` (a process group) runs ``exposures``
+    on its row block (the capacity padded to ``32 * n`` rows first), and
+    the blocks come back concatenated in rank order on every rank.
+    ``axis_name`` is kept for the reference's signature; ``kw`` goes to
+    ``exposures`` (``engine`` included)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.pipeline import (gather_table,
+                                                  pad_tables_for_mesh,
+                                                  shard_rows)
+
+    n = comm.world_size(mesh)
+    t = pad_tables_for_mesh({"d": dispenses}, n)["d"]
+    out = exposures(shard_rows(t, dist.get_rank(mesh), n), n_patients, **kw)
+    return gather_table(out, mesh)
 
 
 def _washout_keep(pid: torch.Tensor, site: torch.Tensor, date: torch.Tensor,

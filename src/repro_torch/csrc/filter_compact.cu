@@ -18,6 +18,14 @@
 // Bound: bytes.  Per row: read 4 B per column and 1/8 B of keep-mask, write
 // 4 B per column: 8 B x columns + 1/8 B.  The word counts and offsets add
 // 8 B per 32 rows.
+//
+// B2b, compaction by a (n,) bool row mask: replaces the Pallas TPU kernel
+// repro/kernels/filter_compact.py:filter_compact_blocks (pallas_call at
+// :136) with the same stitch (repro/kernels/ops.py:66-75).  Design:
+// repro_mask_ballot reads the byte mask, one warp ballot per 32 rows, and
+// writes each word's bits and __popc; the wrapper's torch.cumsum and
+// repro_compact_scatter then run exactly as for B2.  Bound: bytes, per row
+// 1 B of mask + 8 B x columns.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,6 +60,27 @@ __global__ void compact_scatter_kernel(const CompactArgs args,
   if (i >= total) {
     for (int c = 0; c < args.n_cols; ++c) args.out[c][i] = 0u;
   }
+}
+
+__global__ void mask_ballot_kernel(const uint8_t* __restrict__ mask, long long n,
+                                   long long n_words, uint32_t* __restrict__ words,
+                                   int* __restrict__ per_word) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if ((i >> 5) >= n_words) return;  // whole warps leave together
+  const unsigned bits = __ballot_sync(0xffffffffu, i < n && mask[i] != 0);
+  if ((threadIdx.x & 31) == 0) {
+    words[i >> 5] = bits;
+    per_word[i >> 5] = __popc(bits);
+  }
+}
+
+extern "C" int repro_mask_ballot(const uint8_t* mask, long long n, long long n_words,
+                                 uint32_t* words, int* per_word, void* stream) {
+  const int threads = 256;
+  unsigned blocks = (unsigned)((n_words * 32 + threads - 1) / threads);
+  mask_ballot_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(mask, n, n_words, words,
+                                                                   per_word);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int repro_word_popcount(const uint32_t* words, long long n_words, int* out,

@@ -1,0 +1,11 @@
+"""Sharded study execution over ``torch.distributed`` (the port of the
+study side of ``repro.distributed``): ``execute_plan_sharded`` runs a plan
+shard-local on every rank of a process group, ``comm`` holds its
+collectives and ``launch`` spawns the ranks on one host.  Model sharding
+(``sharding.py``, ``hints.py``, ``gpipe``) is not ported yet (ROADMAP A9).
+"""
+from repro_torch.distributed.pipeline import (execute_plan_sharded,
+                                              pad_tables_for_mesh,
+                                              shard_rows)
+
+__all__ = ["execute_plan_sharded", "pad_tables_for_mesh", "shard_rows"]

@@ -1,0 +1,107 @@
+"""The collectives of the sharded study path over a ``torch.distributed``
+process group: the exchange's all-to-all, the sums of counts, stats and
+cohort bitsets, and the gather of table outputs.
+
+The group's backend decides the transport.  NCCL takes CUDA tensors
+directly.  Gloo moves host tensors only for these collectives, and it is
+what several ranks sharing one card must use (NCCL refuses two ranks on one
+device), so under gloo a CUDA tensor is staged through pinned host memory
+around the collective.  That is the collective's transport, not a fallback:
+every kernel still runs on the card.  ``stats`` counts the collectives and
+the staging's bytes and host seconds (``reset_stats`` sets them to 0).
+"""
+from __future__ import annotations
+
+import time
+import torch
+import torch.distributed as dist
+
+__all__ = ["world_size", "group_key", "all_to_all", "all_reduce_sum",
+           "all_gather_cat", "stats", "reset_stats"]
+
+stats = {"collectives": 0, "staged_bytes": 0, "staging_s": 0.0}
+
+
+def reset_stats() -> None:
+    stats.update(collectives=0, staged_bytes=0, staging_s=0.0)
+
+
+def world_size(group) -> int:
+    """The shard count of a process group (raises TypeError for anything
+    else passed as a mesh)."""
+    if not isinstance(group, dist.ProcessGroup):
+        raise TypeError(f"mesh must be a torch.distributed process group, "
+                        f"got {type(group).__name__}")
+    return dist.get_world_size(group)
+
+
+def group_key(group) -> tuple:
+    """The group's size and global ranks, for cache keys (the reference
+    keys its executables on the mesh's content)."""
+    return (dist.get_world_size(group),
+            tuple(dist.get_process_group_ranks(group)))
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    return x.device.type == "cuda" and dist.get_backend(group) != "nccl"
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    t0 = time.perf_counter()
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    stats["staging_s"] += time.perf_counter() - t0
+    stats["staged_bytes"] += x.numel() * x.element_size()
+    return host
+
+
+def _to_device(host: torch.Tensor, device) -> torch.Tensor:
+    t0 = time.perf_counter()
+    out = host.to(device)
+    stats["staging_s"] += time.perf_counter() - t0
+    stats["staged_bytes"] += host.numel() * host.element_size()
+    return out
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``recv[s] = send_s[me]`` over the leading axis, which has one slot
+    per rank (``jax.lax.all_to_all(x, axis, 0, 0)``)."""
+    stats["collectives"] += 1
+    x = x.contiguous()
+    if _staged(x, group):
+        send = _to_host(x)
+        recv = torch.empty_like(send, pin_memory=True)
+        dist.all_to_all_single(recv, send, group=group)
+        return _to_device(recv, x.device)
+    recv = torch.empty_like(x)
+    dist.all_to_all_single(recv, x, group=group)
+    return recv
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise sum over ranks (``jax.lax.psum``), as a new tensor."""
+    stats["collectives"] += 1
+    if _staged(x, group):
+        host = _to_host(x)
+        dist.all_reduce(host, group=group)
+        return _to_device(host, x.device)
+    out = x.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def all_gather_cat(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated in rank order along
+    the leading axis."""
+    stats["collectives"] += 1
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    if _staged(x, group):
+        send = _to_host(x)
+        recv = torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                           pin_memory=True)
+        dist.all_gather(list(recv.unbind(0)), send, group=group)
+        return _to_device(recv, x.device).reshape((-1,) + tuple(x.shape[1:]))
+    recv = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    dist.all_gather(list(recv.unbind(0)), x, group=group)
+    return recv.reshape((-1,) + tuple(x.shape[1:]))

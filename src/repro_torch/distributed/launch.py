@@ -1,0 +1,196 @@
+"""Spawn the ranks of one ``torch.distributed`` process group on one host.
+
+``spawn(fn, n, args, device=...)`` starts ``n`` processes with the
+``spawn`` start method (never ``fork``: the parent may hold a CUDA
+context), joins them through a ``FileStore`` in ``store_dir``, runs
+``fn(group, device, *args)`` on every rank and returns the ranks' results
+in rank order.  ``device`` defaults to the card, as every entry point of
+the port does, and raises without CUDA; pass ``device="cpu"`` to run the
+ranks on the CPU.  ``fn`` must be importable from a module (it is pickled by
+name); its result must be picklable host data.  Every rank uses the one
+given device and one CPU thread: several ranks may share one card, which
+NCCL refuses, so the group's backend is gloo.  On a CUDA device a rank
+loads the kernel library the parent built (``build.library()`` before
+``spawn``) and never builds it itself.
+
+``study_rank``, ``flatten_rank`` and ``exposures_rank`` are the rank
+functions of the sharded study path: they take numpy tables, run one entry
+point sharded over the group, and return numpy results; ``tasks_rank``
+runs several of them in one job.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.core.columnar import resolve_device
+
+__all__ = ["spawn", "tasks_rank", "study_rank", "flatten_rank",
+           "exposures_rank", "result_to_numpy"]
+
+
+def _rank_main(rank: int, n: int, store_path: str, device: str,
+               timeout: float, fn: Callable, args: Tuple, results) -> None:
+    try:
+        torch.set_num_threads(1)
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            from repro_torch.kernels import build
+
+            dev = torch.device("cuda", dev.index or 0)
+            torch.cuda.set_device(dev)
+            build.load_built()
+        store = dist.FileStore(store_path, n)
+        dist.init_process_group(
+            "gloo", store=store, rank=rank, world_size=n,
+            timeout=datetime.timedelta(seconds=timeout))
+        try:
+            out = fn(dist.group.WORLD, dev, *args)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:      # SystemExit too: the parent reports it
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def spawn(fn: Callable, n: int, args: Sequence = (), device=None,
+          timeout: float = 600.0, store_dir: str = None) -> List[Any]:
+    """Run ``fn(group, device, *args)`` on ``n`` spawned ranks; their
+    results in rank order.  Raises ``RuntimeError`` with the rank's
+    traceback as soon as one rank fails, and ``TimeoutError`` past
+    ``timeout`` seconds; either way every rank is stopped."""
+    device = resolve_device(device)
+    ctx = mp.get_context("spawn")
+    own_dir = store_dir is None
+    store_dir = tempfile.mkdtemp() if own_dir else store_dir
+    store_path = os.path.join(store_dir, f"store_{os.getpid()}_{time.time_ns()}")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, n, store_path, str(device), timeout, fn,
+                               tuple(args), results),
+                         daemon=True)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    out: Dict[int, Any] = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(out) < n:
+            try:
+                r, ok, payload = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"a rank exited with code {dead[0]} "
+                                       f"and no result")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{n} ranks did not finish within "
+                                       f"{timeout} s")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {r} of {n} failed:\n{payload}")
+            out[r] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=30 if len(out) == n else 1)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        results.close()
+        if own_dir:
+            for f in os.listdir(store_dir):
+                os.remove(os.path.join(store_dir, f))
+            os.rmdir(store_dir)
+    return [out[r] for r in range(n)]
+
+
+def tasks_rank(group, device, tasks: Sequence[Tuple[Callable, Tuple]]
+               ) -> List[Any]:
+    """``[fn(group, device, *args) for fn, args in tasks]`` on one rank."""
+    return [fn(group, device, *args) for fn, args in tasks]
+
+
+def result_to_numpy(res) -> Dict[str, Any]:
+    """A ``StudyResult`` as host data: event tables (numpy star form),
+    cohort words and descriptions, flow rows, FlatteningStats, the
+    OperationLog without ``ts``, and the plan that ran."""
+    from repro_torch.interop import tables_to_numpy
+
+    return {
+        "events": tables_to_numpy(res.events),
+        "cohorts": {name: {"subjects": c.subjects.cpu().numpy(),
+                           "description": c.description,
+                           "count": c.subject_count()}
+                    for name, c in res.cohorts.items()},
+        "flow": res.flow.flowchart() if res.flow is not None else None,
+        "flatten_stats": res.flatten_stats,
+        "log": [{k: v for k, v in e.items() if k != "ts"}
+                for e in res.log.entries],
+        "plan": res.plan,
+    }
+
+
+def study_rank(group, device, study, star: Mapping[str, Mapping],
+               runs: Sequence[Tuple[str, str]], axis_name: str = "data"
+               ) -> List[Dict[str, Any]]:
+    """``study.run(mesh=group, axis_name=axis_name)`` on the numpy ``star``
+    once per ``(engine, predicate_engine)`` in ``runs``; per run
+    ``result_to_numpy`` plus the kernel launches and collectives of that
+    run and its wall seconds."""
+    from repro_torch.distributed import comm
+    from repro_torch.interop import tables_from_numpy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    tables = tables_from_numpy(star, device=device)
+    out = []
+    for engine, peng in runs:
+        reset_launch_counts()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        res = study.run(dict(tables), engine=engine, predicate_engine=peng,
+                        mesh=group, axis_name=axis_name, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        summary = result_to_numpy(res)
+        summary.update(launches=dict(launch_counts), comm=dict(comm.stats),
+                       seconds=time.perf_counter() - t0)
+        out.append(summary)
+    return out
+
+
+def flatten_rank(group, device, schema, star: Mapping[str, Mapping],
+                 engine: str = "torch") -> Dict[str, Any]:
+    """``distributed_flatten`` of the numpy ``star``: the flat table (numpy
+    star form) and the summed overflow."""
+    from repro_torch.core.flattening import distributed_flatten
+    from repro_torch.interop import tables_from_numpy, tables_to_numpy
+
+    flat, overflow = distributed_flatten(
+        schema, tables_from_numpy(star, device=device), group, engine=engine)
+    return {"flat": tables_to_numpy({"flat": flat})["flat"],
+            "overflow": int(overflow)}
+
+
+def exposures_rank(group, device, table: Mapping, n_patients: int,
+                   kwargs: Mapping) -> Dict[str, Any]:
+    """``exposures_sharded`` of one numpy table (numpy star form)."""
+    from repro_torch.core.transformers import exposures_sharded
+    from repro_torch.interop import tables_from_numpy, tables_to_numpy
+
+    t = tables_from_numpy({"t": table}, device=device)["t"]
+    out = exposures_sharded(t, n_patients, group, **dict(kwargs))
+    return tables_to_numpy({"t": out})["t"]

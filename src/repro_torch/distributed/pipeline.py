@@ -1,0 +1,170 @@
+"""Sharded study-plan execution over a ``torch.distributed`` process group.
+
+The port of ``repro.distributed.pipeline``'s study half
+(``pad_tables_for_mesh``, ``execute_plan_sharded``).  The mesh is a process
+group: its size is the shard count and every rank runs this code on its own
+device.  Where the reference's ``shard_map`` splits each source over the
+mesh axis, each rank takes its contiguous row block of every source
+(``shard_rows``); ``psum`` becomes ``comm.all_reduce_sum`` and the
+concatenated ``P(axis)`` outputs become ``comm.all_gather_cat``.  The
+pipeline-parallel model stack (``gpipe``, ``pipeline_transformer``) is not
+ported yet (ROADMAP A9).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import bitset as _bs
+from repro_torch.core.columnar import ColumnarTable
+from repro_torch.distributed import comm
+
+__all__ = ["execute_plan_sharded", "pad_tables_for_mesh", "shard_rows",
+           "gather_table"]
+
+_M32 = 1 << 32
+
+
+def pad_tables_for_mesh(tables: Mapping[str, ColumnarTable], n_shards: int
+                        ) -> Dict[str, ColumnarTable]:
+    """Pad table capacities to a multiple of ``32 * n_shards`` so the packed
+    validity words split across the shards exactly on row boundaries (each
+    shard's word slice is the bitset of its local rows).  Idempotent."""
+    quantum = 32 * int(n_shards)
+    out = {}
+    for name, t in tables.items():
+        cap = -(-t.capacity // quantum) * quantum
+        out[name] = t.pad_to(cap) if cap != t.capacity else t
+    return out
+
+
+def shard_rows(table: ColumnarTable, rank: int, n_shards: int
+               ) -> ColumnarTable:
+    """Rank ``rank``'s contiguous row block of a table whose capacity is a
+    multiple of ``32 * n_shards`` (views, no copy)."""
+    if table.capacity % (32 * n_shards):
+        raise ValueError(f"capacity {table.capacity} is not a multiple of "
+                         f"32 x {n_shards}; pad_tables_for_mesh first")
+    lc = table.capacity // n_shards
+    lo = rank * lc
+    words = table.valid[lo // 32:(lo + lc) // 32]
+    return ColumnarTable({k: v[lo:lo + lc] for k, v in table.columns.items()},
+                         words, _bs.count(words), lc)
+
+
+def gather_table(table: ColumnarTable, group) -> ColumnarTable:
+    """Every rank's table (equal schemas and 32-aligned capacities),
+    concatenated in rank order, with the popcount as its count; one
+    all-gather per column and one for the validity words."""
+    n = comm.world_size(group)
+    if table.capacity % 32:
+        raise ValueError(f"gather_table needs a 32-aligned capacity, got "
+                         f"{table.capacity}")
+    cols = {k: comm.all_gather_cat(v, group)
+            for k, v in table.columns.items()}
+    words = comm.all_gather_cat(table.valid, group)
+    return ColumnarTable(cols, words, _bs.count(words), n * table.capacity)
+
+
+def _aligned(t: ColumnarTable) -> ColumnarTable:
+    """32-align the local capacity so the shard-concatenated validity words
+    stay row-exact."""
+    cap = -(-t.capacity // 32) * 32
+    return t if cap == t.capacity else t.pad_to(cap)
+
+
+def execute_plan_sharded(plan, tables, n_patients: int, mesh,
+                         axis_name: str = "data", engine: str = "torch",
+                         predicate_engine=None):
+    """Execute a study ``Plan`` shard-local on every rank of ``mesh``.
+
+    Requirement (as for ``transformers.exposures_sharded``): the event
+    tables are patient-partitioned once the plan's exchanges ran, so every
+    per-patient operation is shard-local.  Cross-shard stitches are sums
+    only: each patient lives on one shard, so partial subject bitsets are
+    disjoint and their int32 sum is their OR; local counts, stats and
+    overflows sum to the global ones (the uint32 key checksums modulo
+    2**32).
+
+    ``axis_name`` is kept for the reference's signature: the group alone
+    gives the shard count and makes the exchanges real.  Every rank passes
+    the same global ``tables`` (every rank planned from
+    them, so the plans agree); each pads them to ``32 * n`` rows and runs
+    its row block.  Table outputs come back on every rank, each shard's
+    block 32-aligned and concatenated in rank order, with the global count.
+    Returns ``(vals, counts, stats)`` shaped like the local executor's
+    (counts and stats as host ints) so ``Study.run`` shares its realization
+    path."""
+    from repro_torch.kernels import predicate as _pk
+    from repro_torch.study.executor import (cached_executable, env_device,
+                                            run_plan_body, traced_ids)
+    from repro_torch.study.plan import COHORT_OPS, TABLE_OPS
+
+    n = comm.world_size(mesh)
+    me = dist.get_rank(mesh)
+    missing = [s for s in plan.sources() if s not in tables]
+    if missing:
+        raise KeyError(f"plan scans source(s) {missing} but run() only got "
+                       f"{sorted(tables)}")
+    env = pad_tables_for_mesh({s: tables[s] for s in plan.sources()}, n)
+    local = {s: shard_rows(t, me, n) for s, t in env.items()}
+
+    out_ids = {i for _, i in plan.outputs}
+    table_ids = tuple(i for i in sorted(out_ids)
+                      if plan.nodes[i].op in TABLE_OPS)
+    # base cohort bitsets cross shards; interior cohort_op bits stay local
+    # (the Study layer replays the algebra), named cohort outputs export
+    cohort_ids = tuple(i for i, nd in enumerate(plan.nodes)
+                       if nd.op == "cohort_from_events"
+                       or (nd.op in COHORT_OPS and i in out_ids))
+    ev_ids = tuple(sorted(set(table_ids) | {
+        nd.inputs[0] for nd in plan.nodes if nd.op == "cohort_from_events"}))
+    device = env_device(local)
+    peng = _pk.resolve_engine(predicate_engine, engine, device)
+    key = (plan.key(), n_patients, engine, peng, comm.group_key(mesh),
+           str(device))
+
+    def build():
+        def run(local, group):
+            vals, counts, stats = run_plan_body(
+                plan, local, n_patients, engine, n_shards=n, predicate_engine=peng, group=group,
+                keep=tuple(sorted(set(ev_ids) | set(cohort_ids))))
+            # each local block goes as soon as its gather is done
+            t_out = {i: gather_table(_aligned(vals.pop(i)), group)
+                     for i in ev_ids}
+            b_out = {}
+            if cohort_ids:
+                words = comm.all_reduce_sum(
+                    torch.cat([vals[i] for i in cohort_ids]), group)
+                for i, w in zip(cohort_ids,
+                                words.split([vals[i].shape[0]
+                                             for i in cohort_ids])):
+                    b_out[i] = w
+            # every count and stat in one int64 sum
+            ids = tuple(sorted(counts))
+            flat = [(i, k) for i in sorted(stats) for k in stats[i]]
+            vec = torch.stack([counts[i].to(device, torch.int64)
+                               for i in ids]
+                              + [stats[i][k].to(device, torch.int64)
+                                 for i, k in flat])
+            host = comm.all_reduce_sum(vec, group).cpu().tolist()
+            c_out = dict(zip(ids, host[:len(ids)]))
+            s_out: Dict[int, Dict[str, int]] = {}
+            for (i, k), v in zip(flat, host[len(ids):]):
+                s_out.setdefault(i, {})[k] = \
+                    v % _M32 if k.startswith("key_sum") else v
+            return t_out, b_out, c_out, s_out
+
+        return run
+
+    fn = cached_executable(key, build)
+    t_out, b_out, c_out, s_out = fn(local, mesh)
+    counts = {i: int(c_out[i]) for i in traced_ids(plan)}
+    vals = {i: ColumnarTable(t.columns, t.valid,
+                             torch.tensor(counts[i], dtype=torch.int32,
+                                          device=device), t.capacity)
+            for i, t in t_out.items()}
+    vals.update(b_out)
+    return vals, counts, s_out

@@ -22,7 +22,8 @@ PREDICATE_ENGINES = ("torch", "cuda", "auto")
 # Launches of each kernel wrapper: one is added where the wrapper launches
 # its kernel, and nowhere else (plain-version calls do not count).
 launch_counts = {"predicate_bitset": 0, "filter_compact": 0, "bitset_op": 0,
-                 "segmented_scan": 0, "flash_attention": 0}
+                 "segmented_scan": 0, "flash_attention": 0,
+                 "filter_compact_mask": 0, "hash_partition_plan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -34,7 +35,7 @@ def require_kernel_operand(t: torch.Tensor, name: str,
                            dtypes=(torch.int32, torch.float32),
                            contiguous: bool = True) -> None:
     """A kernel operand must be a CUDA tensor of one of ``dtypes`` (by
-    default the 4-byte int32/float32 of B1-B4) and, unless the kernel takes
+    default the 4-byte int32/float32 of B1-B5) and, unless the kernel takes
     strides (``contiguous=False``), contiguous."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name}: kernel operand must be a CUDA tensor")

@@ -21,13 +21,13 @@ from pathlib import Path
 from typing import Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "library",
-           "build_info"]
+           "load_built", "build_info"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu",
-           "segment_scan.cu", "swa_attention.cu")
+           "segment_scan.cu", "swa_attention.cu", "hash_partition.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -58,8 +58,12 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _library_path() -> Path:
+    return BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+
+
 def _build() -> dict:
-    so = BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+    so = _library_path()
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "built": False, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -102,6 +106,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_word_popcount.restype = _I32
     lib.repro_compact_scatter.argtypes = [_P, _P, _P, _I64, _I64, _P]
     lib.repro_compact_scatter.restype = _I32
+    lib.repro_mask_ballot.argtypes = [_P, _I64, _I64, _P, _P, _P]
+    lib.repro_mask_ballot.restype = _I32
+    # keys, words, n, n_dest, block, dest, rank, hist, stream
+    lib.repro_hash_partition.argtypes = [_P, _P, _I64, _I32, _I32, _P, _P, _P,
+                                         _P]
+    lib.repro_hash_partition.restype = _I32
     lib.repro_bitset_op.argtypes = [_P, _P, _P, _I64, _I32, _P, _P]
     lib.repro_bitset_op.restype = _I32
     lib.repro_segmented_scan.argtypes = [_P, _P, _I64, _I64, _I32, _I32, _P,
@@ -114,14 +124,34 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.restype = _I32
 
 
+def _load(info: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(info["path"])
+    _declare(lib)
+    _STATE["info"], _STATE["lib"] = info, lib
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call."""
     with _LOCK:
         if _STATE["lib"] is None:
-            info = _build()
-            lib = ctypes.CDLL(info["path"])
-            _declare(lib)
-            _STATE["info"], _STATE["lib"] = info, lib
+            _load(_build())
+        return _STATE["lib"]
+
+
+def load_built() -> ctypes.CDLL:
+    """Load the library another process already built from these sources;
+    raise instead of building (the ranks of a sharded run load the parent's
+    build and never start ``nvcc`` themselves)."""
+    with _LOCK:
+        if _STATE["lib"] is None:
+            so = _library_path()
+            if not so.exists():
+                raise RuntimeError(
+                    f"kernel library {so} is not built: call "
+                    f"build.library() before spawning the ranks")
+            _load({"path": str(so), "seconds": 0.0, "built": False,
+                   "log": ""})
         return _STATE["lib"]
 
 

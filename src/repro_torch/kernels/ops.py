@@ -13,12 +13,14 @@ import torch
 from repro_torch.core import bitset as _bs
 from repro_torch.kernels import bitset_ops as _bo
 from repro_torch.kernels import filter_compact as _fc
+from repro_torch.kernels import hash_partition as _hp
 from repro_torch.kernels import segment_scan as _ss
 from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels.predicate import predicate_bitset  # noqa: F401 (re-export)
 
 __all__ = ["filter_compact", "filter_compact_table", "bitset_op",
-           "segmented_scan", "predicate_bitset", "flash_attention"]
+           "segmented_scan", "predicate_bitset", "flash_attention",
+           "hash_partition_plan"]
 
 
 def filter_compact_table(columns: Dict[str, torch.Tensor], words: torch.Tensor
@@ -35,10 +37,39 @@ def filter_compact_table(columns: Dict[str, torch.Tensor], words: torch.Tensor
     return dict(zip(names, out)), cnt
 
 
-def filter_compact(vals: torch.Tensor, words: torch.Tensor):
-    """Compact one column by packed ``words``; returns ``(vals, count)``."""
-    out, cnt = filter_compact_table({"v": vals}, words)
-    return out["v"], cnt
+def filter_compact(vals: torch.Tensor, mask: torch.Tensor):
+    """Compact ``vals[mask]`` to the front; returns ``(vals, count)``, slots
+    past ``count`` zero.
+
+    As the reference dispatches on the mask's dtype: an int32 ``mask`` is
+    the packed ``ceil(n/32)``-word keep-mask (the reference's uint32 words,
+    B2); any other dtype is a ``(n,)`` row mask read as bool (the
+    reference's ``mask.astype(bool)``, B2b)."""
+    if mask.dtype == torch.int32:
+        out, cnt = filter_compact_table({"v": vals}, mask)
+        return out["v"], cnt
+    mask = mask.to(torch.bool)
+    if mask.shape != vals.shape[:1]:
+        raise ValueError(f"filter_compact: {vals.shape[0]} rows need a "
+                         f"({vals.shape[0]},) mask, got {tuple(mask.shape)}")
+    if mask.device.type == "cuda":
+        out, cnt = _fc.filter_compact_mask([vals], mask)
+    else:
+        out, cnt = _fc.filter_compact_mask_plain([vals], mask)
+    return out[0], cnt
+
+
+def hash_partition_plan(keys: torch.Tensor, valid: torch.Tensor,
+                        n_dest: int, block: int = _hp.DEFAULT_BLOCK):
+    """Shuffle plan: ``(dest (n,), rank-within-block (n,), hist
+    (ceil(n/block), n_dest))``.  ``valid`` is the table's packed int32
+    validity words (a row mask raises ``TypeError``: ``bitset.pack`` it)."""
+    if valid.dtype != torch.int32:
+        raise TypeError(f"valid must be packed int32 validity words, got "
+                        f"{valid.dtype}")
+    if keys.device.type == "cuda":
+        return _hp.hash_partition_plan_kernel(keys, valid, n_dest, block)
+    return _hp.hash_partition_plan_plain(keys, valid, n_dest, block)
 
 
 def bitset_op(a: torch.Tensor, b: torch.Tensor, op: str):

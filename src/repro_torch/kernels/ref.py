@@ -8,7 +8,11 @@ from __future__ import annotations
 
 from repro_torch.kernels.bitset_ops import bitset_op_plain as bitset_op_ref
 from repro_torch.kernels.filter_compact import \
+    filter_compact_mask_plain as filter_compact_mask_ref
+from repro_torch.kernels.filter_compact import \
     filter_compact_plain as filter_compact_ref
+from repro_torch.kernels.hash_partition import \
+    hash_partition_plan_plain as hash_partition_plan_ref
 from repro_torch.kernels.predicate import \
     predicate_bitset_plain as predicate_bitset_ref
 # the Pallas kernel's semantics, which differ from the reference's sequential
@@ -17,5 +21,6 @@ from repro_torch.kernels.segment_scan import segmented_scan_plain
 from repro_torch.kernels.swa_attention import \
     flash_swa_attention_plain as attention_ref
 
-__all__ = ["attention_ref", "bitset_op_ref", "filter_compact_ref",
+__all__ = ["attention_ref", "bitset_op_ref", "filter_compact_mask_ref",
+           "filter_compact_ref", "hash_partition_plan_ref",
            "predicate_bitset_ref", "segmented_scan_plain"]

@@ -2,9 +2,10 @@
 features (the paper's three layers) behind one Plan.
 
 The port of ``repro.study.api``.  ``run`` puts the tables on ``device``
-(None means CUDA) and executes the optimized plan there.  Static checks
-(ROADMAP A5), chunked runs (A6) and mesh runs (A8) are not ported yet and
-raise ``NotImplementedError``.
+(None means CUDA) and executes the optimized plan there, or, given a
+``torch.distributed`` process group as ``mesh``, shard-local on every rank
+of it.  Static checks (ROADMAP A5) and chunked runs (A6) are not ported yet
+and raise ``NotImplementedError``.
 
 User code reads like the paper's supplementary notebooks::
 
@@ -413,35 +414,55 @@ class Study:
     def run(self, tables: Optional[Dict[str, ColumnarTable]] = None,
             engine: str = "torch", optimize: bool = True,
             log: Optional[OperationLog] = None, mesh=None,
+            axis_name: str = "data",
             predicate_engine: Optional[str] = None,
             device=None) -> StudyResult:
         """Optimize, execute on ``device`` (None = CUDA; raises where CUDA
         is absent), realize cohorts and flow, and auto-log provenance.
 
         Tables not already on ``device`` are moved there.  ``engine``
-        ("torch" | "cuda") picks the compaction and cohort-algebra path;
-        ``predicate_engine`` ("torch" | "cuda" | "auto"/None) picks how
+        ("torch" | "cuda") picks the compaction, cohort-algebra and shuffle
+        path; ``predicate_engine`` ("torch" | "cuda" | "auto"/None) picks how
         predicate/fused_mask nodes evaluate: torch mask algebra or the CUDA
         Expr->bitset kernel, whose packed words become the table validity
         directly.  The optimizer stamps the resolved choice — and the
         ``bitset_u32`` validity layout — on each node so the OperationLog
-        records it."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "run(mesh=...): distribution is not ported yet (ROADMAP A8)")
+        records it.
+
+        ``mesh`` (a ``torch.distributed`` process group; ``axis_name`` is
+        kept for the reference's signature) runs the plan sharded: every
+        rank calls ``run`` with the same global tables, plans from them for
+        ``n_shards`` = the group's size, runs its row block with real
+        exchanges, and gets the whole result (``execute_plan_sharded``)."""
         dev = resolve_device(device)
         env = {k: t.to(dev)
                for k, t in {**self._sources, **(tables or {})}.items()}
-        plan = (self.optimized_plan(tables=env,
+        n_shards = 1
+        if mesh is not None:
+            from repro_torch.distributed import comm
+
+            n_shards = comm.world_size(mesh)
+        plan = (self.optimized_plan(tables=env, n_shards=n_shards,
                                     predicate_engine=predicate_engine or "auto",
                                     engine=engine, device=dev)
                 if optimize else self.plan())
         log = log if log is not None else OperationLog()
         join_stats: Dict[int, Dict[str, int]] = {}
-        vals = _executor.execute(plan, env, n_patients=self.n_patients,
-                                 engine=engine, log=log,
-                                 stats_sink=join_stats,
-                                 predicate_engine=predicate_engine)
+        if mesh is not None:
+            from repro_torch.distributed.pipeline import execute_plan_sharded
+
+            vals, counts, join_stats = execute_plan_sharded(
+                plan, env, self.n_patients, mesh, axis_name=axis_name,
+                engine=engine, predicate_engine=predicate_engine)
+            _executor.record_plan(plan, counts, log, engine,
+                                  stats=join_stats,
+                                  predicate_engine=predicate_engine,
+                                  device=dev)
+        else:
+            vals = _executor.execute(plan, env, n_patients=self.n_patients,
+                                     engine=engine, log=log,
+                                     stats_sink=join_stats,
+                                     predicate_engine=predicate_engine)
         for i, d in join_stats.items():
             d.setdefault("stage", plan.nodes[i].label())
         return self._finish_result(plan, vals, join_stats, log)

@@ -131,8 +131,8 @@ def _key_checksum(t: ColumnarTable, key: str) -> torch.Tensor:
 
 
 def _eval_node(node, ins, env: Dict[str, ColumnarTable], n_patients: int,
-               engine: str, axis_name: Optional[str] = None,
-               n_shards: int = 1, predicate_engine: str = "torch"):
+               engine: str, n_shards: int = 1,
+               predicate_engine: str = "torch", group=None):
     op = node.op
     if op in ("scan", "scan_star"):
         src = node.get("source")
@@ -156,17 +156,27 @@ def _eval_node(node, ins, env: Dict[str, ColumnarTable], n_patients: int,
                                   prefix=node.get("prefix") or "")
         return out, _stats_dict(fs)
     if op == "exchange":
-        if axis_name is not None and n_shards > 1:
-            raise NotImplementedError(
-                "exchange across shards is not ported yet (ROADMAP A8)")
-        # off-mesh (or single shard): the shuffle is the identity
         t = ins[0]
-        ksum_in = _key_checksum(t, node.get("key"))
+        key = node.get("key")
+        ksum_in = _key_checksum(t, key)
         zero = torch.zeros((), dtype=torch.int32, device=t.device)
-        return t, {"rows_in": t.count, "rows_out": t.count,
-                   "matched": t.count, "overflow": zero,
-                   "null_keys": zero, "key_sum_in": ksum_in,
-                   "key_sum_out": ksum_in}
+        if group is None or n_shards <= 1:
+            # off-mesh (or single shard): the shuffle is the identity; the
+            # process group, not axis_name, says whether there is a mesh
+            return t, {"rows_in": t.count, "rows_out": t.count,
+                       "matched": t.count, "overflow": zero,
+                       "null_keys": zero, "key_sum_in": ksum_in,
+                       "key_sum_out": ksum_in}
+        per = node.get("per_dest_capacity")
+        if per is None:
+            per = max(int(node.get("min_per_dest") or 64),
+                      int(t.capacity * (node.get("slack") or 2.0) / n_shards))
+        out, overflow = _fl.exchange(t, key, group, n_shards, per,
+                                     engine=engine)
+        return out, {"rows_in": t.count, "rows_out": out.count,
+                     "matched": out.count, "overflow": overflow,
+                     "null_keys": zero, "key_sum_in": ksum_in,
+                     "key_sum_out": _key_checksum(out, key)}
     if op == "slice_time":
         t = ins[0]
         out = t.filter(_expr.node_predicate(node).evaluate(t))
@@ -323,27 +333,39 @@ def env_device(env: Dict[str, ColumnarTable]) -> Optional[torch.device]:
 
 
 def run_plan_body(plan: Plan, env: Dict[str, ColumnarTable], n_patients: int,
-                  engine: str, axis_name: Optional[str] = None,
-                  n_shards: int = 1, predicate_engine: Optional[str] = None):
+                  engine: str, n_shards: int = 1,
+                  predicate_engine: Optional[str] = None, group=None, *,
+                  keep: Tuple[int, ...]):
     """node id -> value for every array-valued node, plus per-node counts
     (0-d tensors) and per-join FlatteningStats dicts.  ``predicate_engine``
     is the fallback for predicate nodes the optimizer did not stamp
-    (``"auto"``/None resolve by engine and device)."""
+    (``"auto"``/None resolve by engine and device).  Reused by
+    ``distributed.pipeline`` on every rank: ``n_shards`` and the process
+    ``group`` make exchange nodes real all-to-alls there; without a group
+    they are the identity.  Only the values of the ``keep`` nodes
+    are returned; every other value is dropped after its last consumer ran
+    (as XLA frees a buffer past its last use)."""
     _check_engine(engine)
     peng = _pk.resolve_engine(predicate_engine, engine, env_device(env))
+    ids = traced_ids(plan)
+    last_use = {j: i for i in ids for j in plan.nodes[i].inputs}
     vals: Dict[int, Any] = {}
     counts: Dict[int, torch.Tensor] = {}
     stats: Dict[int, Dict[str, torch.Tensor]] = {}
-    for i in traced_ids(plan):
+    for i in ids:
         node = plan.nodes[i]
         ins = [vals[j] for j in node.inputs]
-        out = _eval_node(node, ins, env, n_patients, engine, axis_name,
-                         n_shards, predicate_engine=peng)
+        out = _eval_node(node, ins, env, n_patients, engine, n_shards,
+                         predicate_engine=peng, group=group)
         if node.op in STATS_OPS:
             out, stats[i] = out
         vals[i] = out
         counts[i] = _node_count(node, vals[i])
-    return vals, counts, stats
+        del ins
+        for j in set(node.inputs):
+            if last_use[j] == i and j not in keep:
+                del vals[j]
+    return {i: vals[i] for i in keep}, counts, stats
 
 
 def _params_signature(lits, vecs) -> Tuple:
@@ -363,14 +385,15 @@ def _runner(plan: Plan, n_patients: int, engine: str,
         def run(env, lits=(), vecs=()):
             with _expr.bound_params(lits, vecs):
                 vals, counts, stats = run_plan_body(
-                    plan, env, n_patients, engine, predicate_engine=peng)
+                    plan, env, n_patients, engine, predicate_engine=peng,
+                    keep=keep)
             # counts leave as ONE stacked vector: a single host transfer for
             # provenance instead of one device sync per node
             ids = tuple(sorted(counts))
             dev = env_device(env)
             stacked = (torch.stack([counts[i].to(dev) for i in ids])
                        if ids else torch.zeros((0,), dtype=torch.int32))
-            return {i: vals[i] for i in keep}, stacked, stats
+            return vals, stacked, stats
 
         return run
 

@@ -46,7 +46,9 @@ def test_scan_sees_the_whole_package():
     for mod in ("core/columnar.py", "kernels/predicate.py",
                 "study/executor.py", "data/synthetic.py", "interop.py",
                 "models/lm.py", "serving/batching.py", "launch/serve.py",
-                "configs/archs.py"):
+                "configs/archs.py", "kernels/hash_partition.py",
+                "distributed/pipeline.py", "distributed/comm.py",
+                "distributed/launch.py"):
         assert mod in names
 
 
@@ -80,7 +82,8 @@ def test_tables_and_study_default_to_cuda(no_cuda):
 
 
 @pytest.mark.parametrize("name", ["predicate.cu", "filter_compact.cu",
-                                  "bitset_ops.cu", "swa_attention.cu"])
+                                  "bitset_ops.cu", "swa_attention.cu",
+                                  "hash_partition.cu"])
 def test_cuda_sources_carry_their_note(name):
     text = open(os.path.join(PKG, "csrc", name)).read()
     assert "Replaces the Pallas TPU kernel repro/kernels/" in text

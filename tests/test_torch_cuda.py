@@ -15,6 +15,8 @@ from repro_torch.core.columnar import NULL_INT
 from repro_torch.core import ColumnarTable
 from repro_torch.core import transformers as tr
 from repro_torch.kernels import bitset_ops, filter_compact, launch_counts
+from repro_torch.kernels import hash_partition as hp
+from repro_torch.kernels import ops
 from repro_torch.kernels import predicate as pk
 from repro_torch.kernels import segment_scan as ss
 from repro_torch.kernels import swa_attention as swa
@@ -116,6 +118,37 @@ def test_exposures_on_cuda_launch_the_segmented_scan(device):
     for k in want.columns:
         assert torch.equal(got.columns[k].view(torch.int32),
                            want.columns[k].view(torch.int32)), k
+
+
+@pytest.mark.parametrize("block", [256, 512, 1024])
+@pytest.mark.parametrize("n_dest", [1, 2, 4, 8, 15, 64])
+def test_hash_partition_kernel_matches_plain(device, n_dest, block):
+    rng = np.random.default_rng(n_dest)
+    n = 5 * block + 77
+    keys = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                            .astype(np.int32)).to(device)
+    words = bs.pack(torch.from_numpy(rng.random(n) < 0.8)).to(device)
+    before = launch_counts["hash_partition_plan"]
+    got = hp.hash_partition_plan_kernel(keys, words, n_dest, block)
+    assert launch_counts["hash_partition_plan"] == before + 1
+    want = hp.hash_partition_plan_plain(keys, words, n_dest, block)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", ["none", "all", "ragged"])
+def test_filter_compact_bool_mask_kernel_matches_plain(device, case):
+    rng = np.random.default_rng(11)
+    n = 100_003
+    mask = {"none": np.zeros(n, bool), "all": np.ones(n, bool),
+            "ragged": rng.random(n) < 0.3}[case]
+    vals = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(device)
+    m = torch.from_numpy(mask).to(device)
+    before = launch_counts["filter_compact_mask"]
+    got, cnt = ops.filter_compact(vals, m)
+    assert launch_counts["filter_compact_mask"] == before + 1
+    want, wcnt = filter_compact.filter_compact_mask_plain([vals], m)
+    assert int(cnt) == int(wcnt) == int(mask.sum())
+    assert torch.equal(got.view(torch.int32), want[0].view(torch.int32))
 
 
 # B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len: the sweep of

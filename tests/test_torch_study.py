@@ -201,7 +201,8 @@ def test_unported_surfaces_name_their_roadmap_item(dcir):
         s.check()
     with pytest.raises(NotImplementedError, match="A6"):
         s.run_chunked(None)
-    with pytest.raises(NotImplementedError, match="A8"):
+    # mesh runs are ported (A8's study side): a mesh is a process group
+    with pytest.raises(TypeError, match="process group"):
         s.run(dict(port_tables), mesh=object(), device="cpu")
 
 
