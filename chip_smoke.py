@@ -33,25 +33,32 @@ nothing falls back to the CPU):
      over the reference's test sweep and h2o-danube-1.8b's shapes (prefill
      to 8,192 tokens with window 4,096, full-cache decode offsets, the
      ring-buffer mode, ragged shapes), fp32 within 2e-5 and bf16 within
-     2e-2;
+     2e-2; every call of at most 16 rows per KV head (group x Sq) must take
+     the decode route (split-KV flash-decoding, ``csrc/swa_decode.cu``),
+     every other call the prefill kernel;
   7. serving: h2o-danube-1.8b at full width (24 layers, bf16, random weights
      from a seeded generator on the card): a 2 x 8,192-token prefill under
      the cuda and torch attention engines (B6 launched once per layer, the
-     last-token logits within 0.1), the continuous batcher (4 slots, every
-     cache a 4,096-slot ring, 8 requests of 16-256 prompt tokens, 32 new
-     each: all finish), a teacher-forced decode past position 4,096 (the
-     ring wraps) under both engines in fp32 (within 1e-3) and bf16 (within
-     0.1), cut to 4 layers at full width, and the reduced config on the card
-     against the CPU (within 1e-5); B6 is timed at the prefill's shape and
-     at the batcher's decode shape over a full ring, beside its plain
+     last-token logits within 0.1; the decode route never taken), the
+     continuous batcher (4 slots, every cache a 4,096-slot ring, 8 requests
+     of 16-256 prompt tokens, 32 new each: all finish; every attention call
+     takes the decode route), a teacher-forced decode past position 4,096
+     (the ring wraps; its wall before and after the wrap) under both
+     engines in fp32 (within 1e-3) and bf16 (within 0.1), cut to 4 layers
+     at full width, and the reduced config on the card against the CPU
+     (within 1e-5); B6 is timed at the prefill's shape and its decode route
+     at the batcher's shape over a full ring (the L2 cache cleared before
+     every rep: one layer's 42 MB of K/V would fit in it), beside its plain
      version, torch's scaled_dot_product_attention with a boolean mask (a
-     yardstick the port never calls) and its bound, and one prefill and one
-     warm batcher step are traced (``chiprun_out/serving_*_trace.json``).
+     yardstick the port never calls) and its bound, and one prefill, one
+     warm batcher step and one decode pass over full rings are traced
+     (``chiprun_out/serving_*_trace.json``).
   8. partition: B5 (the shuffle's plan) against its plain version, bit for
      bit, over 1-64 destinations, blocks 256/512/1024, ragged lengths,
-     invalid rows, NULL and negative keys; B2b (compaction by a bool mask)
-     through ``ops.filter_compact`` against its plain version up to 48M
-     rows, and timed there;
+     invalid rows, NULL and negative keys; B2b (compaction by a bool mask,
+     a single pass with decoupled look-back) through ``ops.filter_compact``
+     against its plain version at the edges of its 4,096-row tiles and up to
+     48M rows, once with 7 columns, and timed there;
   9. sharded: the quickstart through ``Study.run(mesh=group)`` on 4 gloo
      ranks of one process group, all on the one card, at
      ``--sharded-patients``: every rank launches B5 once per exchange (5),
@@ -66,9 +73,11 @@ nothing falls back to the CPU):
 
 Each kernel's launches are counted over the two studies' first runs, the
 serving path (prefill and batcher) and the sharded run's first cuda run
-(summed over ranks), with the counts set to 0 just before each.  B2b runs
-on none of these paths (no caller compacts by a bool mask): its count is
-0.  The last lines of standard output
+(summed over ranks), with the counts set to 0 just before each.  B6's
+``flash_attention`` count takes one per call on either route; its record's
+launches are those calls less the decode route's (``flash_decode``), which
+has a record of its own.  B2b runs on none of these paths (no caller
+compacts by a bool mask): its count is 0.  The last lines of standard output
 are the card's name and power limit, one JSON line with the kernel records,
 and ``{"ok": true, "device": {...}}``.
 """
@@ -117,13 +126,28 @@ def mem_rate(name: str) -> float:
     fail(f"no memory rate known for card {name!r}")
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` (after one warm-up)."""
+L2_FLUSH = {"buf": None}    # 256 MiB read before a cold rep: 5x the L2
+SPIN_CYCLES = 2_000_000     # ~1 ms of device spin ahead of every timed rep
+
+
+def cuda_ms(fn, reps: int, cold: bool = False) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` (after one warm-up).
+    Each rep starts behind a spin kernel of ~1 ms, so that the host has
+    queued all of ``fn``'s launches before the card reaches the first
+    event: the time is the card's, not the host's.  ``cold``: the L2 cache
+    is cleared before each rep, outside the timed window, by reading a
+    256 MiB buffer (a read leaves no dirty lines to write back)."""
     import torch
 
+    if cold and L2_FLUSH["buf"] is None:
+        L2_FLUSH["buf"] = torch.zeros(32 << 20, dtype=torch.int64,
+                                      device="cuda")
     fn()
     times = []
     for _ in range(reps):
+        if cold:
+            L2_FLUSH["buf"].sum()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -763,6 +787,12 @@ ATTN_SWEEP = [             # tests/test_kernels.py's sweep
     (1, 4, 1, 1, 512, 128, True, 128, None, None),
     (2, 2, 2, 96, 96, 32, False, 0, None, None),
     (1, 2, 1, 80, 160, 32, True, 0, None, None),
+    # the decode route at every head dim: many splits, 16 rows (Sq 4 x
+    # group 4), kv_len 0, a window crossing splits
+    (2, 16, 4, 4, 4096, 128, True, 1000, 3000, None),
+    (3, 8, 8, 1, 2049, 16, True, 0, 2048, None),
+    (2, 8, 1, 2, 1500, 32, True, 300, 1400, 1450),
+    (2, 8, 2, 1, 640, 64, False, 0, 9000, 0),
 ]
 ATTN_DANUBE = (            # h2o-danube-1.8b: Hq 32, Hkv 8, D 80, window 4096
     [(1, 32, 8, s, s, 80, True, 4096, None, None)             # prefill
@@ -770,7 +800,9 @@ ATTN_DANUBE = (            # h2o-danube-1.8b: Hq 32, Hkv 8, D 80, window 4096
     + [(1, 32, 8, 1, 8192, 80, True, 4096, off, 8192)          # full cache
        for off in (0, 4095, 4096, 8191)]
     + [(4, 32, 8, 1, 4096, 80, False, 0, 9000, kv)             # ring
-       for kv in (1, 17, 4096)]
+       for kv in (0, 1, 17, 4001, 4096)]
+    + [(4, 32, 8, 1, 4097, 80, False, 0, 9000, 4097),          # ragged ring
+       (1, 32, 8, 1, 8192, 80, True, 4096, 5000, 8192)]        # window edge
     + [(2, 32, 8, 100, 300, 80, True, 50, 200, None),          # ragged
        (1, 32, 8, 77, 4099, 80, True, 4096, 4022, None),
        (3, 32, 8, 5, 33, 80, True, 0, -2, None)])
@@ -806,9 +838,11 @@ def attention_battery(device) -> None:
     transposed (B, S, H, D) views, as the model passes them."""
     import torch
 
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels import swa_attention as swa
 
     worst = {}
+    n_decode = 0
     for i, case in enumerate(ATTN_SWEEP + ATTN_DANUBE):
         errs = []
         for dname in ATTN_TOL:
@@ -822,7 +856,13 @@ def attention_battery(device) -> None:
                 q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
                            for x in (q, k, v))
             kw = _attn_kwargs(case)
+            before = launch_counts["flash_decode"]
             got = swa.flash_swa_attention(q, k, v, **kw)
+            decode = (Hq // Hkv) * Sq <= swa.DECODE_ROWS
+            if launch_counts["flash_decode"] != before + int(decode):
+                fail(f"flash_attention {case}: the decode route was "
+                     f"{'not ' if decode else ''}taken")
+            n_decode += int(decode)
             want = swa.flash_swa_attention_plain(q, k, v, **kw)
             err = check_attention(got, want, str(case))
             w = worst.get(dname, (0.0, 0.0))
@@ -831,7 +871,8 @@ def attention_battery(device) -> None:
             del q, k, v, got, want
         log(f"attention: {case}: max abs / worst row error {', '.join(errs)}")
     n = len(ATTN_SWEEP) + len(ATTN_DANUBE)
-    log(f"attention: {2 * n} flash_attention kernel-vs-plain checks, max abs "
+    log(f"attention: {2 * n} flash_attention kernel-vs-plain checks "
+        f"({n_decode} on the decode route), max abs "
         f"/ worst row error fp32 {worst['float32'][0]} / "
         f"{worst['float32'][1]} (gates {ATTN_TOL['float32']} / "
         f"{ATTN_ROW_TOL['float32']}), bf16 {worst['bfloat16'][0]} / "
@@ -867,10 +908,11 @@ def attention_bound(q, k, kw, rate):
             "bytes" if t_bytes >= t_ops else "operations", pairs * B * Hq)
 
 
-def time_attention(label, q, k, v, kw, reps, rate) -> dict:
+def time_attention(label, q, k, v, kw, reps, rate, cold=False) -> dict:
     """B6 at one shape: kernel, plain version, and torch's
     scaled_dot_product_attention with an explicit boolean mask (on
-    contiguous copies, K/V repeated over the group; a yardstick only)."""
+    contiguous copies, K/V repeated over the group; a yardstick only);
+    ``cold``: the L2 cache is cleared before every rep of all three."""
     import torch
     import torch.nn.functional as F
 
@@ -898,10 +940,11 @@ def time_attention(label, q, k, v, kw, reps, rate) -> dict:
     lib_err = float((lib().float() - plain().float()).abs().max())
     bound_ms, bound_by, pairs = attention_bound(q, k, kw, rate)
     out = dict(shape=(B, Hq, Hkv, Sq, Skv, D), kv_len=kv_len, pairs=pairs,
-               ms=cuda_ms(kern, reps), plain_ms=cuda_ms(plain, reps),
-               library_ms=cuda_ms(lib, reps), bound_ms=bound_ms,
-               bound_by=bound_by, max_abs_err=err, row_err=row)
+               ms=cuda_ms(kern, reps, cold), plain_ms=cuda_ms(plain, reps, cold),
+               library_ms=cuda_ms(lib, reps, cold), bound_ms=bound_ms,
+               bound_by=bound_by, max_abs_err=err, row_err=row, l2_cleared=cold)
     log(f"timing: flash_attention {label} {out['shape']} kv_len {kv_len} "
+        f"({'L2 cleared before each rep' if cold else 'warm L2'}) "
         f"({pairs} visible pairs x heads), kernel {out['ms']:.4f} ms, plain "
         f"{out['plain_ms']:.4f} ms, sdpa+mask {out['library_ms']:.4f} ms "
         f"(its max abs error {lib_err}), bound {bound_ms:.4f} ms "
@@ -925,20 +968,31 @@ def teacher_forced(cfg, toks) -> float:
     if caches["cuda"][0][0].shape[1] != cfg.window:
         fail("teacher-forced decode: the cache is not a ring")
     worst = torch.zeros((), device="cuda")
+    walls = []                 # before and after the ring's wrap
     t0 = time.perf_counter()
     for t in range(toks.shape[1]):
+        if t == cfg.window:
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
         batch = {"tokens": toks[:, t:t + 1], "pos": t}
         lc, _ = b.decode(params, caches["cuda"], batch, engine="cuda")
         lt, _ = b.decode(params, caches["torch"], batch, engine="torch")
         worst = torch.maximum(worst, (lc.float() - lt.float()).abs().max())
     torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
     err = float(worst)
     if err != err:
         fail(f"teacher-forced decode ({cfg.dtype}): NaN logits")
+    n = toks.shape[1]
     log(f"serving: teacher-forced decode, {cfg.n_layers} layers at full "
-        f"width, {cfg.dtype}, {toks.shape[1]} steps per engine in "
-        f"{time.perf_counter() - t0:.3f} s: max abs logit difference cuda vs "
-        f"torch engines {err} (gate {SERVE_GATE[cfg.dtype]})")
+        f"width, {cfg.dtype}, {n} steps per engine: {walls[0]:.3f} s for "
+        f"the {cfg.window} steps before the ring wraps "
+        f"({1e3 * walls[0] / cfg.window:.3f} ms a step, both engines), "
+        f"{walls[1]:.3f} s for the {n - cfg.window} after "
+        f"({1e3 * walls[1] / (n - cfg.window):.3f} ms a step); max abs logit "
+        f"difference cuda vs torch engines {err} (gate "
+        f"{SERVE_GATE[cfg.dtype]})")
     return err
 
 
@@ -986,9 +1040,10 @@ def serving_phase(reps: int, rate: float):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(launch_counts)
-    if launches["flash_attention"] != cfg.n_layers:
-        fail(f"prefill launched B6 {launches['flash_attention']} times, not "
-             f"once per layer ({cfg.n_layers})")
+    if launches["flash_attention"] != cfg.n_layers or launches["flash_decode"]:
+        fail(f"prefill called B6 {launches['flash_attention']} times, not "
+             f"once per layer ({cfg.n_layers}), or took the decode route "
+             f"({launches['flash_decode']})")
     t0 = time.perf_counter()
     want = bundle.prefill(params, {"tokens": toks}, engine="torch")
     torch.cuda.synchronize()
@@ -1035,6 +1090,9 @@ def serving_phase(reps: int, rate: float):
         fail("batcher: not every request finished")
     if blaunch["flash_attention"] <= 0:
         fail("batcher: B6 was never launched")
+    if blaunch["flash_decode"] != blaunch["flash_attention"]:
+        fail(f"batcher: {blaunch['flash_attention']} decode attention calls "
+             f"but {blaunch['flash_decode']} launches of the decode route")
     for k in launches:
         launches[k] += blaunch[k]
     passes = blaunch["flash_attention"] // cfg.n_layers
@@ -1042,7 +1100,8 @@ def serving_phase(reps: int, rate: float):
         f"({sum(len(r.prompt) for r in reqs)} prompt tokens), {n_tok} tokens "
         f"in {bwall:.3f} s ({n_tok / bwall:.1f} tok/s, {steps} engine steps, "
         f"{passes} forward passes of 4 slots, {1e3 * bwall / passes:.3f} ms "
-        f"each), B6 launches {blaunch['flash_attention']}")
+        f"each), B6 calls {blaunch['flash_attention']}, decode-route "
+        f"launches {blaunch['flash_decode']}")
 
     # teacher-forced decode past the ring's wrap, both engines
     tf_toks = torch.from_numpy(rng.integers(3, V, (1, TF_STEPS)).astype(
@@ -1089,10 +1148,19 @@ def serving_phase(reps: int, rate: float):
     g = torch.Generator(device="cuda").manual_seed(5)
     dq = torch.randn((4, 1, cfg.n_heads, cfg.head_dim_), generator=g,
                      device="cuda").to(kc.dtype).transpose(1, 2)
+    # one layer's K/V (42 MB) fits in the 50 MB L2, while a pass streams
+    # 24 layers' caches from device memory: time it with L2 cleared
     decode = time_attention(
         "decode (batcher, full ring)", dq, kc.transpose(1, 2),
         vc.transpose(1, 2), dict(causal=False, window=0, q_offset=8191,
-                                 kv_len=cfg.window), reps, rate)
+                                 kv_len=cfg.window), reps, rate, cold=True)
+    # a yardstick: one torch pass reading the same 42 MB once (a sum over a
+    # copy of both caches), L2 cleared alike
+    both = torch.cat([kc.reshape(-1), vc.reshape(-1)]).view(torch.int64)
+    decode["read_floor_ms"] = cuda_ms(lambda: both.sum(), reps, cold=True)
+    log(f"timing: reading the decode shape's {both.numel() * 8} bytes of K/V "
+        f"once (one torch sum, L2 cleared) {decode['read_floor_ms']:.4f} ms")
+    del both
 
     # traces: one prefill, one warm batcher step (4 live slots)
     profile_phase("serving_prefill",
@@ -1103,6 +1171,11 @@ def serving_phase(reps: int, rate: float):
             8, V, size=16).tolist(), max_new=32))
     engine.step()
     profile_phase("serving_decode", engine.step)
+    # one decode pass of the 4 slots over full rings (position 8,191): the
+    # device time of every layer's attention reading all 4,096 slots
+    tok = torch.from_numpy(rng.integers(3, V, (4, 1)).astype(np.int32)).cuda()
+    profile_phase("serving_decode_full_ring", lambda: bundle.decode(
+        params, engine.cache, {"tokens": tok, "pos": 8191}, engine="cuda"))
     return launches, timing, decode, tf, err, cerr
 
 
@@ -1111,7 +1184,9 @@ def serving_phase(reps: int, rate: float):
 # ---------------------------------------------------------------------------
 HP_DESTS = (1, 2, 4, 8, 15, 64)
 HP_BLOCKS = (256, 512, 1024)
-MASK_SIZES = (0, 1, 31, 33, 1025, 100_003, 48_000_000)
+# B2b: ragged sizes, the edges of its 4,096-row tiles, many tiles
+MASK_SIZES = (0, 1, 31, 33, 1025, 4095, 4096, 4097, 100_003,
+              300 * 4096 + 5, 48_000_000)
 SHARDS = 4                 # ranks of the sharded phase, all on the one card
 SHARDED_TIMEOUT = 600.0    # seconds for the sharded phase's ranks
 EXPOSURE_KW = {"purview_days": 60}   # exposures_sharded in the small runs
@@ -1121,8 +1196,10 @@ def partition_battery(device, reps: int, rate: float) -> dict:
     """B5 against its plain version, bit for bit: every destination count
     of HP_DESTS at blocks 256/512/1024, ragged lengths, invalid rows, NULL
     and negative keys.  B2b against its plain version through
-    ``ops.filter_compact`` with bool masks (all-false, all-true, ragged) up
-    to 48M rows; B2b timed at 48M rows with a ragged mask."""
+    ``ops.filter_compact`` with bool masks (all-false, all-true, ragged, and
+    long all-false runs with a few kept rows, so that the look-back crosses
+    many tiles that publish an aggregate of 0) up to 48M rows, and once
+    with 7 columns; B2b timed at 48M rows with a ragged mask."""
     import numpy as np
     import torch
 
@@ -1154,7 +1231,7 @@ def partition_battery(device, reps: int, rate: float) -> dict:
     checked = 0
     g = torch.Generator(device=device).manual_seed(3)
     for n in MASK_SIZES:
-        for kind in ("none", "all", "ragged"):
+        for kind in ("none", "all", "ragged", "runs"):
             for dtype in (torch.int32, torch.float32):
                 if dtype == torch.int32:
                     vals = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,),
@@ -1168,7 +1245,9 @@ def partition_battery(device, reps: int, rate: float) -> dict:
                                             device=device),
                         "all": torch.ones(n, dtype=torch.bool, device=device),
                         "ragged": torch.rand((n,), generator=g, device=device)
-                        < 0.5}[kind]
+                        < 0.5,
+                        "runs": torch.rand((n,), generator=g, device=device)
+                        < 1e-5}[kind]
                 got, gc = ops.filter_compact(vals, mask)
                 want, wc = fc.filter_compact_mask_plain([vals], mask)
                 torch.cuda.synchronize()
@@ -1176,9 +1255,21 @@ def partition_battery(device, reps: int, rate: float) -> dict:
                     fail(f"filter_compact (bool mask) kernel != plain at "
                          f"n={n} mask={kind} {dtype}")
                 checked += 1
-    log(f"kernels: {checked} bool-mask filter_compact kernel-vs-plain "
-        f"checks bit-identical at n in {MASK_SIZES}")
     n = MASK_SIZES[-1]
+    cols = [torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g,
+                          device=device, dtype=torch.int32) if j % 2 else
+            torch.randn((n,), generator=g, device=device) for j in range(7)]
+    for c in cols[::2]:
+        c[torch.rand((n,), generator=g, device=device) < 0.1] = float("nan")
+    mask = torch.rand((n,), generator=g, device=device) < 0.5
+    (got, gc), (want, wc) = (fc.filter_compact_mask(cols, mask),
+                             fc.filter_compact_mask_plain(cols, mask))
+    if int(gc) != int(wc) or not all(_same(a, b) for a, b in zip(got, want)):
+        fail(f"filter_compact_mask kernel != plain at n={n}, 7 columns")
+    checked += 1
+    del cols, got, want
+    log(f"kernels: {checked} bool-mask filter_compact kernel-vs-plain "
+        f"checks bit-identical at n in {MASK_SIZES} (one with 7 columns)")
     vals = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=g,
                          device=device, dtype=torch.int32)
     mask = torch.rand((n,), generator=g, device=device) < 0.5
@@ -1535,6 +1626,8 @@ KERNELS = {
                        "src/repro/kernels/segment_scan.py:89"),
     "flash_attention": ("src/repro_torch/csrc/swa_attention.cu",
                         "src/repro/kernels/swa_attention.py:98"),
+    "flash_decode": ("src/repro_torch/csrc/swa_decode.cu",
+                     "src/repro/kernels/swa_attention.py:98"),
     "hash_partition_plan": ("src/repro_torch/csrc/hash_partition.cu",
                             "src/repro/kernels/hash_partition.py:44"),
     "filter_compact_mask": ("src/repro_torch/csrc/filter_compact.cu",
@@ -1627,10 +1720,12 @@ def main() -> int:
                                  args.sharded_patients, CPU_PATIENTS, REPS,
                                  rate)
     # B1-B3 are timed at the quickstart's (larger) shapes, B4 at the cohort
-    # study's, B6 at the prefill's; launches are summed over both studies'
-    # first runs and the serving path (prefill + batcher)
+    # study's, B6's prefill kernel at the prefill's and its decode route at
+    # the batcher's full-ring shape (L2 cleared); launches are summed over
+    # both studies' first runs, the serving path (prefill + batcher) and the
+    # sharded run
     timing.update({"segmented_scan": c_timing["segmented_scan"],
-                   "flash_attention": s_timing,
+                   "flash_attention": s_timing, "flash_decode": decode,
                    "hash_partition_plan": h_timing,
                    "filter_compact_mask": mask_timing})
     log(f"launches: quickstart {q_launches}, cohort study {c_launches}, "
@@ -1641,13 +1736,16 @@ def main() -> int:
     log(f"phases: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
         f", total {time.perf_counter() - t_all:.3f} s")
 
+    launches = {k: q_launches[k] + c_launches[k] + s_launches[k]
+                + h_launches[k] for k in KERNELS}
+    # the flash_attention count takes one per call on both of B6's routes:
+    # its prefill kernel launched on the calls the decode route did not take
+    launches["flash_attention"] -= launches["flash_decode"]
     records = []
     for k, (source, replaces) in KERNELS.items():
         t = timing[k]
         records.append({"name": k, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": q_launches[k] + c_launches[k]
-                        + s_launches[k] + h_launches[k],
+                        "replaces": replaces, "launches": launches[k],
                         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t.get("bound_by", "bytes"),

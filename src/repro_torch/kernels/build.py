@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu",
-           "segment_scan.cu", "swa_attention.cu", "hash_partition.cu")
+           "segment_scan.cu", "swa_attention.cu", "swa_decode.cu",
+           "hash_partition.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -106,8 +107,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_word_popcount.restype = _I32
     lib.repro_compact_scatter.argtypes = [_P, _P, _P, _I64, _I64, _P]
     lib.repro_compact_scatter.restype = _I32
-    lib.repro_mask_ballot.argtypes = [_P, _I64, _I64, _P, _P, _P]
-    lib.repro_mask_ballot.restype = _I32
+    # args, mask, n, count, workspace, vec16, stream
+    lib.repro_mask_compact.argtypes = [_P, _P, _I64, _P, _P, _I32, _P]
+    lib.repro_mask_compact.restype = _I32
     # keys, words, n, n_dest, block, dest, rank, hist, stream
     lib.repro_hash_partition.argtypes = [_P, _P, _I64, _I32, _I32, _P, _P, _P,
                                          _P]
@@ -122,6 +124,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_attention.argtypes = ([_P] * 4 + [_I64] * 12 + [_I32] * 8
                                           + [_I64, _I32, _I32, _P])
     lib.repro_flash_attention.restype = _I32
+    # q, k, v, o; 12 strides; B, Hq, Hkv, Sq, D, causal, window; q_offset;
+    # kv_len, start, chunk, splits, key_end; part; vec16, is_bf16; stream
+    lib.repro_flash_decode.argtypes = ([_P] * 4 + [_I64] * 12 + [_I32] * 7
+                                       + [_I64] + [_I32] * 5 + [_P]
+                                       + [_I32] * 2 + [_P])
+    lib.repro_flash_decode.restype = _I32
 
 
 def _load(info: dict) -> ctypes.CDLL:

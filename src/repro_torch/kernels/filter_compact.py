@@ -5,9 +5,9 @@ keep-mask (B2) or by a ``(n,) bool`` row mask (B2b).
 ``csrc/filter_compact.cu`` (the port of
 ``repro/kernels/filter_compact.py:filter_compact_bits_blocks`` plus the
 stitch in ``repro/kernels/ops.py:filter_compact``) over ALL given columns at
-once; ``filter_compact_mask`` (the port of ``filter_compact_blocks``) packs
-the byte mask with one warp ballot per 32 rows and then runs the same
-offsets and scatter.  ``filter_compact_plain`` and
+once; ``filter_compact_mask`` (the port of ``filter_compact_blocks``)
+compacts by the byte mask in one pass, a single-pass scan with decoupled
+look-back, then zeroes the tail.  ``filter_compact_plain`` and
 ``filter_compact_mask_plain`` are their plain PyTorch versions.  All leave
 slots past the count at 0.
 """
@@ -25,6 +25,7 @@ __all__ = ["MAX_COLS", "filter_compact_plain", "filter_compact_bits",
            "filter_compact_mask_plain", "filter_compact_mask"]
 
 MAX_COLS = 32          # column pointers per scatter launch (csrc COMPACT_MAX_COLS)
+TILE_ROWS = 4096       # rows a block of the bool-mask compaction takes
 
 
 class _CompactArgs(ctypes.Structure):
@@ -68,28 +69,30 @@ def _check_columns(cols: Sequence[torch.Tensor], device) -> int:
     return n
 
 
-def _scatter(lib, cols, outs, words, per_word, n, stream,
-             counted: bool) -> torch.Tensor:
+def _column_args(cols, outs, lo: int) -> "_CompactArgs":
+    """The column pointers of ``cols[lo:lo + MAX_COLS]`` and their outputs."""
+    args = _CompactArgs()
+    chunk = range(lo, min(lo + MAX_COLS, len(cols)))
+    for k, j in enumerate(chunk):
+        args.inp[k] = cols[j].data_ptr()
+        args.out[k] = outs[j].data_ptr()
+    args.n_cols = len(chunk)
+    return args
+
+
+def _scatter(lib, cols, outs, words, per_word, n, stream) -> torch.Tensor:
     """Offsets from the per-word counts, then B2's scatter of every column
-    (up to ``MAX_COLS`` column pointers per launch); returns the count.
-    ``counted``: each scatter launch is one B2 launch (B2b counts its
-    ballot instead)."""
+    (up to ``MAX_COLS`` column pointers per launch); returns the count."""
     from repro_torch.kernels.build import check
 
     nw = words.shape[0]
     incl = torch.cumsum(per_word, 0, dtype=torch.int32)
     for lo in range(0, len(cols), MAX_COLS):
-        args = _CompactArgs()
-        chunk = range(lo, min(lo + MAX_COLS, len(cols)))
-        for k, j in enumerate(chunk):
-            args.inp[k] = cols[j].data_ptr()
-            args.out[k] = outs[j].data_ptr()
-        args.n_cols = len(chunk)
         status = lib.repro_compact_scatter(
-            ctypes.byref(args), words.data_ptr(), incl.data_ptr(),
-            ctypes.c_longlong(n), ctypes.c_longlong(nw), stream)
-        if counted:
-            launch_counts["filter_compact"] += 1
+            ctypes.byref(_column_args(cols, outs, lo)), words.data_ptr(),
+            incl.data_ptr(), ctypes.c_longlong(n), ctypes.c_longlong(nw),
+            stream)
+        launch_counts["filter_compact"] += 1
         check(status, "filter_compact scatter")
     return incl[-1]
 
@@ -118,15 +121,14 @@ def filter_compact_bits(cols: Sequence[torch.Tensor], words: torch.Tensor
     check(lib.repro_word_popcount(words.data_ptr(), ctypes.c_longlong(nw),
                                   per_word.data_ptr(), stream),
           "filter_compact popcount")
-    return outs, _scatter(lib, cols, outs, words, per_word, n, stream,
-                          counted=True)
+    return outs, _scatter(lib, cols, outs, words, per_word, n, stream)
 
 
 def filter_compact_mask(cols: Sequence[torch.Tensor], mask: torch.Tensor
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """B2b: launch the ballot and compaction kernels on CUDA columns
-    (int32/float32, equal length ``n``) and a ``(n,) bool`` CUDA row mask;
-    returns ``(columns, count)`` with ``count`` a 0-d int32 device tensor."""
+    """B2b: launch the single-pass compaction on CUDA columns (int32/float32,
+    equal length ``n``) and a ``(n,) bool`` CUDA row mask; returns
+    ``(columns, count)`` with ``count`` a 0-d int32 device tensor."""
     from repro_torch.kernels.build import check, library
 
     require_kernel_operand(mask, "filter_compact mask", dtypes=(torch.bool,))
@@ -134,18 +136,23 @@ def filter_compact_mask(cols: Sequence[torch.Tensor], mask: torch.Tensor
     if mask.shape != (n,):
         raise ValueError(f"filter_compact: {n} rows need a ({n},) mask, got "
                          f"{tuple(mask.shape)}")
+    if n >= 2 ** 31:
+        raise ValueError(f"filter_compact: {n} rows do not fit an int32 count")
     outs = [torch.empty_like(c) for c in cols]
     if n == 0:
         return outs, torch.zeros((), dtype=torch.int32, device=mask.device)
+    count = torch.empty((), dtype=torch.int32, device=mask.device)
     lib = library()
     stream = torch.cuda.current_stream(mask.device).cuda_stream
-    nw = _bs.n_words(n)
-    words = torch.empty((nw,), dtype=torch.int32, device=mask.device)
-    per_word = torch.empty((nw,), dtype=torch.int32, device=mask.device)
-    status = lib.repro_mask_ballot(mask.data_ptr(), ctypes.c_longlong(n),
-                                   ctypes.c_longlong(nw), words.data_ptr(),
-                                   per_word.data_ptr(), stream)
-    launch_counts["filter_compact_mask"] += 1
-    check(status, "filter_compact_mask ballot")
-    return outs, _scatter(lib, cols, outs, words, per_word, n, stream,
-                          counted=False)
+    vec16 = all(t.data_ptr() % 16 == 0 for t in (mask, *cols))
+    n_tiles = -(-n // TILE_ROWS)
+    for lo in range(0, len(cols), MAX_COLS):
+        # the tile counter, then one (flag, count) status word per tile
+        ws = torch.zeros((1 + n_tiles,), dtype=torch.int64, device=mask.device)
+        status = lib.repro_mask_compact(
+            ctypes.byref(_column_args(cols, outs, lo)), mask.data_ptr(),
+            ctypes.c_longlong(n), count.data_ptr(), ws.data_ptr(), int(vec16),
+            stream)
+        launch_counts["filter_compact_mask"] += 1
+        check(status, "filter_compact_mask")
+    return outs, count

@@ -16,6 +16,15 @@ row with no visible key is 0.
 The kernel takes element strides, so transposed views of the model's
 ``(B, S, H, D)`` tensors and caches go in without a copy; its output has
 q's strides.
+
+A call whose GQA group times ``Sq`` is at most ``DECODE_ROWS`` (every
+decode step of the models) takes the decode route, split-KV
+flash-decoding (``csrc/swa_decode.cu``): ``plan_decode_splits`` cuts the
+visible key range into chunks of a multiple of ``DECODE_KEYS`` keys, one
+block per (split, batch, KV head) writes fp32 partials (running max, sum,
+unnormalised output), and a second launch combines them.
+``partials_plain`` and ``combine_partials_plain`` repeat that arithmetic in
+PyTorch.  Larger calls (prefill) run ``csrc/swa_attention.cu``.
 """
 from __future__ import annotations
 
@@ -26,12 +35,18 @@ import torch
 
 from repro_torch.kernels import launch_counts, require_kernel_operand
 
-__all__ = ["HEAD_DIMS", "flash_swa_attention", "flash_swa_attention_plain"]
+__all__ = ["HEAD_DIMS", "DECODE_ROWS", "DECODE_KEYS", "flash_swa_attention",
+           "flash_swa_attention_plain", "decode_key_range",
+           "plan_decode_splits", "partials_plain", "combine_partials_plain"]
 
 HEAD_DIMS = (16, 32, 64, 80, 128)        # the kernel's instantiations
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _MAX_BH = 65535                          # B * Hkv rides grid.y
 _PLAIN_CHUNK = 1 << 28                   # score elements per plain-version step
+DECODE_ROWS = 16          # group * Sq rows per KV head on the decode route
+DECODE_KEYS = 64          # split chunks are multiples of this many keys
+BLOCKS_PER_SM = 2         # the split plan fills the card this many times
+_LOG2E = 1.4426950408889634
 
 
 def _check_args(q, k, v, window, q_offset, kv_len) -> Tuple[int, int]:
@@ -96,11 +111,144 @@ def flash_swa_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def decode_key_range(Sq: int, causal: bool, window: int, q_offset: int,
+                     kv_len: int) -> Tuple[int, int]:
+    """Keys ``[begin, end)`` that some query row of a call can see (as
+    ``key_range`` in ``csrc/swa_attention.cu``); empty when ``end <=
+    begin``."""
+    begin = max(0, q_offset - window + 1) if window > 0 else 0
+    end = min(kv_len, q_offset + Sq) if causal else kv_len
+    return begin, end
+
+
+def plan_decode_splits(begin: int, end: int, n_bkv: int,
+                       sm_count: int = 132) -> Tuple[int, int, int]:
+    """``(start, chunk, splits)``: split ``s`` takes keys ``[start + s *
+    chunk, min(start + (s + 1) * chunk, end))``.  ``start`` is ``begin``
+    rounded down to ``DECODE_KEYS`` and ``chunk`` a multiple of it, the
+    largest for which the ``n_bkv * splits`` blocks (one per split, batch
+    and KV head) number at least ``BLOCKS_PER_SM`` per SM (or one split per
+    ``DECODE_KEYS`` keys, where the range has fewer); an empty range has
+    no split."""
+    if end <= begin:
+        return 0, DECODE_KEYS, 0
+    start = begin // DECODE_KEYS * DECODE_KEYS
+    tiles = -(-(end - start) // DECODE_KEYS)
+    want = max(1, -(-BLOCKS_PER_SM * sm_count // max(1, n_bkv)))
+    per = max(1, tiles // want)
+    return start, per * DECODE_KEYS, -(-tiles // per)
+
+
+def _rows(x: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """(B, Hq, Sq, D) -> (B, Hkv, group * Sq, D), rows position-major (row
+    r is query r // group of head r % group of the KV head's group), as the
+    decode kernel orders them."""
+    B, Hq, Sq, D = x.shape
+    return (x.reshape(B, Hkv, Hq // Hkv, Sq, D).transpose(2, 3)
+            .reshape(B, Hkv, Hq // Hkv * Sq, D))
+
+
+def partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: int = 0,
+                   q_offset: Optional[int] = None,
+                   kv_len: Optional[int] = None,
+                   plan: Optional[Tuple[int, int, int]] = None):
+    """The decode route's split kernel in PyTorch: ``(m, l, o)`` per (batch,
+    KV head, split, row), fp32, with ``m`` the row's largest score over the
+    split's visible keys in the log2 domain (``-inf`` when it sees none),
+    ``l`` the sum of ``exp2(score - m)`` and ``o`` their weighted sum of
+    ``v`` rows (``(..., D)``).  ``plan`` defaults to
+    ``plan_decode_splits``'s."""
+    q_offset, kv_len = _check_args(q, k, v, window, q_offset, kv_len)
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    begin, end = decode_key_range(Sq, causal, window, q_offset, kv_len)
+    start, chunk, splits = plan or plan_decode_splits(begin, end, B * Hkv)
+    group = Hq // Hkv
+    R = group * Sq
+    dev = q.device
+    qr = _rows(q.float(), Hkv)
+    qpos = q_offset + torch.arange(R, device=dev) // group
+    scale = torch.tensor(_LOG2E / D ** 0.5, dtype=torch.float32).item()
+    m = torch.full((B, Hkv, splits, R), float("-inf"), device=dev)
+    l = torch.zeros((B, Hkv, splits, R), device=dev)
+    o = torch.zeros((B, Hkv, splits, R, D), device=dev)
+    for s in range(splits):
+        kb = start + s * chunk
+        ke = min(kb + chunk, end)
+        kpos = torch.arange(kb, ke, device=dev)
+        vis = (kpos < kv_len)[None, :].expand(R, ke - kb)
+        if causal:
+            vis = vis & (kpos[None, :] <= qpos[:, None])
+        if window > 0:
+            vis = vis & (kpos[None, :] > qpos[:, None] - window)
+        x = torch.einsum("bhrd,bhkd->bhrk", qr, k[:, :, kb:ke].float()) * scale
+        x = x.masked_fill(~vis, float("-inf"))
+        ms = x.amax(dim=-1)
+        p = torch.where(vis, torch.exp2(x - torch.where(
+            torch.isinf(ms), torch.zeros_like(ms), ms)[..., None]),
+            torch.zeros_like(x))
+        m[:, :, s] = ms
+        l[:, :, s] = p.sum(dim=-1)
+        o[:, :, s] = torch.einsum("bhrk,bhkd->bhrd", p, v[:, :, kb:ke].float())
+    return m, l, o
+
+
+def combine_partials_plain(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                           Hq: int, Sq: int, dtype) -> torch.Tensor:
+    """The decode route's combine kernel in PyTorch: rescale each split by
+    ``exp2(m_s - max m)`` (a split with ``m = -inf`` adds nothing), sum,
+    divide by the rescaled sum; a row whose sums are all 0 is 0.  Returns
+    ``(B, Hq, Sq, D)`` in ``dtype``."""
+    B, Hkv, splits, R, D = o.shape
+    if splits:
+        M = m.amax(dim=2, keepdim=True)
+        wt = torch.where(torch.isinf(m), torch.zeros_like(m),
+                         torch.exp2(m - torch.where(torch.isinf(M),
+                                                    torch.zeros_like(M), M)))
+        den = (wt * l).sum(dim=2)
+        num = (wt[..., None] * o).sum(dim=2)
+        out = torch.where(den[..., None] > 0,
+                          num / torch.where(den > 0, den, 1.0)[..., None],
+                          torch.zeros_like(num))
+    else:
+        out = torch.zeros((B, Hkv, R, D), device=o.device)
+    return (out.reshape(B, Hkv, Sq, Hq // Hkv, D).transpose(2, 3)
+            .reshape(B, Hq, Sq, D).to(dtype))
+
+
+def _flash_decode(lib, q, k, v, out, causal, window, q_offset, kv_len,
+                  stream) -> None:
+    """Launch the decode route: the split kernel over
+    ``plan_decode_splits``'s plan and the combine kernel into ``out``."""
+    from repro_torch.kernels.build import check
+
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    begin, end = decode_key_range(Sq, causal, window, q_offset, kv_len)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    start, chunk, splits = plan_decode_splits(begin, end, B * Hkv, sms)
+    part = torch.empty((max(1, B * Hq * Sq * splits * (D + 2)),),
+                       dtype=torch.float32, device=q.device)
+    vec16 = all(t.data_ptr() % 16 == 0 and all(
+        st % 4 == 0 for st, n in zip(t.stride()[:3], t.shape) if n > 1)
+        for t in (k, v))
+    st = [ctypes.c_longlong(s) for t in (q, k, v, out) for s in t.stride()[:3]]
+    status = lib.repro_flash_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *st,
+        B, Hq, Hkv, Sq, D, int(bool(causal)), int(window),
+        ctypes.c_longlong(q_offset), kv_len, start, chunk, splits, end,
+        part.data_ptr(), int(vec16), int(q.dtype == torch.bfloat16), stream)
+    launch_counts["flash_decode"] += 1
+    check(status, "flash_attention decode")
+
+
 def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         q_offset: Optional[int] = None,
                         kv_len: Optional[int] = None) -> torch.Tensor:
-    """Launch B6 on CUDA tensors; returns ``(B, Hq, Sq, D)`` in q's dtype."""
+    """Launch B6 on CUDA tensors (the decode route when ``group * Sq <=
+    DECODE_ROWS``); returns ``(B, Hq, Sq, D)`` in q's dtype."""
     from repro_torch.kernels.build import check, library
 
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -131,9 +279,14 @@ def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{nbytes}-byte aligned rows, got strides {t.stride()}")
     if B == 0 or Sq == 0:
         return out
-    st = [ctypes.c_longlong(s) for t in (q, k, v, out) for s in t.stride()[:3]]
     lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if (Hq // Hkv) * Sq <= DECODE_ROWS:
+        launch_counts["flash_attention"] += 1
+        _flash_decode(lib, q, k, v, out, causal, window, q_offset, kv_len,
+                      stream)
+        return out
+    st = [ctypes.c_longlong(s) for t in (q, k, v, out) for s in t.stride()[:3]]
     status = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *st,
         B, Hq, Hkv, Sq, Skv, D, int(bool(causal)), int(window),

@@ -151,6 +151,50 @@ def test_filter_compact_bool_mask_kernel_matches_plain(device, case):
     assert torch.equal(got.view(torch.int32), want[0].view(torch.int32))
 
 
+TILE = filter_compact.TILE_ROWS
+
+
+@pytest.mark.parametrize("n", [TILE - 1, TILE, TILE + 1, 2 * TILE + 17,
+                               300 * TILE + 5])
+@pytest.mark.parametrize("kind", ["ragged", "runs"])
+def test_bool_mask_compaction_at_tile_edges(device, n, kind):
+    """B2b's look-back across tile edges: ragged masks, and long all-false
+    runs (so that most tiles publish an aggregate of 0 and the look-back
+    crosses many aggregate-only tiles) with a few kept rows; seven columns,
+    int32 and float32 with NaNs, bit-identical to the plain version."""
+    rng = np.random.default_rng(n)
+    if kind == "ragged":
+        mask = rng.random(n) < 0.5
+    else:
+        mask = np.zeros(n, bool)
+        mask[rng.integers(0, n, 3)] = True
+        mask[-1] = True
+    m = torch.from_numpy(mask).to(device)
+    cols = []
+    for j in range(7):
+        if j % 2:
+            x = rng.normal(size=n).astype(np.float32)
+            x[rng.random(n) < 0.1] = np.nan
+        else:
+            x = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+        cols.append(torch.from_numpy(x).to(device))
+    before = launch_counts["filter_compact_mask"]
+    got, cnt = filter_compact.filter_compact_mask(cols, m)
+    assert launch_counts["filter_compact_mask"] == before + 1
+    want, wcnt = filter_compact.filter_compact_mask_plain(cols, m)
+    assert int(cnt) == int(wcnt) == int(mask.sum())
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    # an unaligned view takes the element-wise loads
+    got, cnt = filter_compact.filter_compact_mask([c[1:] for c in cols],
+                                                  m[1:])
+    want, wcnt = filter_compact.filter_compact_mask_plain(
+        [c[1:] for c in cols], m[1:])
+    assert int(cnt) == int(wcnt)
+    assert all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
 # B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len: the sweep of
 # tests/test_kernels.py, decode offsets, the ring mode, every head dim
 ATTN_CASES = [
@@ -164,6 +208,16 @@ ATTN_CASES = [
     (2, 32, 8, 1, 64, 80, False, 0, 900, 17),
     (1, 4, 2, 33, 70, 16, True, 8, 20, 60),
     (1, 6, 2, 5, 40, 16, True, 0, -3, None),
+    # the decode route with many splits: full rings of 4,096 / 4,097 slots,
+    # ragged kv_len, a window crossing splits, 16 rows (Sq 4 x group 4),
+    # kv_len = 0, every head dim
+    (4, 32, 8, 1, 4096, 80, False, 0, 9000, 4096),
+    (4, 32, 8, 1, 4097, 80, False, 0, 9000, 4001),
+    (1, 32, 8, 1, 8192, 80, True, 4096, 5000, 8192),
+    (2, 16, 4, 4, 4096, 128, True, 1000, 3000, 4096),
+    (2, 8, 2, 1, 640, 64, False, 0, 9000, 0),
+    (3, 8, 8, 1, 2049, 16, True, 0, 2048, None),
+    (2, 8, 1, 2, 1500, 32, True, 300, 1400, 1450),
 ]
 
 
@@ -175,12 +229,19 @@ def test_flash_attention_kernel_matches_plain(device, case, dtype):
     q, k, v = (torch.randn(s, generator=g, device=device).to(dtype)
                for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
-    before = launch_counts["flash_attention"]
+    before = dict(launch_counts)
     got = swa.flash_swa_attention(q, k, v, **kw)
-    assert launch_counts["flash_attention"] == before + 1
+    assert launch_counts["flash_attention"] == before["flash_attention"] + 1
+    # the decode route, and only it, counts its own launches
+    decode = (Hq // Hkv) * Sq <= swa.DECODE_ROWS
+    assert (launch_counts["flash_decode"]
+            == before["flash_decode"] + int(decode))
     want = swa.flash_swa_attention_plain(q, k, v, **kw)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # a row with no visible key is exactly 0
+    empty = (want == 0).all(dim=-1)
+    assert torch.count_nonzero(got[empty]) == 0
     # the model's layout: transposed (B, S, H, D) views, no copies
     tq, tk, tv = (x.transpose(1, 2).contiguous().transpose(1, 2)
                   for x in (q, k, v))
@@ -208,16 +269,21 @@ def test_lm_on_cuda_launches_b6_per_layer(device, dtype):
         get_bundle("h2o-danube-1.8b", reduced=True).cfg, dtype=dtype))
     params = b.init(0, device=device)
     toks = torch.randint(3, 500, (2, 40), device=device, dtype=torch.int32)
-    before = launch_counts["flash_attention"]
+    before = dict(launch_counts)
     got = b.prefill(params, {"tokens": toks}, engine="cuda")
-    assert launch_counts["flash_attention"] == before + b.cfg.n_layers
+    assert (launch_counts["flash_attention"]
+            == before["flash_attention"] + b.cfg.n_layers)
+    assert launch_counts["flash_decode"] == before["flash_decode"]
     want = b.prefill(params, {"tokens": toks}, engine="torch")
     tol = 1e-4 if dtype == "float32" else 0.1
     assert float((got.float() - want.float()).abs().max()) <= tol
     caches = {e: b.init_cache(2, 32, device=device) for e in ("cuda", "torch")}
+    before = launch_counts["flash_decode"]
     for t in range(24):
         out = {e: b.decode(params, caches[e], {"tokens": toks[:, t:t + 1],
                                                "pos": t}, engine=e)[0]
                for e in caches}
         assert float((out["cuda"].float() - out["torch"].float()).abs().max()
                      ) <= tol
+    # every decode step's attention took the decode route
+    assert launch_counts["flash_decode"] == before + 24 * b.cfg.n_layers
