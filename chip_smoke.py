@@ -30,12 +30,17 @@ nothing falls back to the CPU):
   5. card against CPU: both studies at 20,000 patients on the card and on
      the CPU (the plain versions) must agree bit for bit;
   6. attention: B6 (flash attention) against its plain version on the card
-     over the reference's test sweep and h2o-danube-1.8b's shapes (prefill
+     over the reference's test sweep, h2o-danube-1.8b's shapes (prefill
      to 8,192 tokens with window 4,096, full-cache decode offsets, the
-     ring-buffer mode, ragged shapes), fp32 within 2e-5 and bf16 within
-     2e-2; every call of at most 16 rows per KV head (group x Sq) must take
-     the decode route (split-KV flash-decoding, ``csrc/swa_decode.cu``),
-     every other call the prefill kernel;
+     ring-buffer mode, ragged shapes) and gemma3-12b's (16/8 heads of 240:
+     local and global prefill to 8,192, decode offsets, the ring with 1 and
+     3 queries), head dim 256, and every head dim on the bf16 prefill kernel
+     with ragged Sq and kv_len and a window edge inside a tile, fp32 within
+     2e-5 and bf16 within 2e-2; every call of at most 16 rows per KV head
+     (group x Sq) must take the decode route (split-KV flash-decoding,
+     ``csrc/swa_decode.cu``), every other call the prefill kernel (bf16:
+     ``csrc/swa_prefill.cu``, TMA and wgmma; fp32:
+     ``csrc/swa_attention.cu``), which must have run at every head dim;
   7. serving: h2o-danube-1.8b at full width (24 layers, bf16, random weights
      from a seeded generator on the card): a 2 x 8,192-token prefill under
      the cuda and torch attention engines (B6 launched once per layer, the
@@ -50,16 +55,28 @@ nothing falls back to the CPU):
      at the batcher's shape over a full ring (the L2 cache cleared before
      every rep: one layer's 42 MB of K/V would fit in it), beside its plain
      version, torch's scaled_dot_product_attention with a boolean mask (a
-     yardstick the port never calls) and its bound, and one prefill, one
-     warm batcher step and one decode pass over full rings are traced
+     yardstick the port never calls) and its bound, each time the middle
+     of 3 separate medians of 20 reps with their min-max, and one prefill,
+     one warm batcher step and one decode pass over full rings are traced
      (``chiprun_out/serving_*_trace.json``).
-  8. partition: B5 (the shuffle's plan) against its plain version, bit for
+  8. gemma3: one gemma3-12b local layer at full width over its 1,024-slot
+     ring with 3 queries a call, before and after the wrap, cuda engine
+     against torch engine (fp32 within 1e-3, bf16 within 0.1); then the
+     whole model at full width (48 layers, bf16, seeded random weights on
+     the card, after the danube model is freed): a 1 x 4,096-token prefill
+     under both engines (B6's prefill kernel once per layer at head dim
+     240, its decode route never), then the same weights in fp32 under
+     both (last-token logits within 1e-3; in bf16 the cuda engine no more
+     than 0.1 further from the fp32 model than the torch engine), and B6
+     timed at the model's global (causal) and local (window 1,024) prefill
+     shapes as in phase 7.
+  9. partition: B5 (the shuffle's plan) against its plain version, bit for
      bit, over 1-64 destinations, blocks 256/512/1024, ragged lengths,
      invalid rows, NULL and negative keys; B2b (compaction by a bool mask,
      a single pass with decoupled look-back) through ``ops.filter_compact``
      against its plain version at the edges of its 4,096-row tiles and up to
      48M rows, once with 7 columns, and timed there;
-  9. sharded: the quickstart through ``Study.run(mesh=group)`` on 4 gloo
+  10. sharded: the quickstart through ``Study.run(mesh=group)`` on 4 gloo
      ranks of one process group, all on the one card, at
      ``--sharded-patients``: every rank launches B5 once per exchange (5),
      no exchange overflows, the cuda engines equal the torch engines, the
@@ -72,8 +89,9 @@ nothing falls back to the CPU):
      engine's ``hash_partition`` (the argsort route, a yardstick).
 
 Each kernel's launches are counted over the two studies' first runs, the
-serving path (prefill and batcher) and the sharded run's first cuda run
-(summed over ranks), with the counts set to 0 just before each.  B6's
+serving path (prefill and batcher), gemma3-12b's prefill and the sharded
+run's first cuda run (summed over ranks), with the counts set to 0 just
+before each.  B6's
 ``flash_attention`` count takes one per call on either route; its record's
 launches are those calls less the decode route's (``flash_decode``), which
 has a record of its own.  B2b runs on none of these paths (no caller
@@ -808,6 +826,26 @@ ATTN_DANUBE = (            # h2o-danube-1.8b: Hq 32, Hkv 8, D 80, window 4096
        (3, 32, 8, 5, 33, 80, True, 0, -2, None)])
 
 
+# gemma3-12b: Hq 16, Hkv 8, D 240, window 1,024 (five local layers to one
+# global), and head dim 256: local and global prefill to 8,192 tokens, decode
+# offsets into a full cache, the ring with S = 1 and S = 3 (and a ring call of
+# 130 queries, which takes the prefill kernel with causal=False); then every
+# head dim on the bf16 prefill kernel with Sq not a multiple of its 128 rows,
+# kv_len not a multiple of its key tile and a window edge inside a tile
+ATTN_WIDE = (
+    [(1, 16, 8, s, s, 240, True, w, None, None)
+     for s in (300, 8192) for w in (1024, 0)]
+    + [(1, 16, 8, 1, 8192, 240, True, w, off, 8192)
+       for w, off in ((1024, 5000), (0, 8191), (0, 77))]
+    + [(2, 16, 8, S, 1024, 240, False, 0, 9000, kv)
+       for S in (1, 3) for kv in (1, 700, 1024)]
+    + [(1, 16, 8, 130, 1024, 240, False, 0, 9000, 1000),
+       (2, 8, 4, 200, 500, 256, True, 0, 300, None),
+       (1, 8, 8, 3, 2048, 256, False, 0, 5000, 2000)]
+    + [(1, 4, 2, 300, 333, D, True, 50, None, 317)
+       for D in (16, 32, 64, 80, 128, 240, 256)])
+
+
 def _attn_kwargs(case):
     causal, window, q_offset, kv_len = case[6:]
     return dict(causal=causal, window=window, q_offset=q_offset,
@@ -843,7 +881,8 @@ def attention_battery(device) -> None:
 
     worst = {}
     n_decode = 0
-    for i, case in enumerate(ATTN_SWEEP + ATTN_DANUBE):
+    prefill_dims = set()       # head dims that reached the bf16 prefill kernel
+    for i, case in enumerate(ATTN_SWEEP + ATTN_DANUBE + ATTN_WIDE):
         errs = []
         for dname in ATTN_TOL:
             dt = getattr(torch, dname)
@@ -863,6 +902,8 @@ def attention_battery(device) -> None:
                 fail(f"flash_attention {case}: the decode route was "
                      f"{'not ' if decode else ''}taken")
             n_decode += int(decode)
+            if dt == torch.bfloat16 and not decode:
+                prefill_dims.add(D)
             want = swa.flash_swa_attention_plain(q, k, v, **kw)
             err = check_attention(got, want, str(case))
             w = worst.get(dname, (0.0, 0.0))
@@ -870,7 +911,10 @@ def attention_battery(device) -> None:
             errs.append(f"{dname} {err[0]:.3g} / {err[1]:.3g}")
             del q, k, v, got, want
         log(f"attention: {case}: max abs / worst row error {', '.join(errs)}")
-    n = len(ATTN_SWEEP) + len(ATTN_DANUBE)
+    if prefill_dims != set(swa.HEAD_DIMS):
+        fail(f"attention: the bf16 prefill kernel ran at head dims "
+             f"{sorted(prefill_dims)}, not at every one of {swa.HEAD_DIMS}")
+    n = len(ATTN_SWEEP) + len(ATTN_DANUBE) + len(ATTN_WIDE)
     log(f"attention: {2 * n} flash_attention kernel-vs-plain checks "
         f"({n_decode} on the decode route), max abs "
         f"/ worst row error fp32 {worst['float32'][0]} / "
@@ -908,11 +952,23 @@ def attention_bound(q, k, kw, rate):
             "bytes" if t_bytes >= t_ops else "operations", pairs * B * Hq)
 
 
+TIMING_CALLS = 3            # separate cuda_ms calls behind each B6 time
+
+
+def spread_ms(fn, reps: int, cold: bool = False):
+    """(middle, min, max) of the medians of ``TIMING_CALLS`` separate
+    ``cuda_ms`` calls."""
+    m = sorted(cuda_ms(fn, reps, cold) for _ in range(TIMING_CALLS))
+    return m[len(m) // 2], m[0], m[-1]
+
+
 def time_attention(label, q, k, v, kw, reps, rate, cold=False) -> dict:
     """B6 at one shape: kernel, plain version, and torch's
     scaled_dot_product_attention with an explicit boolean mask (on
-    contiguous copies, K/V repeated over the group; a yardstick only);
-    ``cold``: the L2 cache is cleared before every rep of all three."""
+    contiguous copies, K/V repeated over the group; a yardstick only), each
+    the middle of ``TIMING_CALLS`` medians of ``reps`` reps, with their
+    min-max; ``cold``: the L2 cache is cleared before every rep of all
+    three."""
     import torch
     import torch.nn.functional as F
 
@@ -940,16 +996,24 @@ def time_attention(label, q, k, v, kw, reps, rate, cold=False) -> dict:
     lib_err = float((lib().float() - plain().float()).abs().max())
     bound_ms, bound_by, pairs = attention_bound(q, k, kw, rate)
     out = dict(shape=(B, Hq, Hkv, Sq, Skv, D), kv_len=kv_len, pairs=pairs,
-               ms=cuda_ms(kern, reps, cold), plain_ms=cuda_ms(plain, reps, cold),
-               library_ms=cuda_ms(lib, reps, cold), bound_ms=bound_ms,
-               bound_by=bound_by, max_abs_err=err, row_err=row, l2_cleared=cold)
+               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+               row_err=row, l2_cleared=cold)
+    for key, fn in (("ms", kern), ("plain_ms", plain), ("library_ms", lib)):
+        out[key], lo, hi = spread_ms(fn, reps, cold)
+        out[key + "_range"] = (lo, hi)
     log(f"timing: flash_attention {label} {out['shape']} kv_len {kv_len} "
+        f"{q.dtype} causal {kw['causal']} window {kw['window']} "
         f"({'L2 cleared before each rep' if cold else 'warm L2'}) "
-        f"({pairs} visible pairs x heads), kernel {out['ms']:.4f} ms, plain "
-        f"{out['plain_ms']:.4f} ms, sdpa+mask {out['library_ms']:.4f} ms "
-        f"(its max abs error {lib_err}), bound {bound_ms:.4f} ms "
-        f"({bound_by}), kernel-vs-plain max abs error {err}, worst row "
-        f"error {row}")
+        f"({pairs} visible pairs x heads); middle of {TIMING_CALLS} medians "
+        f"of {reps} reps [min-max of the medians]: kernel {out['ms']:.4f} ms "
+        f"[{out['ms_range'][0]:.4f}-{out['ms_range'][1]:.4f}], plain "
+        f"{out['plain_ms']:.4f} ms [{out['plain_ms_range'][0]:.4f}-"
+        f"{out['plain_ms_range'][1]:.4f}], sdpa+mask "
+        f"{out['library_ms']:.4f} ms [{out['library_ms_range'][0]:.4f}-"
+        f"{out['library_ms_range'][1]:.4f}] (its max abs error {lib_err}), "
+        f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / out['ms']:.1f}"
+        f" % reached), kernel-vs-plain max abs error {err}, worst row error "
+        f"{row}")
     return out
 
 
@@ -1180,7 +1244,182 @@ def serving_phase(reps: int, rate: float):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: B5 and B2b, and the sharded quickstart
+# phase 8: gemma3-12b at full width (head dim 240)
+# ---------------------------------------------------------------------------
+GEMMA = "gemma3-12b"
+GEMMA_PREFILL = 4096       # one 1 x 4,096-token prefill
+RING_POS = (500, 1021, 1500, 4097)   # before the wrap, a clamped write, after
+
+
+def ring_decode_check() -> dict:
+    """ROADMAP C11(b) on the card: one gemma3-12b local layer at full width
+    over its 1,024-slot ring, three queries a call at positions before and
+    after the wrap, the cuda engine (B6's decode route: group 2 x 3 rows)
+    against the torch engine (the reference's ``_ring_sdpa``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import get_bundle
+    from repro_torch.models import layers as L
+
+    base = get_bundle(GEMMA).cfg
+    worst = {}
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dname)
+        dt = getattr(torch, dname)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        p = L.attn_params(g, cfg, dt)
+        shape = (1, cfg.window, cfg.n_kv_heads, cfg.head_dim_)
+        worst[dname] = 0.0
+        for pos in RING_POS:
+            x = torch.randn((1, 3, cfg.d_model), generator=g,
+                            device="cuda").to(dt)
+            kc, vc = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                      for _ in range(2))
+            positions = (pos + torch.arange(3, dtype=torch.int32,
+                                            device="cuda"))[None]
+            outs = {}
+            for engine in ("cuda", "torch"):
+                before = launch_counts["flash_decode"]
+                outs[engine], _ = L.attention(
+                    p, x, cfg, kind="swa", positions=positions,
+                    cache=(kc.clone(), vc.clone()), cache_pos=pos,
+                    engine=engine)
+                if (launch_counts["flash_decode"] - before) != int(
+                        engine == "cuda"):
+                    fail(f"ring decode S = 3 at pos {pos}: the cuda engine "
+                         f"did not take B6's decode route")
+            err = float((outs["cuda"].float() - outs["torch"].float())
+                        .abs().max())
+            if not err <= SERVE_GATE[dname]:
+                fail(f"ring decode S = 3 at pos {pos} ({dname}): cuda vs "
+                     f"torch engines differ by {err}")
+            worst[dname] = max(worst[dname], err)
+    log(f"gemma3: ring decode, one local layer at full width (1,024-slot "
+        f"ring, S = 3, pos {RING_POS}): max |cuda - torch| engines fp32 "
+        f"{worst['float32']} (gate {SERVE_GATE['float32']}), bf16 "
+        f"{worst['bfloat16']} (gate {SERVE_GATE['bfloat16']})")
+    return worst
+
+
+def kernel_registers(log_text: str, kernel: str, D: int) -> str:
+    """The ptxas lines (registers at launch, spills) of ``kernel<D>``."""
+    lines = log_text.splitlines()
+    tag = f"{kernel}ILi{D}E"
+    for i, line in enumerate(lines):
+        if "Function properties" in line and tag in line:
+            return " | ".join(x.strip() for x in lines[i + 1:i + 3])
+    fail(f"no ptxas report for {kernel}<{D}>")
+
+
+def gemma3_phase(reps: int, rate: float):
+    """gemma3-12b at full width, bf16, seeded random weights on the card:
+    the C11(b) ring check, one 1 x 4,096 prefill under both engines (B6's
+    prefill kernel once per layer at D = 240, its decode route never) and
+    B6 timed at the model's global and local prefill shapes.  Returns the
+    prefill's launches, the two timings, the logit gate and the ring's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.interop import tree_map
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+
+    ring = ring_decode_check()
+    bundle = get_bundle(GEMMA)
+    cfg = bundle.cfg
+    t0 = time.perf_counter()
+    params = bundle.init(0, device="cuda")
+    torch.cuda.synchronize()
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    log(f"gemma3: {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+        f"{cfg.window}, pattern {cfg.pattern}), {sum(sizes)} {cfg.dtype} "
+        f"parameters drawn on the card in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (
+        1, GEMMA_PREFILL)).astype(np.int32)).cuda()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = bundle.prefill(params, {"tokens": toks}, engine="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    if launches["flash_attention"] != cfg.n_layers or launches["flash_decode"]:
+        fail(f"gemma3 prefill called B6 {launches['flash_attention']} times, "
+             f"not once per layer ({cfg.n_layers}), or took the decode route "
+             f"({launches['flash_decode']})")
+    t0 = time.perf_counter()
+    bundle.prefill(params, {"tokens": toks}, engine="cuda")
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = bundle.prefill(params, {"tokens": toks}, engine="torch")
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
+    if not bool(torch.isfinite(got).all()) or got.shape != (
+            1, 1, cfg.padded_vocab):
+        fail(f"gemma3 prefill logits {tuple(got.shape)} not finite")
+    err = float((got.float() - want.float()).abs().max())
+    # The same bf16 weights in fp32, under both engines.  Over 48 layers and
+    # 262,144 logits bf16 alone moves the largest logit past 0.1 under
+    # either engine (each 0.1255 from the fp32 model, while the fp32 engines
+    # agree to 2.4e-5: PERF.md), so the bf16 gate holds each engine
+    # against the fp32 model: the cuda engine may stray from it by at most
+    # SERVE_GATE more than the torch engine does.
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    b32 = ModelBundle(dataclasses.replace(cfg, dtype="float32"))
+    l32 = {e: b32.prefill(p32, {"tokens": toks}, engine=e).float()
+           for e in ("cuda", "torch")}
+    del p32
+    torch.cuda.empty_cache()
+    err32 = float((l32["cuda"] - l32["torch"]).abs().max())
+    spread = {e: float((x.float() - l32["torch"]).abs().max())
+              for e, x in (("cuda", got), ("torch", want))}
+    log(f"gemma3: prefill 1 x {GEMMA_PREFILL} wall {wall:.3f} s (cuda "
+        f"engine, first call), {warm:.3f} s (cuda, warm), {twall:.3f} s "
+        f"(torch engine); B6 prefill-kernel launches "
+        f"{launches['flash_attention']}, decode-route launches "
+        f"{launches['flash_decode']}; last-token logits: bf16 max |cuda - "
+        f"torch| {err}, max |logit| {float(want.abs().max())}; the same "
+        f"weights in fp32: max |cuda - torch| {err32} (gate "
+        f"{SERVE_GATE['float32']}); bf16 against the fp32 model (torch "
+        f"engine): cuda {spread['cuda']}, torch {spread['torch']} (gate: "
+        f"cuda <= torch + {SERVE_GATE['bfloat16']})")
+    if not err32 <= SERVE_GATE["float32"]:
+        fail(f"gemma3 prefill (fp32): cuda vs torch engines differ by "
+             f"{err32}")
+    if not spread["cuda"] <= spread["torch"] + SERVE_GATE["bfloat16"]:
+        fail(f"gemma3 prefill (bf16): the cuda engine is {spread['cuda']} "
+             f"from the fp32 model, the torch engine {spread['torch']}")
+    del got, want, l32
+    torch.cuda.empty_cache()
+
+    # B6 at the model's prefill shapes, in its (B, S, H, D) layout
+    timings = {}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn((1, GEMMA_PREFILL, h, cfg.head_dim_), generator=g,
+                           device="cuda").to(torch.bfloat16).transpose(1, 2)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    for label, window in (("gemma3 global", 0), ("gemma3 local", cfg.window)):
+        timings[label] = time_attention(
+            label, q, k, v, dict(causal=True, window=window, q_offset=None,
+                                 kv_len=None), reps, rate)
+    return launches, timings, dict(bf16=err, fp32=err32, **{
+        f"bf16_{e}_vs_fp32": v for e, v in spread.items()}), ring
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: B5 and B2b, and the sharded quickstart
 # ---------------------------------------------------------------------------
 HP_DESTS = (1, 2, 4, 8, 15, 64)
 HP_BLOCKS = (256, 512, 1024)
@@ -1624,7 +1863,7 @@ KERNELS = {
                   "src/repro/kernels/bitset_ops.py:42"),
     "segmented_scan": ("src/repro_torch/csrc/segment_scan.cu",
                        "src/repro/kernels/segment_scan.py:89"),
-    "flash_attention": ("src/repro_torch/csrc/swa_attention.cu",
+    "flash_attention": ("src/repro_torch/csrc/swa_prefill.cu",
                         "src/repro/kernels/swa_attention.py:98"),
     "flash_decode": ("src/repro_torch/csrc/swa_decode.cu",
                      "src/repro/kernels/swa_attention.py:98"),
@@ -1681,8 +1920,13 @@ def main() -> int:
     log(f"env: kernel library {info['path']} ready in "
         f"{time.perf_counter() - t0:.3f} s (nvcc {info['seconds']:.3f} s)")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "serialized" in line:
             log("ptxas: " + line.strip())
+    # the bf16 prefill kernel: the count at launch is 384 threads' share;
+    # setmaxnreg then gives the producer 24 and each consumer thread 240
+    for D in (80, 240):
+        log(f"ptxas: B6 bf16 prefill flash_wgmma<{D}>: "
+            f"{kernel_registers(info['log'], 'flash_wgmma', D)}")
     rate = mem_rate(name)
     seconds = {"build": time.perf_counter() - t_all}
 
@@ -1714,6 +1958,9 @@ def main() -> int:
     s_launches, s_timing, decode, tf, prefill_err, cpu_err = timed(
         "serving", serving_phase, REPS, rate)
     torch.cuda.empty_cache()
+    g_launches, g_timing, gemma_err, ring_err = timed(
+        "gemma3", gemma3_phase, REPS, rate)
+    torch.cuda.empty_cache()
     mask_timing = timed("partition", partition_battery, torch.device("cuda"),
                         REPS, rate)
     h_launches, h_timing = timed("sharded", sharded_phase,
@@ -1729,15 +1976,20 @@ def main() -> int:
                    "hash_partition_plan": h_timing,
                    "filter_compact_mask": mask_timing})
     log(f"launches: quickstart {q_launches}, cohort study {c_launches}, "
-        f"serving {s_launches}, sharded (summed over ranks) {h_launches}")
+        f"serving {s_launches}, gemma3 prefill {g_launches}, sharded "
+        f"(summed over ranks) {h_launches}")
     log(f"serving: B6 at the batcher's decode shape {json.dumps(decode)}")
+    log(f"serving: B6 prefill at danube's shape {json.dumps(s_timing)}")
+    for label, t in g_timing.items():
+        log(f"gemma3: B6 prefill at {label}'s shape {json.dumps(t)}")
     log(f"serving: gates prefill {prefill_err}, teacher-forced "
-        f"{json.dumps(tf)}, card vs CPU {cpu_err}")
+        f"{json.dumps(tf)}, card vs CPU {cpu_err}; gemma3 prefill "
+        f"{json.dumps(gemma_err)}, ring decode {json.dumps(ring_err)}")
     log(f"phases: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
         f", total {time.perf_counter() - t_all:.3f} s")
 
     launches = {k: q_launches[k] + c_launches[k] + s_launches[k]
-                + h_launches[k] for k in KERNELS}
+                + g_launches[k] + h_launches[k] for k in KERNELS}
     # the flash_attention count takes one per call on both of B6's routes:
     # its prefill kernel launched on the calls the decode route did not take
     launches["flash_attention"] -= launches["flash_decode"]

@@ -313,7 +313,8 @@ def hash_partition(table: ColumnarTable, key: str, n_shards: int,
         overflow = ((dsort < n) & ~ok).sum().to(torch.int32)
     else:
         dest, rank, hist = _kops.hash_partition_plan(
-            table.columns[key], table.valid, n, block=_hp.DEFAULT_BLOCK)
+            table.columns[key], table.valid.view(torch.uint32), n,
+            block=_hp.DEFAULT_BLOCK)
         # per destination, the scan over blocks runs along the inner axis
         # (torch's scan along the outer axis of (blocks, n) is serial)
         hist_t = hist.t().contiguous()

@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/swa_attention.py:
 // flash_swa_attention (:98, pallas_call at :137) for decode calls, those
-// whose group * Sq <= 16 rows per KV head; prefill stays on
-// csrc/swa_attention.cu.  The semantics are that kernel's (see its header
+// whose group * Sq <= 16 rows per KV head; prefill runs csrc/swa_prefill.cu
+// (bf16) and csrc/swa_attention.cu (fp32).  The semantics are that kernel's (see its header
 // and kernels/swa_attention.py): element strides for the b, h and s axes
 // (unit stride on d), query row i at position q_offset + i reading KV head
 // h / (Hq / Hkv), key j visible when j < kv_len, j <= qpos (causal) and
@@ -189,9 +189,18 @@ template <int D>
 struct Bf16Cfg {
   static constexpr int BK = 64;      // keys per stage, 16 a warp
   static constexpr int KS = D + 8;   // staged row stride (conflict-free fragments)
+  // Above D = 128 the Q fragments (D / 4 registers) stay in shared memory,
+  // read again for every tile, so that o (D / 2 registers) and the scores
+  // fit without spilling: at D = 256 the ring is 198 KB and Q 8 KB.
+  static constexpr bool q_smem = D > 128;
   static constexpr size_t stage_bytes = 2ull * BK * KS * sizeof(__nv_bfloat16);
-  static constexpr size_t smem = kStages * stage_bytes;
+  static constexpr size_t q_bytes = q_smem ? (size_t)kRows * KS * sizeof(__nv_bfloat16) : 0;
+  static constexpr size_t smem = kStages * stage_bytes + q_bytes;
 };
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) decode_bf16(const DecodeArgs a) {
@@ -225,7 +234,8 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const DecodeArgs a) {
 
   // this thread's rows g and g + 8; a padding row (>= rows) reads row 0
   long long qpos[2];
-  uint32_t qf[KK][4];
+  uint32_t qf[C::q_smem ? 1 : KK][4];
+  __nv_bfloat16* Qs = stage + kStages * 2 * BK * KS;  // [kRows][KS] when C::q_smem
   {
     const __nv_bfloat16* qrow[2];
 #pragma unroll
@@ -236,13 +246,23 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const DecodeArgs a) {
       qpos[i] = a.q_offset + qi;
       qrow[i] = q + b * a.sqb + head * a.sqh + qi * a.sqs;
     }
+    if constexpr (C::q_smem) {
+      for (int c = tid; c < kRows * (D / 8); c += kThreads) {
+        const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+        const int rr = r < a.rows ? r : 0;
+        const int qi = rr / a.group, head = kvh * a.group + rr % a.group;
+        *reinterpret_cast<uint4*>(&Qs[r * KS + col]) = *reinterpret_cast<const uint4*>(
+            q + b * a.sqb + head * a.sqh + qi * a.sqs + col);
+      }
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      const int d = kk * 16 + t4 * 2;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(qrow[0] + d);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(qrow[1] + d);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(qrow[0] + d + 8);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(qrow[1] + d + 8);
+      for (int kk = 0; kk < KK; ++kk) {
+        const int d = kk * 16 + t4 * 2;
+        qf[kk][0] = ld32(qrow[0] + d);
+        qf[kk][1] = ld32(qrow[1] + d);
+        qf[kk][2] = ld32(qrow[0] + d + 8);
+        qf[kk][3] = ld32(qrow[1] + d + 8);
+      }
     }
   }
 
@@ -274,11 +294,21 @@ __global__ void __launch_bounds__(kThreads) decode_bf16(const DecodeArgs a) {
     for (int nt = 0; nt < 2; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
+      uint32_t qa[4];
+      if constexpr (C::q_smem) {
+        const __nv_bfloat16* qp = &Qs[g * KS + kk * 16 + t4 * 2];
+        qa[0] = ld32(qp);
+        qa[1] = ld32(qp + 8 * KS);
+        qa[2] = ld32(qp + 8);
+        qa[3] = ld32(qp + 8 * KS + 8);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) qa[x] = qf[kk][x];
+      }
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const __nv_bfloat16* kp = &Ks[(kw + nt * 8 + g) * KS + kk * 16 + t4 * 2];
-        mma_bf16(s[nt], qf[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+        mma_bf16(s[nt], qa, ld32(kp), ld32(kp + 8));
       }
     }
     float mx[2] = {kMasked, kMasked};
@@ -679,6 +709,8 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, v
     case 64: return launch<64>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
     case 80: return launch<80>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
     case 128: return launch<128>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
+    case 240: return launch<240>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
+    case 256: return launch<256>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

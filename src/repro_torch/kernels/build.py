@@ -27,8 +27,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu",
-           "segment_scan.cu", "swa_attention.cu", "swa_decode.cu",
-           "hash_partition.cu")
+           "segment_scan.cu", "swa_attention.cu", "swa_prefill.cu",
+           "swa_decode.cu", "hash_partition.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

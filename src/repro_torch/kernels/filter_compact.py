@@ -51,10 +51,20 @@ def filter_compact_mask_plain(cols: Sequence[torch.Tensor],
 
 def filter_compact_plain(cols: Sequence[torch.Tensor], words: torch.Tensor
                          ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Compact every column by the packed keep-mask ``words``; returns
-    ``(columns, count)``, slots past ``count`` zero."""
+    """Compact every column by the packed keep-mask ``words`` (int32, the
+    ``ceil(n/32)`` words of ``n`` rows, as the kernel's wrapper demands);
+    returns ``(columns, count)``, slots past ``count`` zero."""
     n = cols[0].shape[0] if cols else 0
+    _check_words(words, n)
     return filter_compact_mask_plain(cols, _bs.unpack(words, n))
+
+
+def _check_words(words: torch.Tensor, n: int) -> None:
+    if words.dtype != torch.int32:
+        raise ValueError("filter_compact words must be int32 bit patterns")
+    if words.shape != (_bs.n_words(n),):
+        raise ValueError(f"filter_compact: {n} rows need {_bs.n_words(n)} "
+                         f"words, got {tuple(words.shape)}")
 
 
 def _check_columns(cols: Sequence[torch.Tensor], device) -> int:
@@ -105,13 +115,9 @@ def filter_compact_bits(cols: Sequence[torch.Tensor], words: torch.Tensor
     from repro_torch.kernels.build import check, library
 
     require_kernel_operand(words, "filter_compact words")
-    if words.dtype != torch.int32:
-        raise ValueError("filter_compact words must be int32 bit patterns")
     n = _check_columns(cols, words.device)
+    _check_words(words, n)
     nw = _bs.n_words(n)
-    if words.shape != (nw,):
-        raise ValueError(f"filter_compact: {n} rows need {nw} words, got "
-                         f"{tuple(words.shape)}")
     outs = [torch.empty_like(c) for c in cols]
     if n == 0:
         return outs, torch.zeros((), dtype=torch.int32, device=words.device)

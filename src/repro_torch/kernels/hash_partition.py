@@ -56,6 +56,15 @@ def _check_args(n_dest: int, block: int) -> None:
                          f"{max_dest(block)}] at block {block}, got {n_dest}")
 
 
+def _check_words(keys: torch.Tensor, words: torch.Tensor) -> None:
+    n = keys.shape[0]
+    if keys.dim() != 1 or words.dtype != torch.int32 \
+            or words.shape != (_bs.n_words(n),) or words.device != keys.device:
+        raise ValueError(f"hash_partition: {n} keys need {_bs.n_words(n)} "
+                         f"int32 validity words on their device, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+
+
 def hash_partition_plan_plain(keys: torch.Tensor, words: torch.Tensor,
                               n_dest: int, block: int = DEFAULT_BLOCK
                               ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -64,6 +73,7 @@ def hash_partition_plan_plain(keys: torch.Tensor, words: torch.Tensor,
     validity ``words``.  The rank is a row's place among the rows of its
     (block, dest) group in a stable sort on that pair."""
     _check_args(n_dest, block)
+    _check_words(keys, words)
     n = keys.shape[0]
     dev = keys.device
     valid = _bs.unpack(words, n)
@@ -94,12 +104,8 @@ def hash_partition_plan_kernel(keys: torch.Tensor, words: torch.Tensor,
     require_kernel_operand(keys, "hash_partition keys", dtypes=(torch.int32,))
     require_kernel_operand(words, "hash_partition words",
                            dtypes=(torch.int32,))
+    _check_words(keys, words)
     n = keys.shape[0]
-    if keys.dim() != 1 or words.shape != (_bs.n_words(n),) \
-            or words.device != keys.device:
-        raise ValueError(f"hash_partition: {n} keys need {_bs.n_words(n)} "
-                         f"validity words on their device, got "
-                         f"{tuple(words.shape)}")
     n_blocks = -(-n // block)
     dev = keys.device
     dest = torch.empty((n,), dtype=torch.int32, device=dev)

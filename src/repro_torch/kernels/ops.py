@@ -41,17 +41,16 @@ def filter_compact(vals: torch.Tensor, mask: torch.Tensor):
     """Compact ``vals[mask]`` to the front; returns ``(vals, count)``, slots
     past ``count`` zero.
 
-    As the reference dispatches on the mask's dtype: an int32 ``mask`` is
-    the packed ``ceil(n/32)``-word keep-mask (the reference's uint32 words,
-    B2); any other dtype is a ``(n,)`` row mask read as bool (the
-    reference's ``mask.astype(bool)``, B2b)."""
-    if mask.dtype == torch.int32:
-        out, cnt = filter_compact_table({"v": vals}, mask)
+    The mask's dtype chooses, as the reference's does: a ``torch.uint32``
+    mask is the packed ``ceil(n/32)``-word keep-mask (the reference's uint32
+    words, B2; a table's int32 ``valid`` words go in as
+    ``valid.view(torch.uint32)``), and every other dtype (``bool``,
+    ``int8``, ``int32``, ...) is a ``(n,)`` row mask read as ``mask != 0``
+    (the reference's ``mask.astype(bool)``, B2b)."""
+    if mask.dtype == torch.uint32:
+        out, cnt = filter_compact_table({"v": vals}, mask.view(torch.int32))
         return out["v"], cnt
-    mask = mask.to(torch.bool)
-    if mask.shape != vals.shape[:1]:
-        raise ValueError(f"filter_compact: {vals.shape[0]} rows need a "
-                         f"({vals.shape[0]},) mask, got {tuple(mask.shape)}")
+    mask = _row_mask(mask, vals.shape[0], "filter_compact")
     if mask.device.type == "cuda":
         out, cnt = _fc.filter_compact_mask([vals], mask)
     else:
@@ -59,17 +58,29 @@ def filter_compact(vals: torch.Tensor, mask: torch.Tensor):
     return out[0], cnt
 
 
+def _row_mask(mask: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    """A ``(n,)`` row mask of any dtype as bool (``mask != 0``)."""
+    if mask.shape != (n,):
+        raise ValueError(f"{what}: {n} rows need a ({n},) mask (or packed "
+                         f"torch.uint32 words), got {tuple(mask.shape)}")
+    return mask if mask.dtype == torch.bool else mask != 0
+
+
 def hash_partition_plan(keys: torch.Tensor, valid: torch.Tensor,
                         n_dest: int, block: int = _hp.DEFAULT_BLOCK):
     """Shuffle plan: ``(dest (n,), rank-within-block (n,), hist
-    (ceil(n/block), n_dest))``.  ``valid`` is the table's packed int32
-    validity words (a row mask raises ``TypeError``: ``bitset.pack`` it)."""
-    if valid.dtype != torch.int32:
-        raise TypeError(f"valid must be packed int32 validity words, got "
-                        f"{valid.dtype}")
+    (ceil(n/block), n_dest))``.  ``valid`` is, as in ``filter_compact``,
+    packed ``torch.uint32`` words (a table's ``valid.view(torch.uint32)``)
+    or a ``(n,)`` row mask of any other dtype (the reference's form), which
+    is packed first."""
+    if valid.dtype == torch.uint32:
+        words = valid.view(torch.int32)
+    else:
+        words = _bs.pack(_row_mask(valid, keys.shape[0],
+                                   "hash_partition_plan"))
     if keys.device.type == "cuda":
-        return _hp.hash_partition_plan_kernel(keys, valid, n_dest, block)
-    return _hp.hash_partition_plan_plain(keys, valid, n_dest, block)
+        return _hp.hash_partition_plan_kernel(keys, words, n_dest, block)
+    return _hp.hash_partition_plan_plain(keys, words, n_dest, block)
 
 
 def bitset_op(a: torch.Tensor, b: torch.Tensor, op: str):

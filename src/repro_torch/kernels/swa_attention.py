@@ -24,7 +24,12 @@ visible key range into chunks of a multiple of ``DECODE_KEYS`` keys, one
 block per (split, batch, KV head) writes fp32 partials (running max, sum,
 unnormalised output), and a second launch combines them.
 ``partials_plain`` and ``combine_partials_plain`` repeat that arithmetic in
-PyTorch.  Larger calls (prefill) run ``csrc/swa_attention.cu``.
+PyTorch.  Larger calls (prefill) run ``csrc/swa_prefill.cu`` in bf16 (TMA
+loads, ``wgmma`` products, warp-specialised; ``prefill_tile_class`` repeats
+its sorting of (query tile, key tile) pairs into skipped, full and edge
+tiles) and ``csrc/swa_attention.cu`` in fp32.  Both routes take head dims
+``HEAD_DIMS``; bf16 operands need 16-byte aligned bases and strides that
+are multiples of 8 elements (TMA's rule), else the call raises.
 """
 from __future__ import annotations
 
@@ -35,16 +40,20 @@ import torch
 
 from repro_torch.kernels import launch_counts, require_kernel_operand
 
-__all__ = ["HEAD_DIMS", "DECODE_ROWS", "DECODE_KEYS", "flash_swa_attention",
-           "flash_swa_attention_plain", "decode_key_range",
-           "plan_decode_splits", "partials_plain", "combine_partials_plain"]
+__all__ = ["HEAD_DIMS", "DECODE_ROWS", "DECODE_KEYS", "PREFILL_ROWS",
+           "flash_swa_attention", "flash_swa_attention_plain",
+           "decode_key_range", "plan_decode_splits", "partials_plain",
+           "combine_partials_plain", "prefill_keys_per_tile",
+           "prefill_tile_class", "prefill_tiles"]
 
-HEAD_DIMS = (16, 32, 64, 80, 128)        # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128, 240, 256)   # every route's instantiations
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _MAX_BH = 65535                          # B * Hkv rides grid.y
 _PLAIN_CHUNK = 1 << 28                   # score elements per plain-version step
 DECODE_ROWS = 16          # group * Sq rows per KV head on the decode route
 DECODE_KEYS = 64          # split chunks are multiples of this many keys
+PREFILL_ROWS = 128        # query rows (of one head) a bf16 prefill block takes
+SKIP, FULL, EDGE = 0, 1, 2  # classes of a (query tile, key tile) pair
 BLOCKS_PER_SM = 2         # the split plan fills the card this many times
 _LOG2E = 1.4426950408889634
 
@@ -137,6 +146,47 @@ def plan_decode_splits(begin: int, end: int, n_bkv: int,
     want = max(1, -(-BLOCKS_PER_SM * sm_count // max(1, n_bkv)))
     per = max(1, tiles // want)
     return start, per * DECODE_KEYS, -(-tiles // per)
+
+
+def prefill_keys_per_tile(D: int) -> int:
+    """Keys a tile of the bf16 prefill kernel: 128, or 64 above D = 128
+    (where the output alone takes 120-128 registers a thread)."""
+    return 64 if D > 128 else 128
+
+
+def prefill_tile_class(qlo: int, qhi: int, k0: int, keys: int, causal: bool,
+                       window: int, kv_len: int) -> int:
+    """The bf16 prefill kernel's class of the pair (query rows at positions
+    ``[qlo, qhi]``, keys ``[k0, k0 + keys)``), as
+    ``csrc/swa_prefill.cu:prefill_tile_class`` computes it: ``SKIP`` when no
+    row sees a key, ``FULL`` when every row sees every key (the kernel then
+    masks nothing), else ``EDGE`` (the causal diagonal, the window's lower
+    edge or ``kv_len`` crosses the tile)."""
+    khi = min(k0 + keys, kv_len) - 1             # last key that exists
+    if khi < k0 or (causal and k0 > qhi) or (window > 0
+                                              and khi <= qlo - window):
+        return SKIP
+    kend = k0 + keys - 1
+    if kend < kv_len and (not causal or kend <= qlo) and (
+            window == 0 or k0 > qhi - window):
+        return FULL
+    return EDGE
+
+
+def prefill_tiles(q0: int, Sq: int, D: int, causal: bool, window: int,
+                  q_offset: int, kv_len: int):
+    """``[(key tile, class), ...]`` that the bf16 prefill block of the
+    query tile starting at row ``q0`` walks: the tiles of
+    ``decode_key_range``'s keys for its rows, in order."""
+    bn = prefill_keys_per_tile(D)
+    rows = min(q0 + PREFILL_ROWS, Sq) - q0
+    qlo = q_offset + q0
+    begin, end = decode_key_range(rows, causal, window, qlo, kv_len)
+    if end <= begin:
+        return []
+    return [(t, prefill_tile_class(qlo, qlo + rows - 1, t * bn, bn, causal,
+                                   window, kv_len))
+            for t in range(begin // bn, -(-end // bn))]
 
 
 def _rows(x: torch.Tensor, Hkv: int) -> torch.Tensor:
@@ -268,7 +318,8 @@ def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)        # q's strides where q is dense
     if out.stride(-1) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    # bf16 tiles move in 16-byte vectors, fp32 ones element by element
+    # bf16 tiles move by TMA (16-byte aligned bases, strides multiples of 16
+    # bytes) or in 16-byte vectors, fp32 ones element by element
     bf16 = q.dtype == torch.bfloat16
     elems, nbytes = (8, 16) if bf16 else (1, 4)
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):

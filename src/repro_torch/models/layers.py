@@ -250,9 +250,6 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     S_cache = kc.shape[1]
     pos = int(cache_pos)
     if window > 0 and S_cache == window:
-        if engine == "cuda" and S != 1:
-            raise ValueError(f"ring-buffer decode under the cuda engine "
-                             f"takes one query, got {S}")
         # ring buffer: absolute position -> slot = pos % window
         _write_cache(kc, vc, k, v, pos % window)
         if engine == "torch":
@@ -262,12 +259,15 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
             ring_pos = pos - ((pos - idx) % window)
             out = _ring_sdpa(q, kc, vc, ring_pos, pos, window)
         else:
-            # For one query at pos, ring_pos[i] = pos - ((pos - i) % W) lies
-            # in (pos - W, pos] for every slot i <= pos, and is i - W < 0 for
-            # i > pos: the reference's valid set (ring_pos >= 0 and inside
-            # the window) is exactly the first min(pos + 1, W) slots.  So B6
-            # attends those with no causal or window mask (softmax does not
-            # care about the slots' order).
+            # The reference masks every one of the S queries by cache_pos =
+            # pos alone: ring_pos[i] = pos - ((pos - i) % W) lies in
+            # (pos - W, pos] for every slot i <= pos and is i - W < 0 for
+            # i > pos, so its valid set (ring_pos >= 0 and inside the window)
+            # is exactly the first min(pos + 1, W) slots, the same for all S
+            # queries, with no causal order among them.  B6 attends those
+            # slots with no causal or window mask (softmax does not care
+            # about the slots' order), for any S: group * S <= 16 rows take
+            # the decode route, larger calls the prefill kernel.
             out = _flash(q, kc, vc, causal=False, window=0, q_offset=pos,
                          kv_len=min(pos + 1, window))
         return out @ p["wo"], (kc, vc)

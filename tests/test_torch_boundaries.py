@@ -83,7 +83,8 @@ def test_tables_and_study_default_to_cuda(no_cuda):
 
 @pytest.mark.parametrize("name", ["predicate.cu", "filter_compact.cu",
                                   "bitset_ops.cu", "swa_attention.cu",
-                                  "swa_decode.cu", "hash_partition.cu"])
+                                  "swa_prefill.cu", "swa_decode.cu",
+                                  "hash_partition.cu"])
 def test_cuda_sources_carry_their_note(name):
     text = open(os.path.join(PKG, "csrc", name)).read()
     assert "Replaces the Pallas TPU kernel repro/kernels/" in text

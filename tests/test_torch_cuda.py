@@ -218,7 +218,22 @@ ATTN_CASES = [
     (2, 8, 2, 1, 640, 64, False, 0, 9000, 0),
     (3, 8, 8, 1, 2049, 16, True, 0, 2048, None),
     (2, 8, 1, 2, 1500, 32, True, 300, 1400, 1450),
+    # the decode route at gemma3-12b's head dim (16/8 heads of 240: the ring
+    # with S = 3 and a full cache) and at 256
+    (2, 16, 8, 3, 1024, 240, False, 0, 1500, 1024),
+    (1, 16, 8, 1, 4096, 240, True, 1024, 3000, 4096),
+    (2, 16, 8, 2, 2048, 256, True, 0, 2000, 2048),
 ]
+# the bf16 prefill kernel (TMA, wgmma) at every head dim: Sq not a multiple
+# of its 128 rows, kv_len not a multiple of its key tile, a window edge
+# inside a tile; causal=False with a ragged kv_len; rows before the first key
+ATTN_CASES += [(1, 4, 2, 300, 333, D, True, 50, None, 317)
+               for D in swa.HEAD_DIMS]
+ATTN_CASES += [(2, 16, 8, 257, 400, 240, False, 0, None, 200),
+               (1, 2, 1, 130, 130, 256, True, 0, -8, None),
+               # no key at all (every block walks no tile), a window of one
+               (1, 8, 2, 40, 64, 80, False, 0, 5, 0),
+               (1, 4, 4, 300, 300, 64, True, 1, None, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -251,9 +266,47 @@ def test_flash_attention_kernel_matches_plain(device, case, dtype):
 
 
 def test_flash_attention_kernel_refuses_other_head_dims(device):
-    q = torch.zeros(1, 2, 4, 240, device=device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 240"):
+    q = torch.zeros(1, 2, 4, 96, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 96"):
         swa.flash_swa_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,S,pos", [("swa", 300, None),
+                                        ("attn", 300, None),
+                                        ("swa", 3, 1500)])
+def test_gemma3_attention_layer_card_matches_cpu(device, kind, S, pos,
+                                                 dtype):
+    """One gemma3-12b attention layer at full width (16/8 heads of 240),
+    prefill and a 3-query ring decode past the wrap: the card's kernels
+    against the CPU's plain versions on the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_config("gemma3-12b"), dtype=dtype)
+    dt = getattr(torch, dtype)
+    p = L.attn_params(torch.Generator().manual_seed(0), cfg, dt)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((1, S, cfg.d_model), generator=g).to(dt)
+    start = pos or 0
+    positions = (start + torch.arange(S, dtype=torch.int32))[None]
+    outs = {}
+    for dev in ("cpu", device):
+        cache = None
+        if pos is not None:
+            shape = (1, cfg.window, cfg.n_kv_heads, cfg.head_dim_)
+            cache = tuple(torch.randn(shape, generator=torch.Generator()
+                                      .manual_seed(2)).to(dt).to(dev)
+                          for _ in range(2))
+        outs[str(dev)] = L.attention(
+            {k: v.to(dev) for k, v in p.items()}, x.to(dev), cfg, kind=kind,
+            positions=positions.to(dev), cache=cache, cache_pos=pos,
+            engine="cuda")[0]
+    tol = 1e-3 if dtype == "float32" else 0.1
+    assert float((outs[str(device)].float().cpu() - outs["cpu"].float())
+                 .abs().max()) <= tol
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

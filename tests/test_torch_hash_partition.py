@@ -26,6 +26,7 @@ from repro_torch.core import ColumnarTable, NULL_INT
 from repro_torch.core import bitset as _bs
 from repro_torch.core import flattening as pfl
 from repro_torch.kernels import launch_counts, ops
+from repro_torch.kernels import filter_compact as fc
 from repro_torch.kernels import hash_partition as hp
 
 DESTS = (1, 2, 4, 8, 15, 64)
@@ -47,7 +48,8 @@ def test_plan_plain_matches_reference_and_pallas(n_dest, block):
     keys, valid = _keys(n, n_dest * block)
     before = dict(launch_counts)
     dest, rank, hist = ops.hash_partition_plan(
-        torch.from_numpy(keys), _bs.pack(torch.from_numpy(valid)), n_dest,
+        torch.from_numpy(keys),
+        _bs.pack(torch.from_numpy(valid)).view(torch.uint32), n_dest,
         block=block)
     assert launch_counts == before             # CPU tensors launch nothing
     pad = (-n) % block
@@ -67,19 +69,28 @@ def test_plan_plain_matches_reference_and_pallas(n_dest, block):
 
 
 def test_plan_takes_packed_words_and_refuses_a_mask():
+    """Packed words go in under the ``torch.uint32`` tag; a row mask of any
+    other dtype is the reference's form and gives the same plan; untagged
+    int32 words are a row mask of the wrong length and are refused, as are
+    wrong-length words in the plain version."""
     keys, valid = _keys(1000, 1)
     k = torch.from_numpy(keys)
-    a = ops.hash_partition_plan(k, _bs.pack(torch.from_numpy(valid)), 4)
+    words = _bs.pack(torch.from_numpy(valid))
+    a = ops.hash_partition_plan(k, words.view(torch.uint32), 4)
     b = ops.hash_partition_plan(k, ColumnarTable.from_columns(
-        {"k": keys}, valid=valid, device="cpu").valid, 4)
+        {"k": keys}, valid=valid, device="cpu").valid.view(torch.uint32), 4)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    # a row mask read as words would be a wrong plan, so it raises
-    for mask in (valid, valid.astype(np.int8)):
-        with pytest.raises(TypeError):
-            ops.hash_partition_plan(k, torch.from_numpy(mask), 4)
+    for mask in (valid, valid.astype(np.int8) * 3, valid.astype(np.int32)):
+        for x, y in zip(a, ops.hash_partition_plan(k, torch.from_numpy(mask),
+                                                   4)):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="mask"):
+        ops.hash_partition_plan(k, words, 4)
+    with pytest.raises(ValueError, match="validity words"):
+        hp.hash_partition_plan_plain(k, words[:-1], 4)
     d, r, h = ops.hash_partition_plan(torch.zeros(0, dtype=torch.int32),
-                                      torch.zeros(0, dtype=torch.int32), 3)
+                                      torch.zeros(0, dtype=torch.uint32), 3)
     assert d.shape == r.shape == (0,) and h.shape == (0, 3)
 
 
@@ -88,8 +99,8 @@ def test_plan_takes_packed_words_and_refuses_a_mask():
 def test_plan_refuses_what_the_kernel_cannot_hold(n_dest, block):
     with pytest.raises(ValueError):
         ops.hash_partition_plan(torch.zeros(64, dtype=torch.int32),
-                                torch.full((2,), -1, dtype=torch.int32),
-                                n_dest, block=block)
+                                torch.full((2,), -1, dtype=torch.int32)
+                                .view(torch.uint32), n_dest, block=block)
     assert hp.max_dest(512) == 768 and hp.max_dest(1024) == 384
 
 
@@ -164,12 +175,70 @@ def test_filter_compact_bool_mask_matches_reference(case):
 
 
 def test_filter_compact_still_reads_int32_masks_as_words():
+    """Packed words are read as words only under the ``torch.uint32`` tag
+    (the reference's uint32 words); an int32 ``(n,)`` mask is a row mask, as
+    in the reference, where reading it as words gave count 0 instead of 3.
+    The plain version refuses words of the wrong length."""
     vals = torch.arange(40, dtype=torch.int32)
     mask = torch.zeros(40, dtype=torch.bool)
     mask[[3, 33, 39]] = True
     words = ColumnarTable.from_columns({"v": vals}, valid=mask,
                                        device="cpu").valid
-    got, cnt = ops.filter_compact(vals, words)
+    got, cnt = ops.filter_compact(vals, words.view(torch.uint32))
+    assert int(cnt) == 3 and got[:4].tolist() == [3, 33, 39, 0]
+    got, cnt = ops.filter_compact(vals, mask.to(torch.int32))
     assert int(cnt) == 3 and got[:4].tolist() == [3, 33, 39, 0]
     with pytest.raises(ValueError, match="mask"):
         ops.filter_compact(vals, mask[:39])
+    with pytest.raises(ValueError, match="mask"):
+        ops.filter_compact(vals, words)          # untagged: a short row mask
+    with pytest.raises(ValueError, match="words"):
+        fc.filter_compact_plain([vals], words[:1])
+
+
+def _c10_case(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    keep = rng.random(n) < 0.45
+    if kind == "words":
+        return keep, np.asarray(RTable.from_columns(
+            {"v": jnp.zeros(n, jnp.int32)}, valid=jnp.asarray(keep)).valid)
+    dtype = {"bool": bool, "int8": np.int8, "int32": np.int32}[kind]
+    return keep, keep.astype(dtype) * (1 if kind == "bool" else -3)
+
+
+def _port_mask(m):
+    t = torch.from_numpy(np.ascontiguousarray(m))
+    return t.view(torch.uint32) if m.dtype == np.uint32 else t
+
+
+C10_KINDS = ["bool", "int8", "int32", "words"]
+
+
+@pytest.mark.parametrize("kind", C10_KINDS)
+def test_filter_compact_masks_match_reference(kind):
+    """Row masks of every dtype, and tagged packed words, through both
+    packages' ``ops.filter_compact``: the same values and count."""
+    n = 1031
+    keep, m = _c10_case(kind, n, 3)
+    vals = np.random.default_rng(4).integers(-99, 99, n).astype(np.int32)
+    want, wcnt = rops.filter_compact(jnp.asarray(vals), jnp.asarray(m),
+                                     interpret=True)
+    got, cnt = ops.filter_compact(torch.from_numpy(vals), _port_mask(m))
+    assert int(cnt) == int(wcnt) == int(keep.sum())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind", C10_KINDS)
+def test_hash_partition_plan_masks_match_reference(kind):
+    """Row masks of every dtype, and tagged packed words, through the
+    port's ``ops.hash_partition_plan``, against the reference's plan of
+    the same rows (which takes a row mask)."""
+    n = 1100
+    keep, m = _c10_case(kind, n, 5)
+    keys, _ = _keys(n, 6)
+    want = rops.hash_partition_plan(jnp.asarray(keys), jnp.asarray(
+        m if kind != "words" else keep), 8, block=256, interpret=True)
+    got = ops.hash_partition_plan(torch.from_numpy(keys), _port_mask(m), 8,
+                                  block=256)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -207,7 +207,8 @@ def test_filter_compact_packed_mask(n):
         if g.dtype == np.float32:
             g, w = g.view(np.int32), w.view(np.int32)
         np.testing.assert_array_equal(g, w, err_msg=k)
-    one, one_cnt = pops.filter_compact(torch.from_numpy(cols["a"]), pwords)
+    one, one_cnt = pops.filter_compact(torch.from_numpy(cols["a"]),
+                                       pwords.view(torch.uint32))
     np.testing.assert_array_equal(one.numpy(), got["a"].numpy())
 
 

@@ -2,7 +2,9 @@
 Pallas kernel in interpret mode (``repro.kernels.ops.flash_attention``) and
 against its dense oracle (``repro.kernels.ref.attention_ref``), over the
 sweep of ``tests/test_kernels.py``, plus the decode offsets, the ring-buffer
-mode (``causal=False``, ``kv_len < Skv``) and rows with no visible key.
+mode (``causal=False``, ``kv_len < Skv``), rows with no visible key, head
+dims 240 and 256, and the bf16 prefill kernel's tile classes
+(``prefill_tiles``) against the plain version's mask.
 Tolerances are the reference's own: 2e-5 in fp32, 2e-2 in bf16 (the sums
 run in another order).  On CPU tensors the wrapper runs the plain version
 and launches nothing; the kernel is held against it on the card
@@ -126,6 +128,89 @@ def test_bad_arguments_raise():
         ops.flash_attention(q, k, k, kv_len=5)
     with pytest.raises(ValueError, match="dtypes differ"):
         ops.flash_attention(q, k.double(), k.double())
+
+
+# gemma3-12b's head dim (and 256): a local layer's window crossing tiles, a
+# global causal layer, a decode offset, and the ring mode
+WIDE = [
+    (1, 4, 2, 40, 48, True, 16, None, None),
+    (1, 2, 1, 33, 48, True, 0, None, None),
+    (1, 4, 2, 3, 64, True, 24, 50, 64),
+    (1, 2, 2, 3, 32, False, 0, 700, 19),
+]
+
+
+@pytest.mark.parametrize("D", [240, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,causal,window,q_offset,kv_len",
+                         WIDE)
+def test_wide_head_dims_match_pallas(B, Hq, Hkv, Sq, Skv, causal, window,
+                                     q_offset, kv_len, D, dtype):
+    """Head dims 240 and 256, which the kernels now take: the plain version
+    against the Pallas kernel in interpret mode."""
+    (q, k, v), (tq, tk, tv) = _inputs(Sq + D, B, Hq, Hkv, Sq, Skv, D, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    got = ops.flash_attention(tq, tk, tv, **kw)
+    want = rswa.flash_swa_attention(
+        q, k, v, causal=causal, window=window,
+        q_offset=Skv - Sq if q_offset is None else q_offset,
+        kv_len=Skv if kv_len is None else kv_len, bq=Sq, bk=16,
+        interpret=True)
+    _close(got, want, dtype)
+    assert D in swa.HEAD_DIMS
+
+
+def _plain_visible(Sq, Skv, causal, window, q_offset, kv_len):
+    """The plain version's mask, read off its output: q = 0 gives every
+    visible key the same weight, and v = the identity (D = Skv) puts key
+    j's weight in column j, so column j > 0 exactly where j is visible."""
+    q = torch.zeros(1, 1, Sq, Skv)
+    eye = torch.eye(Skv)[None, None]
+    out = swa.flash_swa_attention_plain(q, eye, eye, causal=causal,
+                                        window=window, q_offset=q_offset,
+                                        kv_len=kv_len)
+    return (out[0, 0] > 0).numpy()
+
+
+TILE_CASES = [(Sq, kv_len, causal, window, q_offset)
+              for Sq in (1, 130, 300)
+              for kv_len in (0, 77, 300, 333)
+              for causal in (True, False)
+              for window in (0, 1, 50, 200)
+              for q_offset in (None, -8, 270)]
+
+
+@pytest.mark.parametrize("D", [80, 240])
+def test_prefill_tile_classes_match_the_plain_mask(D):
+    """``prefill_tiles`` (the bf16 prefill kernel's walk) against the plain
+    version's mask over ragged ``Sq`` and ``kv_len``, windows, offsets and
+    ``causal=False``: the walked tiles are exactly those where some row sees
+    a key, FULL exactly where every row sees every key, EDGE elsewhere."""
+    Skv, bn = 400, swa.prefill_keys_per_tile(D)
+    n_edge = n_full = 0
+    for Sq, kv_len, causal, window, q_offset in TILE_CASES:
+        qo = kv_len - Sq if q_offset is None else q_offset
+        vis = _plain_visible(Sq, Skv, causal, window, qo, kv_len)
+        vis = np.pad(vis, ((0, 0), (0, -Skv % bn)))
+        for q0 in range(0, Sq, swa.PREFILL_ROWS):
+            rows = vis[q0:q0 + swa.PREFILL_ROWS]
+            walked = dict(swa.prefill_tiles(q0, Sq, D, causal, window, qo,
+                                            kv_len))
+            for t in range(vis.shape[1] // bn):
+                tile = rows[:, t * bn:(t + 1) * bn]
+                cls = walked.get(t, swa.SKIP)
+                assert cls == swa.prefill_tile_class(
+                    qo + q0, qo + q0 + rows.shape[0] - 1, t * bn, bn, causal,
+                    window, kv_len)
+                if not tile.any():
+                    assert cls == swa.SKIP
+                elif tile.all():
+                    assert cls == swa.FULL
+                    n_full += 1
+                else:
+                    assert cls == swa.EDGE
+                    n_edge += 1
+    assert n_full > 0 and n_edge > 0
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
