@@ -8,18 +8,25 @@ Phases (any failure exits nonzero; no phase catches its own failure, and
 nothing falls back to the CPU):
 
   1. environment: torch/CUDA versions, the card's name and power limit, and
-     the build of the CUDA kernels from ``src/repro_torch/csrc``;
+     the build of the CUDA kernels from ``src/repro_torch/csrc`` (ptxas must
+     report no stack frame and no spill for both of B1's kernels);
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, bit for bit, at edge sizes with NULLs, NaNs, an Expr battery,
-     hoisted literals and ragged whitelists; the segmented scan (B4) over
-     flag patterns, runs spanning many blocks and values beyond its ±2e9
-     fills;
+     hoisted literals and ragged whitelists (up to eight of 1,024 values,
+     bitmaps, shared- and global-memory searches, 15 register-file slots);
+     B1's whole battery again at its tile edges (tile ± 1 row), one wave of
+     its persistent grid ± 33 rows and three waves; the segmented scan (B4)
+     over flag patterns, runs spanning many blocks and up to a thousand of
+     its look-back tiles (with no flag at all), block sizes on and off its
+     tiles, and values beyond its ±2e9 fills;
   3. quickstart: the quickstart study (synthetic DCIR star, flatten, two
      extractors, patients, cohort algebra, flow) at ``--n-patients`` on the
      card with the ``cuda`` engines; every kernel of the path must have
      launched, the no-loss audit must pass, and the ``torch`` engines must
      give the same answer; each kernel is timed at the shapes that run gave
-     it, and one warm run is traced with torch.profiler: device time by
+     it (B1 also at the longest program with a whitelist that the run
+     launched; B1 and B4 as the middle of 3 medians of 20 with their
+     min-max), and one warm run is traced with torch.profiler: device time by
      kernel, the device's busy and idle share of the run's wall time, and a
      Chrome trace in ``chiprun_out/quickstart_trace.json``;
   4. cohort study: ``examples/cohort_study.py``'s plan (DCIR and PMSI,
@@ -228,49 +235,117 @@ def expr_battery():
         col("x") >= HoistedLit(1),
         HoistedIsIn(col("b"), 0, 5, False),
         HoistedIsIn(col("x"), 1, 3, True) | (col("a") == HoistedLit(0)),
+        # whitelists of the full MAX_ISIN_VALUES (staged in shared memory,
+        # the int ones as bitmaps), one past it (searched in global memory),
+        # eight at once (every table slot), and a hoisted one of 1,024
+        # values
+        col("a").isin(list(range(-509, 515))),
+        col("x").isin([float(v) / 8 for v in range(-512, 512)]),
+        col("b").isin(list(range(-3, 1098))),
+        # int whitelists too wide for a bitmap (searched in shared memory),
+        # one holding the NULL sentinel
+        col("a").isin([-10 ** 6, 3, 4, 10 ** 6]),
+        col("a").isin([-2 ** 31 + 1, 4]) | col("b").isin([2 ** 31 - 1, -2]),
+        _any_isin([col(c) for c in "abzabzab"], 1024),
+        HoistedIsIn(col("a") + col("b"), 2, 1024, False),
+        # 16 live registers: 15 register-file slots, the 8-row kernel
+        _nested_sum("abzab" * 3 + "z") > 0,
+        # a balanced tree: many live registers (register-file slots)
+        (((col("a") < 3) | (col("b") > 2)) & ((col("x") < 0.5)
+                                              | (col("y") > -0.5)))
+        & (((col("z") != 0) | (col("a") + col("b") < col("z") * 4))
+           & ((col("x") * col("y") < 0.25) | col("a").is_null())),
     ]
+
+
+def _nested_sum(names: str):
+    """``c0 + (c1 + (... + c_last))`` over the columns ``names``: each
+    left operand stays live until the innermost sum is done."""
+    from repro_torch.study import col
+
+    e = col(names[-1])
+    for c in reversed(names[:-1]):
+        e = col(c) + e
+    return e
+
+
+def _any_isin(operands, size: int):
+    """``operand_k in W_k`` OR'd over k: one whitelist of ``size`` values
+    (shifted by 3 k) for each operand."""
+    e = None
+    for k, x in enumerate(operands):
+        term = x.isin(list(range(3 * k - size // 2, 3 * k + size - size // 2)))
+        e = term if e is None else e | term
+    return e
+
+
+def battery_params():
+    """The bound (literals, whitelists) behind the battery's hoisted slots."""
+    import numpy as np
+
+    return ((np.int32(4), np.float32(-0.5)),
+            (np.array([7, -3, 2, 2, 11], np.int32),
+             np.array([0.25, np.nan, -1.0], np.float32),
+             np.arange(-700, 2 * 1024 - 700, 2, dtype=np.int32)))
+
+
+def battery_columns(n: int, device):
+    """The battery's columns and validity words over ``n`` rows: NULLs,
+    NaNs and zero divisors, from a seed of ``n``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import bitset as bs
+    from repro_torch.core.columnar import NULL_INT
+
+    rng = np.random.default_rng(n)
+    a = rng.integers(-5, 15, n).astype(np.int32)
+    a[rng.random(n) < 0.25] = NULL_INT
+    x = rng.normal(size=n).astype(np.float32)
+    x[rng.random(n) < 0.2] = np.nan
+    y = rng.normal(size=n).astype(np.float32)
+    y[rng.random(n) < 0.2] = 0.0
+    cols = {"a": a, "b": rng.integers(-5, 15, n).astype(np.int32),
+            "x": x, "y": y,
+            "z": rng.integers(-2, 3, n).astype(np.int32)}
+    cols = {k: torch.from_numpy(v).to(device) for k, v in cols.items()}
+    valid = bs.pack(torch.from_numpy(rng.random(n) < 0.85).to(device))
+    return cols, valid, rng
+
+
+def check_predicates(exprs, cols, valid, n: int, params) -> int:
+    """Each expression through the kernel against its plain version, bit
+    for bit; returns the number checked."""
+    import torch
+
+    from repro_torch.kernels import predicate as pk
+
+    for e in exprs:
+        param = e.to_param()
+        prog = pk.compile_program(param, *pk._kinds(cols, param, params))
+        got = pk.predicate_bitset(cols, valid, expr_param=param, capacity=n,
+                                  params=params)
+        want = pk.predicate_bitset_plain(prog, cols, valid, n, params) \
+            if n else got
+        torch.cuda.synchronize()
+        if not (_same(got[0], want[0]) and int(got[1]) == int(want[1])):
+            fail(f"predicate kernel != plain at n={n} for {e!r}")
+    return len(exprs)
 
 
 def kernel_battery(device) -> None:
     import numpy as np
     import torch
 
-    from repro_torch.core import bitset as bs
-    from repro_torch.core.columnar import NULL_INT
     from repro_torch.kernels import bitset_ops as bo
     from repro_torch.kernels import filter_compact as fc
-    from repro_torch.kernels import predicate as pk
 
     exprs = expr_battery()
-    params = ((np.int32(4), np.float32(-0.5)),
-              (np.array([7, -3, 2, 2, 11], np.int32),
-               np.array([0.25, np.nan, -1.0], np.float32)))
+    params = battery_params()
     checked = 0
     for n in EDGE_SIZES:
-        rng = np.random.default_rng(n)
-        a = rng.integers(-5, 15, n).astype(np.int32)
-        a[rng.random(n) < 0.25] = NULL_INT
-        x = rng.normal(size=n).astype(np.float32)
-        x[rng.random(n) < 0.2] = np.nan
-        y = rng.normal(size=n).astype(np.float32)
-        y[rng.random(n) < 0.2] = 0.0
-        cols = {"a": a, "b": rng.integers(-5, 15, n).astype(np.int32),
-                "x": x, "y": y,
-                "z": rng.integers(-2, 3, n).astype(np.int32)}
-        cols = {k: torch.from_numpy(v).to(device) for k, v in cols.items()}
-        valid = bs.pack(torch.from_numpy(rng.random(n) < 0.85).to(device))
-        for e in exprs:
-            param = e.to_param()
-            kinds = pk._kinds(cols, param, params)
-            prog = pk.compile_program(param, *kinds)
-            got = pk.predicate_bitset(cols, valid, expr_param=param,
-                                      capacity=n, params=params)
-            want = pk.predicate_bitset_plain(prog, cols, valid, n, params) \
-                if n else got
-            torch.cuda.synchronize()
-            if not (_same(got[0], want[0]) and int(got[1]) == int(want[1])):
-                fail(f"predicate kernel != plain at n={n} for {e!r}")
-            checked += 1
+        cols, valid, rng = battery_columns(n, device)
+        checked += check_predicates(exprs, cols, valid, n, params)
         # B2: int32 + float32 columns (NaNs), and > 32 columns (two launches)
         many = [cols[k] for k in ("a", "b", "x", "y", "z")] * 7
         for cs in (many[:5], many):
@@ -299,9 +374,51 @@ def kernel_battery(device) -> None:
                 checked += 1
     log(f"kernels: {checked} kernel-vs-plain checks bit-identical "
         f"at n in {EDGE_SIZES}")
+    predicate_edges(device, exprs, params)
 
 
-SCAN_SIZES = (1, 31, 511, 512, 513, 4096 + 7)
+def predicate_sizes(exprs, params, device):
+    """B1's sizes at the edges of its design: one tile (± 1 row), one full
+    wave of the persistent grid (grid x tile ± 33, for each grid and tile
+    the battery's programs get) and one where every block walks at least 3
+    tiles; and those (grid, tile) pairs."""
+    from repro_torch.kernels import predicate as pk
+
+    cols, _, _ = battery_columns(1, device)
+    sizes, waves = set(), set()
+    for e in exprs:
+        param = e.to_param()
+        prog = pk.compile_program(param, *pk._kinds(cols, param, params))
+        plan = pk.device_plan(prog, 1 << 40, device, params)
+        sizes |= {plan.tile - 1, plan.tile, plan.tile + 1}
+        waves.add((plan.grid, plan.tile))
+    for g, tile in waves:
+        sizes |= {g * tile - 33, g * tile + 33}
+    sizes.add(3 * max(g * tile for g, tile in waves) + 17)
+    return sorted(sizes), sorted(waves)
+
+
+def predicate_edges(device, exprs, params) -> None:
+    """The whole expression battery at B1's tile and wave edges."""
+    import torch
+
+    sizes, waves = predicate_sizes(exprs, params, device)
+    checked = 0
+    for n in sizes:
+        cols, valid, _ = battery_columns(n, device)
+        checked += check_predicates(exprs, cols, valid, n, params)
+        del cols, valid
+    torch.cuda.empty_cache()
+    log(f"kernels: {checked} predicate kernel-vs-plain checks bit-identical "
+        f"at B1's tile and wave edges, n in {sizes} (persistent grids, "
+        f"tiles: {waves})")
+
+
+# to 4,103 rows: the 512-row blocks' edges; then hundreds of the kernel's
+# 4,096-row look-back tiles
+SCAN_SIZES = (1, 31, 511, 512, 513, 4096 + 7, 300 * 4096 + 5,
+              1000 * 4096 - 1)
+SCAN_BLOCKS = (32, 512, 4099)   # 4,099: block edges off the tile grid
 # values beyond the reference kernel's ±2e9 fills, where its clamp shows
 EXTREMES = (2 ** 31 - 1, -2 ** 31, -2 ** 31 + 1, 2_000_000_000,
             -2_000_000_000, 2_100_000_000, -2_100_000_000, 0, 7)
@@ -309,7 +426,8 @@ EXTREMES = (2 ** 31 - 1, -2 ** 31, -2 ** 31 + 1, 2_000_000_000,
 
 def segment_scan_battery(device) -> None:
     """B4 against its plain version, bit for bit: random, all and only-first
-    flags, runs spanning many blocks, extreme values, both fills."""
+    flags, runs spanning many blocks (and, with no flag, every look-back
+    tile), extreme values, both fills."""
     import numpy as np
     import torch
 
@@ -330,7 +448,7 @@ def segment_scan_battery(device) -> None:
             words = bs.pack(torch.from_numpy(f).to(device))
             for vname, v in val_sets.items():
                 vals = torch.from_numpy(v.astype(np.int32)).to(device)
-                for block in (32, 512):
+                for block in SCAN_BLOCKS:
                     for fill in (ss.DEFAULT_FILL, ss.EXACT_FILL):
                         got = ss.segmented_scan_kernel(words, vals, block, fill)
                         want = ss.segmented_scan_plain(words, vals, block, fill)
@@ -341,7 +459,7 @@ def segment_scan_battery(device) -> None:
                                  f"block={block} fill={fill}")
                         checked += 1
     log(f"kernels: {checked} segmented_scan kernel-vs-plain checks "
-        f"bit-identical at n in {SCAN_SIZES}")
+        f"bit-identical at n in {SCAN_SIZES}, blocks {SCAN_BLOCKS}")
 
 
 # ---------------------------------------------------------------------------
@@ -449,17 +567,24 @@ def compare_results(a, b, what: str, full_columns: bool) -> None:
 
 class Recorder:
     """Keeps the largest call of a kernel wrapper on the main path, so that
-    the kernel can be timed at the shapes the path gave it."""
+    the kernel can be timed at the shapes the path gave it; with ``second``,
+    also the call that ranks highest by that key."""
 
-    def __init__(self, module, name, size):
+    def __init__(self, module, name, size, second=None):
         self.module, self.name, self.size = module, name, size
+        self.second = second
         self.fn = getattr(module, name)
         self.best = None
+        self.other = None
 
     def __call__(self, *args, **kwargs):
         s = self.size(*args, **kwargs)
         if self.best is None or s > self.best[0]:
             self.best = (s, args, kwargs)
+        if self.second is not None:
+            k = self.second(*args, **kwargs)
+            if self.other is None or k > self.other[0]:
+                self.other = (k, args, kwargs)
         return self.fn(*args, **kwargs)
 
     def __enter__(self):
@@ -475,7 +600,8 @@ def recorders():
                                      segment_scan)
 
     return {"predicate_bitset": Recorder(
-                predicate, "_launch", lambda prog, cols, valid, cap, p: cap),
+                predicate, "_launch", lambda prog, cols, valid, cap, p: cap,
+                second=longest_program),
             "filter_compact": Recorder(
                 filter_compact, "filter_compact_bits",
                 lambda cols, words: cols[0].shape[0] * len(cols)),
@@ -484,6 +610,13 @@ def recorders():
             "segmented_scan": Recorder(
                 segment_scan, "segmented_scan_kernel",
                 lambda words, vals, block, fill: vals.shape[0])}
+
+
+def longest_program(prog, cols, valid, cap, params):
+    """B1's second timed program: the one with a whitelist, then the most
+    instructions, then the most rows."""
+    isin = any(i[0].startswith("ISIN") for i in prog.instrs)
+    return (isin, len(prog.instrs), cap)
 
 
 def drive(label: str, study, tables, kernels, reps: int, rate: float):
@@ -651,24 +784,32 @@ def time_kernels(recs, reps: int, rate: float):
     """Each recorded kernel against its plain version at the recorded shape
     (bit for bit), then timed: kernel, plain version, library call."""
     from repro_torch.core import bitset as bs
-    from repro_torch.kernels import (bitset_ops, filter_compact, predicate,
-                                     segment_scan)
+    from repro_torch.kernels import bitset_ops, filter_compact, segment_scan
 
     out = {}
     if "predicate_bitset" in recs:
         rec = recs["predicate_bitset"]
-        prog, cols, valid, cap, params = rec.best[1]
-        kern = lambda: rec.fn(prog, cols, valid, cap, params)  # noqa: E731
-        plain = lambda: predicate.predicate_bitset_plain(  # noqa: E731
-            prog, cols, valid, cap, params)
-        got, want = kern(), plain()
-        if not (_same(got[0], want[0]) and int(got[1]) == int(want[1])):
-            fail("predicate kernel != plain at the main path's shape")
-        nbytes = (4 * len(prog.columns) + 0.25) * cap
-        out["predicate_bitset"] = dict(
-            n=cap, columns=len(prog.columns), ms=cuda_ms(kern, reps),
-            plain_ms=cuda_ms(plain, reps), library_ms=None,
-            bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
+        out["predicate_bitset"] = time_predicate(rec.fn, rec.best[1], reps,
+                                                 rate)
+        other = time_predicate(rec.fn, rec.other[1], reps, rate)
+        out["predicate_bitset"]["longest"] = other
+    if "segmented_scan" in recs:
+        rec = recs["segmented_scan"]
+        words, vals, block, fill = rec.best[1]
+        n = vals.shape[0]
+        kern = lambda: rec.fn(words, vals, block, fill)  # noqa: E731
+        plain = lambda: segment_scan.segmented_scan_plain(  # noqa: E731
+            words, vals, block, fill)
+        if not all(_same(x, y) for x, y in zip(kern(), plain())):
+            fail("segmented_scan kernel != plain at the main path's shape")
+        # packed flags 1/8 B, values 4 B in; min, max, count 12 B out
+        nbytes = 4 * words.shape[0] + 16 * n
+        t = dict(n=n, columns=None, library_ms=None,
+                 bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
+        for key, fn in (("ms", kern), ("plain_ms", plain)):
+            t[key], lo, hi = spread_ms(fn, reps)
+            t[key + "_range"] = (lo, hi)
+        out["segmented_scan"] = t
     if "filter_compact" in recs:
         rec = recs["filter_compact"]
         cs, words = rec.best[1]
@@ -697,25 +838,45 @@ def time_kernels(recs, reps: int, rate: float):
             n=a.shape[0], columns=None, ms=cuda_ms(kern, reps),
             plain_ms=cuda_ms(plain, reps), library_ms=None,
             bound_ms=12 * a.shape[0] / rate * 1e3, max_abs_err=0.0)
-    if "segmented_scan" in recs:
-        rec = recs["segmented_scan"]
-        words, vals, block, fill = rec.best[1]
-        n = vals.shape[0]
-        kern = lambda: rec.fn(words, vals, block, fill)  # noqa: E731
-        plain = lambda: segment_scan.segmented_scan_plain(  # noqa: E731
-            words, vals, block, fill)
-        if not all(_same(x, y) for x, y in zip(kern(), plain())):
-            fail("segmented_scan kernel != plain at the main path's shape")
-        # packed flags 1/8 B, values 4 B in; min, max, count 12 B out
-        nbytes = 4 * words.shape[0] + 16 * n
-        out["segmented_scan"] = dict(
-            n=n, columns=None, ms=cuda_ms(kern, reps),
-            plain_ms=cuda_ms(plain, reps), library_ms=None,
-            bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
     for k, v in out.items():
-        log(f"timing: {k} n={v['n']} columns={v['columns']} "
-            f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
-            f"library {v['library_ms']}, bound {v['bound_ms']:.4f} ms")
+        for label, t in ((k, v), (k + " (longest program)",
+                                  v.get("longest"))):
+            if t is None:
+                continue
+            spread = "" if "ms_range" not in t else (
+                f" [{t['ms_range'][0]:.4f}-{t['ms_range'][1]:.4f}], middle "
+                f"of {TIMING_CALLS} medians of {reps}")
+            log(f"timing: {label} n={t['n']} columns={t['columns']} "
+                f"{t.get('program', '')}kernel {t['ms']:.4f} ms{spread}, "
+                f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']}, "
+                f"bound {t['bound_ms']:.4f} ms "
+                f"({100 * t['bound_ms'] / t['ms']:.1f} % reached)")
+    return out
+
+
+def time_predicate(fn, args, reps: int, rate: float) -> dict:
+    """B1 on one recorded call: against its plain version bit for bit, then
+    kernel and plain version as the middle of ``TIMING_CALLS`` medians."""
+    from repro_torch.kernels import predicate
+
+    prog, cols, valid, cap, params = args
+    kern = lambda: fn(prog, cols, valid, cap, params)  # noqa: E731
+    plain = lambda: predicate.predicate_bitset_plain(  # noqa: E731
+        prog, cols, valid, cap, params)
+    got, want = kern(), plain()
+    if not (_same(got[0], want[0]) and int(got[1]) == int(want[1])):
+        fail("predicate kernel != plain at the main path's shape")
+    plan = predicate.device_plan(prog, cap, valid.device, params)
+    nbytes = (4 * len(prog.columns) + 0.25) * cap
+    out = dict(n=cap, columns=len(prog.columns), library_ms=None,
+               bound_ms=nbytes / rate * 1e3, max_abs_err=0.0,
+               program=f"({len(prog.instrs)} instructions "
+                       f"{[i[0] for i in prog.instrs]}, {plan.n_slots} "
+                       f"register-file slots, grid {plan.grid}, "
+                       f"{plan.smem_bytes} B shared memory) ")
+    for key, f in (("ms", kern), ("plain_ms", plain)):
+        out[key], lo, hi = spread_ms(f, reps)
+        out[key + "_range"] = (lo, hi)
     return out
 
 
@@ -1304,14 +1465,19 @@ def ring_decode_check() -> dict:
     return worst
 
 
-def kernel_registers(log_text: str, kernel: str, D: int) -> str:
-    """The ptxas lines (registers at launch, spills) of ``kernel<D>``."""
+def ptxas_report(log_text: str, tag: str) -> str:
+    """The ptxas lines (stack frame and spills, registers) of the kernel
+    whose mangled name holds ``tag``."""
     lines = log_text.splitlines()
-    tag = f"{kernel}ILi{D}E"
     for i, line in enumerate(lines):
         if "Function properties" in line and tag in line:
             return " | ".join(x.strip() for x in lines[i + 1:i + 3])
-    fail(f"no ptxas report for {kernel}<{D}>")
+    fail(f"no ptxas report for {tag}")
+
+
+def kernel_registers(log_text: str, kernel: str, D: int) -> str:
+    """The ptxas lines (registers at launch, spills) of ``kernel<D>``."""
+    return ptxas_report(log_text, f"{kernel}ILi{D}E")
 
 
 def gemma3_phase(reps: int, rate: float):
@@ -1927,6 +2093,15 @@ def main() -> int:
     for D in (80, 240):
         log(f"ptxas: B6 bf16 prefill flash_wgmma<{D}>: "
             f"{kernel_registers(info['log'], 'flash_wgmma', D)}")
+    # B1 must keep its whole state in registers and shared memory
+    for rows in (16, 8):
+        b1 = ptxas_report(info["log"], f"predicate_kernelILi{rows}E")
+        log(f"ptxas: B1 predicate_kernel<{rows}>: {b1}")
+        if not b1.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                             "0 bytes spill loads"):
+            fail(f"B1's kernel uses local memory: {b1}")
+    log(f"ptxas: B4 seg_scan_kernel: "
+        f"{ptxas_report(info['log'], 'seg_scan_kernel')}")
     rate = mem_rate(name)
     seconds = {"build": time.perf_counter() - t_all}
 

@@ -101,8 +101,13 @@ def _build() -> dict:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.repro_predicate_bitset.argtypes = [_P, _P, _I64, _P, _P, _P]
+    # args, valid, n, rows, grid, smem_bytes, words, count, stream
+    lib.repro_predicate_bitset.argtypes = [_P, _P, _I64, _I32, _I32, _I32, _P,
+                                           _P, _P]
     lib.repro_predicate_bitset.restype = _I32
+    # rows, smem_bytes, blocks_per_sm, sm_count
+    lib.repro_predicate_occupancy.argtypes = [_I32, _I32, _P, _P]
+    lib.repro_predicate_occupancy.restype = _I32
     lib.repro_word_popcount.argtypes = [_P, _I64, _P, _P]
     lib.repro_word_popcount.restype = _I32
     lib.repro_compact_scatter.argtypes = [_P, _P, _P, _I64, _I64, _P]
@@ -116,8 +121,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_hash_partition.restype = _I32
     lib.repro_bitset_op.argtypes = [_P, _P, _P, _I64, _I32, _P, _P]
     lib.repro_bitset_op.restype = _I32
+    # words, vals, n, block, lo, hi, ws, min, max, count, vec16, stream
     lib.repro_segmented_scan.argtypes = [_P, _P, _I64, _I64, _I32, _I32, _P,
-                                         _P, _P, _P, _P]
+                                         _P, _P, _P, _I32, _P]
     lib.repro_segmented_scan.restype = _I32
     # q, k, v, o; 12 strides; B, Hq, Hkv, Sq, Skv, D, causal, window;
     # q_offset; kv_len, is_bf16; stream

@@ -7,8 +7,10 @@ typed by jnp's promotion rules (``CMP_LT_F32``, ``CVT_I32_F32``,
 ``FLOORDIV_I32``, ...) and the program is cached on the param tree and the
 operand dtypes.  Two engines run the same program:
 
-  * ``csrc/predicate.cu`` — the CUDA interpreter, one thread per row, the
-    result packed by warp ballot (``predicate_bitset`` on CUDA tensors);
+  * ``csrc/predicate.cu`` — the CUDA interpreter, a persistent grid that
+    runs the program a tile of rows at a time, the result packed by warp
+    ballot (``predicate_bitset`` on CUDA tensors); ``schedule_program`` and
+    ``plan_predicate_launch`` are its host-side planning, in plain Python;
   * ``run_program_plain`` — the plain PyTorch version, the same program as
     vectorized tensor ops (``predicate_bitset`` on CPU tensors).
 
@@ -39,18 +41,21 @@ from repro_torch.kernels import (PREDICATE_ENGINES, launch_counts,
 __all__ = [
     "DEFAULT_BLOCK", "MAX_ISIN_VALUES", "PREDICATE_ENGINES", "OPCODES",
     "Program", "compilable", "compile_program", "resolve_engine",
+    "PRED_THREADS", "PRED_ROWS", "PRED_TILE", "PredicateLaunch",
+    "schedule_program", "plan_predicate_launch", "device_plan",
+    "BITMAP_WORDS",
     "predicate_bitset", "predicate_bitset_plain", "run_program_plain",
     "binary_arith", "binary_cmp", "floordiv", "remainder", "value_kind",
 ]
 
 # Stamped into plans as ``bitset_block``, exactly as the reference stamps it;
-# the CUDA kernel has no block quantum of its own (one thread per row).
+# the CUDA kernel's quantum is its own tile (``PRED_TILE``).
 DEFAULT_BLOCK = 1024
 
-# The reference's VMEM membership budget.  The CUDA binary search has no such
-# limit; the value is kept so that the port's optimized plans (and the
-# engine each predicate node is stamped with) stay identical to the
-# reference's.
+# The reference's VMEM membership budget, kept so that the port's optimized
+# plans (and the engine each predicate node is stamped with) stay identical
+# to the reference's.  The CUDA kernel stages whitelists up to this length in
+# shared memory and searches longer ones in global memory.
 MAX_ISIN_VALUES = 1024
 
 _NULL_INT = -2_147_483_648 + 1      # mirrors core.columnar.NULL_INT
@@ -65,6 +70,29 @@ _ISIN_PAD = 8          # whitelists are tail-padded with their own max
 # Budgets of the CUDA interpreter (csrc/predicate.cu); the host raises past
 # them.
 MAX_COLS, MAX_TABLES, MAX_LITS, MAX_INSTR, N_REGS = 16, 8, 16, 96, 16
+
+# The kernel's tile: rows a thread (R) x PRED_THREADS, row = tile + r *
+# PRED_THREADS + thread (kThreads, kWideRows, kNarrowRows in
+# csrc/predicate.cu).  R is the first of PRED_ROWS at which the program's
+# register file fits in shared memory.
+PRED_THREADS, PRED_ROWS = 256, (16, 8)
+PRED_TILE = PRED_THREADS * PRED_ROWS[0]
+# Words of the bitmap an int whitelist staged in shared memory may become
+# (kBitmapWords): the kernel builds it where the whitelist spans at most
+# 32 x BITMAP_WORDS values
+BITMAP_WORDS = 1024
+# sm_90: dynamic shared memory the kernel may use a block (the card's 227 KB
+# less 1 KB kept for its static shared memory, as repro_predicate_occupancy
+# sets it), shared memory an SM holds, and what it reserves per block;
+# threads an SM holds
+SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 232_448 - 1024, 233_472, 1024
+THREADS_PER_SM = 2048
+# Instr.flags (csrc/predicate.cu): operand a / b from its register-file slot
+# (else from the previous instruction's result), result stored to its slot,
+# operand a / b the uniform value in imm (a hoisted literal's index with
+# _UNI_LIT), result negated, operand a loaded from column col
+_A_SMEM, _B_SMEM, _STORE, _A_UNI, _B_UNI, _UNI_LIT, _NEG, _A_LOAD = \
+    1, 2, 4, 8, 16, 32, 64, 128
 
 OPCODES = {name: i for i, name in enumerate((
     "LOAD", "CONST", "LIT", "CVT_I32_F32",
@@ -622,22 +650,272 @@ def predicate_bitset_plain(prog: Program, columns: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# the CUDA launch
+# the CUDA launch: scheduling and planning (plain Python), then the call
 # ---------------------------------------------------------------------------
+_NO_OPERAND = frozenset({"LOAD", "CONST", "LIT"})
+_ONE_OPERAND = frozenset({"CVT_I32_F32", "NOT", "ISNULL_I32", "ISNULL_F32",
+                          "ISIN_I32", "ISIN_F32"})
+# ops that read both operands and leave imm free: one operand may instead be
+# a uniform value (a CONST's bits or a hoisted literal) carried in imm
+_TAKES_UNIFORM = frozenset(op for op in OPCODES
+                           if op.startswith(("ADD", "SUB", "MUL", "FLOORDIV",
+                                             "MOD", "CMP_"))
+                           or op in ("AND", "OR"))
+# ops whose result is a 0/1 boolean: a following NOT folds into them
+_BOOL_RESULT = frozenset(op for op in OPCODES
+                         if op.startswith(("CMP_", "ISNULL", "ISIN"))
+                         or op in ("AND", "OR", "NOT"))
+
+
+def schedule_program(prog: Program):
+    """``(instrs, n_slots)``: ``prog`` as ``csrc/predicate.cu`` runs it.
+
+    Each entry of ``instrs`` is ``(opcode, dst, a, b, imm, flags, col)``.
+    On the program's dataflow:
+
+      * an operand that a CONST or LIT produced becomes a uniform operand
+        (``_A_UNI``/``_B_UNI``; ``imm`` holds the bits, or with ``_UNI_LIT``
+        the literal's index);
+      * a NOT right after the boolean op that is its only input folds into
+        that op (``_NEG``);
+      * a LOAD whose only reader is the next instruction, as its operand
+        ``a``, folds into it (``_A_LOAD``: operand ``a`` is column ``col``);
+      * what nothing reads any more goes (the result stays);
+      * an operand that the previous instruction produced is read from
+        registers; any other is read from a slot of the shared-memory
+        register file (``_A_SMEM``/``_B_SMEM``, ``a``/``b`` name the slot),
+        and its producer stores its result there (``_STORE``, ``dst``).
+
+    Slots are reused once their value's last reader has run.  The program's
+    result must be its last instruction's, and stays so."""
+    instrs = prog.instrs
+    if not instrs or instrs[-1][1] != prog.result:
+        raise ValueError("predicate program must end in its result register")
+    last_def: Dict[int, int] = {}
+    nodes = []          # [op, imm, srcs (value ids), flags, col]
+    for j, (op, d, a, b, imm, _kind) in enumerate(instrs):
+        regs = () if op in _NO_OPERAND else \
+            (a,) if op in _ONE_OPERAND else (a, b)
+        srcs = []
+        for reg in regs:
+            if reg not in last_def:
+                raise ValueError(f"predicate instruction {j} ({op}) reads "
+                                 f"register {reg} before it is written")
+            srcs.append(last_def[reg])
+        nodes.append([op, imm, srcs, 0, 0])
+        last_def[d] = j
+    # uniform operands (b first: one imm field)
+    for node in nodes:
+        if node[0] not in _TAKES_UNIFORM:
+            continue
+        for pos, bit in ((1, _B_UNI), (0, _A_UNI)):
+            src = nodes[node[2][pos]]
+            if src[0] in ("CONST", "LIT"):
+                node[1] = src[1]
+                node[3] |= bit | (_UNI_LIT if src[0] == "LIT" else 0)
+                node[2][pos] = None
+                break
+
+    def readers():
+        count = [0] * len(nodes)
+        for j in order:
+            for src in nodes[j][2]:
+                if src is not None:
+                    count[src] += 1
+        return count
+
+    order = list(range(len(nodes)))          # the surviving instructions
+    # NOT after its only input's boolean op: the op negates, the NOT goes
+    uses = readers()
+    for j in range(1, len(nodes)):
+        op, _, srcs, _, _ = nodes[j]
+        if op == "NOT" and srcs[0] == j - 1 and j - 1 in order \
+                and nodes[j - 1][0] in _BOOL_RESULT and uses[j - 1] == 1:
+            nodes[j - 1][3] ^= _NEG
+            order.remove(j)
+            for node in nodes:
+                node[2] = [j - 1 if s == j else s for s in node[2]]
+    # what nothing reads goes, bar the result (the last instruction)
+    uses = readers()
+    order = [j for j in order if uses[j] or j == order[-1]]
+    # a LOAD read only by the next instruction, as its operand a, folds in
+    uses = readers()
+    for p in range(len(order) - 1):
+        j, k = order[p], order[p + 1]
+        if nodes[j][0] == "LOAD" and uses[j] == 1 and nodes[k][2] \
+                and nodes[k][2][0] == j:
+            nodes[k][2][0] = None
+            nodes[k][3] |= _A_LOAD
+            nodes[k][4] = nodes[j][1]
+            nodes[j][0] = None
+    order = [j for j in order if nodes[j][0] is not None]
+    pos = {j: p for p, j in enumerate(order)}
+    last_use: Dict[int, int] = {}
+    for j in order:
+        for k, src in enumerate(nodes[j][2]):
+            if src is None:
+                continue
+            if pos[src] != pos[j] - 1:
+                nodes[src][3] |= _STORE
+                nodes[j][3] |= (_A_SMEM, _B_SMEM)[k]
+            last_use[src] = max(last_use.get(src, -1), pos[j])
+    # slots by liveness: a value's slot frees once its last reader ran
+    slot: Dict[int, int] = {}
+    free: List[int] = []
+    n_slots = 0
+    out = []
+    for j in order:
+        op, imm, srcs, flags, col = nodes[j]
+        ab = [slot[src] if src is not None and flags & bit else 0
+              for src, bit in zip(srcs + [None] * (2 - len(srcs)),
+                                  (_A_SMEM, _B_SMEM))]
+        for src in set(srcs):
+            if src in slot and last_use[src] == pos[j]:
+                free.append(slot[src])
+        dst = 0
+        if flags & _STORE:
+            if free:
+                free.sort()
+                dst = free.pop(0)
+            else:
+                dst, n_slots = n_slots, n_slots + 1
+            slot[j] = dst
+        out.append((op, dst, ab[0], ab[1], imm, flags, col))
+    return tuple(out), n_slots
+
+
+@dataclasses.dataclass(frozen=True)
+class PredicateLaunch:
+    """How ``csrc/predicate.cu`` runs one program over ``n`` rows: the
+    scheduled ``instrs`` and their ``n_slots`` register-file slots; each
+    whitelist's word offset in shared memory (-1: searched in global
+    memory), each int whitelist's bitmap area there (-1: none), and the
+    words of both; ``rows`` a thread, so a ``tile`` of ``rows x
+    PRED_THREADS`` rows; the dynamic shared memory a block; and a persistent
+    grid of ``grid`` blocks (the card's SMs x ``blocks_per_sm``, at most one
+    block a tile)."""
+
+    instrs: Tuple[Tuple[str, int, int, int, int, int, int], ...]
+    n_slots: int
+    table_offsets: Tuple[int, ...]
+    bitmap_offsets: Tuple[int, ...]
+    table_words: int
+    rows: int
+    tile: int
+    smem_bytes: int
+    blocks_per_sm: int
+    grid: int
+
+
+def _resident_blocks(smem_bytes: int) -> int:
+    """Blocks an sm_90 SM holds by threads and shared memory alone (the
+    card's occupancy query also counts registers)."""
+    return min(THREADS_PER_SM // PRED_THREADS,
+               SMEM_PER_SM // (smem_bytes + SMEM_RESERVED))
+
+
+def plan_predicate_launch(prog: Program, n: int, sm_count: int,
+                          table_lens: Optional[Sequence[int]] = None,
+                          occupancy=None) -> PredicateLaunch:
+    """Plan the kernel's launch over ``n`` rows on a card of ``sm_count``
+    SMs.  ``table_lens`` are the staged whitelists' lengths (default: the
+    static ones, and ``MAX_ISIN_VALUES`` for each hoisted one);
+    ``occupancy(rows, smem_bytes)`` gives the resident blocks per SM (the
+    card's own query on the launch path; default: the thread and
+    shared-memory limits of sm_90)."""
+    instrs, n_slots = schedule_program(prog)
+    if table_lens is None:
+        table_lens = [spec[1].size if spec[0] == "static" else MAX_ISIN_VALUES
+                      for spec in prog.tables]
+    offsets, words = [], 0
+    for length in table_lens:
+        if length <= MAX_ISIN_VALUES:
+            offsets.append(words)
+            words += int(length)
+        else:
+            offsets.append(-1)
+    bitmaps = []
+    for spec, off in zip(prog.tables, offsets):
+        is_int = spec[1].dtype == np.int32 if spec[0] == "static" \
+            else spec[2] == "i"
+        if off >= 0 and is_int:
+            bitmaps.append(words)
+            words += BITMAP_WORDS
+        else:
+            bitmaps.append(-1)
+    fixed = ctypes.sizeof(_PredArgs) + 16 * (-(-words // 4))
+    for rows in PRED_ROWS:
+        tile = PRED_THREADS * rows
+        smem = fixed + 4 * n_slots * tile
+        if smem <= SMEM_PER_BLOCK:
+            break
+    else:
+        raise ValueError(f"predicate program needs {smem} bytes of shared "
+                         f"memory a block, past {SMEM_PER_BLOCK}")
+    per_sm = int(occupancy(rows, smem) if occupancy is not None
+                 else _resident_blocks(smem))
+    if per_sm < 1:
+        raise RuntimeError(f"predicate kernel cannot run with {smem} bytes "
+                           f"of shared memory a block")
+    tiles = -(-int(n) // tile)
+    return PredicateLaunch(instrs, n_slots, tuple(offsets), tuple(bitmaps),
+                           words, rows, tile, smem, per_sm,
+                           max(1, min(tiles, int(sm_count) * per_sm)))
+
+
 class _Instr(ctypes.Structure):
     _fields_ = [("op", ctypes.c_uint8), ("dst", ctypes.c_uint8),
                 ("a", ctypes.c_uint8), ("b", ctypes.c_uint8),
-                ("imm", ctypes.c_int32)]
+                ("imm", ctypes.c_int32), ("flags", ctypes.c_int32),
+                ("col", ctypes.c_int32)]
 
 
 class _PredArgs(ctypes.Structure):
     _fields_ = [("cols", ctypes.c_void_p * MAX_COLS),
                 ("tables", ctypes.c_void_p * MAX_TABLES),
                 ("table_len", ctypes.c_int32 * MAX_TABLES),
+                ("table_off", ctypes.c_int32 * MAX_TABLES),
+                ("bitmap_off", ctypes.c_int32 * MAX_TABLES),
                 ("lits", ctypes.c_uint32 * MAX_LITS),
                 ("prog", _Instr * MAX_INSTR),
                 ("n_instr", ctypes.c_int32),
-                ("result", ctypes.c_int32)]
+                ("n_slots", ctypes.c_int32),
+                ("table_words", ctypes.c_int32),
+                ("n_cols", ctypes.c_int32)]
+
+
+_OCCUPANCY: Dict[Tuple[int, int, int], int] = {}
+
+
+def _occupancy(device: torch.device, rows: int, smem_bytes: int) -> int:
+    """Resident blocks per SM of the ``rows``-row kernel at ``smem_bytes``,
+    from the card's occupancy query (cached by device, rows and size)."""
+    from repro_torch.kernels.build import check, library
+
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), rows, smem_bytes)
+    if key not in _OCCUPANCY:
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            status = library().repro_predicate_occupancy(
+                rows, smem_bytes, ctypes.byref(per_sm), ctypes.byref(sms))
+        check(status, "predicate_bitset occupancy")
+        _OCCUPANCY[key] = per_sm.value
+    return _OCCUPANCY[key]
+
+
+def device_plan(prog: Program, n: int, device, params=None,
+                tables: Optional[List[torch.Tensor]] = None
+                ) -> PredicateLaunch:
+    """The launch plan ``predicate_bitset`` uses for ``prog`` over ``n``
+    rows on the CUDA ``device``: the card's SM count and occupancy."""
+    device = torch.device(device)
+    if tables is None:
+        tables = _table_operands(prog, (params or ((), ()))[1], device)
+    return plan_predicate_launch(
+        prog, n, torch.cuda.get_device_properties(device).multi_processor_count,
+        [t.shape[0] for t in tables],
+        occupancy=functools.partial(_occupancy, device))
 
 
 def _launch(prog: Program, columns: Dict[str, torch.Tensor],
@@ -650,7 +928,6 @@ def _launch(prog: Program, columns: Dict[str, torch.Tensor],
     device = valid.device
     b_lits, b_vecs = params if params is not None else ((), ())
     args = _PredArgs()
-    keep = []                       # operands that must outlive the launch
     for k, name in enumerate(prog.columns):
         c = columns[name]
         require_kernel_operand(c, f"predicate column {name!r}")
@@ -658,24 +935,32 @@ def _launch(prog: Program, columns: Dict[str, torch.Tensor],
             raise ValueError(f"predicate column {name!r} must have "
                              f"{capacity} rows on {device}")
         args.cols[k] = c.data_ptr()
-    for k, t in enumerate(_table_operands(prog, b_vecs, device)):
-        keep.append(t)
+    keep = _table_operands(prog, b_vecs, device)   # outlive the launch
+    plan = device_plan(prog, capacity, device, tables=keep)
+    for k, t in enumerate(keep):
         args.tables[k] = t.data_ptr()
         args.table_len[k] = t.shape[0]
+        args.table_off[k] = plan.table_offsets[k]
+        args.bitmap_off[k] = plan.bitmap_offsets[k]
+    for k in range(len(keep), MAX_TABLES):
+        args.table_off[k] = args.bitmap_off[k] = -1
     for k, (slot, kind) in enumerate(prog.lits):
         args.lits[k] = _bits_of(_scalar(b_lits[slot]), kind) & 0xFFFFFFFF
-    for k, (op, d, a, b, imm, _) in enumerate(prog.instrs):
-        args.prog[k] = _Instr(OPCODES[op], d, a, b, imm)
-    args.n_instr = len(prog.instrs)
-    args.result = prog.result
-    nw = _bs.n_words(capacity)
-    words = torch.empty((nw,), dtype=torch.int32, device=device)
+    for k, (op, d, a, b, imm, flags, col) in enumerate(plan.instrs):
+        args.prog[k] = _Instr(OPCODES[op], d, a, b, imm, flags, col)
+    args.n_instr = len(plan.instrs)
+    args.n_slots = plan.n_slots
+    args.table_words = plan.table_words
+    args.n_cols = len(prog.columns)
+    words = torch.empty((_bs.n_words(capacity),), dtype=torch.int32,
+                        device=device)
     cnt = torch.zeros((1,), dtype=torch.int32, device=device)
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
     status = lib.repro_predicate_bitset(
         ctypes.byref(args), valid.data_ptr(), ctypes.c_longlong(capacity),
-        words.data_ptr(), cnt.data_ptr(), stream)
+        plan.rows, plan.grid, plan.smem_bytes, words.data_ptr(), cnt.data_ptr(),
+        stream)
     launch_counts["predicate_bitset"] += 1
     check(status, "predicate_bitset")
     return words, cnt[0]

@@ -1,7 +1,7 @@
 """B4: inclusive segmented scan — running (min, max, count), reset at flags.
 
-``segmented_scan_kernel`` launches the CUDA kernels of
-``csrc/segment_scan.cu`` (the port of
+``segmented_scan_kernel`` launches the CUDA kernel of
+``csrc/segment_scan.cu``, a single pass with decoupled look-back (the port of
 ``repro/kernels/segment_scan.py:segmented_scan``);
 ``segmented_scan_plain`` is its plain PyTorch version.  Flags travel as
 packed int32 words (``core.bitset`` layout), values as int32.
@@ -24,13 +24,22 @@ import torch
 from repro_torch.core import bitset as _bs
 from repro_torch.kernels import launch_counts, require_kernel_operand
 
-__all__ = ["DEFAULT_BLOCK", "DEFAULT_FILL", "EXACT_FILL",
-           "segmented_scan_plain", "segmented_scan_kernel"]
+__all__ = ["DEFAULT_BLOCK", "DEFAULT_FILL", "EXACT_FILL", "SCAN_TILE",
+           "scan_workspace_words", "segmented_scan_plain",
+           "segmented_scan_kernel"]
 
 DEFAULT_BLOCK = 512
 _BIG = 2_000_000_000
 DEFAULT_FILL = (_BIG, -_BIG)                     # the Pallas kernel's fills
 EXACT_FILL = (2 ** 31 - 1, -2 ** 31)             # no clamp
+SCAN_TILE = 4096          # rows a block of the kernel (kTileRows)
+
+
+def scan_workspace_words(n: int) -> int:
+    """int32 words of the kernel's zeroed look-back workspace over ``n``
+    rows: the tile counter (padded to 16 bytes), then each tile's aggregate
+    and inclusive prefix as three self-validating 64-bit words each."""
+    return 4 + 12 * -(-int(n) // SCAN_TILE)
 
 
 def _check_args(words: torch.Tensor, vals: torch.Tensor, block: int) -> int:
@@ -88,15 +97,18 @@ def segmented_scan_kernel(words: torch.Tensor, vals: torch.Tensor,
     outs = [torch.empty_like(vals) for _ in range(3)]
     if n == 0:
         return tuple(outs)
-    nb = -(-n // int(block))
-    scratch = torch.empty((8 * nb,), dtype=torch.int32, device=vals.device)
+    if n > 2 ** 31 - 1:
+        raise ValueError(f"segmented_scan counts rows in int32: {n} rows")
+    # the look-back's tile statuses, zeroed on the launch's stream
+    ws = torch.zeros((scan_workspace_words(n),), dtype=torch.int32,
+                     device=vals.device)
     lib = library()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     status = lib.repro_segmented_scan(
         words.data_ptr(), vals.data_ptr(), ctypes.c_longlong(n),
         ctypes.c_longlong(int(block)), int(fill[0]), int(fill[1]),
-        scratch.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-        outs[2].data_ptr(), stream)
+        ws.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+        outs[2].data_ptr(), int(vals.data_ptr() % 16 == 0), stream)
     launch_counts["segmented_scan"] += 1
     check(status, "segmented_scan")
     return tuple(outs)

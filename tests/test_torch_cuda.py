@@ -44,11 +44,17 @@ def _cols(n, device):
     return ({k: v.to(device) for k, v in cols.items()}, valid.to(device))
 
 
-@pytest.mark.parametrize("n", [1, 33, 100_003])
-def test_predicate_kernel_matches_plain(device, n):
+_PRED_EXPR = (~((col("a") < 0) | col("x").is_null())
+              & (col("a").isin([3, 4, 5]) | (col("b") // 0 == -2)))
+# whitelists at MAX_ISIN_VALUES (a bitmap in shared memory), past it (global
+# memory) and too wide for a bitmap (searched in shared memory)
+_PRED_WIDE = (col("a").isin(list(range(-510, 514)))
+              & ~col("b").isin(list(range(-2, 1099)))
+              | col("a").isin([-10 ** 6, 3, 10 ** 6]))
+
+
+def _check_predicate(device, n, e):
     cols, valid = _cols(n, device)
-    e = (~((col("a") < 0) | col("x").is_null())
-         & (col("a").isin([3, 4, 5]) | (col("b") // 0 == -2)))
     param = e.to_param()
     before = launch_counts["predicate_bitset"]
     words, cnt = pk.predicate_bitset(cols, valid, expr_param=param,
@@ -57,6 +63,28 @@ def test_predicate_kernel_matches_plain(device, n):
     prog = pk.compile_program(param, *pk._kinds(cols, param, None))
     pw, pc = pk.predicate_bitset_plain(prog, cols, valid, n)
     assert torch.equal(words, pw) and int(cnt) == int(pc)
+
+
+@pytest.mark.parametrize("n", [1, 33, 100_003, pk.PRED_TILE - 1,
+                               pk.PRED_TILE, pk.PRED_TILE + 1])
+def test_predicate_kernel_matches_plain(device, n):
+    _check_predicate(device, n, _PRED_EXPR)
+
+
+@pytest.mark.parametrize("edge", ["wave-33", "wave+33", "3 waves"])
+@pytest.mark.parametrize("which", ["mixed", "wide whitelists"])
+def test_predicate_kernel_at_the_persistent_grid_edges(device, edge, which):
+    """One full wave of the persistent grid (grid x tile rows) ± 33, and
+    enough rows that every block walks at least 3 tiles."""
+    e = _PRED_EXPR if which == "mixed" else _PRED_WIDE
+    cols, _ = _cols(1, device)
+    param = e.to_param()
+    prog = pk.compile_program(param, *pk._kinds(cols, param, None))
+    plan = pk.device_plan(prog, 1 << 40, device)
+    wave = plan.grid * plan.tile
+    n = {"wave-33": wave - 33, "wave+33": wave + 33,
+         "3 waves": 3 * wave + 17}[edge]
+    _check_predicate(device, n, e)
 
 
 @pytest.mark.parametrize("n", [1, 33, 100_003])
@@ -95,6 +123,27 @@ def test_segmented_scan_kernel_matches_plain(device, fill):
         got = ss.segmented_scan_kernel(flags, vals, block, f)
         want = ss.segmented_scan_plain(flags, vals, block, f)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("flags", ["none", "sparse", "all"])
+def test_segmented_scan_kernel_across_lookback_tiles(device, flags):
+    """Hundreds of the kernel's look-back tiles, a run with no flag across
+    all of them, extreme values, both fills and a block off the tiles."""
+    rng = np.random.default_rng(5)
+    n = 300 * ss.SCAN_TILE + 5
+    f = {"none": np.zeros(n, bool), "sparse": rng.random(n) < 1e-5,
+         "all": np.ones(n, bool)}[flags]
+    words = bs.pack(torch.from_numpy(f).to(device))
+    vals = torch.from_numpy(rng.choice(
+        np.array([2**31 - 1, -2**31, 2_100_000_000, -2_100_000_000, 0, 9]),
+        n).astype(np.int32)).to(device)
+    before = launch_counts["segmented_scan"]
+    for fill in (ss.DEFAULT_FILL, ss.EXACT_FILL):
+        for block in (512, 4099):
+            got = ss.segmented_scan_kernel(words, vals, block, fill)
+            want = ss.segmented_scan_plain(words, vals, block, fill)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert launch_counts["segmented_scan"] == before + 4
 
 
 def test_exposures_on_cuda_launch_the_segmented_scan(device):

@@ -12,6 +12,7 @@ against the reference's Pallas kernel in interpret mode (and its jnp path).
 Every comparison is exact: nothing here computes in floating point beyond
 IEEE elementwise operations and comparisons.
 """
+import ctypes
 import zlib
 
 import numpy as np
@@ -30,6 +31,7 @@ from repro_torch.core import bitset as pbs
 from repro_torch.core.columnar import NULL_INT, ColumnarTable
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels import ops as pops
+from repro_torch.kernels import predicate as pk
 from repro_torch.kernels.predicate import (binary_arith, binary_cmp,
                                            compilable, floordiv, remainder,
                                            predicate_bitset)
@@ -248,3 +250,210 @@ def test_cuda_engine_refuses_bitwise_logic_on_numbers():
     _, pt = _tables(1, 40)
     with pytest.raises(ValueError, match="boolean operands"):
         predicate_bitset(pt.columns, pt.valid, expr_param=e.to_param())
+
+
+# ---------------------------------------------------------------------------
+# B1's launch planning: the program as csrc/predicate.cu runs it
+# ---------------------------------------------------------------------------
+def _nested_sum(names: str):
+    e = col(names[-1])
+    for c in reversed(names[:-1]):
+        e = col(c) + e
+    return e
+
+
+PLAN_EXPRS = [(name, lambda mk=mk: _all_of(mk())) for name, _, mk in CASES] \
+    + list(EXTRA) + [
+    ("hlit_left", lambda: HoistedLit(0) < col("b")),
+    ("hlit_float", lambda: col("x") >= HoistedLit(1)),
+    ("hisin_or_hlit", lambda: HoistedIsIn(col("x"), 1, 3, True)
+     | (col("a") == HoistedLit(0))),
+    ("lit_vs_hlit", lambda: lit(5) < HoistedLit(0)),
+    ("not_not", lambda: ~~(col("a") > 2)),
+    ("not_shared", lambda: (col("a") > 2) & ~(col("a") > 2)),
+    ("nested_15_slots", lambda: _nested_sum("abzab" * 3 + "z") > 0),
+    ("balanced", lambda: (((col("a") < 3) | (col("b") > 2))
+                          & ((col("x") < 0.5) | (col("y") > -0.5)))
+     & (((col("z") != 0) | (col("a") + col("b") < col("z") * 4))
+        & ((col("x") * col("y") < 0.25) | col("a").is_null()))),
+]
+PLAN_PARAMS = ((np.int32(4), np.float32(-0.5)),
+               (np.array([7, -3, 2, 2, 11], np.int32),
+                np.array([0.25, np.nan, -1.0], np.float32)))
+
+
+def _all_of(exprs):
+    from repro.study.expr import all_of
+
+    return all_of(*exprs)
+
+
+_READS_F32 = ("ADD_F32", "SUB_F32", "MUL_F32", "FLOORDIV_F32", "MOD_F32",
+              "ISNULL_F32", "ISIN_F32")
+
+
+def _operand_view(op: str) -> str:
+    if op.startswith("CMP_") and op.endswith("_F32") or op in _READS_F32:
+        return "f"
+    return "b" if op in ("AND", "OR", "NOT") else "i"
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.bool:
+        return t.to(torch.int32)
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _one_op(prog, op, imm, operands, n, params):
+    """One instruction over 32-bit patterns, through the plain version."""
+    view = _operand_view(op)
+    typed = [x != 0 if view == "b" else x.view(torch.float32)
+             if view == "f" else x for x in operands]
+    mini = pk.Program(("x", "y"), (("LOAD", 0, 0, 0, 0, view),
+                                   ("LOAD", 1, 0, 0, 1, view),
+                                   (op, 2, 0, 1, imm, "i")),
+                      prog.tables, prog.lits, 2)
+    return _bits(pk.run_program_plain(mini, {"x": typed[0], "y": typed[1]},
+                                      n, params))
+
+
+def _kernel_dataflow(prog, cols, n, params):
+    """``schedule_program``'s output run as the kernel runs it: the previous
+    instruction's result, register-file slots, uniform operands, loaded
+    operands and negation, each instruction through the plain version."""
+    ins, n_slots = pk.schedule_program(prog)
+    slots = [None] * n_slots
+    prev = torch.zeros(n, dtype=torch.int32)
+    for op, dst, a, b, imm, flags, col_ in ins:
+        operands = []
+        for smem, uni, s in ((pk._A_SMEM, pk._A_UNI, a),
+                             (pk._B_SMEM, pk._B_UNI, b)):
+            if smem == pk._A_SMEM and flags & pk._A_LOAD:
+                operands.append(_bits(cols[prog.columns[col_]]))
+            elif flags & uni:
+                if flags & pk._UNI_LIT:
+                    slot, kind = prog.lits[imm]
+                    u = pk._bits_of(pk._scalar(params[0][slot]), kind)
+                else:
+                    u = imm
+                operands.append(torch.full((n,), u, dtype=torch.int32))
+            else:
+                operands.append(slots[s] if flags & smem else prev)
+        if op == "LOAD":
+            out = _bits(cols[prog.columns[imm]])
+        elif op in ("CONST", "LIT"):
+            out = _bits(pk.run_program_plain(
+                pk.Program((), ((op, 0, 0, 0, imm, "i"),), (), prog.lits, 0),
+                {}, n, params))
+        else:
+            out = _one_op(prog, op, imm, operands, n, params)
+        if flags & pk._NEG:
+            out = out ^ 1
+        prev = out
+        if flags & pk._STORE:
+            slots[dst] = out
+    return prev != 0
+
+
+@pytest.mark.parametrize("name,mk", PLAN_EXPRS, ids=[e[0] for e in PLAN_EXPRS])
+def test_scheduled_program_computes_the_program(name, mk):
+    """Folding uniform operands and NOTs and moving values through
+    register-file slots leaves the program's outcome bit for bit."""
+    _, pt = _tables(zlib.crc32(name.encode()), 257)
+    param = mk().to_param()
+    kinds = pk._kinds(pt.columns, param, PLAN_PARAMS)
+    prog = pk.compile_program(param, *kinds)
+    want = pk.run_program_plain(prog, pt.columns, 257, PLAN_PARAMS)
+    got = _kernel_dataflow(prog, pt.columns, 257, PLAN_PARAMS)
+    assert torch.equal(got, want.to(torch.bool))
+    ins, n_slots = pk.schedule_program(prog)
+    assert len(ins) <= len(prog.instrs) and n_slots <= pk.N_REGS
+
+
+def test_schedule_folds_uniform_operands_and_negation():
+    def sched(e):
+        prog = pk.compile_program(e.to_param(), (("a", "i"), ("b", "i")),
+                                  ((0, "i"),))
+        return pk.schedule_program(prog)
+
+    ins, slots = sched(col("a").not_null())
+    assert [i[0] for i in ins] == ["ISNULL_I32"] and slots == 0
+    assert ins[0][5] == pk._NEG | pk._A_LOAD and ins[0][6] == 0
+    ins, slots = sched((col("a") >= 3) & (col("b") < 10))
+    assert [i[0] for i in ins] == ["CMP_GE_I32", "CMP_LT_I32", "AND"]
+    assert ins[0][4] == 3 and ins[0][5] == pk._B_UNI | pk._A_LOAD | pk._STORE
+    assert ins[1][4] == 10 and ins[1][6] == 1 and slots == 1
+    assert ins[2][5] == pk._A_SMEM
+    # a literal on the left: a uniform operand a, the LOAD stays (operand b)
+    ins, _ = sched(HoistedLit(0) < col("b"))
+    assert [i[0] for i in ins] == ["LOAD", "CMP_LT_I32"]
+    assert ins[-1][5] == pk._A_UNI | pk._UNI_LIT
+
+
+@pytest.mark.parametrize("n", [1, pk.PRED_TILE - 1, pk.PRED_TILE,
+                               pk.PRED_TILE + 1, 48_000_000])
+def test_launch_plan_grid_and_tiles(n):
+    prog = pk.compile_program(col("a").not_null().to_param(), (("a", "i"),))
+    plan = pk.plan_predicate_launch(prog, n, 132)
+    assert plan.rows == pk.PRED_ROWS[0] and plan.tile == pk.PRED_TILE
+    assert plan.n_slots == 0 and plan.smem_bytes == ctypes.sizeof(pk._PredArgs)
+    tiles = -(-n // plan.tile)
+    assert plan.grid == min(tiles, 132 * plan.blocks_per_sm)
+    assert plan.blocks_per_sm == pk.THREADS_PER_SM // pk.PRED_THREADS
+    # the card's own occupancy, when given, sets the persistent grid
+    plan = pk.plan_predicate_launch(prog, n, 132,
+                                    occupancy=lambda rows, smem: 3)
+    assert plan.grid == min(tiles, 396)
+
+
+@pytest.mark.parametrize("name,mk", PLAN_EXPRS, ids=[e[0] for e in PLAN_EXPRS])
+def test_launch_plan_fits_shared_memory(name, mk):
+    """Every program's register file, whitelists and argument fit in a
+    block's shared memory on sm_90, at 16 rows a thread where they can."""
+    _, pt = _tables(3, 40)
+    param = mk().to_param()
+    prog = pk.compile_program(param, *pk._kinds(pt.columns, param,
+                                                PLAN_PARAMS))
+    tables = pk._table_operands(prog, PLAN_PARAMS[1], "cpu")
+    plan = pk.plan_predicate_launch(prog, 10 ** 8, 132,
+                                    [t.shape[0] for t in tables])
+    assert plan.smem_bytes <= pk.SMEM_PER_BLOCK and plan.blocks_per_sm >= 1
+    assert plan.table_words == sum(
+        t.shape[0] for t, o in zip(tables, plan.table_offsets) if o >= 0) \
+        + pk.BITMAP_WORDS * sum(o >= 0 for o in plan.bitmap_offsets)
+    wide = ctypes.sizeof(pk._PredArgs) + 16 * (-(-plan.table_words // 4)) \
+        + 4 * plan.n_slots * pk.PRED_THREADS * pk.PRED_ROWS[0]
+    assert plan.rows == (pk.PRED_ROWS[0] if wide <= pk.SMEM_PER_BLOCK
+                         else pk.PRED_ROWS[1])
+    assert plan.smem_bytes == wide - 4 * plan.n_slots * pk.PRED_THREADS * (
+        pk.PRED_ROWS[0] - plan.rows)
+
+
+def test_launch_plan_at_the_budgets():
+    """The most the interpreter takes: 16 registers (15 slots: the 8-row
+    tile) and eight whitelists of MAX_ISIN_VALUES (all in shared memory);
+    a longer whitelist is searched in global memory."""
+    e = _nested_sum("abzab" * 3 + "z") > 0
+    for k, c in enumerate("abzabzab"):
+        e = e | col(c).isin(list(range(3 * k, 3 * k + pk.MAX_ISIN_VALUES)))
+    _, pt = _tables(4, 40)
+    prog = pk.compile_program(e.to_param(),
+                              *pk._kinds(pt.columns, e.to_param(), None))
+    assert len(prog.tables) == pk.MAX_TABLES
+    plan = pk.plan_predicate_launch(prog, 10 ** 8, 132)
+    assert plan.n_slots == 15 and plan.rows == pk.PRED_ROWS[1]
+    assert plan.table_offsets == tuple(range(0, 8 * 1024, 1024))
+    assert plan.bitmap_offsets == tuple(range(8 * 1024, 16 * 1024,
+                                              pk.BITMAP_WORDS))
+    assert plan.smem_bytes <= pk.SMEM_PER_BLOCK
+    wide = col("a").isin(list(range(pk.MAX_ISIN_VALUES + 1)))
+    prog = pk.compile_program(wide.to_param(), (("a", "i"),))
+    plan = pk.plan_predicate_launch(prog, 100, 132)
+    assert plan.table_offsets == (-1,) and plan.table_words == 0
+    assert plan.bitmap_offsets == (-1,)
+    # a float whitelist is searched, never a bitmap
+    prog = pk.compile_program(col("x").isin([0.5, 1.5]).to_param(),
+                              (("x", "f"),))
+    plan = pk.plan_predicate_launch(prog, 100, 132)
+    assert plan.table_offsets == (0,) and plan.bitmap_offsets == (-1,)
+    assert plan.table_words == 8

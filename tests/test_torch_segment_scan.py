@@ -119,3 +119,35 @@ def test_bad_operands_raise():
         ss.segmented_scan_plain(torch.zeros(2, dtype=torch.int32), vals, 0)
     with pytest.raises(ValueError, match="CUDA"):
         ss.segmented_scan_kernel(torch.zeros(2, dtype=torch.int32), vals)
+
+
+@pytest.mark.parametrize("block", [1, 7, 32, 512, 4099])
+@pytest.mark.parametrize("pattern", ["random", "none", "first", "all"])
+def test_exact_scan_clamped_at_the_output(block, pattern):
+    """What the single-pass kernel computes: the exact scan (EXACT_FILL),
+    then row i clamped with the fills where no flag precedes it or its run
+    began, at row i - count + 1, before i's block start.  That is the
+    blocked scan bit for bit, at any block size, on or off the kernel's
+    tiles."""
+    rng = np.random.default_rng(block)
+    n = 3 * ss.SCAN_TILE + 77
+    flags = {"random": rng.random(n) < 0.01, "none": np.zeros(n, bool),
+             "first": np.arange(n) == 0, "all": np.ones(n, bool)}[pattern]
+    words = bs.pack(torch.from_numpy(flags))
+    vals = torch.from_numpy(rng.choice(EXTREMES, n).astype(np.int32))
+    mn, mx, cnt = ss.segmented_scan_plain(words, vals, block, ss.EXACT_FILL)
+    rows = torch.arange(n, dtype=torch.int64)
+    seen = torch.cumsum(torch.from_numpy(flags), 0) > 0
+    crossed = ~seen | (rows - cnt + 1 < rows // block * block)
+    lo, hi = ss.DEFAULT_FILL
+    want = ss.segmented_scan_plain(words, vals, block, ss.DEFAULT_FILL)
+    assert torch.equal(torch.where(crossed, mn.clamp(max=lo), mn), want[0])
+    assert torch.equal(torch.where(crossed, mx.clamp(min=hi), mx), want[1])
+    assert torch.equal(cnt, want[2])
+
+
+@pytest.mark.parametrize("n", [1, ss.SCAN_TILE, ss.SCAN_TILE + 1, 9_600_000])
+def test_scan_workspace_words(n):
+    """The tile counter's 16 bytes, then two 24-byte records a tile."""
+    tiles = -(-n // ss.SCAN_TILE)
+    assert ss.scan_workspace_words(n) * 4 == 16 + 48 * tiles
