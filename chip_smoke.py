@@ -18,15 +18,20 @@ nothing falls back to the CPU):
      its persistent grid ± 33 rows and three waves; the segmented scan (B4)
      over flag patterns, runs spanning many blocks and up to a thousand of
      its look-back tiles (with no flag at all), block sizes on and off its
-     tiles, and values beyond its ±2e9 fills;
+     tiles, and values beyond its ±2e9 fills; B3's program kernel over
+     programs of 1-8 ops on 1-8 leaves (every op), aligned and misaligned
+     views, sizes at its block and grid edges up to 2,062,500 words (the
+     SNDS universe), with its count buffers' pool blocks poisoned first;
   3. quickstart: the quickstart study (synthetic DCIR star, flatten, two
      extractors, patients, cohort algebra, flow) at ``--n-patients`` on the
      card with the ``cuda`` engines; every kernel of the path must have
-     launched, the no-loss audit must pass, and the ``torch`` engines must
-     give the same answer; each kernel is timed at the shapes that run gave
-     it (B1 also at the longest program with a whitelist that the run
-     launched; B1 and B4 as the middle of 3 medians of 20 with their
-     min-max), and one warm run is traced with torch.profiler: device time by
+     launched (B3 once for each cohort expression), the no-loss audit must
+     pass, and the ``torch`` engines must give the same answer; each kernel
+     is timed at the shapes that run gave it (B1 also at the longest
+     program with a whitelist that the run launched; B3 also over 2,062,500
+     words with L2 cleared, beside an empty kernel's launch; B1, B3 and B4
+     as the middle of 3 medians of 20 with their min-max), and one warm run
+     is traced with torch.profiler: device time by
      kernel, the device's busy and idle share of the run's wall time, and a
      Chrome trace in ``chiprun_out/quickstart_trace.json``;
   4. cohort study: ``examples/cohort_study.py``'s plan (DCIR and PMSI,
@@ -85,10 +90,15 @@ nothing falls back to the CPU):
      48M rows, once with 7 columns, and timed there;
   10. sharded: the quickstart through ``Study.run(mesh=group)`` on 4 gloo
      ranks of one process group, all on the one card, at
-     ``--sharded-patients``: every rank launches B5 once per exchange (5),
-     no exchange overflows, the cuda engines equal the torch engines, the
-     sharded result equals the single-card run of the same seed (event rows
-     as multisets, cohort words, flow, join stats), and at 20,000 patients
+     ``--sharded-patients`` (2,000,000 by default): every rank launches B5
+     once per exchange (5) and B3 once, no exchange overflows, no rank
+     holds more of a table output than its own block (the blocks' counts
+     add up to the global count), the cuda engines equal the torch engines
+     (each rank's block words, the valid rows of every block, gathered),
+     the sharded result equals the single-card run of the same seed (event
+     rows as multisets, cohort words, flow, join stats), each rank's output
+     capacities, peak memory, staged bytes and collectives are printed,
+     and at 20,000 patients
      the quickstart, ``distributed_flatten`` and ``exposures_sharded`` on
      the card equal the same 4 ranks on the CPU (through the package's
      rank functions in ``distributed.launch``); B5 is timed at rank 0's
@@ -189,6 +199,7 @@ def cuda_ms(fn, reps: int, cold: bool = False) -> float:
 # ---------------------------------------------------------------------------
 EDGE_SIZES = (0, 1, 31, 32, 33, 1025)
 REPS = 20                 # CUDA-event timings per kernel (median reported)
+SNDS_WORDS = 2_062_500    # B3 at the SNDS universe, 66M patients
 CPU_PATIENTS = 20_000     # scale of the card-vs-CPU comparison
 
 
@@ -334,17 +345,15 @@ def check_predicates(exprs, cols, valid, n: int, params) -> int:
 
 
 def kernel_battery(device) -> None:
-    import numpy as np
     import torch
 
-    from repro_torch.kernels import bitset_ops as bo
     from repro_torch.kernels import filter_compact as fc
 
     exprs = expr_battery()
     params = battery_params()
     checked = 0
     for n in EDGE_SIZES:
-        cols, valid, rng = battery_columns(n, device)
+        cols, valid, _ = battery_columns(n, device)
         checked += check_predicates(exprs, cols, valid, n, params)
         # B2: int32 + float32 columns (NaNs), and > 32 columns (two launches)
         many = [cols[k] for k in ("a", "b", "x", "y", "z")] * 7
@@ -356,25 +365,70 @@ def kernel_battery(device) -> None:
                                              for g, w in zip(got, want)):
                 fail(f"filter_compact kernel != plain at n={n}")
             checked += 1
-        # B3: every op, aligned and misaligned views
-        wa = torch.from_numpy(rng.integers(-2**31, 2**31, n + 1,
-                                           dtype=np.int64).astype(np.int32))
-        wb = torch.from_numpy(rng.integers(-2**31, 2**31, n + 1,
-                                           dtype=np.int64).astype(np.int32))
-        wa, wb = wa.to(device), wb.to(device)
-        for op in bo.OPS:
-            for sl in (slice(0, n), slice(1, n + 1)):
-                ga, gb = wa[sl].contiguous() if sl.start == 0 else wa[sl], \
-                    wb[sl]
-                got, gc = bo.bitset_op_popcount(ga, gb, op)
-                want, wc = bo.bitset_op_plain(ga, gb, op)
-                torch.cuda.synchronize()
-                if not _same(got, want) or int(gc) != int(wc):
-                    fail(f"bitset_op {op} kernel != plain at n={n}")
-                checked += 1
     log(f"kernels: {checked} kernel-vs-plain checks bit-identical "
         f"at n in {EDGE_SIZES}")
     predicate_edges(device, exprs, params)
+    bitset_battery(device)
+
+
+def random_program(rng, n_leaves: int, n_ops: int, first_op: int = 0):
+    """A seeded B3 program: op ``j`` is ``OPS[(first_op + j) % 4]``, each
+    operand a leaf or, half the time where there is one, an earlier op."""
+    from repro_torch.kernels import bitset_ops as bo
+
+    ops = list(bo.OPS)
+    return tuple(
+        (ops[(first_op + j) % 4],
+         *[int(rng.integers(n_leaves, n_leaves + j)) if j
+           and rng.random() < 0.5 else int(rng.integers(0, n_leaves))
+           for _ in range(2)])
+        for j in range(n_ops))
+
+
+def bitset_battery(device) -> None:
+    """B3's program kernel against its plain version, bit for bit: programs
+    of 1-8 ops over 1-8 leaves covering every op, aligned and misaligned
+    (scalar path) views, sizes at its block and grid edges up to 2,062,500
+    words, with the pool's blocks of its count buffers poisoned (-1) and
+    freed before every launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bitset_ops as bo
+
+    t = bo.THREADS
+    sms, per_sm = bo._limits(device, 1)
+    wave = sms * per_sm * t * 4     # the widest grid's
+    sizes = sorted({0, 1, 3, 4, 5, t - 1, t + 1, 4 * t - 1, 4 * t,
+                    4 * t + 1, 62_500, wave - 1, wave + 5, SNDS_WORDS})
+    rng = np.random.default_rng(17)
+    checked = 0
+    for n in sizes:
+        base = torch.randint(-2**31, 2**31 - 1, (8, n + 1),
+                             dtype=torch.int32, device=device)
+        for k, (n_leaves, n_ops) in enumerate(
+                [(i + 1, 8 - i) for i in range(8)]):
+            prog = random_program(rng, n_leaves, n_ops, first_op=k)
+            for off in (0, 1):
+                leaves = [base[i, off:n + off] for i in range(n_leaves)]
+                grid = bo.expr_grid(n if off else n // 4 + n % 4,
+                                    *bo._limits(device, n_ops))
+                junk = [torch.full((n_ops * (1 + grid),), -1,
+                                   dtype=torch.int32, device=device)
+                        for _ in range(8)]
+                del junk
+                got, gc = bo.bitset_expr_kernel(leaves, prog)
+                want, wc = bo.bitset_expr_plain(leaves, prog)
+                torch.cuda.synchronize()
+                if not (_same(got, want) and _same(gc, wc)):
+                    fail(f"bitset_expr kernel != plain at n={n} "
+                         f"offset={off} program={prog}")
+                checked += 1
+    log(f"kernels: {checked} bitset_expr (B3) kernel-vs-plain checks "
+        f"bit-identical (1-8 ops over 1-8 leaves, every op, offsets 0/1, "
+        f"poisoned counts) at n in {sizes}; its grid: {sms} SMs x "
+        f"{[bo._limits(device, k)[1] for k in range(1, 9)]} blocks of "
+        f"{bo.THREADS} for 1-8 ops")
 
 
 def predicate_sizes(exprs, params, device):
@@ -605,8 +659,8 @@ def recorders():
             "filter_compact": Recorder(
                 filter_compact, "filter_compact_bits",
                 lambda cols, words: cols[0].shape[0] * len(cols)),
-            "bitset_op": Recorder(bitset_ops, "bitset_op_popcount",
-                                  lambda a, b, op: a.shape[0]),
+            "bitset_op": Recorder(bitset_ops, "bitset_expr_kernel",
+                                  lambda leaves, prog: leaves[0].shape[0]),
             "segmented_scan": Recorder(
                 segment_scan, "segmented_scan_kernel",
                 lambda words, vals, block, fill: vals.shape[0])}
@@ -650,6 +704,11 @@ def drive(label: str, study, tables, kernels, reps: int, rate: float):
     for k in kernels:
         if launches[k] <= 0:
             fail(f"{label}: kernel {k} was never launched on the main path")
+    from repro_torch.study.executor import cohort_groups
+
+    if launches["bitset_op"] != len(cohort_groups(res.plan)):
+        fail(f"{label}: {launches['bitset_op']} B3 launches for "
+             f"{len(cohort_groups(res.plan))} cohort expressions")
     log(f"{label}: final cohort {res.cohorts['final'].subject_count()} "
         f"subjects\n" + res.flow.render())
     # time the kernels on the recorded inputs, then let those inputs go
@@ -784,7 +843,7 @@ def time_kernels(recs, reps: int, rate: float):
     """Each recorded kernel against its plain version at the recorded shape
     (bit for bit), then timed: kernel, plain version, library call."""
     from repro_torch.core import bitset as bs
-    from repro_torch.kernels import bitset_ops, filter_compact, segment_scan
+    from repro_torch.kernels import filter_compact, segment_scan
 
     out = {}
     if "predicate_bitset" in recs:
@@ -827,22 +886,11 @@ def time_kernels(recs, reps: int, rate: float):
             plain_ms=cuda_ms(plain, reps), library_ms=cuda_ms(library, reps),
             bound_ms=nbytes / rate * 1e3, max_abs_err=0.0)
     if "bitset_op" in recs:
-        rec = recs["bitset_op"]
-        a, b, op = rec.best[1]
-        kern = lambda: rec.fn(a, b, op)  # noqa: E731
-        plain = lambda: bitset_ops.bitset_op_plain(a, b, op)  # noqa: E731
-        (g, gc), (w, wc) = kern(), plain()
-        if not _same(g, w) or int(gc) != int(wc):
-            fail("bitset_op kernel != plain at the main path's shape")
-        out["bitset_op"] = dict(
-            n=a.shape[0], columns=None, ms=cuda_ms(kern, reps),
-            plain_ms=cuda_ms(plain, reps), library_ms=None,
-            bound_ms=12 * a.shape[0] / rate * 1e3, max_abs_err=0.0)
+        out["bitset_op"] = time_bitset(recs["bitset_op"], reps, rate)
     for k, v in out.items():
-        for label, t in ((k, v), (k + " (longest program)",
-                                  v.get("longest"))):
-            if t is None:
-                continue
+        for label, t in [(k, v)] + [(f"{k} ({sub})", v[sub])
+                                    for sub in ("longest", "snds")
+                                    if sub in v]:
             spread = "" if "ms_range" not in t else (
                 f" [{t['ms_range'][0]:.4f}-{t['ms_range'][1]:.4f}], middle "
                 f"of {TIMING_CALLS} medians of {reps}")
@@ -852,6 +900,87 @@ def time_kernels(recs, reps: int, rate: float):
                 f"bound {t['bound_ms']:.4f} ms "
                 f"({100 * t['bound_ms'] / t['ms']:.1f} % reached)")
     return out
+
+
+EMPTY_KERNEL = r"""
+__global__ void empty_kernel() {}
+
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_launch_ms(reps: int):
+    """The card's floor for one launch: an empty kernel, built alone (it
+    is no kernel of the port), timed as the kernels are (middle, min, max
+    of ``TIMING_CALLS`` medians)."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, so = Path(tmp) / "empty.cu", Path(tmp) / "empty.so"
+        src.write_text(EMPTY_KERNEL)
+        r = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared",
+                            "-o", str(so), str(src)], capture_output=True,
+                           text=True)
+        if r.returncode != 0:
+            fail(f"nvcc failed on the empty kernel:\n{r.stdout}{r.stderr}")
+        lib = ctypes.CDLL(str(so))
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+    launch = lambda: build.check(lib.empty_launch(  # noqa: E731
+        torch.cuda.current_stream().cuda_stream), "empty launch")
+    return spread_ms(launch, reps)
+
+
+def time_bitset(rec, reps: int, rate: float) -> dict:
+    """B3 on the recorded call (the study's cohort expression: one launch)
+    and on the same program over the SNDS universe (``SNDS_WORDS``, seeded
+    leaves, L2 cleared before each rep: its 41 MB would fit in L2), each
+    against its plain version bit for bit, then kernel and plain version as
+    the middle of ``TIMING_CALLS`` medians with their min-max, beside the
+    empty-launch floor.  Bound: ``4 B x (leaves + ops)`` a word."""
+    import torch
+
+    from repro_torch.kernels import bitset_ops
+
+    leaves, prog = rec.best[1]
+    n = leaves[0].shape[0]
+    big = [torch.randint(-2**31, 2**31 - 1, (SNDS_WORDS,), dtype=torch.int32,
+                         device=leaves[0].device) for _ in leaves]
+    out = {}
+    for label, ls, cold in (("study", leaves, False),
+                            ("snds", big, True)):
+        kern = lambda ls=ls: rec.fn(ls, prog)  # noqa: E731
+        plain = lambda ls=ls: bitset_ops.bitset_expr_plain(  # noqa: E731
+            ls, prog)
+        (g, gc), (w, wc) = kern(), plain()
+        if not (_same(g, w) and _same(gc, wc)):
+            fail(f"bitset_expr kernel != plain at the {label} shape")
+        m = ls[0].shape[0]
+        t = dict(n=m, columns=None, library_ms=None, max_abs_err=0.0,
+                 bound_ms=4 * (len(ls) + len(prog)) * m / rate * 1e3,
+                 program=f"({len(prog)} ops over {len(ls)} leaves "
+                         f"{list(prog)}{', L2 cleared' if cold else ''}) ")
+        for key, fn in (("ms", kern), ("plain_ms", plain)):
+            t[key], lo, hi = spread_ms(fn, reps, cold)
+            t[key + "_range"] = (lo, hi)
+        out[label] = t
+    floor, lo, hi = empty_launch_ms(reps)
+    res = dict(out["study"], snds=out["snds"], floor_ms=floor,
+               floor_range=(lo, hi))
+    log(f"timing: empty launch (the card's floor for one launch) "
+        f"{floor:.4f} ms [{lo:.4f}-{hi:.4f}]; B3 over {n} words "
+        f"{res['ms']:.4f} ms and {out['snds']['ms']:.4f} ms over "
+        f"{SNDS_WORDS} (bounds {res['bound_ms']:.4f} and "
+        f"{out['snds']['bound_ms']:.4f} ms)")
+    return res
 
 
 def time_predicate(fn, args, reps: int, rate: float) -> dict:
@@ -1693,15 +1822,47 @@ def partition_battery(device, reps: int, rate: float) -> dict:
     return out
 
 
+def gathered_rows(t) -> dict:
+    """The valid rows of a ``ShardedTable``, every rank's in rank order (the
+    whole table's valid rows in order), on every rank: each rank compacts
+    its block and the blocks' valid rows are gathered (one explicit gather
+    a column, of the largest block's valid rows, not of its capacity)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import comm
+
+    b, group = t.block, t.group
+    counts = comm.all_gather_cat(b.count.reshape(1).to(torch.int64),
+                                 group).tolist()
+    width = max(counts)
+    keep = b.valid_bool()
+    out = {}
+    for c, v in b.columns.items():
+        local = torch.zeros((width,), dtype=v.dtype, device=v.device)
+        local[:counts[dist.get_rank(group)]] = v[keep]
+        rows = comm.all_gather_cat(local, group).view(len(counts), width)
+        out[c] = torch.cat([rows[r, :k] for r, k in enumerate(counts)])
+    return out
+
+
 def digest(res) -> dict:
     """What the sharded phase compares of one result, small enough to keep
-    while the next run holds the card: each event table's validity words,
-    count and valid rows, the cohort words, the flow and the stats."""
+    while the next run holds the card: per event table its validity words
+    and count and its valid rows in order, the cohort words, the flow and
+    the stats.  Of a sharded result (``ShardedTable`` events), the words
+    are the rank's block's, the count the global one and the valid rows
+    every rank's (``gathered_rows``)."""
+    from repro_torch.distributed import ShardedTable
+
     events = {}
     for name, t in res.events.items():
-        keep = t.valid_bool()
-        events[name] = (t.valid, int(t.count),
-                        {c: v[keep] for c, v in t.columns.items()})
+        if isinstance(t, ShardedTable):
+            events[name] = (t.block.valid, t.count, gathered_rows(t))
+        else:
+            keep = t.valid_bool()
+            events[name] = (t.valid, int(t.count),
+                            {c: v[keep] for c, v in t.columns.items()})
     return dict(events=events, stats=res.flatten_stats,
                 cohorts={k: c.subjects for k, c in res.cohorts.items()},
                 flow=res.flow.flowchart())
@@ -1848,6 +2009,7 @@ def sharded_rank(group, device, n_patients: int, star: dict,
     from repro_torch.data.synthetic import SyntheticConfig, generate_dcir
     from repro_torch.distributed import comm
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.study.executor import cohort_groups
 
     me = dist.get_rank(group)
     lines = []
@@ -1881,6 +2043,17 @@ def sharded_rank(group, device, n_patients: int, star: dict,
             rec.__exit__()
     peak = torch.cuda.max_memory_allocated()
     res.assert_no_loss()
+    # each rank holds its own block of every table output and nothing more
+    caps, held = {}, {}
+    for k, t in res.events.items():
+        caps[k] = t.block.capacity
+        held[k] = max(x.untyped_storage().nbytes() // x.element_size()
+                      for x in (t.block.valid, *t.block.columns.values()))
+        if held[k] > caps[k]:
+            fail(f"rank {me}: {k} holds {held[k]} slots behind a block of "
+                 f"{caps[k]}")
+    block_counts = {k: int(t.block.count) for k, t in res.events.items()}
+    global_counts = {k: t.count for k, t in res.events.items()}
     n_ex = sum(n.op == "exchange" for n in res.plan.nodes)
     ex_stats = [d for d in res.flatten_stats.values()
                 if d["stage"].startswith("exchange")]
@@ -1892,9 +2065,11 @@ def sharded_rank(group, device, n_patients: int, star: dict,
     for k in ("predicate_bitset", "filter_compact", "bitset_op"):
         if launches[k] <= 0:
             fail(f"rank {me}: kernel {k} was never launched")
+    if launches["bitset_op"] != len(cohort_groups(res.plan)):
+        fail(f"rank {me}: {launches['bitset_op']} B3 launches for "
+             f"{len(cohort_groups(res.plan))} cohort expressions")
     final = res.cohorts["final"].subject_count()
     flow = res.flow.render()
-    caps = {k: t.capacity for k, t in res.events.items()}
     first = digest(res)
     del res                          # the next run needs the card's memory
     torch.cuda.empty_cache()
@@ -1902,10 +2077,14 @@ def sharded_rank(group, device, n_patients: int, star: dict,
     lines.append(
         f"rank {me}: generated DCIR ({rows} ER_PRS rows, {rows // SHARDS} "
         f"a shard) in {gen_s:.3f} s; cuda engines wall {wall:.3f} s (first "
-        f"run), peak device memory {peak / 2**30:.3f} GiB, {n_ex} exchanges, "
-        f"output capacities {caps}, launches {launches}, collectives "
-        f"{staging['collectives']}, host staging "
-        f"{staging['staged_bytes'] / 2**30:.3f} GiB in "
+        f"run), peak device memory {peak / 2**30:.3f} GiB (PR 14: 8.253 at "
+        f"1,000,000 patients, every output gathered), {n_ex} exchanges, "
+        f"output capacities a rank {caps} (the largest storage behind each "
+        f"{held}), block counts {block_counts} of {global_counts}, launches "
+        f"{launches}, collectives {staging['collectives']} "
+        f"({staging['all_to_all']} all-to-all, {staging['all_reduce']} "
+        f"sums, {staging['all_gather']} gathers; PR 14: 41), host staging "
+        f"{staging['staged_bytes'] / 2**30:.3f} GiB (PR 14: 7.701) in "
         f"{staging['staging_s']:.3f} s")
     res, warm, staging2 = run(study, dcir, "cuda")
     compare_digests(first, digest(res), f"rank {me}: sharded cuda run vs "
@@ -1952,7 +2131,8 @@ def sharded_rank(group, device, n_patients: int, star: dict,
     small = small_sharded(group, device, star, cpu_patients)
     return dict(lines=lines, launches=launches, wall=wall, warm=warm,
                 staging=staging, staging_warm=staging2, timing=timing,
-                small=small)
+                small=small, peak=peak, caps=caps,
+                block_counts=block_counts, global_counts=global_counts)
 
 
 def sharded_phase(n_patients: int, cpu_patients: int, reps: int,
@@ -2002,9 +2182,22 @@ def sharded_phase(n_patients: int, cpu_patients: int, reps: int,
         f"{small[2]['count']} rows; final cohort "
         f"{small[0][0]['cohorts']['final']['count']} subjects), "
         f"{time.perf_counter() - t0:.3f} s for the CPU ranks")
+    for k, n in ranks[0]["global_counts"].items():
+        if sum(r["block_counts"][k] for r in ranks) != n:
+            fail(f"sharded: the blocks of {k} do not add up to its count")
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
     timing = ranks[0]["timing"]
+    log(f"sharded: at {n_patients} patients per rank: output capacities "
+        f"{[r['caps'] for r in ranks]}, peak device memory "
+        f"{[round(r['peak'] / 2**30, 3) for r in ranks]} GiB, host staging "
+        f"{[round(r['staging']['staged_bytes'] / 2**30, 3) for r in ranks]}"
+        f" GiB (first), "
+        f"{[round(r['staging_warm']['staged_bytes'] / 2**30, 3) for r in ranks]}"
+        f" GiB (warm), collectives "
+        f"{[r['staging']['collectives'] for r in ranks]}, warm wall "
+        f"{[round(r['warm'], 3) for r in ranks]} s; PR 14 at 1,000,000: "
+        f"96,000,000 slots, 8.253 GiB, 7.701 GiB, 41, 7.002 s")
     log(f"sharded: launches summed over ranks {launches}; wall per rank "
         f"{[round(r['wall'], 3) for r in ranks]} s (first), "
         f"{[round(r['warm'], 3) for r in ranks]} s (warm), host staging per "
@@ -2046,11 +2239,8 @@ def main() -> int:
     # the reference's design-matrix index is int32 and wraps above 466,033
     # patients at (36, 128) (ROADMAP C7); 400,000 stays below it
     ap.add_argument("--cohort-patients", type=int, default=400_000)
-    # four ranks share the card and each holds the shard-concatenated event
-    # tables (4x the global rows after two exchanges at slack 2): a peak of
-    # 8.3 GiB a rank at 1,000,000 patients; at 2,000,000 the 80 GB ran out
-    # (PERF.md)
-    ap.add_argument("--sharded-patients", type=int, default=1_000_000)
+    # four ranks share the card, each keeping its own block of every output
+    ap.add_argument("--sharded-patients", type=int, default=2_000_000)
     args = ap.parse_args()
 
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
@@ -2102,6 +2292,13 @@ def main() -> int:
             fail(f"B1's kernel uses local memory: {b1}")
     log(f"ptxas: B4 seg_scan_kernel: "
         f"{ptxas_report(info['log'], 'seg_scan_kernel')}")
+    # B3 keeps every op's result and count in registers, at every length
+    for k in range(1, 9):
+        b3 = ptxas_report(info["log"], f"bitset_expr_kernelILi{k}E")
+        log(f"ptxas: B3 bitset_expr_kernel<{k}>: {b3}")
+        if not b3.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                             "0 bytes spill loads"):
+            fail(f"B3's {k}-op kernel uses local memory: {b3}")
     rate = mem_rate(name)
     seconds = {"build": time.perf_counter() - t_all}
 

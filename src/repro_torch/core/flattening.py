@@ -379,7 +379,8 @@ def distributed_flatten(schema: StarSchema,
     prunes exchanges whose input is already partitioned on the key, and
     runs it with ``execute_plan_sharded`` on every rank of ``mesh`` (a
     process group).  Returns ``(flat, overflow)``: the flat table,
-    patient-partitioned and shard-concatenated in rank order, and the
+    patient-partitioned, as a ``distributed.ShardedTable`` (this rank's
+    block; ``gather()`` concatenates the blocks in rank order), and the
     summed overflow of every exchange and join."""
     from repro_torch.distributed import comm
     from repro_torch.distributed.pipeline import execute_plan_sharded
@@ -398,5 +399,5 @@ def distributed_flatten(schema: StarSchema,
                                           axis_name=axis_name, engine=engine)
     flat = vals[plan.output_ids["flat"]]
     overflow = torch.tensor(sum(s["overflow"] for s in stats.values()),
-                            dtype=torch.int32, device=flat.device)
+                            dtype=torch.int32, device=flat.block.device)
     return flat, overflow

@@ -267,27 +267,29 @@ def exposures(dispenses: ColumnarTable, n_patients: int,
 
 
 def exposures_sharded(dispenses: ColumnarTable, n_patients: int, mesh,
-                      axis_name: str = "data", **kw) -> ColumnarTable:
+                      axis_name: str = "data", **kw):
     """Shard-local ``exposures`` over a *patient-partitioned* event table.
 
     ``distributed_flatten`` keys its output on ``patient_id``, so every
     patient's events live on one shard and the per-patient fold needs no
     collective: each rank of ``mesh`` (a process group) runs ``exposures``
-    on its row block (the capacity padded to ``32 * n`` rows first), and
-    the blocks come back concatenated in rank order on every rank.
-    ``axis_name`` is kept for the reference's signature; ``kw`` goes to
-    ``exposures`` (``engine`` included)."""
+    on its row block (the capacity padded to ``32 * n`` rows first) and
+    keeps it: the result is a ``distributed.ShardedTable`` with the global
+    count (one summed scalar), whose ``gather()`` concatenates the blocks in
+    rank order.  ``axis_name`` is kept for the reference's signature;
+    ``kw`` goes to ``exposures`` (``engine`` included)."""
     import torch.distributed as dist
 
     from repro_torch.distributed import comm
-    from repro_torch.distributed.pipeline import (gather_table,
+    from repro_torch.distributed.pipeline import (ShardedTable,
                                                   pad_tables_for_mesh,
                                                   shard_rows)
 
     n = comm.world_size(mesh)
     t = pad_tables_for_mesh({"d": dispenses}, n)["d"]
     out = exposures(shard_rows(t, dist.get_rank(mesh), n), n_patients, **kw)
-    return gather_table(out, mesh)
+    count = comm.all_reduce_sum(out.count.reshape(1).to(torch.int64), mesh)
+    return ShardedTable(out, mesh, int(count))
 
 
 def _washout_keep(pid: torch.Tensor, site: torch.Tensor, date: torch.Tensor,

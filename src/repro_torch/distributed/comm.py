@@ -1,14 +1,16 @@
 """The collectives of the sharded study path over a ``torch.distributed``
 process group: the exchange's all-to-all, the sums of counts, stats and
-cohort bitsets, and the gather of table outputs.
+cohort bitsets, and the gather of a sharded table where a caller asks for
+the whole of it (``ShardedTable.gather``).
 
 The group's backend decides the transport.  NCCL takes CUDA tensors
 directly.  Gloo moves host tensors only for these collectives, and it is
 what several ranks sharing one card must use (NCCL refuses two ranks on one
 device), so under gloo a CUDA tensor is staged through pinned host memory
 around the collective.  That is the collective's transport, not a fallback:
-every kernel still runs on the card.  ``stats`` counts the collectives and
-the staging's bytes and host seconds (``reset_stats`` sets them to 0).
+every kernel still runs on the card.  ``stats`` counts the collectives (in
+all and by kind) and the staging's bytes and host seconds (``reset_stats``
+sets them to 0).
 """
 from __future__ import annotations
 
@@ -19,11 +21,18 @@ import torch.distributed as dist
 __all__ = ["world_size", "group_key", "all_to_all", "all_reduce_sum",
            "all_gather_cat", "stats", "reset_stats"]
 
-stats = {"collectives": 0, "staged_bytes": 0, "staging_s": 0.0}
+stats = {"collectives": 0, "all_to_all": 0, "all_reduce": 0,
+         "all_gather": 0, "staged_bytes": 0, "staging_s": 0.0}
 
 
 def reset_stats() -> None:
-    stats.update(collectives=0, staged_bytes=0, staging_s=0.0)
+    stats.update(collectives=0, all_to_all=0, all_reduce=0, all_gather=0,
+                 staged_bytes=0, staging_s=0.0)
+
+
+def _count(kind: str) -> None:
+    stats["collectives"] += 1
+    stats[kind] += 1
 
 
 def world_size(group) -> int:
@@ -66,7 +75,7 @@ def _to_device(host: torch.Tensor, device) -> torch.Tensor:
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """``recv[s] = send_s[me]`` over the leading axis, which has one slot
     per rank (``jax.lax.all_to_all(x, axis, 0, 0)``)."""
-    stats["collectives"] += 1
+    _count("all_to_all")
     x = x.contiguous()
     if _staged(x, group):
         send = _to_host(x)
@@ -80,7 +89,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise sum over ranks (``jax.lax.psum``), as a new tensor."""
-    stats["collectives"] += 1
+    _count("all_reduce")
     if _staged(x, group):
         host = _to_host(x)
         dist.all_reduce(host, group=group)
@@ -93,7 +102,7 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather_cat(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated in rank order along
     the leading axis."""
-    stats["collectives"] += 1
+    _count("all_gather")
     n = dist.get_world_size(group)
     x = x.contiguous()
     if _staged(x, group):

@@ -15,8 +15,9 @@ loads the kernel library the parent built (``build.library()`` before
 
 ``study_rank``, ``flatten_rank`` and ``exposures_rank`` are the rank
 functions of the sharded study path: they take numpy tables, run one entry
-point sharded over the group, and return numpy results; ``tasks_rank``
-runs several of them in one job.
+point sharded over the group, gather its table outputs (``ShardedTable.
+gather``) and return numpy results; ``tasks_rank`` runs several of them in
+one job.
 """
 from __future__ import annotations
 
@@ -125,18 +126,25 @@ def tasks_rank(group, device, tasks: Sequence[Tuple[Callable, Tuple]]
 
 
 def result_to_numpy(res) -> Dict[str, Any]:
-    """A ``StudyResult`` as host data: event tables (numpy star form),
-    cohort words and descriptions, flow rows, FlatteningStats, the
-    OperationLog without ``ts``, and the plan that ran."""
+    """A sharded ``StudyResult`` as host data: event tables gathered whole
+    (numpy star form), cohort words and descriptions, flow rows, features
+    and their checks, FlatteningStats, the OperationLog without ``ts``, and
+    the plan that ran.  Every rank of the run's group calls it (the gathers
+    are collectives)."""
     from repro_torch.interop import tables_to_numpy
 
     return {
-        "events": tables_to_numpy(res.events),
+        "events": tables_to_numpy({k: t.gather()
+                                   for k, t in res.events.items()}),
         "cohorts": {name: {"subjects": c.subjects.cpu().numpy(),
                            "description": c.description,
                            "count": c.subject_count()}
                     for name, c in res.cohorts.items()},
         "flow": res.flow.flowchart() if res.flow is not None else None,
+        "features": {k: (tuple(x.cpu().numpy() for x in v)
+                         if isinstance(v, tuple) else v.cpu().numpy())
+                     for k, v in res.features.items()},
+        "feature_checks": res.feature_checks,
         "flatten_stats": res.flatten_stats,
         "log": [{k: v for k, v in e.items() if k != "ts"}
                 for e in res.log.entries],
@@ -150,7 +158,10 @@ def study_rank(group, device, study, star: Mapping[str, Mapping],
     """``study.run(mesh=group, axis_name=axis_name)`` on the numpy ``star``
     once per ``(engine, predicate_engine)`` in ``runs``; per run
     ``result_to_numpy`` plus the kernel launches and collectives of that
-    run and its wall seconds."""
+    run (before the gathers), its wall seconds, and what this rank held of
+    each event table when ``run`` returned (``blocks``: the block's
+    capacity and count, and the elements of the largest tensor storage
+    behind it)."""
     from repro_torch.distributed import comm
     from repro_torch.interop import tables_from_numpy
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -165,9 +176,18 @@ def study_rank(group, device, study, star: Mapping[str, Mapping],
                         mesh=group, axis_name=axis_name, device=device)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        launches, stats = dict(launch_counts), dict(comm.stats)
+        blocks = {k: {"capacity": t.block.capacity,
+                      "count": int(t.block.count),
+                      "storage": max(x.untyped_storage().nbytes()
+                                     // x.element_size()
+                                     for x in (t.block.valid,
+                                               *t.block.columns.values()))}
+                  for k, t in res.events.items()}
         summary = result_to_numpy(res)
-        summary.update(launches=dict(launch_counts), comm=dict(comm.stats),
-                       seconds=time.perf_counter() - t0)
+        summary.update(launches=launches, comm=stats, seconds=seconds,
+                       blocks=blocks)
         out.append(summary)
     return out
 
@@ -181,16 +201,17 @@ def flatten_rank(group, device, schema, star: Mapping[str, Mapping],
 
     flat, overflow = distributed_flatten(
         schema, tables_from_numpy(star, device=device), group, engine=engine)
-    return {"flat": tables_to_numpy({"flat": flat})["flat"],
+    return {"flat": tables_to_numpy({"flat": flat.gather()})["flat"],
             "overflow": int(overflow)}
 
 
 def exposures_rank(group, device, table: Mapping, n_patients: int,
                    kwargs: Mapping) -> Dict[str, Any]:
-    """``exposures_sharded`` of one numpy table (numpy star form)."""
+    """``exposures_sharded`` of one numpy table, gathered (numpy star
+    form)."""
     from repro_torch.core.transformers import exposures_sharded
     from repro_torch.interop import tables_from_numpy, tables_to_numpy
 
     t = tables_from_numpy({"t": table}, device=device)["t"]
     out = exposures_sharded(t, n_patients, group, **dict(kwargs))
-    return tables_to_numpy({"t": out})["t"]
+    return tables_to_numpy({"t": out.gather()})["t"]

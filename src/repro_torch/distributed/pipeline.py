@@ -5,14 +5,16 @@ The port of ``repro.distributed.pipeline``'s study half
 group: its size is the shard count and every rank runs this code on its own
 device.  Where the reference's ``shard_map`` splits each source over the
 mesh axis, each rank takes its contiguous row block of every source
-(``shard_rows``); ``psum`` becomes ``comm.all_reduce_sum`` and the
-concatenated ``P(axis)`` outputs become ``comm.all_gather_cat``.  The
-pipeline-parallel model stack (``gpipe``, ``pipeline_transformer``) is not
-ported yet (ROADMAP A9).
+(``shard_rows``); ``psum`` becomes ``comm.all_reduce_sum``, and a
+``P(axis)`` table output becomes a ``ShardedTable``: each rank keeps its own
+block, and ``gather()`` concatenates the blocks where a caller needs the
+whole table.  The pipeline-parallel model stack (``gpipe``,
+``pipeline_transformer``) is not ported yet (ROADMAP A9).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import dataclasses
+from typing import Any, Dict, Mapping
 
 import torch
 import torch.distributed as dist
@@ -22,7 +24,7 @@ from repro_torch.core.columnar import ColumnarTable
 from repro_torch.distributed import comm
 
 __all__ = ["execute_plan_sharded", "pad_tables_for_mesh", "shard_rows",
-           "gather_table"]
+           "gather_table", "ShardedTable"]
 
 _M32 = 1 << 32
 
@@ -68,6 +70,23 @@ def gather_table(table: ColumnarTable, group) -> ColumnarTable:
     return ColumnarTable(cols, words, _bs.count(words), n * table.capacity)
 
 
+@dataclasses.dataclass
+class ShardedTable:
+    """A table sharded over a process group, as seen from one rank: the
+    counterpart of the reference's ``ColumnarTable`` over ``P(axis)``
+    arrays.  ``block`` is this rank's rows (a 32-aligned capacity, its own
+    count), ``count`` the global count, and ``gather()`` the whole table:
+    every rank's block in rank order, on every rank (a collective: every
+    rank of ``group`` calls it)."""
+
+    block: ColumnarTable
+    group: Any
+    count: int
+
+    def gather(self) -> ColumnarTable:
+        return gather_table(self.block, self.group)
+
+
 def _aligned(t: ColumnarTable) -> ColumnarTable:
     """32-align the local capacity so the shard-concatenated validity words
     stay row-exact."""
@@ -92,11 +111,11 @@ def execute_plan_sharded(plan, tables, n_patients: int, mesh,
     gives the shard count and makes the exchanges real.  Every rank passes
     the same global ``tables`` (every rank planned from
     them, so the plans agree); each pads them to ``32 * n`` rows and runs
-    its row block.  Table outputs come back on every rank, each shard's
-    block 32-aligned and concatenated in rank order, with the global count.
-    Returns ``(vals, counts, stats)`` shaped like the local executor's
-    (counts and stats as host ints) so ``Study.run`` shares its realization
-    path."""
+    its row block.  Each table output stays on its rank as a
+    ``ShardedTable``: the rank's block, 32-aligned, with the global count;
+    cohort words come back summed, whole on every rank.  Returns ``(vals,
+    counts, stats)`` shaped like the local executor's (counts and stats as
+    host ints) so ``Study.run`` shares its realization path."""
     from repro_torch.kernels import predicate as _pk
     from repro_torch.study.executor import (cached_executable, env_device,
                                             run_plan_body, traced_ids)
@@ -131,9 +150,7 @@ def execute_plan_sharded(plan, tables, n_patients: int, mesh,
             vals, counts, stats = run_plan_body(
                 plan, local, n_patients, engine, n_shards=n, predicate_engine=peng, group=group,
                 keep=tuple(sorted(set(ev_ids) | set(cohort_ids))))
-            # each local block goes as soon as its gather is done
-            t_out = {i: gather_table(_aligned(vals.pop(i)), group)
-                     for i in ev_ids}
+            t_out = {i: _aligned(vals.pop(i)) for i in ev_ids}
             b_out = {}
             if cohort_ids:
                 words = comm.all_reduce_sum(
@@ -162,9 +179,6 @@ def execute_plan_sharded(plan, tables, n_patients: int, mesh,
     fn = cached_executable(key, build)
     t_out, b_out, c_out, s_out = fn(local, mesh)
     counts = {i: int(c_out[i]) for i in traced_ids(plan)}
-    vals = {i: ColumnarTable(t.columns, t.valid,
-                             torch.tensor(counts[i], dtype=torch.int32,
-                                          device=device), t.capacity)
-            for i, t in t_out.items()}
+    vals = {i: ShardedTable(t, mesh, counts[i]) for i, t in t_out.items()}
     vals.update(b_out)
     return vals, counts, s_out

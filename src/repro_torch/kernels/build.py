@@ -65,8 +65,11 @@ def _library_path() -> Path:
 
 def _build() -> dict:
     so = _library_path()
+    # nvcc's output (ptxas's reports) is kept beside the library it built
+    log_path = so.with_suffix(".log")
     if so.exists():
-        return {"path": str(so), "seconds": 0.0, "built": False, "log": ""}
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": str(so), "seconds": 0.0, "built": False, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -93,9 +96,9 @@ def _build() -> dict:
             stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        log = "\n".join(logs)
+        log_path.write_text(log)
         os.replace(tmp_so, so)
-    log = "\n".join(logs)
-    (BUILD_DIR / "ptxas.log").write_text(log)
     return {"path": str(so), "seconds": time.perf_counter() - t0,
             "built": True, "log": log}
 
@@ -119,8 +122,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_hash_partition.argtypes = [_P, _P, _I64, _I32, _I32, _P, _P, _P,
                                          _P]
     lib.repro_hash_partition.restype = _I32
-    lib.repro_bitset_op.argtypes = [_P, _P, _P, _I64, _I32, _P, _P]
-    lib.repro_bitset_op.restype = _I32
+    # args, grid, stream
+    lib.repro_bitset_expr.argtypes = [_P, _I32, _P]
+    lib.repro_bitset_expr.restype = _I32
+    # n_ops, sm_count, blocks_per_sm
+    lib.repro_bitset_expr_limits.argtypes = [_I32, _P, _P]
+    lib.repro_bitset_expr_limits.restype = _I32
     # words, vals, n, block, lo, hi, ws, min, max, count, vec16, stream
     lib.repro_segmented_scan.argtypes = [_P, _P, _I64, _I64, _I32, _I32, _P,
                                          _P, _P, _P, _I32, _P]

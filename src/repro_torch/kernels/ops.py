@@ -19,7 +19,7 @@ from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels.predicate import predicate_bitset  # noqa: F401 (re-export)
 
 __all__ = ["filter_compact", "filter_compact_table", "bitset_op",
-           "segmented_scan", "predicate_bitset", "flash_attention",
+           "bitset_expr", "segmented_scan", "predicate_bitset", "flash_attention",
            "hash_partition_plan"]
 
 
@@ -84,10 +84,20 @@ def hash_partition_plan(keys: torch.Tensor, valid: torch.Tensor,
 
 
 def bitset_op(a: torch.Tensor, b: torch.Tensor, op: str):
-    """Fused bitwise op + total popcount; returns ``(words, count)``."""
+    """Fused bitwise op + total popcount (the one-op program of
+    ``bitset_expr``); returns ``(words, count)``, ``count`` 0-d int32."""
     if a.device.type == "cuda":
         return _bo.bitset_op_popcount(a, b, op)
     return _bo.bitset_op_plain(a, b, op)
+
+
+def bitset_expr(leaves, program):
+    """A program of up to 8 bitwise ops over up to 8 leaf word vectors
+    (``kernels.bitset_ops``) in one launch; returns ``(words (n_ops, n),
+    counts (n_ops,) int32)``."""
+    if leaves[0].device.type == "cuda":
+        return _bo.bitset_expr_kernel(leaves, program)
+    return _bo.bitset_expr_plain(leaves, program)
 
 
 def segmented_scan(flags: torch.Tensor, vals: torch.Tensor, block: int = 512,

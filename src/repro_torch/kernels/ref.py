@@ -7,6 +7,8 @@ its kernel; this module gathers them under the reference's names.
 from __future__ import annotations
 
 from repro_torch.kernels.bitset_ops import bitset_op_plain as bitset_op_ref
+# a whole cohort expression a launch: the reference chains bitset_op_ref
+from repro_torch.kernels.bitset_ops import bitset_expr_plain
 from repro_torch.kernels.filter_compact import \
     filter_compact_mask_plain as filter_compact_mask_ref
 from repro_torch.kernels.filter_compact import \
@@ -21,6 +23,7 @@ from repro_torch.kernels.segment_scan import segmented_scan_plain
 from repro_torch.kernels.swa_attention import \
     flash_swa_attention_plain as attention_ref
 
-__all__ = ["attention_ref", "bitset_op_ref", "filter_compact_mask_ref",
+__all__ = ["attention_ref", "bitset_op_ref", "bitset_expr_plain",
+           "filter_compact_mask_ref",
            "filter_compact_ref", "hash_partition_plan_ref",
            "predicate_bitset_ref", "segmented_scan_plain"]

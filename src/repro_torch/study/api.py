@@ -29,7 +29,8 @@ into an ``OperationLog`` automatically.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Any, Dict, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 
@@ -41,6 +42,9 @@ from repro_torch.study import executor as _executor
 from repro_torch.study import optimizer as _optimizer
 from repro_torch.study.expr import CohortRef, parse_cohort_expr
 from repro_torch.study.plan import COHORT_OPS, Plan, PlanBuilder, TABLE_OPS
+
+if TYPE_CHECKING:
+    from repro_torch.distributed.pipeline import ShardedTable
 
 __all__ = ["Study", "StudyResult", "contribute_flatten",
            "contribute_flatten_sliced", "flow_rows_from_log",
@@ -128,7 +132,9 @@ class StudyResult:
     per-row views.
     """
 
-    events: Dict[str, ColumnarTable]          # named table outputs
+    # named table outputs; under a mesh, ``ShardedTable``s (the rank's
+    # block, the global count, ``gather()``)
+    events: Dict[str, Union[ColumnarTable, ShardedTable]]
     cohorts: Dict[str, Cohort]                # named cohorts
     flow: Optional[CohortFlow]                # if .flow(...) was declared
     features: Dict[str, Any]                  # named featurize outputs
@@ -432,8 +438,12 @@ class Study:
         ``mesh`` (a ``torch.distributed`` process group; ``axis_name`` is
         kept for the reference's signature) runs the plan sharded: every
         rank calls ``run`` with the same global tables, plans from them for
-        ``n_shards`` = the group's size, runs its row block with real
-        exchanges, and gets the whole result (``execute_plan_sharded``)."""
+        ``n_shards`` = the group's size and runs its row block with real
+        exchanges (``execute_plan_sharded``).  Each event table of the
+        result is then a ``distributed.ShardedTable``: this rank's block
+        with the global count, whole only through its ``gather()``; a
+        cohort's events are its rank's block.  Cohort words, counts, flow,
+        FlatteningStats and the OperationLog are global on every rank."""
         dev = resolve_device(device)
         env = {k: t.to(dev)
                for k, t in {**self._sources, **(tables or {})}.items()}
@@ -465,7 +475,7 @@ class Study:
                                      predicate_engine=predicate_engine)
         for i, d in join_stats.items():
             d.setdefault("stage", plan.nodes[i].label())
-        return self._finish_result(plan, vals, join_stats, log)
+        return self._finish_result(plan, vals, join_stats, log, mesh=mesh)
 
     def run_chunked(self, *args: Any, **kwargs: Any) -> StudyResult:
         """Out-of-core execution is not ported yet (ROADMAP A6)."""
@@ -474,12 +484,22 @@ class Study:
 
     def _finish_result(self, plan: Plan, vals: Dict[int, Any],
                        join_stats: Dict[int, Dict[str, int]],
-                       log: OperationLog) -> StudyResult:
+                       log: OperationLog, mesh=None) -> StudyResult:
         """Realize a StudyResult from executed node values: events from named
         table outputs, cohorts by replaying the algebra on wrapped operands,
         then the host ops (flow, featurize).  ``vals`` must cover
-        ``executor.keep_ids(plan)`` — exactly what ``execute`` returns."""
+        ``executor.keep_ids(plan)`` — exactly what ``execute`` returns.
+
+        Under a ``mesh`` the table values are ``ShardedTable``s: events stay
+        as they are, and cohorts take their rank's block (patients are
+        partitioned after the plan's exchanges, so the per-patient event
+        filter of the algebra is right on a block).  A featurize needs the
+        whole events: it gathers its cohort's, and its patients table, once."""
         nodes = plan.nodes
+
+        def block(t):
+            return t.block if mesh is not None and t is not None else t
+
         out_ids = plan.output_ids
         events = {name: vals[i] for name, i in out_ids.items()
                   if nodes[i].op in TABLE_OPS and i in vals}
@@ -502,7 +522,7 @@ class Study:
             node = nodes[i]
             if node.op == "cohort_from_events":
                 nm = node.get("name")
-                ev = vals.get(node.inputs[0])
+                ev = block(vals.get(node.inputs[0]))
                 c = Cohort(name=nm, description=f"subjects with event {nm}",
                            subjects=vals[i], n_patients=self.n_patients,
                            events=ev, window=self._window)
@@ -543,6 +563,13 @@ class Study:
             fnode = nodes[out_ids[name]]
             cohort = _realize(fnode.inputs[0])
             pats = vals.get(fnode.inputs[1]) if len(fnode.inputs) > 1 else None
+            if mesh is not None:
+                from repro_torch.distributed.pipeline import gather_table
+
+                if cohort.events is not None:
+                    cohort = dataclasses.replace(
+                        cohort, events=gather_table(cohort.events, mesh))
+                pats = None if pats is None else pats.gather()
             fd = FeatureDriver(cohort, pats)
             kwargs = {k: v for k, v in (fnode.get("kwargs") or ())}
             if fnode.get("kind") == "dense":

@@ -8,7 +8,9 @@ bitset algebra, registered transformers; host-side nodes (``featurize``,
 
 Engines (``kernels.ENGINE_NAMES``): ``engine="torch"`` compacts by gather
 and combines cohorts with tensor ops; ``engine="cuda"`` runs the compaction
-and bitset-op kernels, and the segmented-scan kernel inside ``exposures``.
+kernel, the segmented-scan kernel inside ``exposures``, and the bitset
+kernel once for each group of ``cohort_op`` nodes joined by ``cohort_op``
+edges (a whole cohort expression), whose counts are the nodes' counts.
 Predicate nodes follow their stamped engine (or the run-level
 ``predicate_engine``): ``"torch"`` mask algebra or the ``"cuda"``
 Expr->bitset kernel.  A ``cuda`` engine on CPU tensors runs each kernel's
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import inspect
 import threading
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -283,14 +285,9 @@ def _eval_node(node, ins, env: Dict[str, ColumnarTable], n_patients: int,
         return Bitset.from_indices(ev.columns["patient_id"], ev.valid,
                                    n_patients)
     if op == "cohort_op":
+        # the torch engine; the cuda engine runs whole groups (_eval_group)
         a, b = ins
         kind = node.get("kind")
-        if engine == "cuda":
-            from repro_torch.kernels import ops as kops
-
-            words, _ = kops.bitset_op(
-                a, b, {"&": "and", "|": "or", "-": "andnot"}[kind])
-            return words
         if kind == "&":
             return a & b
         if kind == "|":
@@ -303,6 +300,65 @@ def _node_count(node, val) -> torch.Tensor:
     if node.op in COHORT_OPS:
         return Bitset.count(val)
     return val.count.to(torch.int32)
+
+
+_BITSET_OPS = {"&": "and", "|": "or", "-": "andnot"}
+
+
+def cohort_groups(plan: Plan) -> Dict[int, Tuple[int, ...]]:
+    """Every maximal group of ``cohort_op`` nodes joined by ``cohort_op``
+    edges, keyed by its last node: ``{last id: member ids in order}``.
+    A group runs at its last node's position, so no other traced node may
+    read a member before it (``run_plan_body`` checks)."""
+    parent = {i: i for i, n in enumerate(plan.nodes) if n.op == "cohort_op"}
+
+    def root(i):
+        while parent[i] != i:
+            i = parent[i]
+        return i
+
+    for i in parent:
+        for j in plan.nodes[i].inputs:
+            if j in parent:
+                parent[root(j)] = root(i)
+    groups: Dict[int, List[int]] = {}
+    for i in sorted(parent):
+        groups.setdefault(root(i), []).append(i)
+    return {ms[-1]: tuple(ms) for ms in groups.values()}
+
+
+def _eval_group(plan: Plan, members: Tuple[int, ...],
+                vals: Dict[int, Any]):
+    """A group of ``cohort_op`` nodes through the bitset kernel: one launch
+    of at most ``MAX_OPS`` ops over at most ``MAX_LEAVES`` leaves, so a
+    larger group runs as consecutive launches.  Returns every member's
+    words and count."""
+    from repro_torch.kernels import bitset_ops as _bo
+    from repro_torch.kernels import ops as kops
+
+    words: Dict[int, torch.Tensor] = {}
+    counts: Dict[int, torch.Tensor] = {}
+    k = 0
+    while k < len(members):
+        leaves: List[int] = []
+        chunk: List[int] = []
+        for i in members[k:]:
+            new = [j for j in dict.fromkeys(plan.nodes[i].inputs)
+                   if j not in chunk and j not in leaves]
+            if (len(chunk) == _bo.MAX_OPS
+                    or len(leaves) + len(new) > _bo.MAX_LEAVES):
+                break
+            leaves += new
+            chunk.append(i)
+        slot = {j: s for s, j in enumerate(leaves + chunk)}
+        program = [(_BITSET_OPS[plan.nodes[i].get("kind")],
+                    *(slot[j] for j in plan.nodes[i].inputs)) for i in chunk]
+        out, cnt = kops.bitset_expr(
+            [words[j] if j in words else vals[j] for j in leaves], program)
+        for r, i in enumerate(chunk):
+            words[i], counts[i] = out[r], cnt[r]
+        k += len(chunk)
+    return words, counts
 
 
 # ---------------------------------------------------------------------------
@@ -348,21 +404,43 @@ def run_plan_body(plan: Plan, env: Dict[str, ColumnarTable], n_patients: int,
     _check_engine(engine)
     peng = _pk.resolve_engine(predicate_engine, engine, env_device(env))
     ids = traced_ids(plan)
-    last_use = {j: i for i in ids for j in plan.nodes[i].inputs}
+    # under the cuda engine a cohort_op group runs at its last node
+    groups = cohort_groups(plan) if engine == "cuda" else {}
+    at = {m: last for last, ms in groups.items() for m in ms}
+    for i in ids:
+        late = [j for j in plan.nodes[i].inputs if i not in at
+                and at.get(j, -1) > i]
+        if late:
+            raise ValueError(
+                f"node {i} ({plan.nodes[i].op}) reads cohort_op nodes "
+                f"{late} before their group's last node runs")
+    last_use: Dict[int, int] = {}
+    for i in ids:
+        for j in plan.nodes[i].inputs:
+            last_use[j] = max(last_use.get(j, -1), at.get(i, i))
     vals: Dict[int, Any] = {}
     counts: Dict[int, torch.Tensor] = {}
     stats: Dict[int, Dict[str, torch.Tensor]] = {}
     for i in ids:
         node = plan.nodes[i]
-        ins = [vals[j] for j in node.inputs]
-        out = _eval_node(node, ins, env, n_patients, engine, n_shards,
-                         predicate_engine=peng, group=group)
-        if node.op in STATS_OPS:
-            out, stats[i] = out
-        vals[i] = out
-        counts[i] = _node_count(node, vals[i])
-        del ins
-        for j in set(node.inputs):
+        if i in at:
+            if at[i] != i:
+                continue
+            out, cnt = _eval_group(plan, groups[i], vals)
+            vals.update(out)
+            counts.update(cnt)
+            used = {j for m in groups[i] for j in plan.nodes[m].inputs}
+        else:
+            ins = [vals[j] for j in node.inputs]
+            out = _eval_node(node, ins, env, n_patients, engine, n_shards,
+                             predicate_engine=peng, group=group)
+            if node.op in STATS_OPS:
+                out, stats[i] = out
+            vals[i] = out
+            counts[i] = _node_count(node, vals[i])
+            del ins
+            used = set(node.inputs)
+        for j in used:
             if last_use[j] == i and j not in keep:
                 del vals[j]
     return {i: vals[i] for i in keep}, counts, stats

@@ -26,7 +26,7 @@ from repro_torch.interop import tables_to_numpy
 from repro_torch.kernels import launch_counts
 from repro_torch.study import Study, col
 from test_torch_study import ENGINE_PAIRS, _map_engines, assert_same_plan, \
-    assert_same_table
+    assert_same_table, assert_cuda_cohort_groups
 
 N_PATIENTS = 500
 END = 14_600 + 3 * 365
@@ -92,6 +92,19 @@ def runs(request, star):
                                           predicate_engine=peng, device="cpu")
     assert launch_counts == before       # CPU tensors never launch kernels
     return want, got, request.param
+
+
+def test_cuda_engine_runs_each_cohort_expression_as_one_group(
+        runs, star, monkeypatch):
+    """``(exposed & base) - fractured`` is one group of two ops; every
+    cohort node's words and count match the torch engine and the
+    reference."""
+    want, got, _ = runs
+    from repro_torch.study.executor import cohort_groups
+
+    assert [len(ms) for ms in cohort_groups(got.plan).values()] == [2]
+    assert_cuda_cohort_groups(want, got.plan, star[1], N_PATIENTS,
+                              monkeypatch)
 
 
 def test_optimized_plan_matches_reference(runs):

@@ -22,6 +22,8 @@ from repro_torch.kernels import segment_scan as ss
 from repro_torch.kernels import swa_attention as swa
 from repro_torch.study import col
 
+from _bitset_programs import PROGRAM_SHAPES, random_program
+
 pytestmark = pytest.mark.cuda
 
 
@@ -108,6 +110,140 @@ def test_bitset_op_kernel_matches_plain(device, op):
     got, cnt = bitset_ops.bitset_op_popcount(a, b, op)
     want, wcnt = bitset_ops.bitset_op_plain(a, b, op)
     assert torch.equal(got, want) and int(cnt) == int(wcnt)
+
+
+def _expr_sizes(device):
+    """Word counts at the program kernel's block edges (a block's 16-byte
+    items, or its single words), one wave of its widest grid (the one-op
+    kernel's) and past it."""
+    t = bitset_ops.THREADS
+    sms, per_sm = bitset_ops._limits(device, 1)
+    wave = sms * per_sm * t * 4
+    return [1, 3, 4, 5, t - 1, t + 1, 4 * t - 1, 4 * t, 4 * t + 1, 62_500,
+            wave - 1, wave + 5, 3 * wave + 7]
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_bitset_expr_kernel_matches_plain(device, misaligned):
+    """Every program shape of 1-8 ops over 1-8 leaves, every op, at sizes
+    straddling the block and grid edges; misaligned views take the scalar
+    path."""
+    rng = np.random.default_rng(11 + misaligned)
+    for n in _expr_sizes(device):
+        base = torch.from_numpy(rng.integers(
+            -2**31, 2**31, (8, n + 1), dtype=np.int64).astype(np.int32)
+        ).to(device)
+        for k, (n_leaves, n_ops) in enumerate(PROGRAM_SHAPES):
+            prog = random_program(rng, n_leaves, n_ops, first_op=k)
+            leaves = [base[i, int(misaligned):n + int(misaligned)]
+                      for i in range(n_leaves)]
+            before = launch_counts["bitset_op"]
+            got, cnt = bitset_ops.bitset_expr_kernel(leaves, prog)
+            assert launch_counts["bitset_op"] == before + 1
+            want, wcnt = bitset_ops.bitset_expr_plain(leaves, prog)
+            assert torch.equal(got, want) and torch.equal(cnt, wcnt), \
+                (n, prog)
+
+
+def test_bitset_expr_counts_are_written_outright(device):
+    """The counts and partials come from ``torch.empty``: poison the pool's
+    blocks of their size with -1 and free them, so that the launch gets
+    one; every count must still be exact."""
+    rng = np.random.default_rng(5)
+    n = 62_500
+    leaves = [torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                               .astype(np.int32)).to(device) for _ in range(3)]
+    prog = (("and", 0, 1), ("andnot", 3, 2))
+    sms, per_sm = bitset_ops._limits(device, len(prog))
+    grid = bitset_ops.expr_grid(n // 4, sms, per_sm)
+    want = bitset_ops.bitset_expr_plain(leaves, prog)
+    for _ in range(3):
+        junk = [torch.full((2 * (1 + grid),), -1, dtype=torch.int32,
+                           device=device) for _ in range(64)]
+        del junk
+        got = bitset_ops.bitset_expr_kernel(leaves, prog)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _cohort_study(n_patients):
+    """``examples/cohort_study.py``'s plan over the port."""
+    from repro_torch.core import (diagnoses, drug_dispenses, hospital_stays,
+                                  medical_acts_dcir, medical_acts_pmsi)
+    from repro_torch.study import Study
+
+    end = 14_600 + 3 * 365
+    return (Study(n_patients=n_patients, window=(14_600, end))
+            .patients("IR_BEN")
+            .extract(drug_dispenses(), name="drug_purchases")
+            .extract(drug_dispenses()
+                     .filtered(col("cip13").isin(range(65))
+                               & col("execution_date").between(14_600, end)),
+                     name="prevalent_drugs")
+            .extract(medical_acts_dcir(), name="acts")
+            .extract(medical_acts_pmsi(), name="hospital_acts")
+            .extract(diagnoses(), name="diagnoses")
+            .extract(hospital_stays(), name="stays")
+            .transform("exposures", "drug_purchases", name="exposures",
+                       purview_days=60)
+            .concat("all_acts", "acts", "hospital_acts")
+            .transform("fractures", "all_acts", "diagnoses", name="fractures",
+                       fracture_act_codes=list(range(30)),
+                       fracture_diag_codes=list(range(40)))
+            .transform("follow_up", "extract_patients", "drug_purchases",
+                       name="follow_up", study_end=end)
+            .cohort("base", "extract_patients")
+            .cohort("exposed", "exposures")
+            .cohort("fractured", "fractures")
+            .cohort("final", "(exposed & base) - fractured")
+            .flow("base", "exposed", "final"))
+
+
+@pytest.mark.parametrize("which", ["quickstart", "cohort study"])
+def test_one_bitset_launch_per_cohort_group(device, which):
+    """Each study's two-op cohort expression is one group: one launch of
+    the program kernel, no other B3 launch, and the same cohort words and
+    flow as the torch engine."""
+    from repro_torch.core import (DCIR_SCHEMA, PMSI_MCO_SCHEMA,
+                                  drug_dispenses, flatten_star,
+                                  medical_acts_dcir)
+    from repro_torch.data.synthetic import (SyntheticConfig, generate_dcir,
+                                            generate_snds)
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.study import Study
+    from repro_torch.study.executor import cohort_groups
+
+    n = 2_000
+    if which == "quickstart":
+        study = (Study(n_patients=n).flatten(DCIR_SCHEMA)
+                 .extract(drug_dispenses(), name="drug_purchases")
+                 .extract(medical_acts_dcir(codes=list(range(30))),
+                          name="acts")
+                 .patients("IR_BEN")
+                 .cohort("base", "extract_patients")
+                 .cohort("drugged", "drug_purchases")
+                 .cohort("final", "drugged & base - acts")
+                 .flow("base", "drugged", "final"))
+        tables = generate_dcir(SyntheticConfig(n_patients=n, seed=0),
+                               device=device)
+    else:
+        study = _cohort_study(n)
+        dcir, pmsi = generate_snds(SyntheticConfig(n_patients=n, seed=42),
+                                   device=device)
+        tables = {"DCIR": flatten_star(DCIR_SCHEMA, dcir)[0],
+                  "PMSI_MCO": flatten_star(PMSI_MCO_SCHEMA, pmsi)[0],
+                  "IR_BEN": dcir["IR_BEN"]}
+    reset_launch_counts()
+    got = study.run(dict(tables), engine="cuda", predicate_engine="cuda",
+                    device=device)
+    torch.cuda.synchronize()
+    groups = cohort_groups(got.plan)
+    assert [len(ms) for ms in groups.values()] == [2]
+    assert launch_counts["bitset_op"] == len(groups) == 1
+    want = study.run(dict(tables), engine="torch", predicate_engine="torch",
+                     device=device)
+    assert got.flow.flowchart() == want.flow.flowchart()
+    for name, c in want.cohorts.items():
+        assert torch.equal(got.cohorts[name].subjects, c.subjects), name
 
 
 @pytest.mark.parametrize("fill", ["default", "exact"])

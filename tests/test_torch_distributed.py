@@ -10,10 +10,13 @@ table including the slots past the count, validity words, counts, the
 FlatteningStats of every exchange and join with overflow and key sums,
 cohort words, flow, the OperationLog without ``ts``, the plan),
 ``distributed_flatten`` and ``exposures_sharded``; also with
-``axis_name=None``, since the group alone makes the exchanges real.  A
-world-1 group matches the mesh-less run in everything but the capacities
-its padding to 32 rows changes (as the reference's 1-device mesh does).
-``spawn`` runs its ranks on the card unless asked for the CPU.
+``axis_name=None``, since the group alone makes the exchanges real.  Table
+outputs stay on their ranks (``ShardedTable``): every comparison gathers
+them explicitly (``launch.result_to_numpy``), and a rank holds no more than
+its own block when ``run`` returns.  A world-1 group matches the mesh-less
+run in everything but the capacities its padding to 32 rows changes (as
+the reference's 1-device mesh does).  ``spawn`` runs its ranks on the card
+unless asked for the CPU.
 """
 import os
 import pickle
@@ -114,6 +117,15 @@ def _quickstart():
             .flow("base", "drugged", "final"))
 
 
+def _featurized():
+    """The quickstart with a dense and a token export of its final cohort:
+    a featurize needs the whole events, which it gathers under a mesh."""
+    return (_quickstart()
+            .featurize("X", cohort="final", kind="dense", n_buckets=4,
+                       bucket_days=90, n_features=16)
+            .featurize("T", cohort="final", kind="tokens", seq_len=16))
+
+
 def _patient_partitioned(events, n_shards):
     """The valid rows of a numpy event table laid out as the patient
     exchange leaves them: shard ``s``'s block holds the rows whose patient
@@ -176,6 +188,8 @@ def runs(tmp_path_factory):
         # axis_name=None: the group alone makes the exchanges real
         tasks += [(launch.study_rank, (study, star, [("torch", "torch")],
                                        None))]
+        tasks += [(launch.study_rank, (_featurized(), star,
+                                       [("cuda", "cuda")]))]
         ranks = launch.spawn(launch.tasks_rank, N_SHARDS, (tasks,),
                              device="cpu", timeout=TIMEOUT, store_dir=str(tmp))
         world1 = launch.spawn(launch.study_rank, 1,
@@ -234,12 +248,9 @@ def test_sharded_quickstart_bit_identical(runs, pair):
     ref, ranks, _, _ = runs
     k = ENGINE_PAIRS.index(pair)
     want = ref["study"][pair[2]]
-    for r, rank in enumerate(ranks):
-        got = rank[0][k]
-        assert_same_summary(want, got)
-        # every rank gets the whole result
-        if r:
-            assert_same_summary(want, ranks[0][0][k])
+    for rank in ranks:
+        # each rank gathers the blocks of every rank: the same whole result
+        assert_same_summary(want, rank[0][k])
 
 
 def test_sharded_plan_runs_five_exchanges_without_overflow(runs):
@@ -249,14 +260,53 @@ def test_sharded_plan_runs_five_exchanges_without_overflow(runs):
     assert [got["plan"].nodes[i].get("key") for i in ex] == \
         ["flow_id"] * 3 + ["patient_id"] * 2
     assert all(got["flatten_stats"][i]["overflow"] == 0 for i in ex)
-    # per exchange one all-to-all per column and one for the validity, one
-    # sum of the cohort words and one of the counts and stats, per realized
-    # table one gather per column and one for the words
-    gathers = sum(len(t["columns"]) + 1 for t in got["events"].values())
-    assert got["comm"]["collectives"] > 2 * len(ex) + 2 + gathers
-    assert got["comm"]["staged_bytes"] == 0        # CPU tensors: no staging
+    # per exchange one all-to-all per column (the key at least) and one for
+    # the validity, one sum of the cohort words and one of the counts and
+    # stats; no table output is gathered by the run itself
+    c = got["comm"]
+    assert c["all_to_all"] >= 2 * len(ex)
+    assert (c["all_reduce"], c["all_gather"]) == (2, 0)
+    assert c["collectives"] == c["all_to_all"] + 2
+    assert c["staged_bytes"] == 0        # CPU tensors: no staging
     assert got["cohorts"]["final"]["count"] == \
         ref["study"]["xla"]["cohorts"]["final"]["count"] > 0
+
+
+@pytest.mark.parametrize("pair", ENGINE_PAIRS, ids=["torch-xla",
+                                                    "cuda-pallas"])
+def test_sharded_outputs_stay_on_their_ranks(runs, pair):
+    """When ``Study.run(mesh=...)`` returns, each rank holds its own block
+    of every table output and nothing more: a quarter of the reference's
+    global capacity, no tensor storage past it, and the blocks' counts sum
+    to the reference's count."""
+    ref, ranks, _, _ = runs
+    k = ENGINE_PAIRS.index(pair)
+    whole = ref["study"][pair[2]]["events"]
+    for name, t in whole.items():
+        blocks = [rank[0][k]["blocks"][name] for rank in ranks]
+        assert sum(b["count"] for b in blocks) == t["count"], name
+        for b in blocks:
+            assert b["capacity"] * N_SHARDS == t["capacity"], name
+            assert b["storage"] <= b["capacity"], name
+
+
+def test_sharded_featurize_equals_single_card(runs):
+    """Dense and token exports under the 4-rank group (each featurize
+    gathers its cohort's events) equal the mesh-less run's on every rank,
+    checks included."""
+    _, ranks, _, _ = runs
+    star = tables_to_numpy(psyn.generate_dcir(
+        psyn.SyntheticConfig(n_patients=N_PATIENTS, seed=0), device="cpu"))
+    single = _featurized().run(tables_from_numpy(star, device="cpu"),
+                               device="cpu")
+    for rank in ranks:
+        got = rank[6][0]
+        assert got["feature_checks"] == single.feature_checks
+        np.testing.assert_array_equal(got["features"]["X"],
+                                      single.features["X"].numpy())
+        for g, w in zip(got["features"]["T"], single.features["T"]):
+            np.testing.assert_array_equal(g, w.numpy())
+        assert got["cohorts"]["final"]["count"] > 0
 
 
 def test_sharded_equals_single_card_as_multisets(runs):

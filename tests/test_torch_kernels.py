@@ -7,7 +7,9 @@ against the reference's Pallas kernel in interpret mode (and its jnp path).
   ``hisin`` slots bound through ``bound_params``;
 * B2 ``ops.filter_compact`` with a packed keep-mask (slots past the count
   are zero);
-* B3 ``ops.bitset_op`` for all four ops at ragged word counts.
+* B3 ``ops.bitset_op`` for all four ops at ragged word counts, and
+  ``bitset_expr_plain`` (a whole program a launch) against a chain of the
+  reference's ``ops.bitset_op``.
 
 Every comparison is exact: nothing here computes in floating point beyond
 IEEE elementwise operations and comparisons.
@@ -36,7 +38,9 @@ from repro_torch.kernels.predicate import (binary_arith, binary_cmp,
                                            compilable, floordiv, remainder,
                                            predicate_bitset)
 from repro_torch.study import expr as pexpr
+from repro_torch.kernels.ref import bitset_expr_plain
 from test_differential import CASES
+from _bitset_programs import PROGRAM_SHAPES, random_program
 
 BLOCK = 64
 
@@ -227,6 +231,40 @@ def test_bitset_op(n, op):
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   np.asarray(want))
     assert int(cnt) == int(wcnt)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 31, 33, 1000])
+def test_bitset_expr_plain_matches_chained_reference(n):
+    """Seeded programs of 1-8 ops over 1-8 leaves, every op: each op's
+    words and count equal the reference's Pallas kernel (interpret mode)
+    applied op by op."""
+    rng = np.random.default_rng(1000 + n)
+    for k, (n_leaves, n_ops) in enumerate(PROGRAM_SHAPES):
+        prog = random_program(rng, n_leaves, n_ops, first_op=k)
+        leaves = [rng.integers(0, 2 ** 32, n, dtype=np.uint64)
+                  .astype(np.uint32) for _ in range(n_leaves)]
+        words, counts = bitset_expr_plain(
+            [torch.from_numpy(x.view(np.int32)) for x in leaves], prog)
+        assert words.shape == (n_ops, n) and counts.dtype == torch.int32
+        vals = [jnp.asarray(x) for x in leaves]
+        for j, (op, a, b) in enumerate(prog):
+            w, c = rops.bitset_op(vals[a], vals[b], op, interpret=True)
+            vals.append(w)
+            np.testing.assert_array_equal(words[j].numpy().view(np.uint32),
+                                          np.asarray(w), err_msg=str(prog))
+            assert int(counts[j]) == int(c), prog
+
+
+def test_bitset_program_checks():
+    """A program reads leaves and earlier ops only, 1-8 of each."""
+    from repro_torch.kernels.bitset_ops import check_program
+
+    assert check_program([("and", 0, 1), ("xor", 2, 0)], 2) == \
+        (("and", 0, 1), ("xor", 2, 0))
+    for prog, n_leaves in ((["and", 0, 2],), 2), ((("and", 0, 1),), 9), \
+            ((), 2), ((("nand", 0, 1),), 2), ((("or", 0, 0),) * 9, 1):
+        with pytest.raises(ValueError):
+            check_program(prog, n_leaves)
 
 
 def test_kernel_launchers_refuse_cpu_tensors():

@@ -127,6 +127,102 @@ def test_quickstart_bit_identical(dcir, pair):
     assert column_audit_from_log(got.log)
 
 
+def assert_cuda_cohort_groups(want, plan, env, n_patients, monkeypatch):
+    """Under the ``cuda`` engine on the CPU each group of ``cohort_op``
+    nodes is one ``bitset_expr`` call (its plain version) whose counts are
+    the nodes' counts: every node's count and every cohort node's words
+    equal the ``torch`` engine's, and the OperationLog's plan entries (op,
+    inputs and outputs with their counts) and the named cohorts' words
+    equal the reference's (``want``, a run under either engine)."""
+    from repro_torch.core.metadata import OperationLog
+    from repro_torch.kernels import bitset_ops
+    from repro_torch.study.executor import cohort_groups, execute, \
+        run_plan_body
+    from repro_torch.study.plan import COHORT_OPS
+
+    ids = tuple(i for i, nd in enumerate(plan.nodes) if nd.op in COHORT_OPS)
+    calls = []
+    plain = bitset_ops.bitset_expr_plain
+    monkeypatch.setattr(bitset_ops, "bitset_expr_plain",
+                        lambda leaves, prog: calls.append(prog)
+                        or plain(leaves, prog))
+    got = {eng: run_plan_body(plan, dict(env), n_patients, eng,
+                              predicate_engine=eng, keep=ids)
+           for eng in ("torch", "cuda")}
+    groups = cohort_groups(plan)
+    assert [len(p) for p in calls] == [len(ms) for ms in groups.values()]
+    assert sum(len(ms) for ms in groups.values()) == \
+        sum(plan.nodes[i].op == "cohort_op" for i in ids) > 0
+    (tv, tc, _), (cv, cc, _) = got["torch"], got["cuda"]
+    assert {i: int(c) for i, c in cc.items()} == \
+        {i: int(c) for i, c in tc.items()}
+    for i in ids:
+        assert torch.equal(cv[i], tv[i]), plan.nodes[i].label()
+    for name, i in plan.outputs:
+        if plan.nodes[i].op == "cohort_op":
+            np.testing.assert_array_equal(
+                cv[i].numpy().view(np.uint32),
+                np.asarray(want.cohorts[name].subjects), err_msg=name)
+    log = OperationLog()
+    execute(plan, dict(env), n_patients, engine="cuda", log=log,
+            predicate_engine="cuda")
+    def entries(lg):
+        return [(e["op"], e["inputs"], e["outputs"]) for e in lg.entries
+                if e["op"].startswith("plan:")]
+
+    assert entries(log) == entries(want.log)
+
+
+def test_cuda_engine_runs_each_cohort_expression_as_one_group(
+        dcir, monkeypatch):
+    """The quickstart's ``drugged & base - acts`` is one group of two ops."""
+    ref_tables, port_tables = dcir
+    rs = _quickstart(RStudy, R_DCIR, r_drugs, r_acts)
+    ps = _quickstart(Study, DCIR_SCHEMA, drug_dispenses, medical_acts_dcir)
+    want = rs.run(dict(ref_tables), engine="pallas", predicate_engine="pallas")
+    plan = ps.optimized_plan(tables=dict(port_tables), engine="cuda",
+                             predicate_engine="cuda", device="cpu")
+    assert_cuda_cohort_groups(want, plan, port_tables, N_PATIENTS,
+                              monkeypatch)
+    from repro_torch.study.executor import cohort_groups
+
+    assert [len(ms) for ms in cohort_groups(plan).values()] == [2]
+
+
+def test_cuda_engine_chunks_a_long_cohort_expression(dcir, monkeypatch):
+    """A group of 10 ``cohort_op`` nodes runs as launches of at most 8 ops
+    (8, then 2 reading the first launch's last result); every node's words
+    and count equal the torch engine's."""
+    from repro_torch.kernels import bitset_ops
+    from repro_torch.study.executor import cohort_groups, run_plan_body
+    from repro_torch.study.plan import COHORT_OPS
+
+    expr = "base"
+    for k in range(10):
+        expr = f"({expr}) {'&-|'[k % 3]} {('drugged', 'acts', 'base')[k % 3]}"
+    ps = (_quickstart(Study, DCIR_SCHEMA, drug_dispenses, medical_acts_dcir)
+          .cohort("acts_cohort", "acts")
+          .cohort("long", expr.replace("acts", "acts_cohort")))
+    plan = ps.optimized_plan(tables=dict(dcir[1]), engine="cuda",
+                             predicate_engine="cuda", device="cpu")
+    assert sorted(len(ms) for ms in cohort_groups(plan).values()) == [2, 10]
+    calls = []
+    plain = bitset_ops.bitset_expr_plain
+    monkeypatch.setattr(bitset_ops, "bitset_expr_plain",
+                        lambda leaves, prog: calls.append(prog)
+                        or plain(leaves, prog))
+    ids = tuple(i for i, nd in enumerate(plan.nodes) if nd.op in COHORT_OPS)
+    (tv, tc, _), (cv, cc, _) = (
+        run_plan_body(plan, dict(dcir[1]), N_PATIENTS, eng,
+                      predicate_engine=eng, keep=ids)
+        for eng in ("torch", "cuda"))
+    assert sorted(len(p) for p in calls) == [2, 2, 8]
+    assert {i: int(c) for i, c in cc.items()} == \
+        {i: int(c) for i, c in tc.items()}
+    for i in ids:
+        assert torch.equal(cv[i], tv[i]), plan.nodes[i].label()
+
+
 def test_optimized_plan_matches_reference_per_engine(dcir):
     ref_tables, port_tables = dcir
     rs = _quickstart(RStudy, R_DCIR, r_drugs, r_acts)

@@ -8,9 +8,9 @@ port on the card: a quick check and timing while they are being changed.
 1. Builds the port's kernels and prints ptxas's stack-frame, spill and
    register lines (and any warning) for B1's and B4's kernels.
 2. Runs ``chip_smoke.py``'s kernel batteries: B1's expressions at its edge,
-   tile and persistent-wave sizes (with B2 and B3 at the edge sizes), and
-   B4's flag patterns up to a thousand look-back tiles, bit for bit against
-   the plain versions.
+   tile and persistent-wave sizes (with B2 at the edge sizes and B3's
+   program battery), and B4's flag patterns up to a thousand look-back
+   tiles, bit for bit against the plain versions.
 3. Times, as ``chip_smoke.py`` does (the middle of 3 medians of 20 CUDA-event
    reps, each behind a ~1 ms spin), B1 at the quickstart's scale (48M rows)
    on the shapes of the programs the studies launch (``a IS NOT NULL``; that
