@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-patients N] [--cohort-patients N]
-                          [--sharded-patients N]
+                          [--sharded-patients N] [--chunked-patients N]
 
 Phases (any failure exits nonzero; no phase catches its own failure, and
 nothing falls back to the CPU):
@@ -14,6 +14,8 @@ nothing falls back to the CPU):
      card, bit for bit, at edge sizes with NULLs, NaNs, an Expr battery,
      hoisted literals and ragged whitelists (up to eight of 1,024 values,
      bitmaps, shared- and global-memory searches, 15 register-file slots);
+     the battery again over float32 denormals of both signs in columns,
+     literals and whitelists (flushed as XLA flushes them, ROADMAP C4);
      B1's whole battery again at its tile edges (tile ± 1 row), one wave of
      its persistent grid ± 33 rows and three waves; the segmented scan (B4)
      over flag patterns, runs spanning many blocks and up to a thousand of
@@ -34,14 +36,32 @@ nothing falls back to the CPU):
      is traced with torch.profiler: device time by
      kernel, the device's busy and idle share of the run's wall time, and a
      Chrome trace in ``chiprun_out/quickstart_trace.json``;
-  4. cohort study: ``examples/cohort_study.py``'s plan (DCIR and PMSI,
+  4. chunked: the quickstart's star (at ``--chunked-patients``, default
+     the quickstart's 2,000,000: the same star and resident cuda result)
+     partitioned into chunks of 8,388,608 ER_PRS rows under
+     ``.chunk_store/`` (removed after); ``Study.check`` must equal
+     ``tests/goldens/quickstart_diag.json`` (code, severity, node); the
+     normalized plan (``normalize``, ``device_params``) must equal the
+     plan's own run on the card, B1 launching as often with hoisted
+     operands and nothing demoted; ``run_chunked`` under the cuda engines
+     with and without prefetch must equal the resident run bit for bit
+     (valid rows in order, cohort words and counts, flow, FlatteningStats,
+     the OperationLog's plan entries), build one runner, and launch B1 and
+     B2 as the resident run does on every chunk and B3 once per cohort
+     expression per chunk plus the replay; a kill-and-resume (``crash_after
+     =2``) at 200,000 patients must equal its resident run with 2 chunks
+     resumed; the chunk count, each run's ``load_s``/``exec_s``/
+     ``wall_s``/``overlap_saved_s`` and peak device memory beside the
+     resident run's are printed, and one warm chunked run is traced
+     (``chiprun_out/chunked_trace.json``);
+  5. cohort study: ``examples/cohort_study.py``'s plan (DCIR and PMSI,
      exposures, fractures, follow-up, cohort algebra, flow, the dense and
      token featurizes) at ``--cohort-patients``, checked, timed and traced
      the same way (``chiprun_out/cohort_study_trace.json``), with B4 timed at
      the shapes ``exposures`` gave it;
-  5. card against CPU: both studies at 20,000 patients on the card and on
+  6. card against CPU: both studies at 20,000 patients on the card and on
      the CPU (the plain versions) must agree bit for bit;
-  6. attention: B6 (flash attention) against its plain version on the card
+  7. attention: B6 (flash attention) against its plain version on the card
      over the reference's test sweep, h2o-danube-1.8b's shapes (prefill
      to 8,192 tokens with window 4,096, full-cache decode offsets, the
      ring-buffer mode, ragged shapes) and gemma3-12b's (16/8 heads of 240:
@@ -53,7 +73,7 @@ nothing falls back to the CPU):
      ``csrc/swa_decode.cu``), every other call the prefill kernel (bf16:
      ``csrc/swa_prefill.cu``, TMA and wgmma; fp32:
      ``csrc/swa_attention.cu``), which must have run at every head dim;
-  7. serving: h2o-danube-1.8b at full width (24 layers, bf16, random weights
+  8. serving: h2o-danube-1.8b at full width (24 layers, bf16, random weights
      from a seeded generator on the card): a 2 x 8,192-token prefill under
      the cuda and torch attention engines (B6 launched once per layer, the
      last-token logits within 0.1; the decode route never taken), the
@@ -71,7 +91,7 @@ nothing falls back to the CPU):
      of 3 separate medians of 20 reps with their min-max, and one prefill,
      one warm batcher step and one decode pass over full rings are traced
      (``chiprun_out/serving_*_trace.json``).
-  8. gemma3: one gemma3-12b local layer at full width over its 1,024-slot
+  9. gemma3: one gemma3-12b local layer at full width over its 1,024-slot
      ring with 3 queries a call, before and after the wrap, cuda engine
      against torch engine (fp32 within 1e-3, bf16 within 0.1); then the
      whole model at full width (48 layers, bf16, seeded random weights on
@@ -81,14 +101,14 @@ nothing falls back to the CPU):
      both (last-token logits within 1e-3; in bf16 the cuda engine no more
      than 0.1 further from the fp32 model than the torch engine), and B6
      timed at the model's global (causal) and local (window 1,024) prefill
-     shapes as in phase 7.
-  9. partition: B5 (the shuffle's plan) against its plain version, bit for
+     shapes as in phase 8.
+  10. partition: B5 (the shuffle's plan) against its plain version, bit for
      bit, over 1-64 destinations, blocks 256/512/1024, ragged lengths,
      invalid rows, NULL and negative keys; B2b (compaction by a bool mask,
      a single pass with decoupled look-back) through ``ops.filter_compact``
      against its plain version at the edges of its 4,096-row tiles and up to
      48M rows, once with 7 columns, and timed there;
-  10. sharded: the quickstart through ``Study.run(mesh=group)`` on 4 gloo
+  11. sharded: the quickstart through ``Study.run(mesh=group)`` on 4 gloo
      ranks of one process group, all on the one card, at
      ``--sharded-patients`` (2,000,000 by default): every rank launches B5
      once per exchange (5) and B3 once, no exchange overflows, no rank
@@ -106,9 +126,9 @@ nothing falls back to the CPU):
      engine's ``hash_partition`` (the argsort route, a yardstick).
 
 Each kernel's launches are counted over the two studies' first runs, the
-serving path (prefill and batcher), gemma3-12b's prefill and the sharded
-run's first cuda run (summed over ranks), with the counts set to 0 just
-before each.  B6's
+first chunked run (with prefetch), the serving path (prefill and
+batcher), gemma3-12b's prefill and the sharded run's first cuda run
+(summed over ranks), with the counts set to 0 just before each.  B6's
 ``flash_attention`` count takes one per call on either route; its record's
 launches are those calls less the decode route's (``flash_decode``), which
 has a record of its own.  B2b runs on none of these paths (no caller
@@ -119,6 +139,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -300,9 +321,39 @@ def battery_params():
              np.arange(-700, 2 * 1024 - 700, 2, dtype=np.int32)))
 
 
-def battery_columns(n: int, device):
+def denormal_battery():
+    """C4: float32 denormals of both signs in columns, literals and
+    whitelists, under arithmetic and compares (the battery's ``x`` and
+    ``y`` columns draw from ``DENORMALS``); with ``denormal_params``."""
+    from repro_torch.study import col
+    from repro_torch.study.expr import HoistedIsIn, HoistedLit
+
+    return [col("x") > 0, col("x") == 0, col("x") * 1e30 > 0,
+            col("x") < 0.0, col("y") >= 1e-40, col("x") - col("y") == 0,
+            col("x") * col("y") != 0, col("x") // -1.0 < col("y"),
+            col("x") % col("y") >= 0, col("b") * 1e-44 == col("x"),
+            col("x").isin([1e-40, -2.5]), col("y").isin([0.0, 1e30]),
+            col("x") > HoistedLit(1), col("y") == HoistedLit(1),
+            HoistedIsIn(col("x"), 1, 3, True)]
+
+
+# denormals of both signs, signed zeros, the least normals, NaN and others
+DENORMALS = (1e-45, -1e-45, 1e-39, -1e-40, 3e-39, 0.0, -0.0, 1.1754944e-38,
+             -1.1754942e-38, float("nan"), 1.0, -2.5, 1e30)
+
+
+def denormal_params():
+    import numpy as np
+
+    lits, vecs = battery_params()
+    return ((lits[0], np.float32(-1e-40)),
+            (vecs[0], np.array([1e-41, 2.0, -1e-45], np.float32), vecs[2]))
+
+
+def battery_columns(n: int, device, denormal: bool = False):
     """The battery's columns and validity words over ``n`` rows: NULLs,
-    NaNs and zero divisors, from a seed of ``n``."""
+    NaNs and zero divisors, from a seed of ``n``; with ``denormal``, the
+    float columns drawn from ``DENORMALS``."""
     import numpy as np
     import torch
 
@@ -316,6 +367,9 @@ def battery_columns(n: int, device):
     x[rng.random(n) < 0.2] = np.nan
     y = rng.normal(size=n).astype(np.float32)
     y[rng.random(n) < 0.2] = 0.0
+    if denormal:
+        pool = np.array(DENORMALS, np.float32)
+        x, y = rng.choice(pool, n), rng.choice(pool, n)
     cols = {"a": a, "b": rng.integers(-5, 15, n).astype(np.int32),
             "x": x, "y": y,
             "z": rng.integers(-2, 3, n).astype(np.int32)}
@@ -365,8 +419,14 @@ def kernel_battery(device) -> None:
                                              for g, w in zip(got, want)):
                 fail(f"filter_compact kernel != plain at n={n}")
             checked += 1
+    # C4: denormals in columns, literals and whitelists (flushed as XLA does)
+    for n in (1025, 100_003):
+        cols, valid, _ = battery_columns(n, device, denormal=True)
+        checked += check_predicates(exprs + denormal_battery(), cols, valid,
+                                    n, denormal_params())
     log(f"kernels: {checked} kernel-vs-plain checks bit-identical "
-        f"at n in {EDGE_SIZES}")
+        f"at n in {EDGE_SIZES}, and with float32 denormals at 1025 and "
+        f"100003 rows")
     predicate_edges(device, exprs, params)
     bitset_battery(device)
 
@@ -517,7 +577,7 @@ def segment_scan_battery(device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 3-5: the quickstart and the cohort study
+# phases 3, 5 and 6: the quickstart, the cohort study, card against CPU
 # ---------------------------------------------------------------------------
 STUDY_END = 14_600 + 3 * 365
 
@@ -619,6 +679,9 @@ def compare_results(a, b, what: str, full_columns: bool) -> None:
             fail(f"{what}: feature {name} differs")
 
 
+PEAKS = {}        # label -> (peak, held) device bytes of drive()'s first run
+
+
 class Recorder:
     """Keeps the largest call of a kernel wrapper on the main path, so that
     the kernel can be timed at the shapes the path gave it; with ``second``,
@@ -683,6 +746,7 @@ def drive(label: str, study, tables, kernels, reps: int, rate: float):
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     recs = recorders()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for r in recs.values():
         r.__enter__()
@@ -698,9 +762,11 @@ def drive(label: str, study, tables, kernels, reps: int, rate: float):
         for r in recs.values():
             r.__exit__()
     peak = torch.cuda.max_memory_allocated()
+    PEAKS[label] = (peak, held)
     res.assert_no_loss()
     log(f"{label}: cuda engines wall {wall:.3f} s (first run), peak device "
-        f"memory {peak / 2**30:.3f} GiB, launches {launches}")
+        f"memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB of it held "
+        f"before the run), launches {launches}")
     for k in kernels:
         if launches[k] <= 0:
             fail(f"{label}: kernel {k} was never launched on the main path")
@@ -747,10 +813,10 @@ def study_phase(n_patients: int, reps: int, rate: float):
         f"({int(dcir['ER_PRS'].count)} ER_PRS rows) in "
         f"{time.perf_counter() - t0:.3f} s")
     study = build_study(n_patients)
-    launches, timing, _ = drive(
+    launches, timing, res = drive(
         "quickstart", study, dcir,
         ("predicate_bitset", "filter_compact", "bitset_op"), reps, rate)
-    return launches, timing, study, dcir
+    return launches, timing, study, dcir, res
 
 
 def cohort_phase(n_patients: int, reps: int, rate: float):
@@ -1068,7 +1134,298 @@ def compare_stats(card, cpu) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: attention (B6) and the serving path
+# phase 4: the quickstart out of core (chunked), checked and normalized
+# ---------------------------------------------------------------------------
+CHUNK_CAPACITY = 1 << 23     # ER_PRS rows a chunk: 6 chunks at 2,000,000
+RESUME_PATIENTS = 200_000    # the kill-and-resume store (5 chunks)
+RESUME_CAPACITY = 1 << 20
+
+
+def plan_entries(log_) -> list:
+    """The ``record_plan`` entries of an OperationLog, without ``ts``."""
+    return [{k: v for k, v in e.items() if k != "ts"}
+            for e in log_.entries if e["op"].startswith("plan:")]
+
+
+def chunk_digest(res) -> dict:
+    """What the chunked phase compares of a result, on the host: each event
+    table's count and valid rows in order (a chunked table is its chunks'
+    tables concatenated, so its capacity and padding differ), cohort words
+    and counts, flow, FlatteningStats (uint32 checksums included) and the
+    plan entries of the OperationLog."""
+    events = {}
+    for name, t in res.events.items():
+        keep = t.valid_bool()
+        events[name] = (int(t.count),
+                        {c: v[keep].cpu() for c, v in t.columns.items()})
+    return dict(events=events, stats=res.flatten_stats,
+                cohorts={k: (c.subjects.cpu(), c.subject_count())
+                         for k, c in res.cohorts.items()},
+                flow=res.flow.flowchart(), log=plan_entries(res.log))
+
+
+def compare_chunked(a: dict, b: dict, what: str) -> None:
+    if sorted(a["events"]) != sorted(b["events"]):
+        fail(f"{what}: different outputs")
+    for name, (na, ca) in a["events"].items():
+        nb, cb = b["events"][name]
+        if na != nb or sorted(ca) != sorted(cb) or not all(
+                _same(ca[c], cb[c]) for c in ca):
+            fail(f"{what}: {name} valid rows differ ({na} vs {nb} rows)")
+    if sorted(a["cohorts"]) != sorted(b["cohorts"]) or not all(
+            _same(w, b["cohorts"][k][0]) and n == b["cohorts"][k][1]
+            for k, (w, n) in a["cohorts"].items()):
+        fail(f"{what}: cohort words or counts differ")
+    if a["stats"] != b["stats"]:
+        fail(f"{what}: FlatteningStats differ")
+    if a["flow"] != b["flow"]:
+        fail(f"{what}: flow differs")
+    if a["log"] != b["log"]:
+        fail(f"{what}: the OperationLog's plan entries differ")
+
+
+def chunked_prepare(study, dcir, res, store_dir, peak,
+                    normalized: bool = True) -> dict:
+    """With the quickstart's star and its resident cuda result still on the
+    card: the store, the resident result's digest, ``Study.check`` against
+    the diag golden, and (``normalized``) the normalized plan on the card.
+    ``peak`` is the resident run's ``(peak, held)`` device bytes."""
+    import torch
+
+    from repro_torch.data import partition_star
+
+    t0 = time.perf_counter()
+    store = partition_star(dcir, str(store_dir), source="ER_PRS",
+                           chunk_capacity=CHUNK_CAPACITY)
+    size = sum(p.stat().st_size for p in Path(store_dir).rglob("*.npz"))
+    log(f"chunked: partitioned ER_PRS ({store.manifest.total_rows} rows) "
+        f"into {store.n_chunks} chunks of {CHUNK_CAPACITY} rows, "
+        f"{size / 2**30:.3f} GiB on disk, in "
+        f"{time.perf_counter() - t0:.3f} s")
+    if store.n_chunks < 3:
+        fail(f"chunked: only {store.n_chunks} chunks")
+
+    diags = study.check(predicate_engine="cuda", engine="cuda", device="cuda")
+    want = json.loads((REPO / "tests" / "goldens" / "quickstart_diag.json")
+                      .read_text())
+    got = [(d.code, d.severity, d.node) for d in diags]
+    if got != [(d["code"], d["severity"], d["node"]) for d in want]:
+        fail(f"chunked: Study.check gave {got}, not the diag golden's")
+    log(f"chunked: Study.check == tests/goldens/quickstart_diag.json {got}")
+
+    if normalized:
+        normalized_check(study, dcir, res)
+    torch.cuda.synchronize()
+    return dict(store=store, want=chunk_digest(res), peak=peak,
+                n_patients=study.n_patients)
+
+
+def resident_run(n_patients: int):
+    """A star at ``n_patients`` on the card and the quickstart's resident
+    run under the cuda engines: ``(study, star, result, launches, (peak,
+    held))``, the counts at 0 just before the run."""
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticConfig, generate_dcir
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    dcir = generate_dcir(SyntheticConfig(n_patients=n_patients, seed=0),
+                         device="cuda")
+    study = build_study(n_patients)
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = study.run(dict(dcir), engine="cuda", predicate_engine="cuda",
+                    device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"chunked: resident quickstart at {n_patients} patients "
+        f"({int(dcir['ER_PRS'].count)} ER_PRS rows): wall {wall:.3f} s, "
+        f"peak device memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} "
+        f"GiB of it the star)")
+    return study, dcir, res, dict(launch_counts), (peak, held)
+
+
+def normalized_check(study, dcir, res) -> None:
+    """normalize -> execute(expr_params=device_params(...)) on the card
+    equals the plan's own run, node for node; B1 launches as often, with
+    hoisted operands, and nothing is demoted."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import predicate as pk
+    from repro_torch.study import device_params, normalize
+    from repro_torch.study.executor import execute
+
+    plan = res.plan
+    nplan = normalize(plan)
+    if nplan.demoted:
+        fail(f"normalize demoted nodes {nplan.demoted}")
+    hoisted = []
+    launch = pk._launch
+
+    def spy(prog, *a):
+        hoisted.append(len(prog.lits)
+                       + sum(t[0] == "vec" for t in prog.tables))
+        return launch(prog, *a)
+
+    kw = dict(n_patients=study.n_patients, engine="cuda",
+              predicate_engine="cuda")
+    reset_launch_counts()
+    want = execute(plan, dict(dcir), **kw)
+    b1 = launch_counts["predicate_bitset"]
+    pk._launch = spy
+    try:
+        reset_launch_counts()
+        got = execute(nplan.plan, dict(dcir),
+                      expr_params=device_params(nplan, device="cuda"), **kw)
+    finally:
+        pk._launch = launch
+    if launch_counts["predicate_bitset"] != b1 or not max(hoisted, default=0):
+        fail(f"normalized plan: {launch_counts['predicate_bitset']} B1 "
+             f"launches (plan: {b1}), hoisted operands {hoisted}")
+    outs, ids = dict(nplan.out_map), dict(nplan.plan.outputs)
+    for name, i in plan.outputs:
+        if i not in want:
+            continue
+        a, b = want[i], got[ids[outs[name]]]
+        if hasattr(a, "columns"):
+            same = (int(a.count) == int(b.count) and _same(a.valid, b.valid)
+                    and all(_same(a.columns[c], b.columns[c])
+                            for c in a.columns))
+        else:
+            same = _same(a, b)
+        if not same:
+            fail(f"normalized plan: output {name} differs")
+    log(f"chunked: normalized quickstart on the card == its plan "
+        f"({len(nplan.lits)} literals, {len(nplan.vecs)} whitelists "
+        f"hoisted; B1 {b1} launches with {max(hoisted)} hoisted operands, "
+        f"none demoted)")
+
+
+def chunked_run(study, store, what: str, **kw):
+    """One chunked run under the cuda engines with the counts at 0 just
+    before and the runner cache cleared; returns the result, the report,
+    the launches and the peak device memory above what was held before."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.study import clear_jit_cache
+
+    clear_jit_cache()
+    gc.collect()                 # a dropped result lives in cycles until now
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rep = {}
+    t0 = time.perf_counter()
+    res = study.run_chunked(store, engine="cuda", predicate_engine="cuda",
+                            device="cuda", report_sink=rep, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated() - held
+    log(f"chunked: {what}: {rep['n_chunks']} chunks, wall {wall:.3f} s "
+        f"(the call), load_s {rep['load_s']:.6f}, exec_s "
+        f"{rep['exec_s']:.6f}, wall_s {rep['wall_s']:.6f}, serial_s "
+        f"{rep['serial_s']:.6f}, overlap_saved_s "
+        f"{rep['overlap_saved_s']:.6f}, compiles {rep['compiles']}, peak "
+        f"device memory {peak / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB held before, launches {launches}")
+    if rep["compiles"] != 1:
+        fail(f"chunked: {what}: {rep['compiles']} runners built, not 1")
+    return res, rep, launches, peak
+
+
+def check_chunk_launches(launches, resident, n_chunks: int, groups: int,
+                         what: str) -> None:
+    """B1 and B2 launch once per node per chunk (the resident run's count
+    on every chunk); B3 once per cohort expression per chunk, plus the
+    replay over the merged words."""
+    for k in ("predicate_bitset", "filter_compact"):
+        if launches[k] != resident[k] * n_chunks:
+            fail(f"chunked: {what}: {launches[k]} {k} launches, not "
+                 f"{resident[k]} x {n_chunks} chunks")
+    if launches["bitset_op"] != groups * (n_chunks + 1):
+        fail(f"chunked: {what}: {launches['bitset_op']} B3 launches, not "
+             f"{groups} expressions x ({n_chunks} chunks + the replay)")
+
+
+def chunked_phase(prep: dict, resident_launches: dict, store_dir) -> dict:
+    """The quickstart over the store with and without prefetch, bit for bit
+    the resident run; a kill-and-resume; a traced run.  Returns the
+    prefetching run's launches (the main path's)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.data import partition_star
+    from repro_torch.data.synthetic import SyntheticConfig, generate_dcir
+    from repro_torch.study import ChunkedExecutor
+    from repro_torch.study.chunked import _InjectedCrash
+    from repro_torch.study.executor import cohort_groups
+
+    store, want, n = prep["store"], prep["want"], prep["n_patients"]
+    study = build_study(n)
+    peak_res, held_res = prep["peak"]
+    main = None
+    for prefetch in (True, False):
+        what = f"prefetch={prefetch}"
+        res, rep, launches, peak = chunked_run(study, store, what,
+                                               prefetch=prefetch)
+        check_chunk_launches(launches, resident_launches, store.n_chunks,
+                             len(cohort_groups(res.plan)), what)
+        compare_chunked(chunk_digest(res), want,
+                        f"chunked ({what}) vs resident")
+        del res
+        log(f"chunked: {what} == resident cuda run (valid rows in order, "
+            f"cohort words and counts, flow, FlatteningStats, plan log); "
+            f"peak {peak / 2**30:.3f} GiB vs the resident run's "
+            f"{(peak_res - held_res) / 2**30:.3f} GiB above its star "
+            f"({peak_res / 2**30:.3f} GiB with it)")
+        if main is None:
+            main = launches
+    torch.cuda.empty_cache()
+
+    small = generate_dcir(SyntheticConfig(n_patients=RESUME_PATIENTS,
+                                          seed=1), device="cuda")
+    sstudy = build_study(RESUME_PATIENTS)
+    swant = chunk_digest(sstudy.run(dict(small), engine="cuda",
+                                    predicate_engine="cuda", device="cuda"))
+    sstore = partition_star(small, str(store_dir / "resume"),
+                            source="ER_PRS", chunk_capacity=RESUME_CAPACITY)
+    del small
+    kw = dict(engine="cuda", predicate_engine="cuda", device="cuda",
+              checkpoint_dir=str(store_dir / "ckpt"))
+    ex = ChunkedExecutor(sstore, crash_after=2, **kw)
+    try:
+        ex.run(build_study(RESUME_PATIENTS))
+        fail("chunked: crash_after=2 did not stop the run")
+    except _InjectedCrash:
+        pass
+    ex = ChunkedExecutor(sstore, **kw)
+    got = ex.run(build_study(RESUME_PATIENTS))
+    if ex.report.resumed != 2 or ex.report.executed != sstore.n_chunks - 2:
+        fail(f"chunked: resume restored {ex.report.resumed} and ran "
+             f"{ex.report.executed} of {sstore.n_chunks} chunks")
+    compare_chunked(chunk_digest(got), swant, "resumed vs resident")
+    del got
+    log(f"chunked: killed after 2 of {sstore.n_chunks} chunks at "
+        f"{RESUME_PATIENTS} patients, resumed 2 and ran "
+        f"{ex.report.executed}: == resident cuda run")
+    shutil.rmtree(store_dir / "resume")
+    shutil.rmtree(store_dir / "ckpt")
+
+    profile_phase("chunked", lambda: study.run_chunked(
+        store, engine="cuda", predicate_engine="cuda", device="cuda"))
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: attention (B6) and the serving path
 # ---------------------------------------------------------------------------
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's own bounds
 # and each row's max abs error over that row's largest |output|: with randn
@@ -1534,7 +1891,7 @@ def serving_phase(reps: int, rate: float):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: gemma3-12b at full width (head dim 240)
+# phase 9: gemma3-12b at full width (head dim 240)
 # ---------------------------------------------------------------------------
 GEMMA = "gemma3-12b"
 GEMMA_PREFILL = 4096       # one 1 x 4,096-token prefill
@@ -1714,7 +2071,7 @@ def gemma3_phase(reps: int, rate: float):
 
 
 # ---------------------------------------------------------------------------
-# phases 9-10: B5 and B2b, and the sharded quickstart
+# phases 10-11: B5 and B2b, and the sharded quickstart
 # ---------------------------------------------------------------------------
 HP_DESTS = (1, 2, 4, 8, 15, 64)
 HP_BLOCKS = (256, 512, 1024)
@@ -2241,6 +2598,8 @@ def main() -> int:
     ap.add_argument("--cohort-patients", type=int, default=400_000)
     # four ranks share the card, each keeping its own block of every output
     ap.add_argument("--sharded-patients", type=int, default=2_000_000)
+    # the chunked phase reuses the quickstart's star at the same scale
+    ap.add_argument("--chunked-patients", type=int, default=2_000_000)
     args = ap.parse_args()
 
     if not (REPO / "src" / "repro_torch" / "csrc").is_dir():
@@ -2311,12 +2670,30 @@ def main() -> int:
 
     timed("kernels", kernel_battery, torch.device("cuda"))
     timed("segmented_scan", segment_scan_battery, torch.device("cuda"))
-    q_launches, timing, study, dcir = timed(
+    q_launches, timing, study, dcir, qres = timed(
         "quickstart", study_phase, args.n_patients, REPS, rate)
     timed("quickstart_profile", profile_phase, "quickstart",
           lambda: study.run(dict(dcir), engine="cuda",
                             predicate_engine="cuda", device="cuda"))
-    del study, dcir
+    store_dir = REPO / ".chunk_store"
+    try:
+        chunk_resident, peak = q_launches, PEAKS["quickstart"]
+        if args.chunked_patients != args.n_patients:
+            del study, dcir, qres
+            torch.cuda.empty_cache()
+            study, dcir, qres, chunk_resident, peak = timed(
+                "chunked_resident", resident_run, args.chunked_patients)
+        prep = timed("chunked_prepare", chunked_prepare, study, dcir, qres,
+                     store_dir, peak)
+        del study, dcir, qres
+        torch.cuda.empty_cache()
+        k_launches = timed("chunked", chunked_phase, prep, chunk_resident,
+                           store_dir)
+        del prep
+    finally:
+        import shutil
+
+        shutil.rmtree(store_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     c_launches, c_timing, cstudy, ctables = timed(
         "cohort", cohort_phase, args.cohort_patients, REPS, rate)
@@ -2347,9 +2724,9 @@ def main() -> int:
                    "flash_attention": s_timing, "flash_decode": decode,
                    "hash_partition_plan": h_timing,
                    "filter_compact_mask": mask_timing})
-    log(f"launches: quickstart {q_launches}, cohort study {c_launches}, "
-        f"serving {s_launches}, gemma3 prefill {g_launches}, sharded "
-        f"(summed over ranks) {h_launches}")
+    log(f"launches: quickstart {q_launches}, chunked {k_launches}, cohort "
+        f"study {c_launches}, serving {s_launches}, gemma3 prefill "
+        f"{g_launches}, sharded (summed over ranks) {h_launches}")
     log(f"serving: B6 at the batcher's decode shape {json.dumps(decode)}")
     log(f"serving: B6 prefill at danube's shape {json.dumps(s_timing)}")
     for label, t in g_timing.items():
@@ -2360,8 +2737,9 @@ def main() -> int:
     log(f"phases: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
         f", total {time.perf_counter() - t_all:.3f} s")
 
-    launches = {k: q_launches[k] + c_launches[k] + s_launches[k]
-                + g_launches[k] + h_launches[k] for k in KERNELS}
+    launches = {k: q_launches[k] + k_launches[k] + c_launches[k]
+                + s_launches[k] + g_launches[k] + h_launches[k]
+                for k in KERNELS}
     # the flash_attention count takes one per call on both of B6's routes:
     # its prefill kernel launched on the calls the decode route did not take
     launches["flash_attention"] -= launches["flash_decode"]

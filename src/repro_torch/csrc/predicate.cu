@@ -125,6 +125,16 @@ static_assert(sizeof(PredArgs) % 16 == 0, "PredArgs is staged as 16-byte words")
 __device__ __forceinline__ float u2f(uint32_t u) { return __uint_as_float(u); }
 __device__ __forceinline__ uint32_t f2u(float f) { return __float_as_uint(f); }
 
+// XLA flushes float32 denormals on the inputs and results of arithmetic and
+// on the inputs of comparisons (DAZ and FTZ): a denormal becomes a zero of
+// its sign.  Done here by hand at each such load and result, not with
+// -ftz=true, so that fmodf stays exact (XLA's rem does not flush) and no
+// other kernel of the library changes.
+__device__ __forceinline__ float ftz(float v) {
+  return fabsf(v) < 1.17549435e-38f ? copysignf(0.f, v) : v;
+}
+__device__ __forceinline__ float fz(uint32_t u) { return ftz(u2f(u)); }
+
 // jnp.floor_divide on int32 (XLA: x / 0 == -1, x % 0 == x, INT_MIN / -1 wraps)
 __device__ __forceinline__ int32_t floordiv_i32(int32_t x, int32_t y) {
   int32_t q, r;
@@ -164,19 +174,24 @@ __device__ __forceinline__ float round_away(float d) {
 }
 
 // jnp's float divmod (_float_divmod): the quotient is rounded, the modulus
-// takes the divisor's sign
+// takes the divisor's sign; XLA's rem flushes its divisor only, every later
+// step flushes
 __device__ __forceinline__ float floordiv_f32(float x, float y) {
-  float mod = fmodf(x, y);
-  float div = __fdiv_rn(__fsub_rn(x, mod), y);
+  y = ftz(y);
+  const float mod = ftz(fmodf(x, y));
+  x = ftz(x);
+  float div = ftz(__fdiv_rn(ftz(__fsub_rn(x, mod)), y));
   bool ind = (mod != 0.f) && (sign_f32(y) != sign_f32(mod));
-  if (ind) div = __fsub_rn(div, 1.f);
+  if (ind) div = ftz(__fsub_rn(div, 1.f));
   return round_away(div);
 }
 
+// jnp.remainder: XLA's rem is an exact fmod of the raw dividend by the
+// flushed divisor, returned unflushed where no sum follows
 __device__ __forceinline__ float mod_f32(float x, float y) {
-  float t = fmodf(x, y);
-  bool plus = ((t < 0.f) != (y < 0.f)) && (t != 0.f);
-  return plus ? __fadd_rn(t, y) : t;
+  const float yz = ftz(y), t = fmodf(x, yz), tz = ftz(t);
+  bool plus = ((tz < 0.f) != (yz < 0.f)) && (tz != 0.f);
+  return plus ? ftz(__fadd_rn(tz, yz)) : t;
 }
 
 // A small-span int whitelist becomes a bitmap over [lo, lo + span) of at
@@ -190,13 +205,14 @@ __device__ __forceinline__ uint32_t lds(const uint32_t* p) {
   return v;
 }
 
-// a 32-bit register pattern as a whitelist probe of type T
+// a 32-bit register pattern as a whitelist probe or entry of type T (a
+// float flushed)
 template <typename T>
 __device__ __forceinline__ T probe(uint32_t x);
 template <>
 __device__ __forceinline__ int32_t probe<int32_t>(uint32_t x) { return (int32_t)x; }
 template <>
-__device__ __forceinline__ float probe<float>(uint32_t x) { return u2f(x); }
+__device__ __forceinline__ float probe<float>(uint32_t x) { return fz(x); }
 
 // entry i of a table of T in shared memory (SHARED) or global memory
 template <typename T, bool SHARED>
@@ -347,9 +363,9 @@ __device__ __forceinline__ int run_tile(const PredArgs& s, const uint32_t* s_tab
       case OP_MUL_I32: PRED_EACH(a * b); break;
       case OP_FLOORDIV_I32: PRED_EACH((uint32_t)floordiv_i32((int32_t)a, (int32_t)b)); break;
       case OP_MOD_I32: PRED_EACH((uint32_t)mod_i32((int32_t)a, (int32_t)b)); break;
-      case OP_ADD_F32: PRED_EACH(f2u(__fadd_rn(u2f(a), u2f(b)))); break;
-      case OP_SUB_F32: PRED_EACH(f2u(__fsub_rn(u2f(a), u2f(b)))); break;
-      case OP_MUL_F32: PRED_EACH(f2u(__fmul_rn(u2f(a), u2f(b)))); break;
+      case OP_ADD_F32: PRED_EACH(f2u(ftz(__fadd_rn(fz(a), fz(b))))); break;
+      case OP_SUB_F32: PRED_EACH(f2u(ftz(__fsub_rn(fz(a), fz(b))))); break;
+      case OP_MUL_F32: PRED_EACH(f2u(ftz(__fmul_rn(fz(a), fz(b))))); break;
       case OP_FLOORDIV_F32: PRED_EACH(f2u(floordiv_f32(u2f(a), u2f(b)))); break;
       case OP_MOD_F32: PRED_EACH(f2u(mod_f32(u2f(a), u2f(b)))); break;
       case OP_CMP_EQ_I32: PRED_EACH((int32_t)a == (int32_t)b); break;
@@ -358,12 +374,12 @@ __device__ __forceinline__ int run_tile(const PredArgs& s, const uint32_t* s_tab
       case OP_CMP_LE_I32: PRED_EACH((int32_t)a <= (int32_t)b); break;
       case OP_CMP_GT_I32: PRED_EACH((int32_t)a > (int32_t)b); break;
       case OP_CMP_GE_I32: PRED_EACH((int32_t)a >= (int32_t)b); break;
-      case OP_CMP_EQ_F32: PRED_EACH(u2f(a) == u2f(b)); break;
-      case OP_CMP_NE_F32: PRED_EACH(u2f(a) != u2f(b)); break;
-      case OP_CMP_LT_F32: PRED_EACH(u2f(a) < u2f(b)); break;
-      case OP_CMP_LE_F32: PRED_EACH(u2f(a) <= u2f(b)); break;
-      case OP_CMP_GT_F32: PRED_EACH(u2f(a) > u2f(b)); break;
-      case OP_CMP_GE_F32: PRED_EACH(u2f(a) >= u2f(b)); break;
+      case OP_CMP_EQ_F32: PRED_EACH(fz(a) == fz(b)); break;
+      case OP_CMP_NE_F32: PRED_EACH(fz(a) != fz(b)); break;
+      case OP_CMP_LT_F32: PRED_EACH(fz(a) < fz(b)); break;
+      case OP_CMP_LE_F32: PRED_EACH(fz(a) <= fz(b)); break;
+      case OP_CMP_GT_F32: PRED_EACH(fz(a) > fz(b)); break;
+      case OP_CMP_GE_F32: PRED_EACH(fz(a) >= fz(b)); break;
       case OP_AND: PRED_EACH(a & b); break;
       case OP_OR: PRED_EACH(a | b); break;
       case OP_NOT: PRED_EACH(a ^ 1u); break;

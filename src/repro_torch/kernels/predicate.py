@@ -20,7 +20,10 @@ so one build serves every Expr and every literal value.
 This module also holds the jnp-compatible elementwise arithmetic
 (``floordiv``/``remainder`` by zero, promotion against Python literals) that
 the ``torch`` predicate engine (``study.expr``) shares with the program
-interpreter.
+interpreter.  Like XLA, every float32 arithmetic op and comparison flushes
+denormals to a zero of their sign (on its inputs and on its result), and so
+do whitelists and their probes (``flush_denormals``); ``%`` returns its
+``fmod`` unflushed where XLA's ``rem`` does.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ __all__ = [
     "BITMAP_WORDS",
     "predicate_bitset", "predicate_bitset_plain", "run_program_plain",
     "binary_arith", "binary_cmp", "floordiv", "remainder", "value_kind",
+    "flush_denormals", "isin_vmem_bytes",
 ]
 
 # Stamped into plans as ``bitset_block``, exactly as the reference stamps it;
@@ -66,6 +70,7 @@ _INT_MIN = -2_147_483_648
 _BOOL_TAGS = frozenset({"cmp", "bool", "not", "isin", "hisin",
                         "isnull", "notnull"})
 _ISIN_PAD = 8          # whitelists are tail-padded with their own max
+_F32_TINY = float(np.finfo(np.float32).tiny)    # the least normal float32
 
 # Budgets of the CUDA interpreter (csrc/predicate.cu); the host raises past
 # them.
@@ -164,9 +169,43 @@ def compilable(expr_param) -> bool:
     return all(s <= MAX_ISIN_VALUES for s in sizes)
 
 
+def isin_vmem_bytes(n_values: int, block: int = DEFAULT_BLOCK) -> int:
+    """Bytes the reference's in-kernel membership broadcast needs for one
+    whitelist of ``n_values`` entries (the (block x whitelist) int32
+    intermediate plus the operand, tail-padded to ``_ISIN_PAD``).  The
+    analyzer quotes it in SP008, as the reference's does."""
+    n = max(int(n_values), 1)
+    n_pad = n + (-n) % _ISIN_PAD
+    return 4 * (block * n_pad + n_pad)
+
+
 # ---------------------------------------------------------------------------
 # jnp-compatible elementwise arithmetic
 # ---------------------------------------------------------------------------
+def flush_denormals(t: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 flush: a denormal becomes a zero of its sign (``-1e-40``
+    gives ``-0.0``); other values, and tensors of other dtypes, pass."""
+    if t.dtype != torch.float32:
+        return t
+    return torch.where(t.abs() < _F32_TINY, t * 0, t)
+
+
+def _flush_np(a: np.ndarray) -> np.ndarray:
+    if a.dtype != np.float32:
+        return a
+    return np.where(np.abs(a) < _F32_TINY, a * np.float32(0), a)
+
+
+def _flushed(fn):
+    """``fn`` on float32 operands as XLA runs it: inputs and result
+    flushed."""
+    def op(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return fn(x, y)
+        return flush_denormals(fn(flush_denormals(x), flush_denormals(y)))
+    return op
+
+
 def value_kind(v) -> str:
     """'b' (bool), 'i' (int32) or 'f' (float32): the jnp type a tensor or a
     Python/numpy literal takes part in promotion as."""
@@ -222,12 +261,16 @@ def floordiv(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     int32 follows XLA: ``x // 0 == -1`` before the floor adjustment (so
     ``5 // 0 == -2``), and ``INT_MIN // -1`` wraps.  float32 is jnp's
     ``_float_divmod``: ``(x - fmod(x, y)) / y`` adjusted and rounded half
-    away from zero (``5.0 // 0.0`` is NaN)."""
+    away from zero (``5.0 // 0.0`` is NaN), each step flushing denormals as
+    XLA does."""
     if x.dtype.is_floating_point:
-        mod = _fmod(x, y)
-        div = (x - mod) / y
+        ftz = flush_denormals
+        y = ftz(y)                       # XLA's rem flushes its divisor only
+        mod = ftz(_fmod(x, y))
+        x = ftz(x)
+        div = ftz(ftz(x - mod) / y)
         ind = (mod != 0) & (_sign_f(y) != _sign_f(mod))
-        div = torch.where(ind, div - 1, div)
+        div = torch.where(ind, ftz(div - 1), div)
         t = torch.trunc(div)
         step = torch.where(div > 0, torch.ones_like(t), -torch.ones_like(t))
         return torch.where((div - t).abs() >= 0.5, t + step, t)
@@ -245,19 +288,26 @@ def floordiv(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def remainder(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``jnp.remainder`` on same-dtype int32 or float32 tensors: the result
     takes the divisor's sign; an int32 zero divisor is replaced by one
-    (``5 % 0 == 0``); float32 ``5.0 % 0.0`` is NaN."""
-    if not x.dtype.is_floating_point:
-        y = torch.where(y == 0, torch.ones_like(y), y)
-        ys = torch.where((x == _INT_MIN) & (y == -1), torch.ones_like(y), y)
-        t = torch.fmod(x, ys)
-    else:
-        t = _fmod(x, y)
+    (``5 % 0 == 0``); float32 ``5.0 % 0.0`` is NaN, and a denormal result
+    of ``fmod`` is kept where XLA keeps it."""
+    if x.dtype.is_floating_point:
+        # XLA's rem is an exact fmod of the raw dividend by the flushed
+        # divisor, its result unflushed; the sign tests and the sum that
+        # follow flush, so a denormal fmod comes back as it is
+        yz = flush_denormals(y)
+        t = _fmod(x, yz)
+        tz = flush_denormals(t)
+        plus = ((tz < 0) != (yz < 0)) & (tz != 0)
+        return torch.where(plus, flush_denormals(tz + yz), t)
+    y = torch.where(y == 0, torch.ones_like(y), y)
+    ys = torch.where((x == _INT_MIN) & (y == -1), torch.ones_like(y), y)
+    t = torch.fmod(x, ys)
     plus = ((t < 0) != (y < 0)) & (t != 0)
     return torch.where(plus, t + y, t)
 
 
-_TENSOR_ARITH = {"+": torch.add, "-": torch.sub, "*": torch.mul,
-                 "//": floordiv, "%": remainder}
+_TENSOR_ARITH = {"+": _flushed(torch.add), "-": _flushed(torch.sub),
+                 "*": _flushed(torch.mul), "//": floordiv, "%": remainder}
 _OP_ARITH = {v: k for k, v in _ARITH_SUFFIX.items()}
 _OP_CMP = {v: k for k, v in _CMP_SUFFIX.items()}
 
@@ -282,13 +332,15 @@ def binary_arith(op: str, lhs, rhs):
 
 
 def binary_cmp(op: str, lhs, rhs):
-    """``lhs OP rhs`` compared in jnp's promoted type (bools as ints)."""
+    """``lhs OP rhs`` compared in jnp's promoted type (bools as ints),
+    float32 denormals flushed."""
     if not isinstance(lhs, torch.Tensor) and not isinstance(rhs, torch.Tensor):
         return _CMP_FNS[op](lhs, rhs)
     kind = _promote(value_kind(lhs), value_kind(rhs))
     kind = "i" if kind == "b" else kind
     dev = _device_of(lhs, rhs)
-    return _CMP_FNS[op](_as_kind(lhs, kind, dev), _as_kind(rhs, kind, dev))
+    return _CMP_FNS[op](flush_denormals(_as_kind(lhs, kind, dev)),
+                        flush_denormals(_as_kind(rhs, kind, dev)))
 
 
 # ---------------------------------------------------------------------------
@@ -495,9 +547,10 @@ def compile_program(expr_param: Tuple, col_kinds: Tuple[Tuple[str, str], ...],
                 return ("py", any(v[1] == c for c in p[2]))
             kind = _promote("i" if v[2] == "b" else v[2], tkind)
             if tag == "isin":
-                tbl = np.sort(np.asarray(p[2], np.float32 if tkind == "f"
-                                         else np.int32))
-                tbl = tbl.astype(np.float32 if kind == "f" else np.int32)
+                tbl = np.asarray(p[2], np.float32 if tkind == "f"
+                                 else np.int32)
+                tbl = np.sort(_flush_np(tbl.astype(np.float32 if kind == "f"
+                                                   else np.int32)))
                 pad = (-tbl.size) % _ISIN_PAD
                 if pad:
                     tbl = np.concatenate([tbl, np.full(pad, tbl[-1],
@@ -556,9 +609,10 @@ def _scalar(v):
 
 
 def _staged_vec(v, kind: str, device) -> torch.Tensor:
-    """A hoisted whitelist as the program reads it: sorted in ``kind``,
-    tail-padded with its own max."""
-    t = _as_vector(v).to(device=device, dtype=_TORCH_DTYPE[kind])
+    """A hoisted whitelist as the program reads it: in ``kind``, denormals
+    flushed, sorted and tail-padded with its own max."""
+    t = flush_denormals(_as_vector(v).to(device=device,
+                                         dtype=_TORCH_DTYPE[kind]))
     t = torch.sort(t).values
     pad = (-t.shape[0]) % _ISIN_PAD
     if pad:
@@ -620,7 +674,7 @@ def run_program_plain(prog: Program, columns: Dict[str, torch.Tensor],
         elif op.startswith("CMP_"):
             fn = _CMP_FNS[_OP_CMP[op[4:6]]]
             out = fn(as_int(ra), as_int(rb)) if op.endswith("_I32") \
-                else fn(ra, rb)
+                else fn(flush_denormals(ra), flush_denormals(rb))
         elif op == "AND":
             out = ra & rb
         elif op == "OR":
@@ -632,7 +686,7 @@ def run_program_plain(prog: Program, columns: Dict[str, torch.Tensor],
         elif op == "ISNULL_F32":
             out = torch.isnan(ra)
         elif op in ("ISIN_I32", "ISIN_F32"):
-            x = as_int(ra) if op == "ISIN_I32" else ra
+            x = as_int(ra) if op == "ISIN_I32" else flush_denormals(ra)
             out = torch.isin(x, tables[imm])
         else:
             raise ValueError(f"unknown opcode {op}")

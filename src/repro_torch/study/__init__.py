@@ -5,6 +5,12 @@ compact/cohort nodes; predicates are typed ``col()``/``Expr`` trees (expr);
 ``optimize`` (optimizer) fuses predicate chains, shares scans, defers
 compaction and prunes unread columns through the flatten joins; ``execute``
 (executor) runs the plan and auto-records ``OperationLog`` provenance.
+
+``normalize`` canonicalizes optimized plans (literal hoisting, stable order,
+label stripping) so structurally-equal queries share one runner;
+``analyze`` statically verifies plans (``Study.check``), and
+``ChunkedExecutor`` (``Study.run_chunked``) runs a study out-of-core over a
+partitioned star.
 """
 from repro_torch.study.plan import Node, Plan, PlanBuilder
 from repro_torch.study.expr import (
@@ -22,6 +28,14 @@ from repro_torch.study.api import (
     Study, StudyResult, contribute_flatten, contribute_flatten_sliced,
     flow_rows_from_log, column_audit_from_log,
 )
+from repro_torch.study.normalize import (
+    NormalPlan, normalize, device_params, params_signature, cut_points,
+    subgraph_hashes,
+)
+from repro_torch.study.analyze import (
+    Diagnostic, DIAGNOSTIC_CODES, PlanValidationError, analyze, errors,
+)
+from repro_torch.study.chunked import ChunkedExecutor, ChunkedReport
 
 __all__ = [
     "Node", "Plan", "PlanBuilder",
@@ -34,4 +48,8 @@ __all__ = [
     "execute", "TRANSFORMS", "jit_cache_info", "clear_jit_cache",
     "Study", "StudyResult", "contribute_flatten", "contribute_flatten_sliced",
     "flow_rows_from_log", "column_audit_from_log",
+    "NormalPlan", "normalize", "device_params", "params_signature",
+    "cut_points", "subgraph_hashes",
+    "Diagnostic", "DIAGNOSTIC_CODES", "PlanValidationError", "analyze",
+    "errors", "ChunkedExecutor", "ChunkedReport",
 ]

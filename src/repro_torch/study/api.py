@@ -4,8 +4,9 @@ features (the paper's three layers) behind one Plan.
 The port of ``repro.study.api``.  ``run`` puts the tables on ``device``
 (None means CUDA) and executes the optimized plan there, or, given a
 ``torch.distributed`` process group as ``mesh``, shard-local on every rank
-of it.  Static checks (ROADMAP A5) and chunked runs (A6) are not ported yet
-and raise ``NotImplementedError``.
+of it.  ``check`` runs the static plan analyzer (``study/analyze.py``);
+``run_chunked`` streams a partitioned star (``data.chunkstore``) through the
+card chunk by chunk (``study/chunked.py``).
 
 User code reads like the paper's supplementary notebooks::
 
@@ -411,10 +412,36 @@ class Study:
         self._opt_cache = (key, opt)
         return opt
 
-    def check(self, *args: Any, **kwargs: Any) -> List:
-        """The static plan analyzer is not ported yet (ROADMAP A5)."""
-        raise NotImplementedError(
-            "check: the static plan analyzer is not ported yet (ROADMAP A5)")
+    def check(self, tables: Optional[Dict[str, ColumnarTable]] = None,
+              n_shards: int = 1, predicate_engine: str = "auto",
+              engine: str = "torch", optimize: bool = True,
+              device=None) -> List:
+        """Statically verify the study's plan without executing it.
+
+        Runs the abstract-interpretation analyzer (``study/analyze.py``)
+        over the optimized plan (or the raw plan with ``optimize=False``)
+        and returns the list of ``Diagnostic`` findings — schema errors,
+        provably-empty predicates, misaligned capacities, engine-feasibility
+        notes — each with a stable ``SPnnn`` code, a severity and a fix
+        hint.  Bound sources (``Study.source``) and ``tables`` ground scans
+        in real schemas/dtypes (they are read where they lie, never moved);
+        without them the structural checks still run.  ``device`` (None =
+        CUDA; raises where CUDA is absent) is where the plan would run, which
+        resolves ``predicate_engine="auto"``.  A clean bill of health is
+        ``[]``."""
+        # member import: the package re-exports analyze(), shadowing the
+        # submodule
+        from repro_torch.study.analyze import analyze as _analyze_plan
+
+        dev = resolve_device(device)
+        env = dict(self._sources)
+        env.update(tables or {})
+        plan = (self.optimized_plan(tables=env or None, n_shards=n_shards,
+                                    predicate_engine=predicate_engine,
+                                    engine=engine, device=dev)
+                if optimize else self.plan())
+        return _analyze_plan(plan, tables=env or None, n_shards=n_shards,
+                             n_patients=self.n_patients)
 
     # -- execution -----------------------------------------------------------
     def run(self, tables: Optional[Dict[str, ColumnarTable]] = None,
@@ -477,10 +504,40 @@ class Study:
             d.setdefault("stage", plan.nodes[i].label())
         return self._finish_result(plan, vals, join_stats, log, mesh=mesh)
 
-    def run_chunked(self, *args: Any, **kwargs: Any) -> StudyResult:
-        """Out-of-core execution is not ported yet (ROADMAP A6)."""
-        raise NotImplementedError(
-            "run_chunked: chunked execution is not ported yet (ROADMAP A6)")
+    def run_chunked(self, store,
+                    tables: Optional[Dict[str, ColumnarTable]] = None,
+                    engine: str = "torch",
+                    predicate_engine: Optional[str] = None,
+                    checkpoint_dir: Optional[str] = None,
+                    prefetch: bool = True,
+                    log: Optional[OperationLog] = None,
+                    report_sink: Optional[Dict[str, Any]] = None,
+                    device=None, **executor_kwargs: Any) -> StudyResult:
+        """Execute this study out-of-core over a partitioned star
+        (``data.chunkstore.ChunkStore``) on ``device`` (None = CUDA): the
+        central table streams through the device chunk by chunk — ONE cached
+        runner for all chunks — with chunk i+1's disk read and copy to the
+        card overlapping chunk i's execution, and results merged
+        bit-identical to ``run()`` over the unpartitioned star.
+        ``checkpoint_dir`` enables the per-chunk journal: a killed run
+        re-invoked with the same arguments resumes, executing only the
+        chunks the journal does not record.  ``tables`` supplies extra
+        resident sources (the store's own ``resident/`` dimension tables
+        bind automatically).  ``report_sink`` (a dict) receives the run's
+        timing/resume audit (``ChunkedReport`` fields).  See
+        ``study/chunked.py`` for merge semantics and the chunk-unsafe op
+        guard."""
+        from repro_torch.study.chunked import ChunkedExecutor
+
+        ex = ChunkedExecutor(store, engine=engine,
+                             predicate_engine=predicate_engine,
+                             checkpoint_dir=checkpoint_dir,
+                             prefetch=prefetch, device=device,
+                             **executor_kwargs)
+        result = ex.run(self, tables=tables, log=log)
+        if report_sink is not None:
+            report_sink.update(ex.report.to_json())
+        return result
 
     def _finish_result(self, plan: Plan, vals: Dict[int, Any],
                        join_stats: Dict[int, Dict[str, int]],

@@ -391,7 +391,8 @@ def env_device(env: Dict[str, ColumnarTable]) -> Optional[torch.device]:
 def run_plan_body(plan: Plan, env: Dict[str, ColumnarTable], n_patients: int,
                   engine: str, n_shards: int = 1,
                   predicate_engine: Optional[str] = None, group=None, *,
-                  keep: Tuple[int, ...]):
+                  keep: Tuple[int, ...],
+                  shape_sink: Optional[Dict[int, int]] = None):
     """node id -> value for every array-valued node, plus per-node counts
     (0-d tensors) and per-join FlatteningStats dicts.  ``predicate_engine``
     is the fallback for predicate nodes the optimizer did not stamp
@@ -400,7 +401,8 @@ def run_plan_body(plan: Plan, env: Dict[str, ColumnarTable], n_patients: int,
     ``group`` make exchange nodes real all-to-alls there; without a group
     they are the identity.  Only the values of the ``keep`` nodes
     are returned; every other value is dropped after its last consumer ran
-    (as XLA frees a buffer past its last use)."""
+    (as XLA frees a buffer past its last use).  ``shape_sink`` (a dict)
+    receives every table node's capacity (padded rows)."""
     _check_engine(engine)
     peng = _pk.resolve_engine(predicate_engine, engine, env_device(env))
     ids = traced_ids(plan)
@@ -436,6 +438,8 @@ def run_plan_body(plan: Plan, env: Dict[str, ColumnarTable], n_patients: int,
                              predicate_engine=peng, group=group)
             if node.op in STATS_OPS:
                 out, stats[i] = out
+            if shape_sink is not None and node.op in TABLE_OPS:
+                shape_sink[i] = int(out.capacity)
             vals[i] = out
             counts[i] = _node_count(node, vals[i])
             del ins
@@ -444,11 +448,6 @@ def run_plan_body(plan: Plan, env: Dict[str, ColumnarTable], n_patients: int,
             if last_use[j] == i and j not in keep:
                 del vals[j]
     return {i: vals[i] for i in keep}, counts, stats
-
-
-def _params_signature(lits, vecs) -> Tuple:
-    return (tuple(str(getattr(x, "dtype", type(x).__name__)) for x in lits),
-            tuple((len(v), str(getattr(v, "dtype", ""))) for v in vecs))
 
 
 def _runner(plan: Plan, n_patients: int, engine: str,
@@ -460,11 +459,11 @@ def _runner(plan: Plan, n_patients: int, engine: str,
     def build():
         keep = keep_ids(plan)
 
-        def run(env, lits=(), vecs=()):
+        def run(env, lits=(), vecs=(), shape_sink=None):
             with _expr.bound_params(lits, vecs):
                 vals, counts, stats = run_plan_body(
                     plan, env, n_patients, engine, predicate_engine=peng,
-                    keep=keep)
+                    keep=keep, shape_sink=shape_sink)
             # counts leave as ONE stacked vector: a single host transfer for
             # provenance instead of one device sync per node
             ids = tuple(sorted(counts))
@@ -494,16 +493,20 @@ def execute(plan: Plan, tables: Dict[str, ColumnarTable], n_patients: int = 0,
             engine: str = "torch", log: Optional[OperationLog] = None,
             stats_sink: Optional[Dict[int, Dict[str, int]]] = None,
             predicate_engine: Optional[str] = None,
-            expr_params: Optional[Tuple[Tuple, Tuple]] = None
+            expr_params: Optional[Tuple[Tuple, Tuple]] = None,
+            counts_sink: Optional[Dict[int, int]] = None,
+            shape_sink: Optional[Dict[int, int]] = None
             ) -> Dict[int, Any]:
     """Evaluate every array-valued node of ``plan`` over ``tables``.
 
     Returns {node id: value} for the ``keep_ids`` subset.  Per-join
     ``FlatteningStats`` are recorded into ``log`` automatically and, when
-    ``stats_sink`` is given, copied into it as host ints keyed by node id.
-    ``predicate_engine`` ("torch" | "cuda" | "auto"/None) picks how
-    un-stamped predicate nodes evaluate.  ``expr_params`` is the ``(lits,
-    vecs)`` pair backing a normalized plan's hoisted-literal slots."""
+    ``stats_sink`` is given, copied into it as host ints keyed by node id;
+    ``counts_sink`` receives every traced node's count (host ints) and
+    ``shape_sink`` every table node's capacity.  ``predicate_engine``
+    ("torch" | "cuda" | "auto"/None) picks how un-stamped predicate nodes
+    evaluate.  ``expr_params`` is the ``(lits, vecs)`` pair backing a
+    normalized plan's hoisted-literal slots."""
     missing = [s for s in plan.sources() if s not in tables]
     if missing:
         raise KeyError(f"plan scans source(s) {missing} but run() only got "
@@ -514,12 +517,16 @@ def execute(plan: Plan, tables: Dict[str, ColumnarTable], n_patients: int = 0,
         fn, args = _runner(plan, n_patients, engine, predicate_engine,
                            device), (env,)
     else:
+        from repro_torch.study.normalize import params_signature
+
         lits, vecs = expr_params
         fn = _runner(plan, n_patients, engine, predicate_engine, device,
-                     params_sig=_params_signature(lits, vecs))
+                     params_sig=params_signature(lits, vecs))
         args = (env, tuple(lits), tuple(vecs))
-    vals, counts_vec, stats = fn(*args)
+    vals, counts_vec, stats = fn(*args, shape_sink=shape_sink)
     counts = dict(zip(traced_ids(plan), counts_vec.cpu().tolist()))
+    if counts_sink is not None:
+        counts_sink.update(counts)
     if log is not None or stats_sink is not None:
         host_stats = _host_stats(stats)
         if log is not None:

@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.columnar import ColumnarTable, NULL_INT, is_null
-from repro_torch.kernels.predicate import binary_arith, binary_cmp, value_kind
+from repro_torch.kernels.predicate import (binary_arith, binary_cmp,
+                                          flush_denormals, value_kind)
 
 _NULL_SENTINEL_INT = NULL_INT
 
@@ -386,14 +387,16 @@ def _no_match(v) -> torch.Tensor:
 
 
 def _isin(v, table: torch.Tensor) -> torch.Tensor:
-    """``jnp.isin``: both sides promoted to one type (bools count as ints);
-    a NaN probe is never a member."""
+    """``jnp.isin``: both sides promoted to one type (bools count as ints),
+    float32 denormals flushed as XLA compares them; a NaN probe is never a
+    member."""
     if not isinstance(v, torch.Tensor):
         v = torch.tensor(v)
     kv = "i" if value_kind(v) == "b" else value_kind(v)
     kt = value_kind(table)
     dt = torch.float32 if "f" in (kv, kt) else torch.int32
-    return torch.isin(v.to(dt), table.to(device=v.device, dtype=dt))
+    return torch.isin(flush_denormals(v.to(dt)),
+                      flush_denormals(table.to(device=v.device, dtype=dt)))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro_torch.kernels import predicate as pk
 from repro_torch.kernels import segment_scan as ss
 from repro_torch.kernels import swa_attention as swa
 from repro_torch.study import col
+from repro_torch.study.expr import HoistedIsIn, HoistedLit
 
 from _bitset_programs import PROGRAM_SHAPES, random_program
 
@@ -87,6 +88,132 @@ def test_predicate_kernel_at_the_persistent_grid_edges(device, edge, which):
     n = {"wave-33": wave - 33, "wave+33": wave + 33,
          "3 waves": 3 * wave + 17}[edge]
     _check_predicate(device, n, e)
+
+
+def _denormal_cols(n, device):
+    """Float32 columns of denormals of both signs, zeros, least normals,
+    NaN and ordinary values (ROADMAP C4), and an int column."""
+    rng = np.random.default_rng(n)
+    pool = np.array([1e-45, -1e-45, 1e-39, -1e-40, 3e-39, 0.0, -0.0,
+                     1.1754944e-38, -1.1754942e-38, np.nan, 1.0, -2.5, 1e30],
+                    np.float32)
+    cols = {"d": rng.choice(pool, n), "e": rng.choice(pool, n),
+            "i": rng.integers(-3, 4, n).astype(np.int32)}
+    valid = bs.pack(torch.from_numpy(rng.random(n) < 0.9))
+    return ({k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+             for k, v in cols.items()}, valid.to(device))
+
+
+_DENORMAL_EXPRS = [
+    col("d") > 0, col("d") == 0, col("d") * 1e30 > 0, col("d") < 0.0,
+    col("e") >= 1e-40, col("d") - col("e") == 0, col("d") * col("e") != 0,
+    col("d") // -1.0 < col("e"), col("d") % col("e") >= 0,
+    col("i") * 1e-44 == col("d"), col("d").isin([1e-40, -2.5]),
+    col("e").isin([0.0, 1e30]) | (col("d") <= -1e-45),
+]
+
+
+@pytest.mark.parametrize("n", [77, 100_003])
+def test_predicate_kernel_flushes_denormals(device, n):
+    """B1 flushes float32 denormals where XLA does, bit for bit with its
+    plain version (which the CPU tests hold against the reference)."""
+    cols, valid = _denormal_cols(n, device)
+    for e in _DENORMAL_EXPRS:
+        param = e.to_param()
+        words, cnt = pk.predicate_bitset(cols, valid, expr_param=param,
+                                         capacity=n)
+        prog = pk.compile_program(param, *pk._kinds(cols, param, None))
+        pw, pc = pk.predicate_bitset_plain(prog, cols, valid, n)
+        assert torch.equal(words, pw) and int(cnt) == int(pc), repr(e)
+    lits = (torch.tensor(-1e-40, device=device),
+            torch.tensor(3e-39, device=device))
+    vecs = (torch.tensor([1e-41, 2.0, -1e-45], device=device),)
+    for e in (col("d") > HoistedLit(0), col("e") == HoistedLit(1),
+              HoistedIsIn(col("d"), 0, 3, True)):
+        param = e.to_param()
+        words, cnt = pk.predicate_bitset(cols, valid, expr_param=param,
+                                         capacity=n, params=(lits, vecs))
+        prog = pk.compile_program(param, *pk._kinds(cols, param,
+                                                    (lits, vecs)))
+        pw, pc = pk.predicate_bitset_plain(prog, cols, valid, n,
+                                           params=(lits, vecs))
+        assert torch.equal(words, pw) and int(cnt) == int(pc), repr(e)
+
+
+def test_chunked_run_on_the_card(device, tmp_path):
+    """run_chunked on the card, with and without prefetch and after a
+    kill-and-resume, equals the resident run of the same study, launching
+    B1 and B2 on every chunk and B3 once per cohort expression per chunk
+    plus the replay."""
+    from repro_torch.core import DCIR_SCHEMA, drug_dispenses, \
+        medical_acts_dcir
+    from repro_torch.data import SyntheticConfig, generate_dcir, \
+        partition_star
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.study import ChunkedExecutor, Study, clear_jit_cache
+    from repro_torch.study.chunked import _InjectedCrash
+    from repro_torch.study.executor import cohort_groups
+
+    def study():
+        return (Study(n_patients=3_000).flatten(DCIR_SCHEMA)
+                .extract(drug_dispenses(), name="drugs")
+                .extract(medical_acts_dcir(codes=list(range(30))),
+                         name="acts")
+                .patients("IR_BEN")
+                .cohort("base", "extract_patients")
+                .cohort("drugged", "drugs")
+                .cohort("final", "drugged & base - acts")
+                .flow("base", "drugged", "final"))
+
+    star = generate_dcir(SyntheticConfig(n_patients=3_000, seed=7),
+                         device=device)
+    kw = {"engine": "cuda", "predicate_engine": "cuda", "device": device}
+    res = study().run(dict(star), **kw)
+    store = partition_star(star, str(tmp_path / "store"), source="ER_PRS",
+                           chunk_capacity=4096)
+    assert store.n_chunks > 3
+    for prefetch in (True, False):
+        clear_jit_cache()
+        reset_launch_counts()
+        rep = {}
+        out = study().run_chunked(store, prefetch=prefetch, report_sink=rep,
+                                  **kw)
+        assert rep["compiles"] == 1
+        groups = len(cohort_groups(out.plan))
+        assert launch_counts["bitset_op"] == groups * (store.n_chunks + 1)
+        assert launch_counts["predicate_bitset"] % store.n_chunks == 0
+        assert launch_counts["filter_compact"] % store.n_chunks == 0
+        assert launch_counts["predicate_bitset"] > 0
+        _same_result(out, res)
+    ck = str(tmp_path / "ckpt")
+    with pytest.raises(_InjectedCrash):
+        ChunkedExecutor(store, checkpoint_dir=ck, crash_after=2, **kw).run(
+            study())
+    ex = ChunkedExecutor(store, checkpoint_dir=ck, **kw)
+    _same_result(ex.run(study()), res)
+    assert ex.report.resumed == 2
+
+
+def _same_result(a, b):
+    """Valid rows in order (a chunked table is the concatenation of its
+    chunks' tables, so its capacity and padding differ), cohort words,
+    FlatteningStats, flow and the plan entries of the OperationLog."""
+    for k, t in b.events.items():
+        assert int(a.events[k].count) == int(t.count), k
+        ma, mb = a.events[k].valid_bool(), t.valid_bool()
+        for c in t.columns:
+            assert torch.equal(a.events[k].columns[c][ma].view(torch.int32),
+                               t.columns[c][mb].view(torch.int32)), (k, c)
+    for k, c in b.cohorts.items():
+        assert torch.equal(a.cohorts[k].subjects, c.subjects), k
+    assert a.flatten_stats == b.flatten_stats
+    assert a.flow.flowchart() == b.flow.flowchart()
+
+    def plan_entries(log):
+        return [{k: v for k, v in e.items() if k != "ts"}
+                for e in log.entries if e["op"].startswith("plan:")]
+
+    assert plan_entries(a.log) == plan_entries(b.log)
 
 
 @pytest.mark.parametrize("n", [1, 33, 100_003])

@@ -154,9 +154,12 @@ def test_predicate_empty_table_and_bad_root():
 
 _I32 = np.array([0, 1, -1, 2, -2, 5, -5, 7, -7, 2 ** 31 - 1, -2 ** 31,
                  -2 ** 31 + 1], np.int32)
-# normal floats only: XLA's CPU flushes denormals to zero, the port keeps them
+# denormals of both signs and the least normals beside them: XLA flushes
+# them (ROADMAP C4), so the port must too
 _F32 = np.array([0.0, -0.0, 1.0, -1.0, 2.5, -2.5, 7.5, -7.5, 1e30, -1e30,
-                 3e-30, np.inf, -np.inf, np.nan, 0.1, 3.0], np.float32)
+                 3e-30, np.inf, -np.inf, np.nan, 0.1, 3.0, 1e-45, -1e-45,
+                 1e-39, -1e-40, 3e-39, 1.1754942e-38, -1.1754942e-38,
+                 1.17549435e-38, 1.1754944e-38, -1.1754945e-38], np.float32)
 
 
 @pytest.mark.parametrize("vals", [_I32, _F32], ids=["int32", "float32"])
@@ -177,6 +180,66 @@ def test_floordiv_remainder_match_jnp(vals):
             assert (np.isnan(got) == np.isnan(want)).all()
         else:
             np.testing.assert_array_equal(got, want)
+
+
+def _denormal_tables(n: int = 67):
+    """Float32 columns of denormals of both signs, zeros, least normals,
+    NaN and ordinary values (the first rows are C4's example)."""
+    rng = np.random.default_rng(19)
+    head = np.array([1e-45, 1e-39, -1e-40, 1.0, 0.0, -0.0, -1e-45,
+                     1.1754944e-38, np.nan, 3e-39], np.float32)
+    pool = np.concatenate([head, [2.0, -2.5, 1e30]]).astype(np.float32)
+    d = np.concatenate([head, rng.choice(pool, n - head.size)])
+    e = rng.choice(pool, n).astype(np.float32)
+    cols = {"d": d.astype(np.float32), "e": e,
+            "i": rng.integers(-3, 4, n).astype(np.int32)}
+    valid = rng.random(n) < 0.9
+    valid[:head.size] = True
+    return (RTable.from_columns(cols, valid=jnp.asarray(valid)),
+            ColumnarTable.from_columns(cols, valid=torch.from_numpy(valid),
+                                       device="cpu"))
+
+
+DENORMAL = [
+    ("gt_zero", lambda: col("d") > 0),
+    ("eq_zero", lambda: col("d") == 0),
+    ("times_1e30", lambda: col("d") * 1e30 > 0),
+    ("lt_zero", lambda: col("d") < 0.0),
+    ("lit_denormal", lambda: col("e") >= 1e-40),
+    ("sum_cancels", lambda: col("d") - col("e") == 0),
+    ("product_underflows", lambda: col("d") * col("e") != 0),
+    ("floordiv_sign", lambda: col("d") // -1.0 < col("e")),
+    ("mod_keeps_fmod", lambda: col("d") % col("e") >= 0),
+    ("int_promoted", lambda: col("i") * 1e-44 == col("d")),
+    ("isin_denormal_set", lambda: col("d").isin([1e-40, -2.5])),
+    ("isin_zero_set", lambda: col("e").isin([0.0, 1e30])),
+]
+
+
+@pytest.mark.parametrize("name,mk", DENORMAL, ids=[c[0] for c in DENORMAL])
+def test_predicate_denormals(name, mk):
+    """C4: both port engines give the reference's words where float32
+    denormals meet arithmetic, comparisons and whitelists (on C4's column
+    ``col("d") > 0`` keeps only the 1.0: words ``[8]`` in its first 4
+    rows)."""
+    rt, pt = _denormal_tables()
+    _assert_predicate_parity(rt, pt, mk())
+    if name == "gt_zero":
+        words, _ = predicate_bitset(pt.columns, pt.valid,
+                                    expr_param=mk().to_param())
+        assert int(words[0]) & 0xF == 8
+
+
+def test_predicate_denormals_hoisted():
+    """Hoisted denormal literals and whitelist entries flush as inline ones
+    do, on both port engines."""
+    rt, pt = _denormal_tables()
+    lits = (np.float32(-1e-40), np.float32(3e-39))
+    vecs = (np.array([1e-41, 2.0, -1e-45], np.float32),)
+    for e in (col("d") > HoistedLit(0), col("e") == HoistedLit(1),
+              HoistedIsIn(col("d"), 0, 3, True),
+              HoistedIsIn(col("e"), 0, 3, True) & (col("d") <= HoistedLit(0))):
+        _assert_predicate_parity(rt, pt, e, params=(lits, vecs))
 
 
 def test_promotion_against_python_literals():

@@ -290,13 +290,22 @@ def test_patients_extractor(dcir):
                       patients(port_tables["IR_BEN"]), "patients")
 
 
-def test_unported_surfaces_name_their_roadmap_item(dcir):
+def test_unported_surfaces_name_their_roadmap_item(dcir, tmp_path):
+    """The surfaces that once raised naming their ROADMAP items are ported:
+    ``check`` (A5) and ``run_chunked`` (A6) run on the CPU when asked, and
+    a mesh run (A8's study side) takes a process group."""
+    from repro_torch.data import partition_star
+
     _, port_tables = dcir
-    s = Study(n_patients=N_PATIENTS).extract(drug_dispenses(), name="d")
-    with pytest.raises(NotImplementedError, match="A5"):
-        s.check()
-    with pytest.raises(NotImplementedError, match="A6"):
-        s.run_chunked(None)
+    s = (Study(n_patients=N_PATIENTS).flatten(DCIR_SCHEMA)
+         .extract(drug_dispenses(), name="d").cohort("got", "d"))
+    assert not [d for d in s.check(device="cpu") if d.severity == "error"]
+    store = partition_star(port_tables, str(tmp_path / "store"),
+                           source="ER_PRS", chunk_capacity=1024)
+    got = s.run_chunked(store, device="cpu")
+    want = s.run(dict(port_tables), device="cpu")
+    assert torch.equal(got.cohorts["got"].subjects,
+                       want.cohorts["got"].subjects)
     # mesh runs are ported (A8's study side): a mesh is a process group
     with pytest.raises(TypeError, match="process group"):
         s.run(dict(port_tables), mesh=object(), device="cpu")
