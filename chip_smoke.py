@@ -54,14 +54,40 @@ nothing falls back to the CPU):
      ``wall_s``/``overlap_saved_s`` and peak device memory beside the
      resident run's are printed, and one warm chunked run is traced
      (``chiprun_out/chunked_trace.json``);
-  5. cohort study: ``examples/cohort_study.py``'s plan (DCIR and PMSI,
+  5. spec: ``spec_from_study`` of the quickstart and cohort-study plans
+     must equal ``tests/goldens/*_spec.json``, and ``compile_spec`` of each
+     golden, run on the card under the cuda engines, must equal the
+     builder-made study bit for bit (every slot, words, stats, cohorts,
+     flow, features, the plan's log entries); then the fuzzer's corpus
+     (``study.fuzz.run_corpus``, 48 specs from seed 0 over a 200,000-patient
+     star, executor engine ``cuda``): 24 valid specs each run under the
+     torch and cuda predicate engines (raw columns and words equal) and
+     chunked over a store under ``.chunk_store/spec`` (valid rows equal;
+     SP003 plans refused by its preflight), 24 mutations each rejected with
+     their ``SPEC-nnn`` code; B1-B3 must have launched;
+  6. service: the cohort-query service on the quickstart's resident star
+     (``--n-patients``) under the cuda engines, 8 slots, a 16 GiB cache:
+     ``benchmarks/serving_bench.py``'s mix re-expressed with the port (32
+     queries of 4 tenants over its three shapes, literals of their own,
+     after one warm-up query a shape), each result taken and let go as the
+     drain resolves it; the naive path (one solo run a query), the service
+     synchronous and pipelined (walls, submit_s, realize_s, overlap_s,
+     latency p50/p95, hits, misses, evictions, bytes cached, peak memory):
+     3 runners built, 0 demotions, and B1/B2/B3 launches equal to what the
+     solo runs and the hit counts predict; both modes again on fresh
+     services with every ticket checked against its solo run (every slot,
+     words, counts, FlatteningStats, cohorts, flow, plan log), hits and
+     misses equal to the timed serves'; a wire spec of shape full equal to
+     its Study twin and a malformed spec ``invalid`` with SPEC-012; one
+     warm pipelined serve traced (``chiprun_out/service_trace.json``);
+  7. cohort study: ``examples/cohort_study.py``'s plan (DCIR and PMSI,
      exposures, fractures, follow-up, cohort algebra, flow, the dense and
      token featurizes) at ``--cohort-patients``, checked, timed and traced
      the same way (``chiprun_out/cohort_study_trace.json``), with B4 timed at
      the shapes ``exposures`` gave it;
-  6. card against CPU: both studies at 20,000 patients on the card and on
+  8. card against CPU: both studies at 20,000 patients on the card and on
      the CPU (the plain versions) must agree bit for bit;
-  7. attention: B6 (flash attention) against its plain version on the card
+  9. attention: B6 (flash attention) against its plain version on the card
      over the reference's test sweep, h2o-danube-1.8b's shapes (prefill
      to 8,192 tokens with window 4,096, full-cache decode offsets, the
      ring-buffer mode, ragged shapes) and gemma3-12b's (16/8 heads of 240:
@@ -73,7 +99,7 @@ nothing falls back to the CPU):
      ``csrc/swa_decode.cu``), every other call the prefill kernel (bf16:
      ``csrc/swa_prefill.cu``, TMA and wgmma; fp32:
      ``csrc/swa_attention.cu``), which must have run at every head dim;
-  8. serving: h2o-danube-1.8b at full width (24 layers, bf16, random weights
+  10. serving: h2o-danube-1.8b at full width (24 layers, bf16, random weights
      from a seeded generator on the card): a 2 x 8,192-token prefill under
      the cuda and torch attention engines (B6 launched once per layer, the
      last-token logits within 0.1; the decode route never taken), the
@@ -91,7 +117,7 @@ nothing falls back to the CPU):
      of 3 separate medians of 20 reps with their min-max, and one prefill,
      one warm batcher step and one decode pass over full rings are traced
      (``chiprun_out/serving_*_trace.json``).
-  9. gemma3: one gemma3-12b local layer at full width over its 1,024-slot
+  11. gemma3: one gemma3-12b local layer at full width over its 1,024-slot
      ring with 3 queries a call, before and after the wrap, cuda engine
      against torch engine (fp32 within 1e-3, bf16 within 0.1); then the
      whole model at full width (48 layers, bf16, seeded random weights on
@@ -101,14 +127,14 @@ nothing falls back to the CPU):
      both (last-token logits within 1e-3; in bf16 the cuda engine no more
      than 0.1 further from the fp32 model than the torch engine), and B6
      timed at the model's global (causal) and local (window 1,024) prefill
-     shapes as in phase 8.
-  10. partition: B5 (the shuffle's plan) against its plain version, bit for
+     shapes as in phase 10.
+  12. partition: B5 (the shuffle's plan) against its plain version, bit for
      bit, over 1-64 destinations, blocks 256/512/1024, ragged lengths,
      invalid rows, NULL and negative keys; B2b (compaction by a bool mask,
      a single pass with decoupled look-back) through ``ops.filter_compact``
      against its plain version at the edges of its 4,096-row tiles and up to
      48M rows, once with 7 columns, and timed there;
-  11. sharded: the quickstart through ``Study.run(mesh=group)`` on 4 gloo
+  13. sharded: the quickstart through ``Study.run(mesh=group)`` on 4 gloo
      ranks of one process group, all on the one card, at
      ``--sharded-patients`` (2,000,000 by default): every rank launches B5
      once per exchange (5) and B3 once, no exchange overflows, no rank
@@ -126,9 +152,10 @@ nothing falls back to the CPU):
      engine's ``hash_partition`` (the argsort route, a yardstick).
 
 Each kernel's launches are counted over the two studies' first runs, the
-first chunked run (with prefetch), the serving path (prefill and
-batcher), gemma3-12b's prefill and the sharded run's first cuda run
-(summed over ranks), with the counts set to 0 just before each.  B6's
+first chunked run (with prefetch), the spec corpus, the timed pipelined
+service serve, the serving path (prefill and batcher), gemma3-12b's
+prefill and the sharded run's first cuda run (summed over ranks), with
+the counts set to 0 just before each.  B6's
 ``flash_attention`` count takes one per call on either route; its record's
 launches are those calls less the decode route's (``flash_decode``), which
 has a record of its own.  B2b runs on none of these paths (no caller
@@ -577,7 +604,7 @@ def segment_scan_battery(device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 3, 5 and 6: the quickstart, the cohort study, card against CPU
+# phases 3, 7 and 8: the quickstart, the cohort study, card against CPU
 # ---------------------------------------------------------------------------
 STUDY_END = 14_600 + 3 * 365
 
@@ -667,7 +694,8 @@ def compare_results(a, b, what: str, full_columns: bool) -> None:
     for name in a.cohorts:
         if not _same(a.cohorts[name].subjects, b.cohorts[name].subjects):
             fail(f"{what}: cohort {name} differs")
-    if a.flow.flowchart() != b.flow.flowchart():
+    if (a.flow is None) != (b.flow is None) or (
+            a.flow is not None and a.flow.flowchart() != b.flow.flowchart()):
         fail(f"{what}: flow differs")
     if sorted(a.features) != sorted(b.features) \
             or a.feature_checks != b.feature_checks:
@@ -1425,7 +1453,342 @@ def chunked_phase(prep: dict, resident_launches: dict, store_dir) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 7-8: attention (B6) and the serving path
+# phase 5: the declarative front end (spec) and the differential fuzzer
+# ---------------------------------------------------------------------------
+FUZZ_N = 48                  # 24 valid specs, 24 mutations
+FUZZ_PATIENTS = 200_000      # the star the fuzzed specs run over
+KERNELS_B1_B3 = ("predicate_bitset", "filter_compact", "bitset_op")
+
+
+def spec_phase(store_dir) -> dict:
+    """The golden studies as wire specs, compiled specs on the card against
+    their builder-made twins, and the fuzzer's corpus under the torch, cuda
+    and chunked arms; returns the corpus run's launches."""
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticConfig, generate_dcir
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.study import compile_spec, spec_from_study
+    from repro_torch.study.defects import golden_studies
+    from repro_torch.study.fuzz import run_corpus
+
+    goldens = golden_studies()
+    for name, study in goldens.items():
+        want = json.loads((REPO / "tests" / "goldens" / f"{name}_spec.json")
+                          .read_text())
+        if json.loads(json.dumps(spec_from_study(study))) != want:
+            fail(f"spec: spec_from_study({name}) != tests/goldens/"
+                 f"{name}_spec.json")
+        n = study.n_patients
+        tables = (generate_dcir(SyntheticConfig(n_patients=n, seed=0),
+                                device="cuda") if name == "quickstart"
+                  else snds_tables(n, "cuda"))
+        kw = dict(engine="cuda", predicate_engine="cuda", device="cuda")
+        a = study.run(dict(tables), **kw)
+        b = compile_spec(want).run(dict(tables), **kw)
+        compare_results(a, b, f"spec: compiled {name} vs its builder",
+                        full_columns=True)
+        if plan_entries(a.log) != plan_entries(b.log):
+            fail(f"spec: compiled {name}: the plan's log entries differ")
+        log(f"spec: spec_from_study({name}) == tests/goldens/{name}_spec"
+            f".json; compile_spec of it on the card == the builder's study "
+            f"({n} patients, every slot, words, stats, cohorts, flow, "
+            f"features, plan log)")
+        del a, b, tables
+    torch.cuda.empty_cache()
+
+    gc.collect()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    report = run_corpus(n=FUZZ_N, seed=0, n_patients=FUZZ_PATIENTS,
+                        store_dir=str(store_dir), engine="cuda",
+                        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    for line in report.summary().splitlines():
+        log(f"spec: {line}")
+    log(f"spec: corpus of {FUZZ_N} at {FUZZ_PATIENTS} patients in "
+        f"{wall:.3f} s, launches {launches}")
+    if not report.ok:
+        fail(f"spec: the fuzz corpus failed: {report.failures[:3]}")
+    if report.arms != ("torch", "cuda", "chunked") \
+            or report.n_valid != FUZZ_N - FUZZ_N // 2 \
+            or report.n_mutated != FUZZ_N // 2:
+        fail(f"spec: arms {report.arms}, {report.n_valid} valid and "
+             f"{report.n_mutated} mutated specs checked")
+    for k in KERNELS_B1_B3:
+        if launches[k] <= 0:
+            fail(f"spec: kernel {k} was never launched by the corpus")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the cohort-query service over the quickstart's resident star
+# ---------------------------------------------------------------------------
+SERVICE_QUERIES = 32         # benchmarks/serving_bench.py's mix
+SERVICE_TENANTS = 4
+SERVICE_SLOTS = 8
+SERVICE_CACHE = 16 << 30     # holds the shared flatten prefix at 2,000,000
+
+
+def service_study(q: int, n_patients: int):
+    """Query ``q`` of ``benchmarks/serving_bench.py``'s mix, re-expressed
+    with the port: its three plan shapes in turn (``_shape_full``,
+    ``_shape_drugs``, ``_shape_acts``), threshold ``40 + q`` and codes
+    ``60 + q .. 119 + q``, so no two queries share their literals."""
+    from repro_torch.core import (DCIR_SCHEMA, drug_dispenses,
+                                  medical_acts_dcir)
+    from repro_torch.study import Study, col
+
+    threshold, codes = 40 + q, list(range(60 + q, 120 + q))
+    s = Study(n_patients=n_patients).flatten(DCIR_SCHEMA)
+    shape = q % 3
+    if shape == 0:
+        s.extract(drug_dispenses(codes=codes), name="drugs")
+        s.extract(medical_acts_dcir(), name="acts")
+        s.filter("acts", col("value") >= threshold, name="acts_hi")
+        s.cohort("base", "drugs")
+        s.cohort("final", "base & acts_hi")
+    elif shape == 1:
+        s.extract(drug_dispenses(codes=codes), name="drugs")
+        s.cohort("exposed", "drugs")
+    else:
+        s.extract(medical_acts_dcir(codes=codes), name="acts")
+        s.filter("acts", (col("value") >= threshold)
+                 & (col("value") < threshold + 400), name="band")
+        s.cohort("banded", "band")
+    return s
+
+
+def check_served(solo, got, what: str) -> None:
+    """A served result against its solo run, bit for bit."""
+    compare_results(solo, got, what, full_columns=True)
+    if plan_entries(solo.log) != plan_entries(got.log):
+        fail(f"{what}: the OperationLog's plan entries differ")
+
+
+def new_service(dcir, pipeline: bool):
+    from repro_torch.study import CohortQueryService, ServiceConfig
+
+    return CohortQueryService(dict(dcir), device="cuda", config=ServiceConfig(
+        n_slots=SERVICE_SLOTS, engine="cuda", predicate_engine="cuda",
+        cache_budget_bytes=SERVICE_CACHE, pipeline=pipeline))
+
+
+def serve(svc, n_patients: int, on_done) -> tuple:
+    """The 32 queries of 4 tenants through ``svc``, each ticket handed to
+    ``on_done`` as the drain resolves it; returns the tickets, the wall
+    (to a synchronization) and the submit/realize stage times."""
+    import torch
+
+    sub0, rea0 = svc.stats.submit_s, svc.stats.realize_s
+    t0 = time.perf_counter()
+    tickets = [svc.submit(service_study(q, n_patients),
+                          tenant=f"tenant{q % SERVICE_TENANTS}")
+               for q in range(SERVICE_QUERIES)]
+    svc.drain(on_done=on_done)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return tickets, wall, (svc.stats.submit_s - sub0,
+                           svc.stats.realize_s - rea0)
+
+
+def warm_up(svc, n_patients: int, on_done) -> None:
+    """One query of each shape, with literals of its own, pays the
+    service's three runner builds."""
+    for i in range(3):
+        svc.submit(service_study(SERVICE_QUERIES + i, n_patients),
+                   tenant="warmup")
+    svc.drain(on_done=on_done)
+
+
+def require_done(ticket) -> None:
+    if ticket.status != "done":
+        fail(f"service: ticket {ticket.seq} of {ticket.tenant} is "
+             f"{ticket.status}: {ticket.error!r}")
+
+
+def take(ticket) -> None:
+    """A tenant that takes its answer and lets the result go."""
+    require_done(ticket)
+    ticket.result = None
+
+
+def predicted_launches(tickets, solo: dict) -> dict:
+    """What the hit and miss counts predict: each query launches what its
+    solo run launches, less one B1 launch for every predicate cut served
+    from the cache (a hit node does not run; B2 and B3 never sit on a
+    cut)."""
+    from repro_torch.study.plan import PREDICATE_OPS
+
+    out = {k: sum(solo[q][k] for q in range(SERVICE_QUERIES))
+           for k in KERNELS_B1_B3}
+    out["predicate_bitset"] -= sum(op in PREDICATE_OPS
+                                   for t in tickets for op in t.hit_ops)
+    return out
+
+
+def service_phase(dcir, n_patients: int) -> dict:
+    """The naive path (one solo run per query), the service synchronous and
+    pipelined (timed), both again with every ticket checked against its
+    solo run, the wire path, and a traced warm serve.  Returns the timed
+    pipelined serve's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.study import clear_jit_cache, jit_cache_info
+
+    # the naive path: every query a solo run, literals in the plan
+    clear_jit_cache()
+    gc.collect()
+    solo, naive_lat = {}, []
+    t_all = time.perf_counter()
+    for q in range(SERVICE_QUERIES):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = service_study(q, n_patients).run(
+            dict(dcir), engine="cuda", predicate_engine="cuda",
+            device="cuda")
+        torch.cuda.synchronize()
+        naive_lat.append(time.perf_counter() - t0)
+        solo[q] = dict(launch_counts)
+        del res
+    naive_wall = time.perf_counter() - t_all
+    naive_compiles = jit_cache_info()["compiles"]
+    if naive_compiles != SERVICE_QUERIES:
+        fail(f"service: the naive path built {naive_compiles} runners for "
+             f"{SERVICE_QUERIES} distinct queries")
+    log(f"service: naive path, {SERVICE_QUERIES} solo runs: wall "
+        f"{naive_wall:.6f} s, {naive_compiles} runners built, latency p50 "
+        f"{np.percentile(naive_lat, 50):.6f} s p95 "
+        f"{np.percentile(naive_lat, 95):.6f} s")
+
+    timed = {}
+    for pipeline in (False, True):
+        mode = "pipelined" if pipeline else "sync"
+        svc = new_service(dcir, pipeline)
+        warm_up(svc, n_patients, take)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        tickets, wall, (sub, rea) = serve(svc, n_patients, take)
+        launches = dict(launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        st = svc.stats
+        lat = [t.latency_s for t in tickets]
+        flat_hits = [t.latency_s for t in tickets
+                     if "lookup_join" in t.hit_ops]
+        want = predicted_launches(tickets, solo)
+        log(f"service: {mode}: serve wall {wall:.6f} s for "
+            f"{SERVICE_QUERIES} queries (after {st.compile_count} warm-up "
+            f"runner builds), submit_s {sub:.6f}, realize_s {rea:.6f}, "
+            f"overlap_s {max(0.0, sub + rea - wall):.6f}; latency p50 "
+            f"{np.percentile(lat, 50):.6f} s p95 "
+            f"{np.percentile(lat, 95):.6f} s; flatten-cut hits "
+            f"{len(flat_hits)}, their latency p50 "
+            f"{np.percentile(flat_hits, 50) if flat_hits else 0:.6f} s")
+        log(f"service: {mode}: compiles {st.compile_count}, hits "
+            f"{st.cache_hits}, misses {st.cache_misses}, evictions "
+            f"{st.cache_evictions}, entries {st.cache_entries}, bytes "
+            f"cached {st.cache_bytes} ({st.cache_bytes / 2**30:.3f} GiB "
+            f"accounted), demotions {st.demotions}, peak device memory "
+            f"{peak / 2**30:.3f} GiB; launches "
+            f"{ {k: launches[k] for k in KERNELS_B1_B3} } against "
+            f"{want} predicted from the hits")
+        if st.compile_count != 3 or st.demotions:
+            fail(f"service: {mode}: {st.compile_count} runners built "
+                 f"(3 shapes), {st.demotions} demotions")
+        if any(launches[k] != want[k] for k in KERNELS_B1_B3):
+            fail(f"service: {mode}: launches differ from the prediction")
+        timed[mode] = dict(svc=svc if pipeline else None, wall=wall,
+                           launches=launches,
+                           counts=[(t.cache_hits, t.cache_misses,
+                                    t.compiled) for t in tickets])
+        del svc, tickets
+    if timed["sync"]["counts"] != timed["pipelined"]["counts"]:
+        fail("service: per-ticket hits and misses differ between modes")
+    log(f"service: walls: naive {naive_wall:.6f} s, sync serve "
+        f"{timed['sync']['wall']:.6f} s, pipelined serve "
+        f"{timed['pipelined']['wall']:.6f} s")
+
+    # every ticket against its solo run, in both modes, on fresh services
+    # (the checks' solo runs would disturb the timed walls)
+    for pipeline in (False, True):
+        mode = "pipelined" if pipeline else "sync"
+        svc = new_service(dcir, pipeline)
+        checked = []
+
+        def check(t, mode=mode, checked=checked):
+            require_done(t)
+            s = solo_run(t.study, dcir)
+            check_served(s, t.result, f"service ({mode}): ticket {t.seq}")
+            checked.append(t.seq)
+            t.result = None
+
+        warm_up(svc, n_patients, check)
+        tickets, _, _ = serve(svc, n_patients, check)
+        counts = [(t.cache_hits, t.cache_misses, t.compiled)
+                  for t in tickets]
+        if counts != timed[mode]["counts"] or len(checked) != \
+                SERVICE_QUERIES + 3:
+            fail(f"service: {mode}: the checked serve's hits and misses "
+                 f"differ from the timed serve's")
+        if pipeline:
+            wire_checks(svc, dcir, n_patients)
+        log(f"service: {mode}: all {len(checked)} tickets (3 warm-up) == "
+            f"their solo runs (every slot, words, counts, FlatteningStats, "
+            f"cohorts, flow, plan log), hits and misses == the timed "
+            f"serve's")
+        del svc, tickets
+    torch.cuda.empty_cache()
+
+    svc = timed["pipelined"]["svc"]
+    profile_phase("service", lambda: serve(svc, n_patients, take))
+    return timed["pipelined"]["launches"]
+
+
+def solo_run(study, dcir):
+    import torch
+
+    res = study.run(dict(dcir), engine="cuda", predicate_engine="cuda",
+                    device="cuda")
+    torch.cuda.synchronize()
+    return res
+
+
+def wire_checks(svc, dcir, n_patients: int) -> None:
+    """A wire spec of shape full equals its Study twin; a malformed spec
+    comes back ``invalid`` with its code."""
+    import copy
+
+    from repro_torch.study import spec_from_study
+
+    twin = service_study(0, n_patients)
+    spec = json.loads(json.dumps(spec_from_study(twin)))
+    got = []
+    t = svc.submit_spec(spec, tenant="wire")
+    svc.drain(on_done=got.append)
+    if t.status != "done" or got != [t]:
+        fail(f"service: the wire spec is {t.status}: {t.error!r}")
+    check_served(solo_run(twin, dcir), t.result, "service: wire spec")
+    payload = t.wire_payload()
+    t.result = None
+    bad = copy.deepcopy(spec)
+    bad["cohorts"]["broken"] = "base & ("
+    b = svc.submit_spec(bad, tenant="wire")
+    codes = {e["code"] for e in b.wire_payload()["errors"]}
+    if b.status != "invalid" or "SPEC-012" not in codes:
+        fail(f"service: the malformed spec came back {b.status} {codes}")
+    log(f"service: wire spec of shape full == its Study twin (payload "
+        f"{json.dumps(payload)}); malformed spec -> {b.status} {sorted(codes)}")
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: attention (B6) and the serving path
 # ---------------------------------------------------------------------------
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's own bounds
 # and each row's max abs error over that row's largest |output|: with randn
@@ -1891,7 +2254,7 @@ def serving_phase(reps: int, rate: float):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: gemma3-12b at full width (head dim 240)
+# phase 11: gemma3-12b at full width (head dim 240)
 # ---------------------------------------------------------------------------
 GEMMA = "gemma3-12b"
 GEMMA_PREFILL = 4096       # one 1 x 4,096-token prefill
@@ -2071,7 +2434,7 @@ def gemma3_phase(reps: int, rate: float):
 
 
 # ---------------------------------------------------------------------------
-# phases 10-11: B5 and B2b, and the sharded quickstart
+# phases 12-13: B5 and B2b, and the sharded quickstart
 # ---------------------------------------------------------------------------
 HP_DESTS = (1, 2, 4, 8, 15, 64)
 HP_BLOCKS = (256, 512, 1024)
@@ -2672,6 +3035,7 @@ def main() -> int:
     timed("segmented_scan", segment_scan_battery, torch.device("cuda"))
     q_launches, timing, study, dcir, qres = timed(
         "quickstart", study_phase, args.n_patients, REPS, rate)
+    qstar = dcir            # the service phase serves the quickstart's star
     timed("quickstart_profile", profile_phase, "quickstart",
           lambda: study.run(dict(dcir), engine="cuda",
                             predicate_engine="cuda", device="cuda"))
@@ -2690,10 +3054,16 @@ def main() -> int:
         k_launches = timed("chunked", chunked_phase, prep, chunk_resident,
                            store_dir)
         del prep
+        torch.cuda.empty_cache()
+        f_launches = timed("spec", spec_phase, store_dir / "spec")
     finally:
         import shutil
 
         shutil.rmtree(store_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    v_launches = timed("service", service_phase, qstar, args.n_patients)
+    del qstar
+    gc.collect()
     torch.cuda.empty_cache()
     c_launches, c_timing, cstudy, ctables = timed(
         "cohort", cohort_phase, args.cohort_patients, REPS, rate)
@@ -2724,8 +3094,9 @@ def main() -> int:
                    "flash_attention": s_timing, "flash_decode": decode,
                    "hash_partition_plan": h_timing,
                    "filter_compact_mask": mask_timing})
-    log(f"launches: quickstart {q_launches}, chunked {k_launches}, cohort "
-        f"study {c_launches}, serving {s_launches}, gemma3 prefill "
+    log(f"launches: quickstart {q_launches}, chunked {k_launches}, spec "
+        f"corpus {f_launches}, service {v_launches}, cohort study "
+        f"{c_launches}, serving {s_launches}, gemma3 prefill "
         f"{g_launches}, sharded (summed over ranks) {h_launches}")
     log(f"serving: B6 at the batcher's decode shape {json.dumps(decode)}")
     log(f"serving: B6 prefill at danube's shape {json.dumps(s_timing)}")
@@ -2737,9 +3108,9 @@ def main() -> int:
     log(f"phases: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
         f", total {time.perf_counter() - t_all:.3f} s")
 
-    launches = {k: q_launches[k] + k_launches[k] + c_launches[k]
-                + s_launches[k] + g_launches[k] + h_launches[k]
-                for k in KERNELS}
+    launches = {k: q_launches[k] + k_launches[k] + f_launches[k]
+                + v_launches[k] + c_launches[k] + s_launches[k]
+                + g_launches[k] + h_launches[k] for k in KERNELS}
     # the flash_attention count takes one per call on both of B6's routes:
     # its prefill kernel launched on the calls the decode route did not take
     launches["flash_attention"] -= launches["flash_decode"]

@@ -10,7 +10,10 @@ compaction and prunes unread columns through the flatten joins; ``execute``
 label stripping) so structurally-equal queries share one runner;
 ``analyze`` statically verifies plans (``Study.check``), and
 ``ChunkedExecutor`` (``Study.run_chunked``) runs a study out-of-core over a
-partitioned star.
+partitioned star.  ``spec`` makes studies wire data (``compile_spec``,
+``spec_from_study``), and ``CohortQueryService`` (service) serves many
+tenants' studies against one resident star with runners shared across
+normalized shapes and a cross-tenant subgraph result cache.
 """
 from repro_torch.study.plan import Node, Plan, PlanBuilder
 from repro_torch.study.expr import (
@@ -36,6 +39,13 @@ from repro_torch.study.analyze import (
     Diagnostic, DIAGNOSTIC_CODES, PlanValidationError, analyze, errors,
 )
 from repro_torch.study.chunked import ChunkedExecutor, ChunkedReport
+from repro_torch.study.spec import (
+    SPEC_CODES, SpecIssue, SpecValidationError, compile_spec, error_payload,
+    spec_from_study, validate_spec,
+)
+from repro_torch.study.service import (
+    CohortQueryService, ServiceConfig, ServiceStats, TenantStats, QueryTicket,
+)
 
 __all__ = [
     "Node", "Plan", "PlanBuilder",
@@ -52,4 +62,8 @@ __all__ = [
     "cut_points", "subgraph_hashes",
     "Diagnostic", "DIAGNOSTIC_CODES", "PlanValidationError", "analyze",
     "errors", "ChunkedExecutor", "ChunkedReport",
+    "SPEC_CODES", "SpecIssue", "SpecValidationError", "compile_spec",
+    "error_payload", "spec_from_study", "validate_spec",
+    "CohortQueryService", "ServiceConfig", "ServiceStats", "TenantStats",
+    "QueryTicket",
 ]

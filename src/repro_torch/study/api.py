@@ -174,6 +174,13 @@ class Study:
         self._flatten_keep: Dict[str, Optional[bool]] = {}  # name -> keep mode
         self._chained: set = set()            # flatten names extractors read
         self._opt_cache: Optional[Tuple[Tuple, Plan]] = None  # (key, optimized)
+        # declarative build log: one (step, kwargs) record per successful
+        # builder call, holding the *arguments* (schema/extractor/Expr
+        # objects, not plan nodes).  ``study.spec.spec_from_study`` serializes
+        # it into the wire-format spec; methods with no wire equivalent
+        # (``source``) record an explicit marker so the exporter can refuse
+        # loudly instead of silently dropping state.
+        self._recipe: List[Tuple[str, Dict[str, Any]]] = []
 
     # -- builder steps -------------------------------------------------------
     def _register(self, name: str, nid: int, kind: str) -> "Study":
@@ -186,6 +193,7 @@ class Study:
     def source(self, name: str, table: ColumnarTable) -> "Study":
         """Pre-bind a flat table (alternative to passing it at run())."""
         self._sources[name] = table
+        self._recipe.append(("source", {"name": name}))
         return self
 
     def flatten(self, schema, name: Optional[str] = None,
@@ -235,6 +243,12 @@ class Study:
                 partitioned_on=partitioned_on)
         self._flatten_keep[name or schema.name] = keep
         self._register(name or schema.name, nid, "table")
+        self._recipe.append(("flatten", {
+            "schema": schema, "name": name, "time_slices": time_slices,
+            "time_column": time_column, "t0": t0, "t1": t1,
+            "expand_capacity": expand_capacity, "expand_slack": expand_slack,
+            "exchange": exchange, "partitioned_on": partitioned_on,
+            "keep": keep}))
         return self
 
     def extract(self, extractor, name: Optional[str] = None,
@@ -250,6 +264,9 @@ class Study:
             self._chained.add(extractor.source)
         nid = extractor.contribute(self._b, compact=compact, base=base)
         self._register(name or extractor.name, nid, "events")
+        self._recipe.append(("extract", {
+            "extractor": extractor, "name": name or extractor.name,
+            "compact": compact}))
         return self
 
     def patients(self, source: str = "IR_BEN",
@@ -260,6 +277,7 @@ class Study:
                      ["patient_id", "gender", "birth_date", "death_date"])
         t = b.compact(b.dedupe(t, ["patient_id"]))
         self._register(name, t, "table")
+        self._recipe.append(("patients", {"source": source, "name": name}))
         return self
 
     def transform(self, fn: str, *inputs: str, name: Optional[str] = None,
@@ -273,12 +291,16 @@ class Study:
         ids = [self._node_of(x) for x in inputs]
         nid = self._b.transform(fn, ids, name=name or fn, **kwargs)
         self._register(name or fn, nid, "events")
+        self._recipe.append(("transform", {
+            "fn": fn, "inputs": list(inputs), "name": name or fn,
+            "kwargs": dict(kwargs)}))
         return self
 
     def concat(self, name: str, *inputs: str) -> "Study":
         """Stack named event outputs into one table (schemas must match)."""
         nid = self._b.concat([self._node_of(x) for x in inputs], name=name)
         self._register(name, nid, "events")
+        self._recipe.append(("concat", {"name": name, "inputs": list(inputs)}))
         return self
 
     def filter(self, source: str, expr, name: Optional[str] = None) -> "Study":
@@ -293,6 +315,8 @@ class Study:
             raise ValueError(f"filter source {source!r} is not a table output")
         nid = self._b.predicate(self._node_of(source), expr, label=name)
         self._register(name, nid, kind)
+        self._recipe.append(("filter", {
+            "source": source, "where": expr, "name": name}))
         return self
 
     def cohort(self, name: str, expr: str,
@@ -310,6 +334,7 @@ class Study:
         the bug this parser fixes, and parentheses restore it explicitly."""
         nid = self._lower_cohort(parse_cohort_expr(expr), name)
         self._register(name, nid, "cohort")
+        self._recipe.append(("cohort", {"name": name, "expr": expr}))
         return self
 
     def flow(self, *names: str) -> "Study":
@@ -319,6 +344,7 @@ class Study:
         self._flow_names = list(names)
         self._names[_FLOW_OUT] = self._b.set_output(_FLOW_OUT, fid)
         self._kinds[_FLOW_OUT] = "flow"
+        self._recipe.append(("flow", {"names": list(names)}))
         return self
 
     def featurize(self, name: str, cohort: str, kind: str = "dense",
@@ -331,6 +357,9 @@ class Study:
         nid = self._b.featurize(cid, name=name, kind=kind, patients=pid, **kwargs)
         self._feature_names.append(name)
         self._register(name, nid, "feature")
+        self._recipe.append(("featurize", {
+            "name": name, "cohort": cohort, "kind": kind,
+            "patients": patients, "kwargs": dict(kwargs)}))
         return self
 
     def window(self, start: int, end: int) -> "Study":

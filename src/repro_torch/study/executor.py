@@ -392,7 +392,8 @@ def run_plan_body(plan: Plan, env: Dict[str, ColumnarTable], n_patients: int,
                   engine: str, n_shards: int = 1,
                   predicate_engine: Optional[str] = None, group=None, *,
                   keep: Tuple[int, ...],
-                  shape_sink: Optional[Dict[int, int]] = None):
+                  shape_sink: Optional[Dict[int, int]] = None,
+                  cached: Optional[Dict[int, Any]] = None):
     """node id -> value for every array-valued node, plus per-node counts
     (0-d tensors) and per-join FlatteningStats dicts.  ``predicate_engine``
     is the fallback for predicate nodes the optimizer did not stamp
@@ -402,7 +403,10 @@ def run_plan_body(plan: Plan, env: Dict[str, ColumnarTable], n_patients: int,
     they are the identity.  Only the values of the ``keep`` nodes
     are returned; every other value is dropped after its last consumer ran
     (as XLA frees a buffer past its last use).  ``shape_sink`` (a dict)
-    receives every table node's capacity (padded rows)."""
+    receives every table node's capacity (padded rows).  ``cached`` maps
+    node ids to values computed earlier (the query service's cache hits):
+    such a node takes its value instead of evaluating — its kernel does not
+    launch and it has no stats — while its inputs still run."""
     _check_engine(engine)
     peng = _pk.resolve_engine(predicate_engine, engine, env_device(env))
     ids = traced_ids(plan)
@@ -434,10 +438,13 @@ def run_plan_body(plan: Plan, env: Dict[str, ColumnarTable], n_patients: int,
             used = {j for m in groups[i] for j in plan.nodes[m].inputs}
         else:
             ins = [vals[j] for j in node.inputs]
-            out = _eval_node(node, ins, env, n_patients, engine, n_shards,
-                             predicate_engine=peng, group=group)
-            if node.op in STATS_OPS:
-                out, stats[i] = out
+            if cached is not None and i in cached:
+                out = cached[i]
+            else:
+                out = _eval_node(node, ins, env, n_patients, engine, n_shards,
+                                 predicate_engine=peng, group=group)
+                if node.op in STATS_OPS:
+                    out, stats[i] = out
             if shape_sink is not None and node.op in TABLE_OPS:
                 shape_sink[i] = int(out.capacity)
             vals[i] = out

@@ -194,6 +194,71 @@ def test_chunked_run_on_the_card(device, tmp_path):
     assert ex.report.resumed == 2
 
 
+def _service_study(threshold, codes):
+    from repro_torch.core import DCIR_SCHEMA, drug_dispenses, \
+        medical_acts_dcir
+    from repro_torch.study import Study, col
+
+    return (Study(n_patients=3_000).flatten(DCIR_SCHEMA)
+            .extract(drug_dispenses(codes=codes), name="drugs")
+            .extract(medical_acts_dcir(), name="acts")
+            .filter("acts", col("value") >= threshold, name="acts_hi")
+            .cohort("base", "drugs")
+            .cohort("final", "base & acts_hi"))
+
+
+@pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])
+def test_service_on_the_card_equals_solo_runs(device, pipeline):
+    """The query service under the cuda engines on the card: every ticket
+    equals its solo run bit for bit (every slot), one runner for the
+    shape, and B1 launches one fewer for every predicate cut served from
+    the cache than the solo runs."""
+    from repro_torch.data import SyntheticConfig, generate_dcir
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.study import CohortQueryService, ServiceConfig
+    from repro_torch.study.fuzz import results_equal
+    from repro_torch.study.plan import PREDICATE_OPS
+
+    star = generate_dcir(SyntheticConfig(n_patients=3_000, seed=13),
+                         device=device)
+    kw = {"engine": "cuda", "predicate_engine": "cuda", "device": device}
+    queries = [(100, list(range(100, 140))), (500, list(range(60, 100))),
+               (100, list(range(100, 140)))]
+    solo, solo_b1 = [], 0
+    for th, codes in queries:
+        reset_launch_counts()
+        solo.append(_service_study(th, codes).run(dict(star), **kw))
+        solo_b1 += launch_counts["predicate_bitset"]
+    svc = CohortQueryService(dict(star), device=device, config=ServiceConfig(
+        engine="cuda", predicate_engine="cuda", pipeline=pipeline))
+    reset_launch_counts()
+    tickets = [svc.submit(_service_study(th, codes), tenant=f"t{i}")
+               for i, (th, codes) in enumerate(queries)]
+    svc.drain()
+    for t, want in zip(tickets, solo):
+        assert t.status == "done", t.error
+        assert results_equal(t.result, want, layout=True) is None
+        assert t.result.flatten_stats == want.flatten_stats
+    assert svc.stats.compile_count == 1 and svc.stats.demotions == 0
+    assert tickets[2].cache_misses == 0
+    hits = sum(op in PREDICATE_OPS for t in tickets for op in t.hit_ops)
+    assert hits > 0
+    assert launch_counts["predicate_bitset"] == solo_b1 - hits
+
+
+def test_spec_differential_on_the_card(device, tmp_path):
+    """The fuzzer's oracle on the card runs all three arms (torch, cuda,
+    chunked), and a short corpus passes under the cuda executor engine."""
+    from repro_torch.study.fuzz import run_corpus
+
+    report = run_corpus(n=8, seed=0, n_patients=500,
+                        store_dir=str(tmp_path), engine="cuda",
+                        device=device)
+    assert report.ok, report.summary()
+    assert report.arms == ("torch", "cuda", "chunked")
+    assert report.n_valid == 4 and report.n_mutated == 4
+
+
 def _same_result(a, b):
     """Valid rows in order (a chunked table is the concatenation of its
     chunks' tables, so its capacity and padding differ), cohort words,
