@@ -77,7 +77,9 @@ nothing falls back to the CPU):
      solo runs and the hit counts predict; both modes again on fresh
      services with every ticket checked against its solo run (every slot,
      words, counts, FlatteningStats, cohorts, flow, plan log), hits and
-     misses equal to the timed serves'; a wire spec of shape full equal to
+     misses equal to the timed serves'; a served log is the solo run's
+     without its plan entries, as the reference's local service logs
+     (ROADMAP C12); a wire spec of shape full equal to
      its Study twin and a malformed spec ``invalid`` with SPEC-012; one
      warm pipelined serve traced (``chiprun_out/service_trace.json``);
   7. cohort study: ``examples/cohort_study.py``'s plan (DCIR and PMSI,
@@ -150,12 +152,30 @@ nothing falls back to the CPU):
      rank functions in ``distributed.launch``); B5 is timed at rank 0's
      largest exchange beside its plain version, its bound and the torch
      engine's ``hash_partition`` (the argsort route, a yardstick).
+  14. sharded service: on the same 4 ranks, after the sharded quickstart
+     and over the same star (each rank's 2,000,000 patients, generated
+     once), ``CohortQueryService(star, mesh=group)`` under the cuda
+     engines, 8 slots, a 16 GiB global budget: the naive path (the mix's
+     first 12 queries, every tenant x every shape, each a solo
+     ``Study.run(mesh=group)``, timed; their launches and digests kept),
+     then on fresh services, synchronous and pipelined, a warm-up query a
+     shape and the 12 queries timed (3 runners built, 0 demotions, B1-B3
+     and B5 launches equal to what the solo runs and the hits predict),
+     then both modes again with every ticket held against its solo run
+     (this rank's block words and valid rows, so the gathered rows, global
+     counts, FlatteningStats with the exchanges', cohort words, flow, the
+     log) and no block past its capacity; hits, misses, evictions and
+     bytes cached equal on every rank and in both modes.  Per rank: the
+     walls, latency p50/p95, ``submit_s``/``realize_s``, hits, misses,
+     evictions, bytes cached, peak memory, staged bytes and collectives by
+     kind (``tools/sharded_service_probe.py`` runs this phase alone).
 
 Each kernel's launches are counted over the two studies' first runs, the
 first chunked run (with prefetch), the spec corpus, the timed pipelined
 service serve, the serving path (prefill and batcher), gemma3-12b's
-prefill and the sharded run's first cuda run (summed over ranks), with
-the counts set to 0 just before each.  B6's
+prefill, the sharded run's first cuda run and the sharded service's timed
+pipelined serve (both summed over ranks), with the counts set to 0 just
+before each.  B6's
 ``flash_attention`` count takes one per call on either route; its record's
 launches are those calls less the decode route's (``flash_decode``), which
 has a record of its own.  B2b runs on none of these paths (no caller
@@ -1563,31 +1583,44 @@ def service_study(q: int, n_patients: int):
 
 
 def check_served(solo, got, what: str) -> None:
-    """A served result against its solo run, bit for bit."""
+    """A served result against its solo run, bit for bit; the served log is
+    the solo run's without its plan entries, as the reference's local
+    service logs (ROADMAP C12)."""
     compare_results(solo, got, what, full_columns=True)
-    if plan_entries(solo.log) != plan_entries(got.log):
-        fail(f"{what}: the OperationLog's plan entries differ")
+    if [e for e in log_entries(solo.log) if not e["op"].startswith("plan:")] \
+            != log_entries(got.log):
+        fail(f"{what}: the OperationLog differs from the solo run's without "
+             f"its plan entries")
 
 
-def new_service(dcir, pipeline: bool):
+def log_entries(log_) -> list:
+    return [{k: v for k, v in e.items() if k != "ts"} for e in log_.entries]
+
+
+def new_service(dcir, pipeline: bool, mesh=None, device="cuda"):
     from repro_torch.study import CohortQueryService, ServiceConfig
 
-    return CohortQueryService(dict(dcir), device="cuda", config=ServiceConfig(
-        n_slots=SERVICE_SLOTS, engine="cuda", predicate_engine="cuda",
-        cache_budget_bytes=SERVICE_CACHE, pipeline=pipeline))
+    return CohortQueryService(dict(dcir), mesh=mesh, device=device,
+                              config=ServiceConfig(
+                                  n_slots=SERVICE_SLOTS, engine="cuda",
+                                  predicate_engine="cuda",
+                                  cache_budget_bytes=SERVICE_CACHE,
+                                  pipeline=pipeline))
 
 
-def serve(svc, n_patients: int, on_done) -> tuple:
-    """The 32 queries of 4 tenants through ``svc``, each ticket handed to
-    ``on_done`` as the drain resolves it; returns the tickets, the wall
-    (to a synchronization) and the submit/realize stage times."""
+def serve(svc, n_patients: int, on_done, queries: int = SERVICE_QUERIES
+          ) -> tuple:
+    """The mix's first ``queries`` queries (4 tenants) through ``svc``, each
+    ticket handed to ``on_done`` as the drain resolves it; returns the
+    tickets, the wall (to a synchronization) and the submit/realize stage
+    times."""
     import torch
 
     sub0, rea0 = svc.stats.submit_s, svc.stats.realize_s
     t0 = time.perf_counter()
     tickets = [svc.submit(service_study(q, n_patients),
                           tenant=f"tenant{q % SERVICE_TENANTS}")
-               for q in range(SERVICE_QUERIES)]
+               for q in range(queries)]
     svc.drain(on_done=on_done)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1595,12 +1628,13 @@ def serve(svc, n_patients: int, on_done) -> tuple:
                            svc.stats.realize_s - rea0)
 
 
-def warm_up(svc, n_patients: int, on_done) -> None:
-    """One query of each shape, with literals of its own, pays the
-    service's three runner builds."""
+def warm_up(svc, n_patients: int, on_done, first: int = SERVICE_QUERIES
+            ) -> None:
+    """One query of each shape, with literals of its own (queries
+    ``first`` to ``first + 2`` of the mix), pays the service's three
+    runner builds."""
     for i in range(3):
-        svc.submit(service_study(SERVICE_QUERIES + i, n_patients),
-                   tenant="warmup")
+        svc.submit(service_study(first + i, n_patients), tenant="warmup")
     svc.drain(on_done=on_done)
 
 
@@ -1616,15 +1650,15 @@ def take(ticket) -> None:
     ticket.result = None
 
 
-def predicted_launches(tickets, solo: dict) -> dict:
-    """What the hit and miss counts predict: each query launches what its
-    solo run launches, less one B1 launch for every predicate cut served
-    from the cache (a hit node does not run; B2 and B3 never sit on a
-    cut)."""
+def predicted_launches(tickets, solo: dict, kernels=KERNELS_B1_B3) -> dict:
+    """What the hit and miss counts predict for the tickets of queries 0,
+    1, ...: each query launches what its solo run launches, less one B1
+    launch for every predicate cut served from the cache (a hit node does
+    not run; B2, B3 and B5 never sit on a cut, and a hit node's inputs
+    still run)."""
     from repro_torch.study.plan import PREDICATE_OPS
 
-    out = {k: sum(solo[q][k] for q in range(SERVICE_QUERIES))
-           for k in KERNELS_B1_B3}
+    out = {k: sum(solo[q][k] for q in range(len(tickets))) for k in kernels}
     out["predicate_bitset"] -= sum(op in PREDICATE_OPS
                                    for t in tickets for op in t.hit_ops)
     return out
@@ -2712,6 +2746,179 @@ def comparable(small: list) -> list:
     return [study] + small[1:]
 
 
+SHARDED_QUERIES = 12        # the mix's first 12: every tenant x every shape
+KERNELS_SHARDED_SERVICE = KERNELS_B1_B3 + ("hash_partition_plan",)
+
+
+def local_digest(res) -> dict:
+    """What the sharded service phase compares of one sharded result, on
+    the host and with no collective (a drain's ``on_done`` may issue none):
+    per event table this rank's block words and count, the global count and
+    the block's valid rows in order; FlatteningStats, cohort words, flow and
+    the log without ``ts``."""
+    events = {}
+    for name, t in res.events.items():
+        b = t.block
+        keep = b.valid_bool()
+        events[name] = (b.valid.cpu().numpy(), int(b.count), t.count,
+                        {c: v[keep].cpu().numpy()
+                         for c, v in b.columns.items()})
+    return dict(events=events, stats=res.flatten_stats,
+                cohorts={k: c.subjects.cpu().numpy()
+                         for k, c in res.cohorts.items()},
+                flow=None if res.flow is None else res.flow.flowchart(),
+                log=log_entries(res.log))
+
+
+def sharded_service(group, device, dcir, n_patients: int) -> dict:
+    """The sharded query service on this rank (phase 14): the naive path
+    (each of the mix's first 12 queries a solo ``Study.run(mesh=group)``,
+    timed, its launches and digest kept; and the 3 warm-up queries'), then
+    on fresh services, synchronous and pipelined, a warm-up query a shape
+    and the 12 queries timed (launch counts set to 0 just before, read just
+    after: they must equal what the solo runs and the hits predict), then
+    both modes again with every ticket's digest held against its solo
+    run's and its blocks against their capacity.  Returns host data and its
+    log lines."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.launch import blocks
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    me = dist.get_rank(group)
+    t_phase = time.perf_counter()
+    lines = []
+    solo, digests, naive_lat = {}, {}, []
+    for q in range(SHARDED_QUERIES + 3):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = service_study(q, n_patients).run(
+            dict(dcir), engine="cuda", predicate_engine="cuda", mesh=group,
+            device=device)
+        torch.cuda.synchronize()
+        if q < SHARDED_QUERIES:
+            naive_lat.append(time.perf_counter() - t0)
+        solo[q] = dict(launch_counts)
+        n_ex = sum(n.op == "exchange" for n in res.plan.nodes)
+        if solo[q]["hash_partition_plan"] != n_ex:
+            fail(f"rank {me}: solo query {q} launched B5 "
+                 f"{solo[q]['hash_partition_plan']} times for {n_ex} "
+                 f"exchanges")
+        digests[q] = local_digest(res)
+        del res
+    torch.cuda.empty_cache()
+    naive_wall = sum(naive_lat)
+    lines.append(
+        f"rank {me}: service naive path, {SHARDED_QUERIES} solo sharded "
+        f"runs: wall {naive_wall:.6f} s, latency p50 "
+        f"{np.percentile(naive_lat, 50):.6f} s p95 "
+        f"{np.percentile(naive_lat, 95):.6f} s")
+
+    def q_of(t) -> int:
+        # warm-up tickets come first (queries 12-14), then queries 0-11
+        return SHARDED_QUERIES + t.seq if t.seq < 3 else t.seq - 3
+
+    timed = {}
+    for pipeline in (False, True):
+        mode = "pipelined" if pipeline else "sync"
+        svc = new_service(dcir, pipeline, mesh=group, device=device)
+        warm_up(svc, n_patients, take, first=SHARDED_QUERIES)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        comm.reset_stats()
+        dist.barrier(group)
+        tickets, wall, (sub, rea) = serve(svc, n_patients, take,
+                                          queries=SHARDED_QUERIES)
+        launches = dict(launch_counts)
+        staging = dict(comm.stats)
+        peak = torch.cuda.max_memory_allocated()
+        st = svc.stats
+        lat = [t.latency_s for t in tickets]
+        want = predicted_launches(tickets, solo, KERNELS_SHARDED_SERVICE)
+        got = {k: launches[k] for k in KERNELS_SHARDED_SERVICE}
+        lines.append(
+            f"rank {me}: service {mode}: serve wall {wall:.6f} s for "
+            f"{SHARDED_QUERIES} queries (after {st.compile_count} warm-up "
+            f"runner builds), submit_s {sub:.6f}, realize_s {rea:.6f}; "
+            f"latency p50 {np.percentile(lat, 50):.6f} s p95 "
+            f"{np.percentile(lat, 95):.6f} s; hits {st.cache_hits}, misses "
+            f"{st.cache_misses}, evictions {st.cache_evictions}, entries "
+            f"{st.cache_entries}, bytes cached {st.cache_bytes} "
+            f"({st.cache_bytes / 2**30:.3f} GiB accounted, the global "
+            f"tables'), demotions {st.demotions}; peak device memory "
+            f"{peak / 2**30:.3f} GiB; host staging "
+            f"{staging['staged_bytes'] / 2**30:.3f} GiB in "
+            f"{staging['staging_s']:.3f} s; collectives "
+            f"{staging['collectives']} ({staging['all_to_all']} all-to-all, "
+            f"{staging['all_reduce']} sums, {staging['all_gather']} gathers, "
+            f"{staging['objects']} agreements); launches {got} against "
+            f"{want} predicted from the solo runs and the hits")
+        if st.compile_count != 3 or st.demotions:
+            fail(f"rank {me}: service {mode}: {st.compile_count} runners "
+                 f"built (3 shapes), {st.demotions} demotions")
+        if got != want:
+            fail(f"rank {me}: service {mode}: launches differ from the "
+                 f"prediction")
+        timed[mode] = dict(wall=wall, launches=launches, peak=peak,
+                           staging=staging, lat=lat, sub=sub, rea=rea,
+                           counts=[(t.cache_hits, t.cache_misses, t.compiled)
+                                   for t in tickets],
+                           cache=(st.cache_hits, st.cache_misses,
+                                  st.cache_evictions, st.cache_bytes))
+        del svc, tickets
+        gc.collect()
+        torch.cuda.empty_cache()
+    if timed["sync"]["counts"] != timed["pipelined"]["counts"]:
+        fail(f"rank {me}: service: per-ticket hits and misses differ between "
+             f"modes")
+
+    for pipeline in (False, True):
+        mode = "pipelined" if pipeline else "sync"
+        svc = new_service(dcir, pipeline, mesh=group, device=device)
+        checked = []
+
+        def check(t, mode=mode, checked=checked):
+            require_done(t)
+            q = q_of(t)
+            for name, b in blocks(t.result).items():
+                if b["storage"] > b["capacity"]:
+                    fail(f"rank {me}: service {mode}: query {q}'s {name} "
+                         f"holds {b['storage']} slots behind a block of "
+                         f"{b['capacity']}")
+            got = local_digest(t.result)
+            if not same_host(got, digests[q]):
+                bad = [k for k in got if not same_host(got[k], digests[q][k])]
+                fail(f"rank {me}: service {mode}: query {q} differs from its "
+                     f"solo sharded run in {bad}")
+            checked.append(t.seq)
+            t.result = None
+
+        warm_up(svc, n_patients, check, first=SHARDED_QUERIES)
+        tickets, _, _ = serve(svc, n_patients, check, queries=SHARDED_QUERIES)
+        counts = [(t.cache_hits, t.cache_misses, t.compiled) for t in tickets]
+        if counts != timed[mode]["counts"] or \
+                len(checked) != SHARDED_QUERIES + 3:
+            fail(f"rank {me}: service {mode}: the checked serve's hits and "
+                 f"misses differ from the timed serve's")
+        lines.append(
+            f"rank {me}: service {mode}: all {len(checked)} tickets (3 "
+            f"warm-up) == their solo sharded runs (this rank's block words "
+            f"and valid rows, global counts, FlatteningStats with the "
+            f"exchanges', cohort words, flow, log), no block past its "
+            f"capacity, hits and misses == the timed serve's")
+        del svc, tickets
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(lines=lines, naive_wall=naive_wall, naive_lat=naive_lat,
+                timed=timed, launches=timed["pipelined"]["launches"],
+                seconds=time.perf_counter() - t_phase)
+
+
 def sharded_rank(group, device, n_patients: int, star: dict,
                  cpu_patients: int, reps: int, rate: float) -> dict:
     """One rank of the sharded phase (run by ``distributed.launch.spawn``):
@@ -2845,13 +3052,18 @@ def sharded_rank(group, device, n_patients: int, star: dict,
             f"FlatteningStats); final cohort {final} subjects\n" + flow)
         del single
         timing = time_partition(rec, reps, rate)
-    del rec, first, dcir
+    del rec, first
+    torch.cuda.empty_cache()
+    dist.barrier(group)
+    service = sharded_service(group, device, dcir, n_patients)
+    lines += service.pop("lines")
+    del dcir
     torch.cuda.empty_cache()
     dist.barrier(group)
     small = small_sharded(group, device, star, cpu_patients)
     return dict(lines=lines, launches=launches, wall=wall, warm=warm,
                 staging=staging, staging_warm=staging2, timing=timing,
-                small=small, peak=peak, caps=caps,
+                small=small, peak=peak, caps=caps, service=service,
                 block_counts=block_counts, global_counts=global_counts)
 
 
@@ -2930,7 +3142,30 @@ def sharded_phase(n_patients: int, cpu_patients: int, reps: int,
         f"hash_partition per_dest={timing['per_dest']}: torch route "
         f"(argsort) {timing['torch_route_ms']:.4f} ms, cuda route (B5) "
         f"{timing['cuda_route_ms']:.4f} ms")
-    return launches, timing
+    # phase 14: the sharded service, every rank the same decisions
+    svc = [r["service"] for r in ranks]
+    for me, v in enumerate(svc):
+        if any(v["timed"][m][k] != svc[0]["timed"][m][k]
+                for m in ("sync", "pipelined") for k in ("counts", "cache")):
+            fail(f"sharded service: rank {me}'s hits, misses, evictions or "
+                 f"bytes cached differ from rank 0's")
+    sv_launches = {k: sum(v["launches"][k] for v in svc)
+                   for k in svc[0]["launches"]}
+    walls = {m: [round(v["timed"][m]["wall"], 6) for v in svc]
+             for m in ("sync", "pipelined")}
+    log(f"sharded service: {SHARDS} ranks, {SHARDED_QUERIES} queries at "
+        f"{n_patients} patients: naive walls "
+        f"{[round(v['naive_wall'], 6) for v in svc]} s, sync "
+        f"{walls['sync']} s, pipelined {walls['pipelined']} s; hits, misses "
+        f"and evictions equal on every rank and in both modes "
+        f"({svc[0]['timed']['sync']['cache'][:3]}); peak device memory "
+        f"sync {[round(v['timed']['sync']['peak'] / 2**30, 3) for v in svc]}"
+        f" GiB, pipelined "
+        f"{[round(v['timed']['pipelined']['peak'] / 2**30, 3) for v in svc]}"
+        f" GiB; the phase {[round(v['seconds'], 3) for v in svc]} s a rank; "
+        f"launches of the timed pipelined serve summed over ranks "
+        f"{sv_launches}")
+    return launches, timing, sv_launches
 
 
 KERNELS = {
@@ -3082,9 +3317,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mask_timing = timed("partition", partition_battery, torch.device("cuda"),
                         REPS, rate)
-    h_launches, h_timing = timed("sharded", sharded_phase,
-                                 args.sharded_patients, CPU_PATIENTS, REPS,
-                                 rate)
+    h_launches, h_timing, sv_launches = timed(
+        "sharded", sharded_phase, args.sharded_patients, CPU_PATIENTS, REPS,
+        rate)
     # B1-B3 are timed at the quickstart's (larger) shapes, B4 at the cohort
     # study's, B6's prefill kernel at the prefill's and its decode route at
     # the batcher's full-ring shape (L2 cleared); launches are summed over
@@ -3097,7 +3332,8 @@ def main() -> int:
     log(f"launches: quickstart {q_launches}, chunked {k_launches}, spec "
         f"corpus {f_launches}, service {v_launches}, cohort study "
         f"{c_launches}, serving {s_launches}, gemma3 prefill "
-        f"{g_launches}, sharded (summed over ranks) {h_launches}")
+        f"{g_launches}, sharded (summed over ranks) {h_launches}, sharded "
+        f"service (summed over ranks) {sv_launches}")
     log(f"serving: B6 at the batcher's decode shape {json.dumps(decode)}")
     log(f"serving: B6 prefill at danube's shape {json.dumps(s_timing)}")
     for label, t in g_timing.items():
@@ -3110,7 +3346,8 @@ def main() -> int:
 
     launches = {k: q_launches[k] + k_launches[k] + f_launches[k]
                 + v_launches[k] + c_launches[k] + s_launches[k]
-                + g_launches[k] + h_launches[k] for k in KERNELS}
+                + g_launches[k] + h_launches[k] + sv_launches[k]
+                for k in KERNELS}
     # the flash_attention count takes one per call on both of B6's routes:
     # its prefill kernel launched on the calls the decode route did not take
     launches["flash_attention"] -= launches["flash_decode"]

@@ -9,8 +9,9 @@ what several ranks sharing one card must use (NCCL refuses two ranks on one
 device), so under gloo a CUDA tensor is staged through pinned host memory
 around the collective.  That is the collective's transport, not a fallback:
 every kernel still runs on the card.  ``stats`` counts the collectives (in
-all and by kind) and the staging's bytes and host seconds (``reset_stats``
-sets them to 0).
+all and by kind; ``objects`` are the small pickled host objects the sharded
+query service agrees on) and the staging's bytes and host seconds
+(``reset_stats`` sets them to 0).
 """
 from __future__ import annotations
 
@@ -19,15 +20,16 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["world_size", "group_key", "all_to_all", "all_reduce_sum",
-           "all_gather_cat", "stats", "reset_stats"]
+           "all_gather_cat", "all_gather_object", "broadcast_object",
+           "stats", "reset_stats"]
 
 stats = {"collectives": 0, "all_to_all": 0, "all_reduce": 0,
-         "all_gather": 0, "staged_bytes": 0, "staging_s": 0.0}
+         "all_gather": 0, "objects": 0, "staged_bytes": 0, "staging_s": 0.0}
 
 
 def reset_stats() -> None:
     stats.update(collectives=0, all_to_all=0, all_reduce=0, all_gather=0,
-                 staged_bytes=0, staging_s=0.0)
+                 objects=0, staged_bytes=0, staging_s=0.0)
 
 
 def _count(kind: str) -> None:
@@ -53,6 +55,24 @@ def group_key(group) -> tuple:
 
 def _staged(x: torch.Tensor, group) -> bool:
     return x.device.type == "cuda" and dist.get_backend(group) != "nccl"
+
+
+def all_gather_object(obj, group) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank (the
+    sharded query service's agreement on admission and cache decisions)."""
+    _count("objects")
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def broadcast_object(obj, group, src: int = 0):
+    """The picklable ``obj`` of the group's rank ``src``, on every rank."""
+    _count("objects")
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, src),
+                               group=group)
+    return box[0]
 
 
 def _to_host(x: torch.Tensor) -> torch.Tensor:

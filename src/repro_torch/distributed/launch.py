@@ -14,10 +14,10 @@ loads the kernel library the parent built (``build.library()`` before
 ``spawn``) and never builds it itself.
 
 ``study_rank``, ``flatten_rank`` and ``exposures_rank`` are the rank
-functions of the sharded study path: they take numpy tables, run one entry
-point sharded over the group, gather its table outputs (``ShardedTable.
-gather``) and return numpy results; ``tasks_rank`` runs several of them in
-one job.
+functions of the sharded study path, and ``service_rank`` that of the
+sharded query service: they take numpy tables, run one entry point sharded
+over the group, gather its table outputs (``ShardedTable.gather``) and
+return numpy results; ``tasks_rank`` runs several of them in one job.
 """
 from __future__ import annotations
 
@@ -35,8 +35,8 @@ import torch.multiprocessing as mp
 
 from repro_torch.core.columnar import resolve_device
 
-__all__ = ["spawn", "tasks_rank", "study_rank", "flatten_rank",
-           "exposures_rank", "result_to_numpy"]
+__all__ = ["spawn", "tasks_rank", "study_rank", "service_rank",
+           "flatten_rank", "exposures_rank", "result_to_numpy", "blocks"]
 
 
 def _rank_main(rank: int, n: int, store_path: str, device: str,
@@ -152,6 +152,17 @@ def result_to_numpy(res) -> Dict[str, Any]:
     }
 
 
+def blocks(res) -> Dict[str, Dict[str, int]]:
+    """What this rank holds of each event table of a sharded result: the
+    block's capacity and count, and the elements of the largest tensor
+    storage behind it."""
+    return {k: {"capacity": t.block.capacity, "count": int(t.block.count),
+                "storage": max(x.untyped_storage().nbytes() // x.element_size()
+                               for x in (t.block.valid,
+                                         *t.block.columns.values()))}
+            for k, t in res.events.items()}
+
+
 def study_rank(group, device, study, star: Mapping[str, Mapping],
                runs: Sequence[Tuple[str, str]], axis_name: str = "data"
                ) -> List[Dict[str, Any]]:
@@ -178,17 +189,71 @@ def study_rank(group, device, study, star: Mapping[str, Mapping],
             torch.cuda.synchronize(device)
         seconds = time.perf_counter() - t0
         launches, stats = dict(launch_counts), dict(comm.stats)
-        blocks = {k: {"capacity": t.block.capacity,
-                      "count": int(t.block.count),
-                      "storage": max(x.untyped_storage().nbytes()
-                                     // x.element_size()
-                                     for x in (t.block.valid,
-                                               *t.block.columns.values()))}
-                  for k, t in res.events.items()}
+        held = blocks(res)
         summary = result_to_numpy(res)
         summary.update(launches=launches, comm=stats, seconds=seconds,
-                       blocks=blocks)
+                       blocks=held)
         out.append(summary)
+    return out
+
+
+def service_rank(group, device, star: Mapping[str, Mapping],
+                 jobs: Sequence[Tuple[str, Any]], config: Mapping[str, Any],
+                 axis_name: str = "data",
+                 then: Sequence[Tuple[Any, Sequence]] = ()
+                 ) -> List[Dict[str, Any]]:
+    """The sharded query service on this rank:
+    ``CohortQueryService(star, mesh=group, config=ServiceConfig(**config))``
+    serves ``jobs`` (``(tenant, study)`` pairs, all submitted, then one
+    drain; or a mapping from rank to such pairs, whose tickets fail on
+    every rank where the ranks' studies differ); then, for each
+    ``(new_star, jobs)`` of ``then``, ``update_tables(new_star)`` where
+    ``new_star`` is not None and a drain of those jobs.  Per batch: each
+    ticket's status, error, ``cache_hits``, ``cache_misses``, ``compiled``
+    and ``hit_ops``, and for a done ticket what this rank held of its
+    events when the drain returned (``blocks``) and its
+    ``result_to_numpy`` (gathered after the drain, in ticket order); the
+    service's stats and cache entries, the batch's kernel launches and
+    collectives (before the gathers) and its wall seconds."""
+    from repro_torch.distributed import comm
+    from repro_torch.interop import tables_from_numpy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.study.service import CohortQueryService, ServiceConfig
+
+    if isinstance(jobs, Mapping):
+        jobs = jobs[dist.get_rank(group)]
+    svc = CohortQueryService(tables_from_numpy(star, device=device),
+                             config=ServiceConfig(**dict(config)),
+                             mesh=group, axis_name=axis_name, device=device)
+    out = []
+    for new_star, batch in ((None, jobs), *then):
+        if new_star is not None:
+            svc.update_tables(tables_from_numpy(new_star, device=device))
+        reset_launch_counts()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        tickets = [svc.submit(study, tenant=tenant) for tenant, study in batch]
+        svc.drain()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        launches, stats = dict(launch_counts), dict(comm.stats)
+        rows = []
+        for t in tickets:
+            row = {"status": t.status,
+                   "error": None if t.error is None else repr(t.error),
+                   "cache_hits": t.cache_hits,
+                   "cache_misses": t.cache_misses,
+                   "compiled": t.compiled, "hit_ops": list(t.hit_ops)}
+            if t.result is not None:
+                row["blocks"] = blocks(t.result)
+            rows.append(row)
+        for t, row in zip(tickets, rows):
+            if t.result is not None:
+                row.update(result_to_numpy(t.result))
+        out.append({"tickets": rows, "stats": svc.stats.snapshot(),
+                    "cache_entries": len(svc._cache), "launches": launches,
+                    "comm": stats, "seconds": seconds})
     return out
 
 

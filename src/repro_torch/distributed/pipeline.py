@@ -14,7 +14,7 @@ whole table.  The pipeline-parallel model stack (``gpipe``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -23,8 +23,8 @@ from repro_torch.core import bitset as _bs
 from repro_torch.core.columnar import ColumnarTable
 from repro_torch.distributed import comm
 
-__all__ = ["execute_plan_sharded", "pad_tables_for_mesh", "shard_rows",
-           "gather_table", "ShardedTable"]
+__all__ = ["execute_plan_sharded", "run_shard", "pad_tables_for_mesh",
+           "shard_rows", "gather_table", "ShardedTable"]
 
 _M32 = 1 << 32
 
@@ -94,6 +94,78 @@ def _aligned(t: ColumnarTable) -> ColumnarTable:
     return t if cap == t.capacity else t.pad_to(cap)
 
 
+def _output_ids(plan) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The nodes a sharded run hands back: the event tables (named table
+    outputs and the tables cohorts are built from) and the cohort bitsets
+    that cross shards (base cohorts and named cohort outputs; interior
+    ``cohort_op`` bits stay local, the Study layer replays the algebra)."""
+    from repro_torch.study.plan import COHORT_OPS, TABLE_OPS
+
+    out_ids = {i for _, i in plan.outputs}
+    table_ids = {i for i in out_ids if plan.nodes[i].op in TABLE_OPS}
+    cohort_ids = tuple(i for i, nd in enumerate(plan.nodes)
+                       if nd.op == "cohort_from_events"
+                       or (nd.op in COHORT_OPS and i in out_ids))
+    ev_ids = tuple(sorted(table_ids | {
+        nd.inputs[0] for nd in plan.nodes if nd.op == "cohort_from_events"}))
+    return ev_ids, cohort_ids
+
+
+def run_shard(plan, local: Mapping[str, ColumnarTable], n_patients: int,
+              engine: str, predicate_engine: str, group, *,
+              cached: Optional[Dict[int, ColumnarTable]] = None,
+              cuts: Tuple[int, ...] = ()):
+    """Run ``plan`` over this rank's row blocks ``local``: the shard-local
+    runner of ``execute_plan_sharded`` and of the sharded query service.
+
+    Every rank of ``group`` calls it with the same plan (its exchanges are
+    all-to-alls over the group).  ``cached`` maps node ids to this rank's
+    blocks of earlier results (the service's cache hits): such a node takes
+    its block and does not evaluate, and contributes no stats.  Returns,
+    with no gather:
+
+    - ``t_out``: every event table (``_output_ids``) as this rank's block,
+      its capacity 32-aligned;
+    - ``b_out``: the cohort words, summed over the group (each patient lives
+      on one shard, so the int32 sum of the disjoint partial bitsets is
+      their OR);
+    - ``c_out``, ``s_out``: every node's count and every stat, global, from
+      one int64 sum over the group (host ints; the uint32 ``key_sum*``
+      checksums modulo 2**32);
+    - ``cut_out``: the blocks of the ``cuts`` nodes, as computed (or as
+      cached)."""
+    from repro_torch.study.executor import env_device, run_plan_body
+
+    ev_ids, cohort_ids = _output_ids(plan)
+    device = env_device(local)
+    vals, counts, stats = run_plan_body(
+        plan, dict(local), n_patients, engine, n_shards=comm.world_size(group),
+        predicate_engine=predicate_engine, group=group, cached=cached,
+        keep=tuple(sorted(set(ev_ids) | set(cohort_ids) | set(cuts))))
+    cut_out = {i: vals[i] for i in cuts}
+    t_out = {i: _aligned(vals.pop(i)) for i in ev_ids}
+    b_out = {}
+    if cohort_ids:
+        words = comm.all_reduce_sum(
+            torch.cat([vals[i] for i in cohort_ids]), group)
+        for i, w in zip(cohort_ids,
+                        words.split([vals[i].shape[0] for i in cohort_ids])):
+            b_out[i] = w
+    del vals
+    # every count and stat in one int64 sum
+    ids = tuple(sorted(counts))
+    flat = [(i, k) for i in sorted(stats) for k in stats[i]]
+    vec = torch.stack([counts[i].to(device, torch.int64) for i in ids]
+                      + [stats[i][k].to(device, torch.int64)
+                         for i, k in flat])
+    host = comm.all_reduce_sum(vec, group).cpu().tolist()
+    c_out = dict(zip(ids, host[:len(ids)]))
+    s_out: Dict[int, Dict[str, int]] = {}
+    for (i, k), v in zip(flat, host[len(ids):]):
+        s_out.setdefault(i, {})[k] = v % _M32 if k.startswith("key_sum") else v
+    return t_out, b_out, c_out, s_out, cut_out
+
+
 def execute_plan_sharded(plan, tables, n_patients: int, mesh,
                          axis_name: str = "data", engine: str = "torch",
                          predicate_engine=None):
@@ -111,15 +183,14 @@ def execute_plan_sharded(plan, tables, n_patients: int, mesh,
     gives the shard count and makes the exchanges real.  Every rank passes
     the same global ``tables`` (every rank planned from
     them, so the plans agree); each pads them to ``32 * n`` rows and runs
-    its row block.  Each table output stays on its rank as a
+    its row block (``run_shard``).  Each table output stays on its rank as a
     ``ShardedTable``: the rank's block, 32-aligned, with the global count;
     cohort words come back summed, whole on every rank.  Returns ``(vals,
     counts, stats)`` shaped like the local executor's (counts and stats as
     host ints) so ``Study.run`` shares its realization path."""
     from repro_torch.kernels import predicate as _pk
     from repro_torch.study.executor import (cached_executable, env_device,
-                                            run_plan_body, traced_ids)
-    from repro_torch.study.plan import COHORT_OPS, TABLE_OPS
+                                            traced_ids)
 
     n = comm.world_size(mesh)
     me = dist.get_rank(mesh)
@@ -129,17 +200,6 @@ def execute_plan_sharded(plan, tables, n_patients: int, mesh,
                        f"{sorted(tables)}")
     env = pad_tables_for_mesh({s: tables[s] for s in plan.sources()}, n)
     local = {s: shard_rows(t, me, n) for s, t in env.items()}
-
-    out_ids = {i for _, i in plan.outputs}
-    table_ids = tuple(i for i in sorted(out_ids)
-                      if plan.nodes[i].op in TABLE_OPS)
-    # base cohort bitsets cross shards; interior cohort_op bits stay local
-    # (the Study layer replays the algebra), named cohort outputs export
-    cohort_ids = tuple(i for i, nd in enumerate(plan.nodes)
-                       if nd.op == "cohort_from_events"
-                       or (nd.op in COHORT_OPS and i in out_ids))
-    ev_ids = tuple(sorted(set(table_ids) | {
-        nd.inputs[0] for nd in plan.nodes if nd.op == "cohort_from_events"}))
     device = env_device(local)
     peng = _pk.resolve_engine(predicate_engine, engine, device)
     key = (plan.key(), n_patients, engine, peng, comm.group_key(mesh),
@@ -147,32 +207,7 @@ def execute_plan_sharded(plan, tables, n_patients: int, mesh,
 
     def build():
         def run(local, group):
-            vals, counts, stats = run_plan_body(
-                plan, local, n_patients, engine, n_shards=n, predicate_engine=peng, group=group,
-                keep=tuple(sorted(set(ev_ids) | set(cohort_ids))))
-            t_out = {i: _aligned(vals.pop(i)) for i in ev_ids}
-            b_out = {}
-            if cohort_ids:
-                words = comm.all_reduce_sum(
-                    torch.cat([vals[i] for i in cohort_ids]), group)
-                for i, w in zip(cohort_ids,
-                                words.split([vals[i].shape[0]
-                                             for i in cohort_ids])):
-                    b_out[i] = w
-            # every count and stat in one int64 sum
-            ids = tuple(sorted(counts))
-            flat = [(i, k) for i in sorted(stats) for k in stats[i]]
-            vec = torch.stack([counts[i].to(device, torch.int64)
-                               for i in ids]
-                              + [stats[i][k].to(device, torch.int64)
-                                 for i, k in flat])
-            host = comm.all_reduce_sum(vec, group).cpu().tolist()
-            c_out = dict(zip(ids, host[:len(ids)]))
-            s_out: Dict[int, Dict[str, int]] = {}
-            for (i, k), v in zip(flat, host[len(ids):]):
-                s_out.setdefault(i, {})[k] = \
-                    v % _M32 if k.startswith("key_sum") else v
-            return t_out, b_out, c_out, s_out
+            return run_shard(plan, local, n_patients, engine, peng, group)[:4]
 
         return run
 

@@ -22,7 +22,7 @@ import dataclasses
 import heapq
 import itertools
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,16 +84,26 @@ class SlotScheduler:
                            (-int(priority), next(self._seq), key, item))
             return True
 
-    def admit(self) -> List[Tuple[Any, Any]]:
+    def admit(self, select: Optional[Callable[[Any], bool]] = None
+              ) -> List[Tuple[Any, Any]]:
         """Fill free slots from the queue; returns admitted ``(item, key)``
-        pairs in admission order."""
+        pairs in admission order.  ``select`` (the port's addition) admits
+        exactly the queued items it accepts, in queue order, whatever the
+        free slots and quotas: a follower replaying another scheduler's
+        admission (the sharded query service's ranks follow rank 0's), whose
+        own releases may still be on their way."""
         admitted: List[Tuple[Any, Any]] = []
         skipped: List[Tuple[int, int, Any, Any]] = []
         with self._lock:
-            while self._heap and self._live < self.n_slots:
+            while self._heap and (select is not None
+                                  or self._live < self.n_slots):
                 entry = heapq.heappop(self._heap)
                 _, _, key, item = entry
-                if (self.per_key_quota is not None
+                if select is not None:
+                    if not select(item):
+                        skipped.append(entry)
+                        continue
+                elif (self.per_key_quota is not None
                         and self._inflight.get(key, 0) >= self.per_key_quota):
                     skipped.append(entry)  # over quota: stays queued in place
                     continue

@@ -92,6 +92,13 @@ class Expr:
     # incoherent — Exprs are deliberately unhashable (plans store to_param()).
     __hash__ = None
 
+    def __setstate__(self, state):
+        # unpickling (a study sent to a spawned rank) sets the immutable
+        # slots as the constructors do
+        for d in (state if isinstance(state, tuple) else (state,)):
+            for k, v in (d or {}).items():
+                object.__setattr__(self, k, v)
+
     # -- comparisons ---------------------------------------------------------
     def __eq__(self, other):  # type: ignore[override]
         return Cmp("==", self, _coerce(other))

@@ -36,32 +36,58 @@ computes in place (``executor.run_plan_body(cached=...)``).
 Async step pipeline: each admitted ticket runs in two stages.  The
 *submit* stage (optimize, analyze, normalize, runner lookup, cache lookup,
 the runner's launches) runs on the calling thread; the *realize* stage
-(counts and stats read back, cache insert, ``_finish_result`` replay) runs
-on a single worker thread, so the card's work for the next admitted ticket
-overlaps host realization of the previous one.  Scheduler slots release
-when realization *finishes*.  A submit-stage cache miss publishes its cut
-hash in an in-flight registry; a later admission wanting the same subgraph
-waits for that realization's insert instead of recomputing, so pipelined
-hit/miss accounting matches the synchronous mode
-(``ServiceConfig.pipeline=False``) exactly.
+(stats read back, cache insert, ``_finish_result`` replay) runs on a single
+worker thread, so the card's work for the next admitted ticket overlaps
+host realization of the previous one.  Scheduler slots release when
+realization *finishes*.  A submit-stage cache miss publishes its cut hash
+in an in-flight registry; a later admission wanting the same subgraph waits
+for that realization's insert instead of recomputing, so pipelined hit/miss
+accounting matches the synchronous mode (``ServiceConfig.pipeline=False``)
+exactly.
+
+Sharded residency (``mesh=``, a ``torch.distributed`` process group): the
+service is SPMD, as ``Study.run(mesh=group)`` is.  Every rank of the group
+builds it from the same global star (padded once per table version with
+``distributed.pipeline.pad_tables_for_mesh``), submits the same tickets in
+the same order and runs its own row block through the runner that
+``Study.run(mesh=group)`` runs (``distributed.pipeline.run_shard``), with
+its own cache of shard-local cut blocks.  Plans are optimized and analyzed
+for the group's shard count, as ``Study.run(mesh=group)`` plans them (the
+reference's service plans them for one shard, which drops every exchange:
+ROADMAP C13).  Cache and runner keys are salted with the group and
+``axis_name``.  Only cut nodes whose shard-local capacity is 32-aligned are
+cached (the reference's rule); a runner learns which from its first run.
+An entry's ``nbytes`` is the global table's (the block's bytes times the
+group's size), so the budget means what it means in the reference.  Rank 0
+decides each admission and every hit, and every rank checks that it agrees
+(one small pickled all-gather); a disagreement raises on every rank.  Every
+collective runs on the calling thread, in ticket order: the exchanges, the
+sums of counts, stats and cohort words, the agreement, and the inserts'
+bookkeeping with them; the realize worker issues none, and a ticket whose
+study featurizes (its cohorts' events are gathered) realizes on the calling
+thread.  Event tables of a sharded result are ``ShardedTable``s (the rank's
+block, the global count), cohort words are whole on every rank, and counts,
+FlatteningStats and the log are global.  ``drain(on_done=)`` runs on every
+rank as its own drain resolves each ticket: it must issue no collective.
 
 Results are realized through ``Study._finish_result`` — the exact code path
-``Study.run`` uses — and the realize stage records the plan's nodes into
-each result's OperationLog as ``Study.run`` does (the reference's local
-path leaves them out), so every admitted query's events, cohorts,
-flowcharts, features, FlatteningStats and plan log entries equal a solo run
-of the same study.  The sharded service (``mesh=``) is not ported yet.
+``Study.run`` uses — so every admitted query's events, cohorts, flowcharts
+and features equal a solo run of the same study.  As in the reference, a
+locally served result's OperationLog holds only the ``flow:``/``featurize:``
+entries that realization writes, and a sharded one also the plan's entries
+(ROADMAP C12).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import threading
 import time
 from collections import OrderedDict, deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-import torch
+import torch.distributed as dist
 
 from repro_torch.core.columnar import ColumnarTable, resolve_device
 from repro_torch.core.metadata import OperationLog
@@ -251,7 +277,8 @@ class _Count:
 @dataclasses.dataclass
 class _Program:
     fn: Callable                       # (env, lits, vecs, cached) -> outs
-    cut_ids: Tuple[int, ...]
+    # the cached cut nodes; a sharded runner learns them on its first run
+    cut_ids: Optional[Tuple[int, ...]]
 
 
 @dataclasses.dataclass
@@ -266,6 +293,14 @@ def _table_nbytes(t: ColumnarTable) -> int:
                + t.valid.element_size() * t.valid.numel() + 4)
 
 
+def _cacheable(block: ColumnarTable) -> bool:
+    """A sharded cut's block is cached only where its words split on row
+    boundaries: a 32-aligned capacity, one word a 32 rows, some column
+    (the reference's ``_eligible``)."""
+    return (bool(block.columns) and block.capacity % 32 == 0
+            and block.valid.numel() * 32 == block.capacity)
+
+
 # ---------------------------------------------------------------------------
 # the service
 # ---------------------------------------------------------------------------
@@ -277,9 +312,12 @@ class CohortQueryService:
     ``config.pipeline`` (the default) realization runs on a worker thread so
     the next admission's work on the card overlaps it; ``pipeline=False`` is
     the synchronous reference mode.  ``device`` (None = CUDA; raises where
-    CUDA is absent) is where the tables reside and every query runs;
-    ``axis_name`` is kept for the reference's signature.  See the module
-    docstring for the three-layer architecture.
+    CUDA is absent) is where the tables reside and every query runs.
+    ``mesh`` (a ``torch.distributed`` process group) makes the service
+    sharded: every rank of the group builds it from the same tables and
+    makes the same calls in the same order; ``axis_name`` salts its cache
+    keys, as in the reference.  See the module docstring for the
+    three-layer architecture and the sharded path.
     """
 
     def __init__(self, tables: Dict[str, ColumnarTable],
@@ -287,12 +325,16 @@ class CohortQueryService:
                  config: Optional[ServiceConfig] = None,
                  mesh=None, axis_name: str = "data",
                  log: Optional[OperationLog] = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "CohortQueryService(mesh=...): the sharded service is not "
-                "ported yet (ROADMAP A7, the sharded service)")
         self.config = config or ServiceConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self._world, self._rank = 1, 0
+        if mesh is not None:
+            from repro_torch.distributed import comm
+
+            self._world = comm.world_size(mesh)
+            self._rank = dist.get_rank(mesh)
         self.log = log if log is not None else OperationLog()
         self.stats = ServiceStats(table_version=int(table_version))
         self._version = int(table_version)
@@ -328,6 +370,14 @@ class CohortQueryService:
         # loaded ONCE per table version: residency on the card is the
         # service's contract — queries never re-upload sources
         self._env = {k: t.to(self.device) for k, t in tables.items()}
+        if self.mesh is not None:
+            from repro_torch.distributed.pipeline import (pad_tables_for_mesh,
+                                                          shard_rows)
+
+            # every rank keeps the padded star and runs its row block
+            self._env = pad_tables_for_mesh(self._env, self._world)
+            self._local = {k: shard_rows(t, self._rank, self._world)
+                           for k, t in self._env.items()}
         self.log.record(
             op="service:load_tables", inputs={},
             outputs={k: _Count(int(t.count)) for k, t in self._env.items()},
@@ -428,9 +478,10 @@ class CohortQueryService:
         quotas) and run their submit stage; returns the number admitted.
         With ``config.pipeline`` the realize stage is handed to the
         realization worker and the slot releases when it completes;
-        otherwise it runs inline."""
+        otherwise it runs inline.  Sharded, it is a collective: every rank
+        of the group calls it as often as rank 0 does."""
         self._reap(block=False)
-        admitted = self._sched.admit()
+        admitted = self._admit()
         for ticket, tenant in admitted:
             with self._lock:
                 self.stats.tenant(tenant).admitted += 1
@@ -442,7 +493,11 @@ class CohortQueryService:
                 self._sched.release(tenant)
                 self._notify(ticket)
             else:
-                if self.config.pipeline:
+                # a sharded featurize gathers its cohort's events: its
+                # collectives stay on this thread
+                if self.config.pipeline and not (
+                        self.mesh is not None
+                        and ticket.study._feature_names):
                     self._pending.append(
                         (ticket,
                          self._pool().submit(self._realize_ticket, ticket,
@@ -450,7 +505,41 @@ class CohortQueryService:
                 else:
                     self._realize_ticket(ticket, realize)
                     self._notify(ticket)
+            # hand over what the worker finished meanwhile, so that a
+            # caller who lets results go keeps few of a window's alive
+            self._reap(block=False)
         return len(admitted)
+
+    def _admit(self) -> List[Tuple[QueryTicket, str]]:
+        """One window of admissions.  Sharded, every rank admits what rank 0
+        admitted: a rank's slots free as its own realize worker finishes,
+        so the ranks' schedulers may disagree for a moment."""
+        if self.mesh is None:
+            return self._sched.admit()
+        from repro_torch.distributed import comm
+
+        mine = self._sched.admit() if self._rank == 0 else None
+        seqs = comm.broadcast_object(
+            None if mine is None else [t.seq for t, _ in mine], self.mesh)
+        if mine is None:
+            want = frozenset(seqs)
+            mine = self._sched.admit(select=lambda t: t.seq in want)
+        self._agree(("admit", [t.seq for t, _ in mine]), "admission")
+        return mine
+
+    def _agree(self, view, what: str):
+        """Every rank's ``view`` (small host data), checked equal to rank
+        0's on every rank: a disagreement raises on every rank, never
+        deadlocks (every rank sees the same gathered views)."""
+        from repro_torch.distributed import comm
+
+        views = comm.all_gather_object(view, self.mesh)
+        bad = [r for r, v in enumerate(views) if v != views[0]]
+        if bad:
+            raise RuntimeError(
+                f"sharded service: ranks {bad} disagree with rank 0 on "
+                f"{what}: {views[bad[0]]!r} != {views[0]!r}")
+        return views[0]
 
     def drain(self, on_done: Optional[Callable[[QueryTicket], None]] = None
               ) -> None:
@@ -469,11 +558,20 @@ class CohortQueryService:
             while True:
                 if self.step():
                     continue
+                if self.mesh is not None:
+                    # every rank steps as often as rank 0 does: the queue
+                    # (the same on every rank) decides, not this rank's own
+                    # realizations
+                    if not self._sched.queued():
+                        break
+                    self._reap(block=True)
+                    continue
                 if self._pending:
                     # nothing admittable: a finishing realization frees slots
                     self._reap(block=True)
                     continue
                 break
+            self._quiesce()
         finally:
             self._on_done = None
         with self._lock:
@@ -593,21 +691,11 @@ class CohortQueryService:
         (run by ``_realize_ticket``, possibly on the worker)."""
         t0 = time.perf_counter()
         study = ticket.study
-        peng_arg = self.config.predicate_engine
-        plan = study.optimized_plan(tables=self._env,
-                                    predicate_engine=peng_arg or "auto",
-                                    engine=self.config.engine,
-                                    device=self.device)
-        # admission-time static analysis: error-level plans (unknown
-        # sources, dropped-column reads, provably-empty masks, kind
-        # mismatches) are rejected BEFORE they reach normalization or the
-        # runner cache — a broken tenant plan must not cost a runner or
-        # poison shared ones
-        diags = _analyze_plan(plan, tables=self._env, n_shards=1,
-                              n_patients=study.n_patients)
-        if any(d.severity == "error" for d in diags):
-            raise PlanValidationError(diags)
-        realize_vals = self._run_local(ticket, study, plan)
+        if self.mesh is None:
+            plan = self._admit_plan(study)
+            realize_vals = self._run_local(ticket, study, plan)
+        else:
+            plan, realize_vals = self._run_sharded(ticket, study)
         ticket.submit_s = time.perf_counter() - t0
         with self._lock:
             self.stats.submit_s += ticket.submit_s
@@ -618,7 +706,7 @@ class CohortQueryService:
             for i, d in stats_orig.items():
                 d.setdefault("stage", plan.nodes[i].label())
             ticket.result = study._finish_result(plan, vals, stats_orig,
-                                                 req_log)
+                                                 req_log, mesh=self.mesh)
             now = time.perf_counter()
             ticket.realize_s = now - t1
             ticket.latency_s = now - t0
@@ -638,6 +726,24 @@ class CohortQueryService:
                             "latency_us": round(ticket.latency_s * 1e6, 1)})
 
         return realize
+
+    def _admit_plan(self, study: Study) -> Plan:
+        """The optimized plan, for the group's shard count (C13: the
+        reference's service plans for one shard, whatever its mesh)."""
+        plan = study.optimized_plan(
+            tables=self._env, n_shards=self._world,
+            predicate_engine=self.config.predicate_engine or "auto",
+            engine=self.config.engine, device=self.device)
+        # admission-time static analysis: error-level plans (unknown
+        # sources, dropped-column reads, provably-empty masks, kind
+        # mismatches) are rejected BEFORE they reach normalization or the
+        # runner cache — a broken tenant plan must not cost a runner or
+        # poison shared ones
+        diags = _analyze_plan(plan, tables=self._env, n_shards=self._world,
+                              n_patients=study.n_patients)
+        if any(d.severity == "error" for d in diags):
+            raise PlanValidationError(diags)
+        return plan
 
     def _audit_demotions(self, ticket: QueryTicket,
                          nplan: NormalPlan) -> None:
@@ -706,14 +812,12 @@ class CohortQueryService:
         hashes = subgraph_hashes(nplan, salt=salt)
         hit_entries = self._cut_lookup(prog, hashes, ticket)
 
-        vals_c, counts_vec, stats = prog.fn(
+        vals_c, stats = prog.fn(
             env, lits, vecs, {i: e.value for i, e in hit_entries.items()})
         cplan = nplan.plan
 
         def realize_vals():
-            # the only reads of the card's results: two transfers, here
-            counts_c = dict(zip(_executor.traced_ids(cplan),
-                                counts_vec.cpu().tolist()))
+            # the only read of the card's results: one transfer, here
             host_stats = _executor._host_stats(stats)
             with self._lock:
                 for i in prog.cut_ids:
@@ -733,7 +837,6 @@ class CohortQueryService:
             canon_of = nplan.orig_to_canon()
             keep_orig = _executor.keep_ids(plan)
             vals: Dict[int, Any] = {}
-            counts: Dict[int, int] = {}
             stats_orig: Dict[int, Dict[str, int]] = {}
             for oi in range(len(plan.nodes)):
                 ci = canon_of.get(oi)
@@ -741,8 +844,109 @@ class CohortQueryService:
                     continue
                 if oi in keep_orig and ci in vals_c:
                     vals[oi] = vals_c[ci]
-                if ci in counts_c:
-                    counts[oi] = counts_c[ci]
+                if ci in host_stats:
+                    stats_orig[oi] = dict(host_stats[ci])
+            # as the reference's local path: no plan entries (C12)
+            return vals, stats_orig, OperationLog()
+
+        return realize_vals
+
+    def _run_sharded(self, ticket: QueryTicket, study: Study):
+        """The sharded twin of ``_run_local``, on every rank of the group:
+        plan, normalize and look up as ``_run_local`` does, agree with
+        every rank, run this rank's blocks (``pipeline.run_shard``), and
+        account hits, misses and inserts here, on the calling thread (the
+        counts and stats arrive on the host with the run's sum).  Returns
+        the plan and the realize closure, which issues no collective."""
+        from repro_torch.distributed import comm
+        from repro_torch.distributed.pipeline import ShardedTable, run_shard
+
+        group = self.mesh
+        err = None
+        try:
+            plan = self._admit_plan(study)
+            peng = _pk.resolve_engine(self.config.predicate_engine,
+                                      self.config.engine, self.device)
+            nplan = normalize(plan)
+            lits, vecs = device_params(nplan, self.device)
+            skey = (nplan.plan.key(), study.n_patients, self.config.engine,
+                    peng, params_signature(lits, vecs),
+                    comm.group_key(group), self.axis_name)
+            salt = (self._version, study.n_patients, self.config.engine,
+                    peng, OPTIMIZER_VERSION, comm.group_key(group),
+                    self.axis_name)
+            hashes = subgraph_hashes(nplan, salt=salt)
+            prog = self._programs.get(skey)
+            cands = (prog.cut_ids if prog is not None
+                     else cut_points(nplan.plan))
+            with self._lock:
+                hits = tuple(i for i in cands if hashes[i] in self._cache)
+            view = ("ticket", ticket.seq,
+                    hashlib.sha256(repr(skey).encode()).hexdigest(),
+                    prog is None, tuple(hashes[i] for i in cands), hits)
+        except Exception as e:  # noqa: BLE001 — every rank must agree first
+            err = e
+            view = ("ticket", ticket.seq, "failed", type(e).__name__)
+        # rank 0's decisions; every rank checks it would decide the same
+        self._agree(view, f"ticket {ticket.seq}")
+        if err is not None:
+            raise err
+        self._audit_demotions(ticket, nplan)
+        with self._lock:
+            hit_entries = {i: self._cache[hashes[i]] for i in hits}
+            for i in hits:
+                self._cache.move_to_end(hashes[i])
+        if prog is None:
+            prog = self._build_sharded_program(nplan, study.n_patients, peng)
+        cplan = nplan.plan
+        env = {s: self._local[s] for s in cplan.sources()}
+        t_out, b_out, c_out, s_out, cut_out = prog.fn(
+            env, lits, vecs, {i: e.value for i, e in hit_entries.items()},
+            cands)
+        if prog.cut_ids is None:
+            # the reference's rule (decided there before the run, from the
+            # shapes): only a 32-aligned shard-local capacity is cached
+            prog.cut_ids = self._agree(
+                ("cuts", tuple(i for i in cands if _cacheable(cut_out[i]))),
+                "the cached cut nodes")[1]
+            self._programs[skey] = prog
+            self._count_compile(ticket, nplan, prog)
+
+        host_stats = {i: dict(d) for i, d in s_out.items()}
+        with self._lock:
+            for i in prog.cut_ids:
+                if i in hit_entries:
+                    ticket.cache_hits += 1
+                    ticket.hit_ops.append(cplan.nodes[i].op)
+                    self.stats.cache_hits += 1
+                    if hit_entries[i].stats is not None:
+                        host_stats[i] = dict(hit_entries[i].stats)
+                else:
+                    ticket.cache_misses += 1
+                    self.stats.cache_misses += 1
+                    block = cut_out[i]
+                    # the global table's bytes, as the reference's entry
+                    self._insert(hashes[i], block, s_out.get(i),
+                                 nbytes=self._world
+                                 * (_table_nbytes(block) - 4) + 4)
+        del cut_out
+
+        def realize_vals():
+            vals_c: Dict[int, Any] = {
+                i: ShardedTable(t, group, c_out[i]) for i, t in t_out.items()}
+            vals_c.update(b_out)
+            canon_of = nplan.orig_to_canon()
+            vals: Dict[int, Any] = {}
+            counts: Dict[int, int] = {}
+            stats_orig: Dict[int, Dict[str, int]] = {}
+            for oi in range(len(plan.nodes)):
+                ci = canon_of.get(oi)
+                if ci is None:
+                    continue
+                if ci in vals_c:
+                    vals[oi] = vals_c[ci]
+                if ci in c_out:
+                    counts[oi] = c_out[ci]
                 if ci in host_stats:
                     stats_orig[oi] = dict(host_stats[ci])
             req_log = OperationLog()
@@ -752,7 +956,7 @@ class CohortQueryService:
                 device=self.device)
             return vals, stats_orig, req_log
 
-        return realize_vals
+        return plan, realize_vals
 
     # -- shape runners -------------------------------------------------------
     def _program(self, ticket: QueryTicket, nplan: NormalPlan,
@@ -764,46 +968,68 @@ class CohortQueryService:
             return prog
         prog = self._build_local_program(nplan, n_patients, peng)
         self._programs[skey] = prog
+        self._count_compile(ticket, nplan, prog)
+        return prog
+
+    def _count_compile(self, ticket: QueryTicket, nplan: NormalPlan,
+                       prog: _Program) -> None:
         with self._lock:
             self.stats.compile_count += 1
             ticket.compiled = True
             self.log.record(op="service:compile", inputs={}, outputs={},
                             params={"plan_nodes": len(nplan.plan.nodes),
                                     "cut_points": len(prog.cut_ids),
-                                    "sharded": False,
+                                    "sharded": self.mesh is not None,
                                     "executables": self.stats.compile_count})
-        return prog
 
     def _build_local_program(self, nplan: NormalPlan, n_patients: int,
                              peng: str) -> _Program:
         """The runner of one normalized shape: the plan body
         (``executor.run_plan_body``, which evaluates each node with
         ``_eval_node``) with the hit cut nodes' tables injected.  It returns
-        the kept and cut values, every traced node's count stacked into one
-        tensor, and the stats tensors — nothing read back to the host."""
+        the kept and cut values and the stats tensors — nothing read back
+        to the host."""
         plan = nplan.plan
         engine = self.config.engine
         cut_ids = cut_points(plan)
         keep = tuple(sorted(set(_executor.keep_ids(plan)) | set(cut_ids)))
-        ids = _executor.traced_ids(plan)
 
         def fn(env, lits, vecs, cached):
             with bound_params(lits, vecs):
-                vals, counts, stats = _executor.run_plan_body(
+                vals, _, stats = _executor.run_plan_body(
                     plan, env, n_patients, engine, predicate_engine=peng,
                     keep=keep, cached=cached)
-            stacked = (torch.stack([counts[i].to(self.device) for i in ids])
-                       if ids else torch.zeros((0,), dtype=torch.int32))
-            return vals, stacked, stats
+            return vals, stats
 
         return _Program(fn=fn, cut_ids=cut_ids)
 
+    def _build_sharded_program(self, nplan: NormalPlan, n_patients: int,
+                               peng: str) -> _Program:
+        """The sharded runner of one normalized shape:
+        ``pipeline.run_shard`` (the runner ``Study.run(mesh=group)`` runs)
+        over this rank's blocks, the hit cut nodes' blocks injected, the
+        ``cuts`` nodes' blocks handed back.  Its cached cut nodes are set
+        after its first run."""
+        from repro_torch.distributed.pipeline import run_shard
+
+        plan, engine, group = nplan.plan, self.config.engine, self.mesh
+
+        def fn(local, lits, vecs, cached, cuts):
+            with bound_params(lits, vecs):
+                return run_shard(plan, local, n_patients, engine, peng,
+                                 group, cached=cached, cuts=cuts)
+
+        return _Program(fn=fn, cut_ids=None)
+
     # -- subgraph cache ------------------------------------------------------
     def _insert(self, h: str, value: Any,
-                stats: Optional[Dict[str, int]]) -> None:
+                stats: Optional[Dict[str, int]],
+                nbytes: Optional[int] = None) -> None:
         """Insert under the service lock (callers hold it).  Idempotent: a
-        duplicate hash replaces the old entry without double-counting."""
-        nbytes = _table_nbytes(value)
+        duplicate hash replaces the old entry without double-counting.
+        ``nbytes`` defaults to the value's own bytes."""
+        if nbytes is None:
+            nbytes = _table_nbytes(value)
         if nbytes > self.config.cache_budget_bytes:
             return                      # larger than the whole budget: skip
         old = self._cache.pop(h, None)

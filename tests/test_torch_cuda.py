@@ -246,6 +246,57 @@ def test_service_on_the_card_equals_solo_runs(device, pipeline):
     assert launch_counts["predicate_bitset"] == solo_b1 - hits
 
 
+def _host_equal(a, b) -> bool:
+    """Host data (dicts, sequences, numpy arrays, scalars) equal bit for
+    bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _host_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            map(_host_equal, a, b))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.shape == b.shape and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def test_sharded_service_on_the_card_equals_cpu_ranks(device, tmp_path):
+    """The sharded query service on 2 ranks sharing the card, under the
+    cuda engines and pipelined, equals the same 2 ranks on the CPU (the
+    plain versions): every ticket's status, hits, misses and runner build,
+    its gathered result (every slot, words, counts, cohorts, flow,
+    FlatteningStats, log) and the plan; B5 runs on the card only."""
+    from repro_torch.data import SyntheticConfig, generate_dcir
+    from repro_torch.distributed import launch
+    from repro_torch.interop import tables_to_numpy
+    from repro_torch.kernels import build
+
+    build.library()
+    star = tables_to_numpy(generate_dcir(
+        SyntheticConfig(n_patients=3_000, seed=13), device="cpu"))
+    a, b = list(range(100, 140)), list(range(60, 100))
+    jobs = [("t0", _service_study(100, a)), ("t1", _service_study(500, b)),
+            ("t2", _service_study(100, a))]
+    cfg = {"engine": "cuda", "predicate_engine": "cuda", "pipeline": True}
+    runs = [launch.spawn(launch.service_rank, 2, (star, jobs, cfg),
+                         device=dev, timeout=300, store_dir=str(tmp_path))
+            for dev in ("cuda", "cpu")]
+    keys = ("status", "error", "cache_hits", "cache_misses", "compiled",
+            "hit_ops", "events", "cohorts", "flow", "features",
+            "feature_checks", "flatten_stats", "log", "blocks")
+    for (card,), (cpu,) in zip(*runs):
+        assert card["launches"]["hash_partition_plan"] > 0
+        assert cpu["launches"]["hash_partition_plan"] == 0
+        assert card["tickets"][2]["cache_misses"] == 0
+        for t, w in zip(card["tickets"], cpu["tickets"]):
+            assert t["status"] == "done", t["error"]
+            for k in keys:
+                assert _host_equal(t[k], w[k]), k
+            assert [(n.op, n.inputs, n.params) for n in t["plan"].nodes] == \
+                [(n.op, n.inputs, n.params) for n in w["plan"].nodes]
+
+
 def test_spec_differential_on_the_card(device, tmp_path):
     """The fuzzer's oracle on the card runs all three arms (torch, cuda,
     chunked), and a short corpus passes under the cuda executor engine."""

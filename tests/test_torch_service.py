@@ -5,12 +5,13 @@ The reference's ``tests/test_service.py`` scenarios run through both
 services on one numpy-seeded DCIR star: every port ticket must equal the
 reference ticket (``results_equal`` with ``layout=True``: raw columns and
 uint32-viewed validity words, cohort words, flow, features) and the port's
-solo ``Study.run`` (plus FlatteningStats and the OperationLog's plan
-entries), with equal compile, hit and miss counts, pipelined and
+solo ``Study.run`` (plus FlatteningStats), its OperationLog must equal the
+reference ticket's (the reference's local path records no plan entries,
+ROADMAP C12), with equal compile, hit and miss counts, pipelined and
 synchronous; eviction under a budget, table-version invalidation, queue
 rejection, ``submit_spec`` wire payloads, admission-time rejection, the
-demotion audit, ``drain(on_done=)``, ``from_npz_dir`` and ``mesh=`` raising
-``NotImplementedError``.
+demotion audit, ``drain(on_done=)`` and ``from_npz_dir``.  The sharded
+service is ``tests/test_torch_sharded_service.py``.
 """
 import json
 import random
@@ -32,6 +33,7 @@ from repro_torch.interop import tables_from_numpy
 from repro_torch.study import (CohortQueryService, ServiceConfig, Study, col,
                                spec_from_study)
 from repro_torch.study.fuzz import gen_valid_spec, results_equal
+from test_torch_study import _map_engines
 
 N_PAT = 300
 CODES_A = list(range(100, 140))
@@ -76,18 +78,21 @@ def _other_shape(pkg, codes):
     return s
 
 
-def _plan_entries(log):
-    return [{k: v for k, v in e.items() if k != "ts"}
-            for e in log.entries if e["op"].startswith("plan:")]
+def _log(result, ref: bool = False):
+    """A result's OperationLog without ``ts``; a reference's with its
+    engines named as the port names them."""
+    return [{k: (_map_engines(v) if ref and k == "params" else v)
+             for k, v in e.items() if k != "ts"} for e in result.log.entries]
 
 
-def _assert_solo(port_tables, study, result):
-    """A served result equals the port's solo run: everything
-    ``results_equal`` compares, FlatteningStats and the plan's log."""
+def _assert_solo(port_tables, study, result, ref_result):
+    """A served result equals the port's solo run (everything
+    ``results_equal`` compares, FlatteningStats) and its log equals the
+    reference ticket's."""
     solo = study.run(dict(port_tables), device="cpu")
     assert results_equal(solo, result) is None
     assert solo.flatten_stats == result.flatten_stats
-    assert _plan_entries(solo.log) == _plan_entries(result.log)
+    assert _log(result) == _log(ref_result, ref=True)
 
 
 def _counts(svc):
@@ -128,7 +133,7 @@ def test_multi_tenant_parity_with_reference(dcir, pipeline):
         assert t.result.flatten_stats == r.result.flatten_stats
         assert (t.cache_hits, t.cache_misses, t.compiled) == \
             (r.cache_hits, r.cache_misses, r.compiled)
-        _assert_solo(port_tables, study, t.result)
+        _assert_solo(port_tables, study, t.result, r.result)
     assert _counts(svc) == _counts(rsvc)
     assert svc.stats.compile_count == 2 and svc.stats.hit_rate() >= 0.5
     assert svc._sched.inflight() == 0
@@ -167,7 +172,7 @@ def test_async_pipeline_stress_matches_reference(dcir):
         assert (t.cache_hits, t.cache_misses) == (r.cache_hits,
                                                   r.cache_misses)
         assert results_equal(t.result, r.result) is None
-        _assert_solo(port_tables, study, t.result)
+        _assert_solo(port_tables, study, t.result, r.result)
     assert _counts(svc) == _counts(rsvc)
     snap = svc.stats.snapshot()
     assert snap["queries"] == 9 and snap["compile_count"] == 2
@@ -201,14 +206,14 @@ def test_cache_eviction_under_budget(dcir):
     svc, rsvc = _services(dcir, cache_budget_bytes=200_000)
     r1 = svc.query(_study(PORT, 100, CODES_A), tenant="a")
     r2 = svc.query(_study(PORT, 500, CODES_B), tenant="b")
-    rsvc.query(_study(REF, 100, CODES_A), tenant="a")
-    rsvc.query(_study(REF, 500, CODES_B), tenant="b")
+    w1 = rsvc.query(_study(REF, 100, CODES_A), tenant="a")
+    w2 = rsvc.query(_study(REF, 500, CODES_B), tenant="b")
     assert svc.stats.cache_evictions > 0
     assert svc.stats.cache_bytes <= 200_000
     assert svc.stats.cache_entries == len(svc._cache)
     assert _counts(svc) == _counts(rsvc)
-    _assert_solo(port_tables, _study(PORT, 100, CODES_A), r1)
-    _assert_solo(port_tables, _study(PORT, 500, CODES_B), r2)
+    _assert_solo(port_tables, _study(PORT, 100, CODES_A), r1, w1)
+    _assert_solo(port_tables, _study(PORT, 500, CODES_B), r2, w2)
 
 
 def test_table_version_invalidation(dcir):
@@ -224,7 +229,7 @@ def test_table_version_invalidation(dcir):
     assert svc.stats.cache_entries == 0 and svc.stats.cache_bytes == 0
     r = svc.query(_study(PORT, 100, CODES_A), tenant="a")
     want = rsvc.query(_study(REF, 100, CODES_A), tenant="a")
-    _assert_solo(port_v2, _study(PORT, 100, CODES_A), r)
+    _assert_solo(port_v2, _study(PORT, 100, CODES_A), r, want)
     assert results_equal(r, want) is None
     assert _counts(svc) == _counts(rsvc)
 
@@ -300,7 +305,8 @@ def test_submit_spec_parity_and_payloads(dcir):
     assert (t_wire.cache_hits, t_wire.cache_misses) == \
         (t_py.cache_hits, t_py.cache_misses)
     assert wire_svc.stats.compile_count == py_svc.stats.compile_count
-    _assert_solo(port_tables, _wire_study(PORT), t_wire.result)
+    _assert_solo(port_tables, _wire_study(PORT), t_wire.result,
+                 r_wire.result)
     payload = t_wire.wire_payload()
     assert payload == r_wire.wire_payload()
     assert payload["flow"] == [r["subjects"]
@@ -355,8 +361,24 @@ def test_admission_rejects_a_contradiction(dcir):
     assert "SP003" in {e["code"] for e in w.wire_payload()["errors"]}
 
 
+@pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])
+def test_served_log_equals_the_reference_ticket_log(dcir, pipeline):
+    """C12: a locally served result's OperationLog is the reference
+    ticket's: the flow entries realization writes and no plan entry,
+    where the solo run's log also holds the plan's entries."""
+    _, port_tables = dcir
+    svc, rsvc = _services(dcir, pipeline=pipeline)
+    got = svc.query(_wire_study(PORT), tenant="a")
+    want = rsvc.query(_wire_study(REF), tenant="a")
+    assert _log(got) == _log(want, ref=True)
+    assert [e["op"] for e in _log(got)] == ["flow:base", "flow:drugged",
+                                            "flow:final"]
+    solo = _wire_study(PORT).run(dict(port_tables), device="cpu")
+    assert any(e["op"].startswith("plan:") for e in solo.log.entries)
+
+
 # ---------------------------------------------------------------------------
-# residency, the demotion audit, the unported sharded path
+# residency, the demotion audit
 # ---------------------------------------------------------------------------
 def test_from_npz_dir(dcir, tmp_path):
     from repro_torch.data import save_star
@@ -367,7 +389,8 @@ def test_from_npz_dir(dcir, tmp_path):
                                           device="cpu")
     assert svc.device.type == "cpu"
     r = svc.query(_study(PORT, 100, CODES_A))
-    _assert_solo(port_tables, _study(PORT, 100, CODES_A), r)
+    want = _services(dcir)[1].query(_study(REF, 100, CODES_A))
+    _assert_solo(port_tables, _study(PORT, 100, CODES_A), r, want)
     (load,) = [e for e in svc.log.entries if e["op"] == "service:load_tables"]
     assert load["params"]["resident_bytes"] > 0
 
@@ -390,8 +413,3 @@ def test_demotion_audit_names_the_port_engines(dcir):
     (e,) = [e for e in svc.log.entries if e["op"] == "service:demote:t"]
     assert e["params"]["engine"] == "cuda->torch"
 
-
-def test_mesh_raises_naming_the_roadmap_item(dcir):
-    _, port_tables = dcir
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        CohortQueryService(dict(port_tables), mesh=object(), device="cpu")
