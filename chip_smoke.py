@@ -9,7 +9,8 @@ nothing falls back to the CPU):
 
   1. environment: torch/CUDA versions, the card's name and power limit, and
      the build of the CUDA kernels from ``src/repro_torch/csrc`` (ptxas must
-     report no stack frame and no spill for both of B1's kernels);
+     report no stack frame and no spill for both of B1's kernels, and no
+     spill for B6's bf16 prefill kernel at head dim 96);
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, bit for bit, at edge sizes with NULLs, NaNs, an Expr battery,
      hoisted literals and ragged whitelists (up to eight of 1,024 values,
@@ -90,7 +91,9 @@ nothing falls back to the CPU):
   8. card against CPU: both studies at 20,000 patients on the card and on
      the CPU (the plain versions) must agree bit for bit;
   9. attention: B6 (flash attention) against its plain version on the card
-     over the reference's test sweep, h2o-danube-1.8b's shapes (prefill
+     over the reference's test sweep, phase 15's shapes (head dim 96 on
+     every route; non-causal calls with more or fewer queries than keys at
+     q_offset 0), h2o-danube-1.8b's shapes (prefill
      to 8,192 tokens with window 4,096, full-cache decode offsets, the
      ring-buffer mode, ragged shapes) and gemma3-12b's (16/8 heads of 240:
      local and global prefill to 8,192, decode offsets, the ring with 1 and
@@ -109,7 +112,7 @@ nothing falls back to the CPU):
      of 16-256 prompt tokens, 32 new each: all finish; every attention call
      takes the decode route), a teacher-forced decode past position 4,096
      (the ring wraps; its wall before and after the wrap) under both
-     engines in fp32 (within 1e-3) and bf16 (within 0.1), cut to 4 layers
+     engines in fp32 (within 1e-3) and bf16 (within 0.1), cut to 2 layers
      at full width, and the reduced config on the card against the CPU
      (within 1e-5); B6 is timed at the prefill's shape and its decode route
      at the batcher's shape over a full ring (the L2 cache cleared before
@@ -126,8 +129,8 @@ nothing falls back to the CPU):
      the card, after the danube model is freed): a 1 x 4,096-token prefill
      under both engines (B6's prefill kernel once per layer at head dim
      240, its decode route never), then the same weights in fp32 under
-     both (last-token logits within 1e-3; in bf16 the cuda engine no more
-     than 0.1 further from the fp32 model than the torch engine), and B6
+     both (last-token logits within 1e-3; in bf16 the cuda engine within
+     ``bf16_gate`` of the fp32 model, as in phase 15), and B6
      timed at the model's global (causal) and local (window 1,024) prefill
      shapes as in phase 10.
   12. partition: B5 (the shuffle's plan) against its plain version, bit for
@@ -169,13 +172,45 @@ nothing falls back to the CPU):
      walls, latency p50/p95, ``submit_s``/``realize_s``, hits, misses,
      evictions, bytes cached, peak memory, staged bytes and collectives by
      kind (``tools/sharded_service_probe.py`` runs this phase alone).
+  15. families: each other model family at full width, bf16, seeded random
+     weights drawn on the card, freed before the next: deepseek-moe-16b
+     (28 layers: a dense one, 27 of 64 routed experts top-6 and 2 shared),
+     qwen2-moe-a2.7b (60 experts padded to 64, QKV bias; depth cut to 4),
+     recurrentgemma-2b (26 layers: RG-LRU and local attention, MQA 10/1 of
+     256, window 2,048), xlstm-125m (12 mLSTM/sLSTM layers, no attention),
+     seamless-m4t-medium (12 encoder and 12 decoder layers over 1,024
+     frames) and phi-3-vision-4.2b (32 layers, heads of 96, 576 image
+     embeddings): a 1 x 4,096 prefill under the cuda and torch engines (B6
+     once per attention call, the encoder's and cross-attention's
+     non-causal ones included, its decode route never; last-token logits
+     finite; their bf16 difference between engines is printed, not gated:
+     bf16 alone moves these logits 0.07-0.24 from the fp32 model's), the
+     batcher (4 slots of
+     4,096, 8 requests, all finish, every attention call on the decode
+     route; one warm step traced, ``chiprun_out/<arch>_decode_trace.json``),
+     then the same weights in fp32, the whole model (converted in place,
+     a layer at a time: deepseek's 61 GiB fit once its bf16 weights are
+     gone), under both engines (within 1e-3), and the bf16 gate against
+     that fp32 model as gemma3-12b's: the bf16 cuda engine no further from
+     it than 1.15 times the bf16 torch engine plus a quarter bf16 ulp of
+     the largest logit (``bf16_gate``; deepseek: its first 4 layers beside
+     their own fp32 twin, as routing flips spread through the whole
+     model); every B6 call of these runs must have the shapes and mask
+     kind of a battery case of phase 9 (``b6_key``); the reduced config in
+     fp32 on the card against the CPU (within 1e-5);
+     each MoE model's layer split by stage from one trace
+     (``chiprun_out/<arch>_moe_layer_trace.json``), xlstm's recurrent layers timed
+     at 4,096 tokens (its prefills run 1,024: the sLSTM is a loop of
+     launches), and B6 timed at phi-3-vision's prefill shape and at
+     seamless's cross-attention (4,096 queries over 1,024 frames) as in
+     phase 10.
 
 Each kernel's launches are counted over the two studies' first runs, the
 first chunked run (with prefetch), the spec corpus, the timed pipelined
 service serve, the serving path (prefill and batcher), gemma3-12b's
-prefill, the sharded run's first cuda run and the sharded service's timed
-pipelined serve (both summed over ranks), with the counts set to 0 just
-before each.  B6's
+prefill, the sharded run's first cuda run, the sharded service's timed
+pipelined serve (both summed over ranks) and each family's prefill and
+batcher (phase 15), with the counts set to 0 just before each.  B6's
 ``flash_attention`` count takes one per call on either route; its record's
 launches are those calls less the decode route's (``flash_decode``), which
 has a record of its own.  B2b runs on none of these paths (no caller
@@ -1837,7 +1872,27 @@ ATTN_ROW_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 DANUBE = "h2o-danube-1.8b"
 SERVE_GATE = {"float32": 1e-3, "bfloat16": 0.1}  # cuda vs torch engines
-TF_LAYERS = 4              # teacher-forced decode depth, at full width
+# bf16 models whose bf16 rounding alone moves their logits past 0.1 (gemma3
+# and phase 15's families) are held against the fp32 model of the same
+# weights: the cuda engine may sit at most BF16_RATIO times as far from it
+# as the torch engine does, plus a quarter bf16 ulp of the largest logit.
+# The sound engines' ratios are 0.57-1.07, deliberately wrong ones' 0.71-18
+# (``tools/bf16_gate_probe.py``, PERF.md)
+BF16_RATIO = 1.15
+
+
+def bf16_gate(torch_vs_fp32: float, max_logit: float) -> float:
+    """The bound on the cuda engine's bf16 distance from the fp32 model."""
+    import math
+
+    ulp = 2.0 ** (math.floor(math.log2(max_logit)) - 7)
+    return BF16_RATIO * torch_vs_fp32 + ulp / 4
+
+
+# teacher-forced decode depth, at full width: 2 layers since the families
+# phase joined the run (4 before; its 8,320 host-bound steps per dtype pair
+# took 143 s of a 770 s run on the slower of two hosts)
+TF_LAYERS = 2
 TF_STEPS = 4096 + 64       # past the 4,096-slot ring, so that it wraps
 CPU_GATE = 1e-5            # reduced config, card against CPU, fp32
 
@@ -1887,7 +1942,73 @@ ATTN_WIDE = (
        (2, 8, 4, 200, 500, 256, True, 0, 300, None),
        (1, 8, 8, 3, 2048, 256, False, 0, 5000, 2000)]
     + [(1, 4, 2, 300, 333, D, True, 50, None, 317)
-       for D in (16, 32, 64, 80, 128, 240, 256)])
+       for D in (16, 32, 64, 80, 96, 128, 240, 256)])
+# the families of phase 15, every B6 call they make (phase 15 fails on a
+# call whose ``b6_key`` no case here has): phi-3-vision (32 heads of 96: its
+# prefill, decode steps into a full cache at the batcher's positions and
+# late ones); seamless (16 heads of 64: its encoder and cross-attention,
+# non-causal at q_offset 0, with more queries than keys, fewer, and a decode
+# step's; its decoder's causal prefill and decode steps); recurrentgemma
+# (MQA 10/1 of 256, window 2,048: prefill, and decode steps over the ring
+# full and as the batcher fills it); deepseek and qwen2-moe (16 heads of
+# 128, causal: prefill and decode steps)
+ATTN_FAMILIES = [
+    (1, 32, 32, 4096, 4096, 96, True, 0, None, None),
+    (1, 32, 32, 1, 4096, 96, True, 0, 4095, 4096),
+    (4, 32, 32, 1, 4096, 96, True, 0, 3000, 4096),
+    (4, 32, 32, 1, 4096, 96, True, 0, 40, 4096),
+    (2, 32, 32, 9, 700, 96, False, 0, 0, 650),
+    (1, 16, 16, 1024, 1024, 64, False, 0, 0, None),
+    (1, 16, 16, 4096, 1024, 64, False, 0, 0, None),
+    (1, 16, 16, 300, 1024, 64, False, 0, 0, None),
+    (4, 16, 16, 1, 1024, 64, False, 0, 0, None),
+    (1, 16, 16, 4096, 4096, 64, True, 0, 0, 4096),
+    (4, 16, 16, 1, 4096, 64, True, 0, 3000, 4096),
+    (4, 16, 16, 1, 4096, 64, True, 0, 40, 4096),
+    (1, 10, 1, 4096, 4096, 256, True, 2048, None, None),
+    (4, 10, 1, 1, 2048, 256, False, 0, 9000, 2048),
+    (4, 10, 1, 1, 2048, 256, False, 0, 40, 41),
+    (4, 10, 1, 1, 2048, 256, False, 0, 700, 701),
+    (1, 16, 16, 4096, 4096, 128, True, 0, None, None),
+    (4, 16, 16, 1, 4096, 128, True, 0, 3000, 4096),
+    (4, 16, 16, 1, 4096, 128, True, 0, 40, 4096),
+]
+ATTN_CASES = ATTN_SWEEP + ATTN_DANUBE + ATTN_WIDE + ATTN_FAMILIES
+
+
+def b6_key(case):
+    """What a battery case must share with a call for the call to count as
+    checked: the shapes, the mask's kind, and whether the last query sees
+    fewer keys than the cache holds (a decode step's partly filled cache)."""
+    B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
+    kv = Skv if kv_len is None else kv_len
+    off = kv - Sq if q_offset is None else q_offset
+    seen = min(kv, off + Sq) if causal else kv
+    return (B, Hq, Hkv, Sq, Skv, D, causal, window, seen < Skv)
+
+
+class B6Calls:
+    """Records the ``b6_key`` of every call of B6's wrapper while entered."""
+
+    def __init__(self):
+        from repro_torch.kernels import swa_attention as swa
+
+        self.swa, self.fn, self.keys = swa, swa.flash_swa_attention, set()
+
+    def __call__(self, q, k, v, *, causal=True, window=0, q_offset=None,
+                 kv_len=None):
+        B, Hq, Sq, D = q.shape
+        self.keys.add(b6_key((B, Hq, k.shape[1], Sq, k.shape[2], D, causal,
+                              window, q_offset, kv_len)))
+        return self.fn(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset, kv_len=kv_len)
+
+    def __enter__(self):
+        self.swa.flash_swa_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.swa.flash_swa_attention = self.fn
 
 
 def _attn_kwargs(case):
@@ -1926,7 +2047,8 @@ def attention_battery(device) -> None:
     worst = {}
     n_decode = 0
     prefill_dims = set()       # head dims that reached the bf16 prefill kernel
-    for i, case in enumerate(ATTN_SWEEP + ATTN_DANUBE + ATTN_WIDE):
+    cases = ATTN_CASES
+    for i, case in enumerate(cases):
         errs = []
         for dname in ATTN_TOL:
             dt = getattr(torch, dname)
@@ -1958,7 +2080,7 @@ def attention_battery(device) -> None:
     if prefill_dims != set(swa.HEAD_DIMS):
         fail(f"attention: the bf16 prefill kernel ran at head dims "
              f"{sorted(prefill_dims)}, not at every one of {swa.HEAD_DIMS}")
-    n = len(ATTN_SWEEP) + len(ATTN_DANUBE) + len(ATTN_WIDE)
+    n = len(cases)
     log(f"attention: {2 * n} flash_attention kernel-vs-plain checks "
         f"({n_decode} on the decode route), max abs "
         f"/ worst row error fp32 {worst['float32'][0]} / "
@@ -2421,8 +2543,7 @@ def gemma3_phase(reps: int, rate: float):
     # 262,144 logits bf16 alone moves the largest logit past 0.1 under
     # either engine (each 0.1255 from the fp32 model, while the fp32 engines
     # agree to 2.4e-5: PERF.md), so the bf16 gate holds each engine
-    # against the fp32 model: the cuda engine may stray from it by at most
-    # SERVE_GATE more than the torch engine does.
+    # against the fp32 model (``bf16_gate``).
     p32 = tree_map(lambda t: t.float(), params)
     del params
     torch.cuda.empty_cache()
@@ -2434,6 +2555,7 @@ def gemma3_phase(reps: int, rate: float):
     err32 = float((l32["cuda"] - l32["torch"]).abs().max())
     spread = {e: float((x.float() - l32["torch"]).abs().max())
               for e, x in (("cuda", got), ("torch", want))}
+    bound = bf16_gate(spread["torch"], float(l32["torch"].abs().max()))
     log(f"gemma3: prefill 1 x {GEMMA_PREFILL} wall {wall:.3f} s (cuda "
         f"engine, first call), {warm:.3f} s (cuda, warm), {twall:.3f} s "
         f"(torch engine); B6 prefill-kernel launches "
@@ -2443,11 +2565,11 @@ def gemma3_phase(reps: int, rate: float):
         f"weights in fp32: max |cuda - torch| {err32} (gate "
         f"{SERVE_GATE['float32']}); bf16 against the fp32 model (torch "
         f"engine): cuda {spread['cuda']}, torch {spread['torch']} (gate: "
-        f"cuda <= torch + {SERVE_GATE['bfloat16']})")
+        f"cuda <= {bound})")
     if not err32 <= SERVE_GATE["float32"]:
         fail(f"gemma3 prefill (fp32): cuda vs torch engines differ by "
              f"{err32}")
-    if not spread["cuda"] <= spread["torch"] + SERVE_GATE["bfloat16"]:
+    if not spread["cuda"] <= bound:
         fail(f"gemma3 prefill (bf16): the cuda engine is {spread['cuda']} "
              f"from the fp32 model, the torch engine {spread['torch']}")
     del got, want, l32
@@ -2465,6 +2587,473 @@ def gemma3_phase(reps: int, rate: float):
                                  kv_len=None), reps, rate)
     return launches, timings, dict(bf16=err, fp32=err32, **{
         f"bf16_{e}_vs_fp32": v for e, v in spread.items()}), ring
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the other six model families at full width
+# ---------------------------------------------------------------------------
+FAMILY_PREFILL = 4096      # one 1 x 4,096-token prefill a family
+# deepseek-moe-16b's bf16 gate runs its first 4 layers (the dense one and 3
+# MoE layers) beside their fp32 twin: over the whole model a rounding that
+# flips one token's expert choice in an early layer spreads through the
+# later ones, and the two engines' bf16 logits part by up to the logits'
+# own size (PERF.md)
+TWIN_LAYERS = 4
+QWEN_MOE_LAYERS = 4        # qwen2-moe-a2.7b at full width, depth cut to 4
+# (arch, layers or None for full depth, bf16 gate's layers or None for the
+# whole model, prefill tokens, batcher (prompt lengths [lo, hi), new
+# tokens)).  xlstm-125m's sLSTM is a loop of ~30 launches a token (1.7 s a
+# layer at 4,096 tokens: it is timed there): its prefills run 1,024 tokens
+FAMILIES = (
+    ("deepseek-moe-16b", None, TWIN_LAYERS, FAMILY_PREFILL, (16, 48, 16)),
+    ("qwen2-moe-a2.7b", QWEN_MOE_LAYERS, None, FAMILY_PREFILL, (8, 24, 8)),
+    ("recurrentgemma-2b", None, None, FAMILY_PREFILL, (8, 24, 8)),
+    ("xlstm-125m", None, None, 1024, (8, 24, 8)),
+    ("seamless-m4t-medium", None, None, FAMILY_PREFILL, (8, 24, 8)),
+    ("phi-3-vision-4.2b", None, None, FAMILY_PREFILL, (8, 24, 8)),
+)
+FAMILY_KV_LEN = 4096       # the batcher's cache slots (4 slots)
+# B6 timed in phase 15: (label, keys, call) by family
+ATTN_TIMED = {
+    "phi-3-vision-4.2b": ("phi-3-vision prefill", FAMILY_PREFILL, dict(
+        causal=True, window=0, q_offset=None, kv_len=None)),
+    "seamless-m4t-medium": ("seamless cross", FAMILY_PREFILL // 4, dict(
+        causal=False, window=0, q_offset=0, kv_len=None)),
+}
+
+
+def attention_calls(cfg, decode: bool) -> int:
+    """B6 calls of one forward: an LM's attention layers; an
+    encoder-decoder's encoder layers and decoder self- and cross-attention
+    (a decode step runs no encoder)."""
+    from repro_torch.models import lm as LM
+
+    if cfg.is_encdec:
+        return 2 * cfg.n_layers + (0 if decode else cfg.n_encoder_layers)
+    return sum(k in LM.ATTENTION_KINDS for k, _ in LM.layer_kinds(cfg))
+
+
+def family_batch(cfg, B: int, S: int, rng, device):
+    """Tokens and the frontend's inputs (the reference's input specs:
+    ``src_len(S)`` encoder frames; one embedding a vision token), drawn
+    from ``rng``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.registry import src_len
+
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, (B, S)).astype(np.int32)).to(device)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, src_len(S), cfg.frontend_dim), np.float32)).to(device)
+    if cfg.frontend == "vision_patches":
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_frontend_tokens, cfg.frontend_dim), np.float32)).to(
+                device)
+    return {k: v if k == "tokens" else v.to(torch.bfloat16)
+            for k, v in batch.items()}
+
+
+# the stage functions moe_ffn calls, by the stage each one times
+MOE_STAGES = (("router", "moe_route"), ("dispatch", "moe_dispatch"),
+              ("experts", "moe_experts"), ("combine", "moe_combine"),
+              ("shared", "ffn"))
+
+
+def moe_split(p, x, cfg) -> dict:
+    """One MoE layer's device time by stage (router, dispatch, expert
+    products, combine, shared experts) from one trace of ``moe_ffn``
+    itself: while it runs, each stage function it calls is wrapped in a
+    range of its own that ends in a synchronization, and a device event
+    belongs to the stage whose range on the device's timeline (the trace's
+    ``gpu_user_annotation``) holds it; the host-side ranges are on another
+    clock.  The trace opens with a ~50 ms spin and ``moe_ffn`` runs twice in
+    it, the second run read: late in a long process the tracer has dropped
+    a first run's early events.  Fails unless that run called each stage
+    once.  ``repeat_diff`` is the largest difference between that run's
+    output and a later plain ``moe_ffn`` call's (a reading, no gate)."""
+    import torch
+    from torch.profiler import record_function
+
+    from repro_torch.models import layers as L
+
+    calls, keeps = {}, []
+
+    def wrap(tag: str, stage: str, fn):
+        def staged(*a, **kw):
+            with record_function(tag + stage):
+                res = fn(*a, **kw)
+                torch.cuda.synchronize()
+            calls[tag + stage] = calls.get(tag + stage, 0) + 1
+            if stage == "dispatch":
+                keeps.append(res[2])
+            return res
+        return staged
+
+    def run(tag: str):
+        saved = {name: getattr(L, name) for _, name in MOE_STAGES}
+        try:
+            for stage, name in MOE_STAGES:
+                setattr(L, name, wrap(tag, stage, saved[name]))
+            return L.moe_ffn(p, x, cfg)
+        finally:
+            for name, fn in saved.items():
+                setattr(L, name, fn)
+
+    run("warm.")
+    with profiled() as prof:
+        torch.cuda._sleep(50 * SPIN_CYCLES)      # ~50 ms for the tracer
+        torch.cuda.synchronize()
+        run("warm.")
+        y = run("moe.")
+    want = {f"moe.{stage}": 1 for stage, _ in MOE_STAGES
+            if stage != "shared" or "shared_i" in p}
+    got = {k: n for k, n in calls.items() if k.startswith("moe.")}
+    if got != want:
+        fail(f"moe_split: moe_ffn called its stages {got}, not {want}")
+    trace = REPO / "chiprun_out" / f"{cfg.name}_moe_layer_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "gpu_user_annotation"
+              and e["name"].startswith("moe.")}
+    if set(ranges) != set(want):
+        fail(f"moe_split: the trace has device ranges for {sorted(ranges)}, "
+             f"not for the stages {sorted(want)}")
+    split = {k: 0.0 for k in ranges}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            for k, (lo, hi) in ranges.items():
+                if lo <= e["ts"] <= hi:
+                    split[k] += e["dur"] / 1e3
+    repeat = float((y.float() - L.moe_ffn(p, x, cfg).float()).abs().max())
+    tokens = x.shape[0] * x.shape[1]
+    return dict(ms=split, capacity=L.moe_capacity(cfg, tokens),
+                dropped=int((~keeps[-1]).sum()), tokens=tokens,
+                repeat_diff=repeat)
+
+
+def recurrent_times(params, cfg, S: int) -> dict:
+    """Wall time (host clock to a synchronization) of one layer of each
+    recurrent kind over S tokens of random input, its second call."""
+    import torch
+
+    from repro_torch.models import lm as LM
+    from repro_torch.models import recurrent as R
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((1, S, cfg.d_model), generator=g, device="cuda").to(
+        torch.bfloat16)
+    for i, (kind, _) in enumerate(LM.layer_kinds(cfg)):
+        if kind in out or kind in LM.ATTENTION_KINDS:
+            continue
+        fn = getattr(R, kind)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(params["layers"][i]["mixer"], x, cfg)
+            torch.cuda.synchronize()
+            out[kind] = time.perf_counter() - t0
+    return out
+
+
+def family_cpu_check(arch: str) -> float:
+    """The reduced config in fp32 on the card against the CPU (B6's plain
+    version there), both under the cuda engine: a 40-token prefill, then 8
+    decode steps; the max abs logit difference."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.interop import tree_map
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+
+    rb = ModelBundle(dataclasses.replace(get_bundle(arch, reduced=True).cfg,
+                                         dtype="float32"))
+    pc = rb.init(0, device="cpu")
+    pg = tree_map(lambda t: t.cuda(), pc)
+    batch = family_batch(rb.cfg, 2, 40, np.random.default_rng(4), "cpu")
+    batch = {k: v if k == "tokens" else v.float() for k, v in batch.items()}
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    err = float((rb.prefill(pg, gbatch, engine="cuda").cpu()
+                 - rb.prefill(pc, batch, engine="cuda")).abs().max())
+    caches = [rb.init_cache(2, 32, device="cuda"),
+              rb.init_cache(2, 32, device="cpu")]
+    for t in range(8):
+        tok = batch["tokens"][:, t:t + 1]
+        lg, caches[0] = rb.decode(pg, caches[0], {"tokens": tok.cuda(),
+                                                  "pos": t}, engine="cuda")
+        lc, caches[1] = rb.decode(pc, caches[1], {"tokens": tok, "pos": t},
+                                  engine="cuda")
+        err = max(err, float((lg.cpu() - lc).abs().max()))
+    return err
+
+
+def family_batcher(bundle, params, n_attn: int, prompts, max_new: int,
+                   rng) -> dict:
+    """The continuous batcher (4 slots of FAMILY_KV_LEN) over 8 requests:
+    all must finish, and every attention call of its decode passes take
+    B6's decode route.  Returns its wall, tokens, passes and launches."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    V = bundle.cfg.vocab_size
+    engine = ContinuousBatcher(bundle, params, n_slots=4,
+                               kv_len=FAMILY_KV_LEN, engine="cuda")
+    passes = [0]
+    step_fn = engine.step_fn
+
+    def counted(*a):
+        passes[0] += 1
+        return step_fn(*a)
+
+    engine.step_fn = counted
+    reqs = [Request(rid=i, prompt=[1] + rng.integers(
+        8, V, size=rng.integers(*prompts)).tolist(), max_new=max_new)
+        for i in range(8)]
+    for r in reqs:
+        engine.submit(r)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = 0
+    while any(not r.done for r in reqs) and steps < 10_000:
+        engine.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    if not all(r.done and 1 <= len(r.out) <= max_new for r in reqs):
+        fail(f"{bundle.cfg.name} batcher: not every request finished")
+    if launches["flash_attention"] != passes[0] * n_attn \
+            or launches["flash_decode"] != launches["flash_attention"]:
+        fail(f"{bundle.cfg.name} batcher: {launches} over {passes[0]} "
+             f"passes of {n_attn} attention calls, not all on the decode "
+             f"route")
+    n_tok = sum(len(r.out) for r in reqs)
+    # one warm step of 4 live slots, traced
+    for i in range(4):
+        engine.submit(Request(rid=100 + i, prompt=[1, 9, 10, 11],
+                              max_new=max_new))
+    engine.step()
+    profile_phase(f"{bundle.cfg.name}_decode", engine.step)
+    return dict(wall=wall, tokens=n_tok, passes=passes[0], launches=launches,
+                prompt_tokens=sum(len(r.prompt) for r in reqs))
+
+
+def to_fp32_in_place(params) -> None:
+    """Every tensor of a model's parameters to fp32, one layer at a time,
+    handing each layer's bf16 memory back before the next: the fp32 copy of
+    deepseek-moe-16b (61 GiB) fits on the card only once its bf16 weights
+    (30.5 GiB) are gone."""
+    import torch
+
+    from repro_torch.interop import tree_map
+
+    for k, v in params.items():
+        if isinstance(v, list):
+            for i in range(len(v)):
+                v[i] = tree_map(lambda t: t.float(), v[i])
+                torch.cuda.empty_cache()
+        else:
+            params[k] = v.float()
+
+
+def family_run(arch: str, layers, twin_layers, seq: int, batcher,
+               reps: int, rate: float) -> dict:
+    """One family at full width, bf16, seeded random weights drawn on the
+    card: a 1 x ``seq`` prefill under both engines (B6 once per
+    attention call, never its decode route; logits finite), the batcher,
+    then the same weights in fp32 under both engines (within 1e-3) and the
+    bf16 gate against that fp32 model (``bf16_gate``; ``twin_layers`` deep
+    where given: deepseek's routing makes its whole bf16 model's logits a
+    matter of which expert a rounding picks, so its bf16 gate runs its
+    first layers)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.interop import tree_map
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_bundle
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import ModelBundle
+
+    cfg = get_bundle(arch).cfg
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    bundle = ModelBundle(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    rng = np.random.default_rng(11)
+    batch = family_batch(cfg, 1, seq, rng, "cuda")
+    n_attn = attention_calls(cfg, decode=False)
+    rec = Recorder(L, "moe_ffn", lambda p, x, c: x.numel())
+    with rec:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = bundle.prefill(params, batch, engine="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(launch_counts)
+    if launches["flash_attention"] != n_attn or launches["flash_decode"]:
+        fail(f"{arch} prefill: B6 called {launches['flash_attention']} "
+             f"times, not once per attention call ({n_attn}), or took the "
+             f"decode route ({launches['flash_decode']})")
+    t0 = time.perf_counter()
+    bundle.prefill(params, batch, engine="cuda")
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = bundle.prefill(params, batch, engine="torch")
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
+    if not bool(torch.isfinite(got).all()) or got.shape != (
+            1, 1, cfg.padded_vocab):
+        fail(f"{arch} prefill logits {tuple(got.shape)} not finite")
+    b16 = {"cuda": got.float(), "torch": want.float()}
+    out = dict(params=sum(sizes), seq=seq, init_s=init_s, prefill_s=wall,
+               prefill_warm_s=warm, prefill_torch_s=twall,
+               bf16=float((b16["cuda"] - b16["torch"]).abs().max()),
+               max_logit=float(want.abs().max()))
+    if rec.best is not None:
+        _, (p, x, c), _ = rec.best
+        out["moe_split"] = moe_split(p, x, c)
+    del rec, got, want
+    if cfg.family == "ssm":
+        out["recurrent_s"] = recurrent_times(params, cfg, FAMILY_PREFILL)
+
+    b32in = {k: v if k == "tokens" else v.float() for k, v in batch.items()}
+    if twin_layers is not None:
+        # the bf16 gate at the cut depth, beside its own fp32 twin
+        tb = ModelBundle(dataclasses.replace(cfg, n_layers=twin_layers))
+        tparams = dict(params, layers=params["layers"][:twin_layers])
+        cut = {e: tb.prefill(tparams, batch, engine=e).float()
+               for e in ("cuda", "torch")}
+        t32 = ModelBundle(dataclasses.replace(tb.cfg, dtype="float32"))
+        p32 = tree_map(lambda t: t.float(), tparams)
+        c32 = {e: t32.prefill(p32, b32in, engine=e).float()
+               for e in ("cuda", "torch")}
+        del tparams, p32
+        torch.cuda.empty_cache()
+        out["cut"] = dict(layers=twin_layers, fp32=float(
+            (c32["cuda"] - c32["torch"]).abs().max()),
+            max_logit32=float(c32["torch"].abs().max()), **{
+            f"bf16_{e}_vs_fp32": float((x - c32["torch"]).abs().max())
+            for e, x in cut.items()})
+
+    lo, hi, new = batcher
+    bat = family_batcher(bundle, params, attention_calls(cfg, decode=True),
+                         (lo, hi), new, rng)
+    out["batcher"] = {k: v for k, v in bat.items() if k != "launches"}
+    for k in launches:
+        launches[k] += bat["launches"][k]
+    out["launches"] = launches
+
+    timing = {}
+    if arch in ATTN_TIMED:
+        # B6 at the model's prefill shape (phi-3-vision: 32 heads of 96,
+        # causal) or its cross-attention's (seamless: 4,096 queries over
+        # 1,024 frames, non-causal, q_offset 0)
+        label, Skv, kw = ATTN_TIMED[arch]
+        g = torch.Generator(device="cuda").manual_seed(9)
+        q, k, v = (torch.randn((1, S, cfg.n_heads, cfg.head_dim_),
+                               generator=g, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for S in (seq, Skv, Skv))
+        timing[label] = time_attention(label, q, k, v, kw, reps, rate)
+        del q, k, v
+
+    # the same weights in fp32, the whole model
+    gc.collect()
+    torch.cuda.empty_cache()
+    to_fp32_in_place(params)
+    b32 = ModelBundle(dataclasses.replace(cfg, dtype="float32"))
+    l32 = {e: b32.prefill(params, b32in, engine=e).float()
+           for e in ("cuda", "torch")}
+    out["fp32"] = float((l32["cuda"] - l32["torch"]).abs().max())
+    out["max_logit32"] = float(l32["torch"].abs().max())
+    for e, x in b16.items():
+        out[f"bf16_{e}_vs_fp32"] = float((x - l32["torch"]).abs().max())
+    del params, l32
+    gc.collect()
+    torch.cuda.empty_cache()
+    gate = out.get("cut", out)
+    bound = bf16_gate(gate["bf16_torch_vs_fp32"], gate["max_logit32"])
+    log(f"families: {arch} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+        f"{cfg.head_dim_}, pattern {cfg.pattern}), {out['params']} bf16 "
+        f"parameters drawn on the card in {init_s:.3f} s; prefill 1 x "
+        f"{seq} {wall:.3f} s (cuda, first), {warm:.3f} s (cuda, "
+        f"warm), {twall:.3f} s (torch); B6 launches {n_attn}; last-token "
+        f"logits: bf16 max |cuda - torch| {out['bf16']}, max |logit| "
+        f"{out['max_logit']}; the same weights in fp32 max |cuda - torch| "
+        f"{out['fp32']} (gate {SERVE_GATE['float32']}), bf16 against them: "
+        f"cuda {out['bf16_cuda_vs_fp32']}, torch {out['bf16_torch_vs_fp32']}"
+        f"{'' if 'cut' not in out else '; cut to its first ' + str(twin_layers) + ' layers: ' + json.dumps(out['cut'])}"
+        f" (gate: cuda <= {bound}); batcher "
+        f"{bat['tokens']} tokens in {bat['wall']:.3f} s "
+        f"({bat['tokens'] / bat['wall']:.1f} tok/s, {bat['passes']} passes "
+        f"of 4 slots, {1e3 * bat['wall'] / bat['passes']:.3f} ms each, "
+        f"{bat['prompt_tokens']} prompt tokens), B6 calls "
+        f"{bat['launches']['flash_attention']} all on the decode route")
+    if "moe_split" in out:
+        ms = out["moe_split"]
+        log(f"families: {arch} one MoE layer at the prefill's {ms['tokens']} "
+            f"tokens (capacity {ms['capacity']}, {ms['dropped']} choices "
+            f"dropped), device ms by stage {json.dumps(ms['ms'])}; a second "
+            f"moe_ffn call differs from the traced one by "
+            f"{ms['repeat_diff']}")
+    if "recurrent_s" in out:
+        log(f"families: {arch} one layer of each recurrent kind over "
+            f"{FAMILY_PREFILL} tokens (wall, second call) "
+            f"{json.dumps(out['recurrent_s'])}")
+    for what in ([out] + ([out["cut"]] if "cut" in out else [])):
+        if not what["fp32"] <= SERVE_GATE["float32"]:
+            fail(f"{arch} prefill (fp32): cuda vs torch engines differ by "
+                 f"{what['fp32']}")
+    if not gate["bf16_cuda_vs_fp32"] <= bound:
+        fail(f"{arch} prefill (bf16): the cuda engine is "
+             f"{gate['bf16_cuda_vs_fp32']} from the fp32 model, the torch "
+             f"engine {gate['bf16_torch_vs_fp32']} (gate {bound})")
+    return out, timing
+
+
+def families_phase(reps: int, rate: float):
+    """Phase 15: every family of FAMILIES in turn, each followed by its
+    reduced config on the card against the CPU (within CPU_GATE).  Fails on
+    a B6 call of a family's run that no case of the B6 battery checked
+    (``b6_key``).  Returns the launches summed over their prefills and
+    batchers, B6's timings at the shapes of ATTN_TIMED, and each family's
+    record."""
+    checked = {b6_key(c) for c in ATTN_CASES}
+    records, total, timing = {}, None, {}
+    for arch, layers, twin, seq, batcher in FAMILIES:
+        with B6Calls() as calls:
+            rec, t = family_run(arch, layers, twin, seq, batcher, reps, rate)
+        if calls.keys - checked:
+            fail(f"{arch}: B6 calls no battery case checked: "
+                 f"{sorted(calls.keys - checked)}")
+        rec["cpu"] = family_cpu_check(arch)
+        log(f"families: {arch}: {len(calls.keys)} B6 call shapes, each "
+            f"checked by the battery; reduced fp32 card vs CPU {rec['cpu']} "
+            f"(gate {CPU_GATE})")
+        if not rec["cpu"] <= CPU_GATE:
+            fail(f"{arch}: reduced config card vs CPU differ by {rec['cpu']}")
+        records[arch] = rec
+        timing.update(t)
+        total = dict(rec["launches"]) if total is None else {
+            k: total[k] + rec["launches"][k] for k in total}
+    return total, timing, records
 
 
 # ---------------------------------------------------------------------------
@@ -3237,9 +3826,12 @@ def main() -> int:
             log("ptxas: " + line.strip())
     # the bf16 prefill kernel: the count at launch is 384 threads' share;
     # setmaxnreg then gives the producer 24 and each consumer thread 240
-    for D in (80, 240):
-        log(f"ptxas: B6 bf16 prefill flash_wgmma<{D}>: "
-            f"{kernel_registers(info['log'], 'flash_wgmma', D)}")
+    for D in (80, 96, 240):
+        b6 = kernel_registers(info["log"], "flash_wgmma", D)
+        log(f"ptxas: B6 bf16 prefill flash_wgmma<{D}>: {b6}")
+        # head dim 96 (phi-3-vision's) must keep its state in registers
+        if D == 96 and "0 bytes spill stores, 0 bytes spill loads" not in b6:
+            fail(f"B6's flash_wgmma<96> spills: {b6}")
     # B1 must keep its whole state in registers and shared memory
     for rows in (16, 8):
         b1 = ptxas_report(info["log"], f"predicate_kernelILi{rows}E")
@@ -3320,6 +3912,10 @@ def main() -> int:
     h_launches, h_timing, sv_launches = timed(
         "sharded", sharded_phase, args.sharded_patients, CPU_PATIENTS, REPS,
         rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m_launches, f_timing, families = timed("families", families_phase,
+                                             REPS, rate)
     # B1-B3 are timed at the quickstart's (larger) shapes, B4 at the cohort
     # study's, B6's prefill kernel at the prefill's and its decode route at
     # the batcher's full-ring shape (L2 cleared); launches are summed over
@@ -3333,11 +3929,15 @@ def main() -> int:
         f"corpus {f_launches}, service {v_launches}, cohort study "
         f"{c_launches}, serving {s_launches}, gemma3 prefill "
         f"{g_launches}, sharded (summed over ranks) {h_launches}, sharded "
-        f"service (summed over ranks) {sv_launches}")
+        f"service (summed over ranks) {sv_launches}, families "
+        f"{m_launches}")
     log(f"serving: B6 at the batcher's decode shape {json.dumps(decode)}")
     log(f"serving: B6 prefill at danube's shape {json.dumps(s_timing)}")
     for label, t in g_timing.items():
         log(f"gemma3: B6 prefill at {label}'s shape {json.dumps(t)}")
+    for label, t in f_timing.items():
+        log(f"families: B6 at {label}'s shape {json.dumps(t)}")
+    log(f"families: {json.dumps(families)}")
     log(f"serving: gates prefill {prefill_err}, teacher-forced "
         f"{json.dumps(tf)}, card vs CPU {cpu_err}; gemma3 prefill "
         f"{json.dumps(gemma_err)}, ring decode {json.dumps(ring_err)}")
@@ -3347,7 +3947,7 @@ def main() -> int:
     launches = {k: q_launches[k] + k_launches[k] + f_launches[k]
                 + v_launches[k] + c_launches[k] + s_launches[k]
                 + g_launches[k] + h_launches[k] + sv_launches[k]
-                for k in KERNELS}
+                + m_launches[k] for k in KERNELS}
     # the flash_attention count takes one per call on both of B6's routes:
     # its prefill kernel launched on the calls the decode route did not take
     launches["flash_attention"] -= launches["flash_decode"]

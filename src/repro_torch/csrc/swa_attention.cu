@@ -271,6 +271,7 @@ extern "C" int repro_flash_attention(
     case 32: return launch_f32<32>(a, n_bh, st);
     case 64: return launch_f32<64>(a, n_bh, st);
     case 80: return launch_f32<80>(a, n_bh, st);
+    case 96: return launch_f32<96>(a, n_bh, st);
     case 128: return launch_f32<128>(a, n_bh, st);
     case 240: return launch_f32<240>(a, n_bh, st);
     case 256: return launch_f32<256>(a, n_bh, st);

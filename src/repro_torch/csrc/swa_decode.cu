@@ -708,6 +708,7 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, v
     case 32: return launch<32>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
     case 64: return launch<64>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
     case 80: return launch<80>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
+    case 96: return launch<96>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
     case 128: return launch<128>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
     case 240: return launch<240>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
     case 256: return launch<256>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);

@@ -6,10 +6,12 @@ viewed as ``uint32`` exactly as the reference stores them.  The tests feed
 one seeded star into both packages through this form.
 
 LM weights travel as the reference's parameter pytree with numpy leaves
-(``head_layers``, ``periods`` stacked on a leading axis, ``tail_layers``);
-the port keeps one flat list of layers in the reference's order.  bf16
-leaves are ``ml_dtypes`` arrays, which ``torch.from_numpy`` refuses: they
-cross as their ``uint16`` bits, recognised by the dtype's name.
+(``head_layers``, ``periods`` stacked on a leading axis, ``tail_layers``;
+for the encoder-decoder ``enc_layers``/``dec_layers`` stacked); the port
+keeps flat lists of layers in the reference's order.  Every leaf keeps its
+dtype (fp32 routers and gates inside bf16 models).  bf16 leaves are
+``ml_dtypes`` arrays, which ``torch.from_numpy`` refuses: they cross as
+their ``uint16`` bits, recognised by the dtype's name.
 """
 from __future__ import annotations
 
@@ -66,27 +68,64 @@ def _leaf_to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _top_level(params: Mapping[str, Any], layer_keys, dev, name: str
+               ) -> Dict[str, Any]:
+    """Every top-level array leaf of the pytree as a tensor; raises on a
+    container that is not one of ``layer_keys`` (a leaf nothing places)."""
+    out = {}
+    for k, v in params.items():
+        if k in layer_keys:
+            continue
+        if isinstance(v, (dict, list, tuple)):
+            raise ValueError(f"{name}: no place for the pytree's {k!r}")
+        out[k] = _leaf_to_tensor(v, dev)
+    return out
+
+
+def _unstack(tree, n: int):
+    """A pytree stacked on a leading axis of ``n`` -> a list of ``n``."""
+    return [tree_map(lambda a: np.asarray(a)[i], tree) for i in range(n)]
+
+
 def lm_params_from_numpy(params: Mapping[str, Any], cfg: ModelConfig,
                          device=None) -> Dict[str, Any]:
     """The reference's LM parameter pytree (numpy leaves) -> the port's
     parameters on ``device`` (None = CUDA): periods unstacked into one list
     of layers, head layers, then each period's ``slot0..slotN``, then tail
-    layers."""
+    layers; every top-level leaf (``embed``, ``final_norm``, ``lm_head``,
+    ``img_proj``) as it is.  An encoder-decoder's pytree goes to
+    ``_encdec_params_from_numpy``."""
     from repro_torch.models.lm import _layer_plan
 
+    if cfg.is_encdec:
+        return _encdec_params_from_numpy(params, cfg, device)
     dev = resolve_device(device)
     head, pattern, npd, tail = _layer_plan(cfg)
     layers = list(params["head_layers"])
-    for i in range(npd):
-        for j in range(len(pattern)):
-            layers.append(tree_map(lambda a: np.asarray(a)[i],
-                                   params["periods"][f"slot{j}"]))
+    periods = _unstack(params["periods"], npd) if npd else []
+    for per in periods:
+        layers += [per[f"slot{j}"] for j in range(len(pattern))]
     layers += list(params["tail_layers"])
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(layers)} layers in the pytree, "
                          f"the config has {cfg.n_layers}")
-    out = {k: _leaf_to_tensor(params[k], dev)
-           for k in ("embed", "final_norm", "lm_head") if k in params}
+    out = _top_level(params, ("head_layers", "periods", "tail_layers"), dev,
+                     cfg.name)
     out["layers"] = [tree_map(lambda a: _leaf_to_tensor(a, dev), lp)
                      for lp in layers]
+    return out
+
+
+def _encdec_params_from_numpy(params: Mapping[str, Any], cfg: ModelConfig,
+                             device=None) -> Dict[str, Any]:
+    """The reference's encoder-decoder pytree -> the port's: the stacked
+    ``enc_layers``/``dec_layers`` unstacked into lists, every top-level
+    leaf (``frontend_proj``, ``embed``, ``enc_norm``, ``final_norm``,
+    ``lm_head``) as it is."""
+    dev = resolve_device(device)
+    out = _top_level(params, ("enc_layers", "dec_layers"), dev, cfg.name)
+    for key, n in (("enc_layers", cfg.n_encoder_layers),
+                   ("dec_layers", cfg.n_layers)):
+        out[key] = [tree_map(lambda a: _leaf_to_tensor(a, dev), lp)
+                    for lp in _unstack(params[key], n)]
     return out

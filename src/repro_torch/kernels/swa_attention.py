@@ -46,7 +46,7 @@ __all__ = ["HEAD_DIMS", "DECODE_ROWS", "DECODE_KEYS", "PREFILL_ROWS",
            "combine_partials_plain", "prefill_keys_per_tile",
            "prefill_tile_class", "prefill_tiles"]
 
-HEAD_DIMS = (16, 32, 64, 80, 128, 240, 256)   # every route's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 240, 256)  # every route's instantiations
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _MAX_BH = 65535                          # B * Hkv rides grid.y
 _PLAIN_CHUNK = 1 << 28                   # score elements per plain-version step

@@ -1,4 +1,5 @@
-"""The model-serving stack of the port: the dense decoder LM, its layers and
+"""The model-serving stack of the port: the decoder LMs (dense, MoE,
+recurrent hybrids, xLSTM, vision), the encoder-decoder, their layers and
 the registry (the port of ``repro/models``)."""
 from repro_torch.models.registry import ModelBundle, get_bundle
 

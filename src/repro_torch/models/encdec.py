@@ -1,0 +1,151 @@
+"""Encoder-decoder backbone, seamless-m4t-medium (the port of
+``repro/models/encdec.py``).
+
+Encoder: bidirectional attention over precomputed audio-frame embeddings
+(the modality frontend is a stub: ``frames`` (B, S_src, frontend_dim) are
+given).  Decoder: causal self-attention, cross-attention to the encoder's
+memory, FFN.  The reference stacks the layers for ``lax.scan``; the port
+keeps lists, ``params["enc_layers"][i]`` and ``params["dec_layers"][i]``.
+
+Decode caches the growing self-attention K/V and the cross-attention K/V,
+stacked over the decoder layers as the reference's are: ``{"self_k",
+"self_v": (n_layers, B, kv_len, Hkv, D), "cross_k", "cross_v": (n_layers,
+B, src_len, Hkv, D)}``; a decode step writes its self-attention K/V in
+place.  ``init_cache`` zeroes the cross K/V and nothing on the reference's
+serving path fills them (``prefill_cross`` does, when a caller asks): the
+reference's served enc-dec attends zeros (ROADMAP C14), and the port
+matches it.  The training loss waits (ROADMAP A9-train).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+__all__ = ["init_params", "encode", "init_cache", "prefill_cross",
+           "decode_forward"]
+
+Params = Dict[str, Any]
+
+
+def _dtype(cfg: ModelConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Random weights drawn from ``gen`` on its device."""
+    dtype = _dtype(cfg)
+    d = cfg.d_model
+    dev = gen.device
+
+    def zeros():
+        return torch.zeros(d, dtype=dtype, device=dev)
+
+    def enc_layer():
+        return {"norm1": zeros(), "attn": L.attn_params(gen, cfg, dtype),
+                "norm2": zeros(),
+                "ffn": L.ffn_params(gen, d, cfg.d_ff, dtype)}
+
+    def dec_layer():
+        return {"norm1": zeros(),
+                "self_attn": L.attn_params(gen, cfg, dtype),
+                "norm_x": zeros(),
+                "cross_attn": L.attn_params(gen, cfg, dtype, cross=True),
+                "norm2": zeros(),
+                "ffn": L.ffn_params(gen, d, cfg.d_ff, dtype)}
+
+    return {
+        "frontend_proj": L.dense_init(gen, (cfg.frontend_dim, d), dtype),
+        "embed": L.dense_init(gen, (cfg.padded_vocab, d), dtype, scale=0.02),
+        "enc_layers": [enc_layer() for _ in range(cfg.n_encoder_layers)],
+        "dec_layers": [dec_layer() for _ in range(cfg.n_layers)],
+        "enc_norm": zeros(),
+        "final_norm": zeros(),
+        "lm_head": L.dense_init(gen, (d, cfg.padded_vocab), dtype),
+    }
+
+
+def _positions(B: int, S: int, start: int, device) -> torch.Tensor:
+    return (start + torch.arange(S, dtype=torch.int32, device=device)
+            ).expand(B, S)
+
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
+           engine: str = "auto") -> torch.Tensor:
+    """frames: (B, S_src, frontend_dim) -> memory (B, S_src, d)."""
+    x = frames.to(_dtype(cfg)) @ params["frontend_proj"]
+    B, S, _ = x.shape
+    positions = _positions(B, S, 0, x.device)
+    for lp in params["enc_layers"]:
+        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        out, _ = L.attention(lp["attn"], h, cfg, kind="attn",
+                             positions=positions, causal=False, engine=engine)
+        x = x + out
+        x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def init_cache(cfg: ModelConfig, batch: int, kv_len: int, src_len: int,
+               device) -> Params:
+    """Zeroed self-attention K/V of ``kv_len`` and cross K/V of
+    ``src_len`` slots, stacked over the decoder layers."""
+    def kv(s):
+        return torch.zeros((cfg.n_layers, batch, s, cfg.n_kv_heads,
+                            cfg.head_dim_), dtype=_dtype(cfg), device=device)
+
+    return {"self_k": kv(kv_len), "self_v": kv(kv_len),
+            "cross_k": kv(src_len), "cross_v": kv(src_len)}
+
+
+def prefill_cross(params: Params, cfg: ModelConfig, memory: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project the encoder's memory into every decoder layer's cross K/V
+    (done once): ``(ck, cv)``, each (n_layers, B, S_src, Hkv, D)."""
+    B, S, _ = memory.shape
+    shape = (B, S, cfg.n_kv_heads, cfg.head_dim_)
+    ck = [(memory @ lp["cross_attn"]["wk"]).reshape(shape)
+          for lp in params["dec_layers"]]
+    cv = [(memory @ lp["cross_attn"]["wv"]).reshape(shape)
+          for lp in params["dec_layers"]]
+    return torch.stack(ck), torch.stack(cv)
+
+
+def decode_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   memory: Optional[torch.Tensor] = None,
+                   cache: Optional[Params] = None,
+                   cache_pos: Optional[int] = None,
+                   logits_slice: Optional[int] = None, engine: str = "auto"):
+    """The decoder: a full pass (cache=None, ``memory`` given; prefill) or
+    a decode step (cache given, the cross K/V read from it, the
+    self-attention K/V written in place at ``cache_pos``).  Returns
+    (logits, cache or None)."""
+    B, S = tokens.shape
+    x = params["embed"][tokens]
+    positions = _positions(B, S, 0 if cache_pos is None else int(cache_pos),
+                           x.device)
+    for i, lp in enumerate(params["dec_layers"]):
+        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        self_cache = None if cache is None else (cache["self_k"][i],
+                                                 cache["self_v"][i])
+        out, _ = L.attention(lp["self_attn"], h, cfg, kind="attn",
+                             positions=positions, cache=self_cache,
+                             cache_pos=cache_pos, engine=engine)
+        x = x + out
+        h = L.rmsnorm(lp["norm_x"], x, cfg.norm_eps)
+        if cache is None:
+            out, _ = L.attention(lp["cross_attn"], h, cfg, kind="attn",
+                                 positions=positions, kv_input=memory,
+                                 causal=False, engine=engine)
+        else:
+            out = L.cross_attention(lp["cross_attn"], h, cache["cross_k"][i],
+                                    cache["cross_v"][i], cfg,
+                                    positions=positions, engine=engine)
+        x = x + out
+        x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if logits_slice is not None:
+        x = x[:, -logits_slice:, :]
+    return x @ params["lm_head"], cache

@@ -1,6 +1,7 @@
-"""Transformer layers of the dense decoder: norms, RoPE, GQA attention (full
-or sliding-window) and the GLU FFN (the port of ``repro/models/layers.py``;
-its MoE waits for ROADMAP A9).
+"""Transformer layers: norms, RoPE, GQA attention (full, sliding-window,
+bidirectional or cross), the GLU FFN and the top-k MoE FFN with capacity
+dispatch (the port of ``repro/models/layers.py``; its expert-parallel MoE
+path and load-balance loss wait for ROADMAP A9-shard and A9-train).
 
 Conventions, the reference's: params are plain dicts of tensors (``wq``
 ``(d, Hq*D)``, ``wi`` ``(d, 2*d_ff)`` with gate || up, ...), activations
@@ -27,7 +28,9 @@ from repro_torch.kernels import ops
 
 __all__ = ["ATTENTION_ENGINES", "resolve_attention_engine", "dense_init",
            "rmsnorm", "rope", "attn_params", "sdpa", "attention",
-           "ffn_params", "ffn"]
+           "cross_attention", "logistic", "ffn_params", "ffn", "moe_params",
+           "moe_capacity", "moe_route", "moe_dispatch", "moe_experts",
+           "moe_combine", "moe_ffn"]
 
 Params = Dict[str, torch.Tensor]
 ATTENTION_ENGINES = ("torch", "cuda", "auto")
@@ -87,7 +90,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
-def attn_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+def attn_params(gen: torch.Generator, cfg: ModelConfig, dtype,
+                cross: bool = False) -> Params:
+    """Q/K/V/O projections; QKV biases (zero) where the config has them,
+    never for cross-attention, as in the reference."""
     d, hd = cfg.d_model, cfg.head_dim_
     p = {
         "wq": dense_init(gen, (d, cfg.n_heads * hd), dtype),
@@ -95,22 +101,27 @@ def attn_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
         "wv": dense_init(gen, (d, cfg.n_kv_heads * hd), dtype),
         "wo": dense_init(gen, (cfg.n_heads * hd, d), dtype),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                             ("bv", cfg.n_kv_heads)):
             p[name] = torch.zeros(width * hd, dtype=dtype, device=gen.device)
     return p
 
 
-def _proj_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+def _proj_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              kv_input: Optional[torch.Tensor] = None):
+    """Queries from ``x``, keys and values from ``kv_input`` (default
+    ``x``)."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    kv_src = x if kv_input is None else kv_input
+    q, k, v = x @ p["wq"], kv_src @ p["wk"], kv_src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    Skv = kv_src.shape[1]
     return (q.reshape(B, S, cfg.n_heads, hd),
-            k.reshape(B, S, cfg.n_kv_heads, hd),
-            v.reshape(B, S, cfg.n_kv_heads, hd))
+            k.reshape(B, Skv, cfg.n_kv_heads, hd),
+            v.reshape(B, Skv, cfg.n_kv_heads, hd))
 
 
 # score tensors larger than this (elements) take the chunked online-softmax
@@ -223,27 +234,33 @@ def _write_cache(kc, vc, k, v, pos: int) -> None:
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
               positions: torch.Tensor,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_pos: Optional[int] = None, engine: str = "auto"):
-    """One self-attention mixer.  kind: 'attn' (full) or 'swa' (window).
+              cache_pos: Optional[int] = None,
+              kv_input: Optional[torch.Tensor] = None, causal: bool = True,
+              engine: str = "auto"):
+    """One attention mixer.  kind: 'attn' (full) or 'swa' (window).
 
-    Prefill: cache is None, ``positions`` = [0, S).  Decode: cache = (k_cache,
-    v_cache) in layout (B, S_cache, Hkv, D), updated in place at the write
-    position ``cache_pos`` (an int), with ``positions`` = cache_pos + [0, S);
-    for 'swa' with ``S_cache == window`` the cache is a ring buffer and
-    writes wrap.  Returns (out, cache)."""
+    Prefill: cache is None, ``positions`` = [0, S); ``causal=False`` is the
+    encoder's bidirectional attention, and ``kv_input`` (B, S_kv, d) makes
+    it cross-attention (keys and values from ``kv_input``, no RoPE).
+    Decode: cache = (k_cache, v_cache) in layout (B, S_cache, Hkv, D),
+    updated in place at the write position ``cache_pos`` (an int), with
+    ``positions`` = cache_pos + [0, S); for 'swa' with ``S_cache == window``
+    the cache is a ring buffer and writes wrap.  Returns (out, cache)."""
     engine = resolve_attention_engine(engine, x.device)
     window = cfg.window if kind == "swa" else 0
-    q, k, v = _proj_qkv(p, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    S = x.shape[1]
+    q, k, v = _proj_qkv(p, x, cfg, kv_input)
+    if kv_input is None:              # RoPE for self-attention only
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if cache is None:
         if engine == "torch":
-            out = sdpa(q, k, v, causal=True, window=window,
+            out = sdpa(q, k, v, causal=causal, window=window,
                        q_positions=positions)
         else:
-            out = _flash(q, k, v, causal=True, window=window, q_offset=0,
-                         kv_len=S)
+            # queries at offset 0: the default kv_len - Sq is negative
+            # where a cross-attention's Sq exceeds its Skv
+            out = _flash(q, k, v, causal=causal, window=window, q_offset=0,
+                         kv_len=k.shape[1])
         return out @ p["wo"], None
 
     kc, vc = cache
@@ -275,25 +292,160 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     # which hides the slots not yet written
     _write_cache(kc, vc, k, v, pos)
     if engine == "torch":
-        out = sdpa(q, kc, vc, causal=True, window=window,
+        out = sdpa(q, kc, vc, causal=causal, window=window,
                    q_positions=positions)
     else:
-        out = _flash(q, kc, vc, causal=True, window=window, q_offset=pos,
+        out = _flash(q, kc, vc, causal=causal, window=window, q_offset=pos,
                      kv_len=S_cache)
     return out @ p["wo"], (kc, vc)
 
 
+def cross_attention(p: Params, x: torch.Tensor, ck: torch.Tensor,
+                    cv: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor, engine: str = "auto"
+                    ) -> torch.Tensor:
+    """The decoder's cross-attention at decode time, over keys and values
+    projected once (``ck``/``cv``, (B, S_src, Hkv, D)): the reference's
+    ``sdpa(q, ck, cv, causal=False)`` on ``x @ wq``, then ``wo``."""
+    engine = resolve_attention_engine(engine, x.device)
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim_)
+    if engine == "torch":
+        out = sdpa(q, ck, cv, causal=False, window=0, q_positions=positions)
+    else:
+        out = _flash(q, ck, cv, causal=False, window=0, q_offset=0,
+                     kv_len=ck.shape[1])
+    return out @ p["wo"]
+
+
 # ---------------------------------------------------------------------------
-# FFN (GLU)
+# FFN (GLU) and MoE
 # ---------------------------------------------------------------------------
+def logistic(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA lowers it, ``1 / (1 + exp(-x))`` with every
+    step rounded to x's type (``torch.sigmoid`` rounds once, which moves
+    some bf16 outputs by an ulp)."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def _glu(gu: torch.Tensor) -> torch.Tensor:
+    """silu(gate) * up of a fused gate || up product."""
+    gate, up = gu.chunk(2, dim=-1)
+    return gate * logistic(gate) * up
+
+
 def ffn_params(gen: torch.Generator, d: int, f: int, dtype) -> Params:
     return {"wi": dense_init(gen, (d, 2 * f), dtype),    # fused gate || up
             "wo_f": dense_init(gen, (f, d), dtype)}
 
 
 def ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
-    gate, up = (x @ p["wi"]).chunk(2, dim=-1)
     # jax.nn.silu is x * logistic(x), and XLA lowers logistic to
     # 1 / (1 + exp(-x)) with every step rounded to x's type.  F.silu rounds
     # once, which moves 2 in 5 bf16 outputs by an ulp.
-    return (gate * (1 / (1 + torch.exp(-gate))) * up) @ p["wo_f"]
+    return _glu(x @ p["wi"]) @ p["wo_f"]
+
+
+def moe_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    """Router (fp32, over the padded experts), the experts' fused gate || up
+    and down projections, and the shared experts' (fused into one FFN of
+    ``d_ff * n_shared_experts``).  The padded experts get weights too; the
+    router never picks them."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.padded_experts
+    p = {"router": dense_init(gen, (d, e), torch.float32),
+         "we_i": dense_init(gen, (e, d, 2 * f), dtype),
+         "we_o": dense_init(gen, (e, f, d), dtype)}
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared_i"] = dense_init(gen, (d, 2 * fs), dtype)
+        p["shared_o"] = dense_init(gen, (fs, d), dtype)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots per expert, the reference's Python float arithmetic."""
+    return int(cfg.capacity_factor * cfg.top_k * n_tokens / cfg.n_experts) + 1
+
+
+def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig):
+    """Router: fp32 logits over the padded experts (padded ones at -1e30),
+    the top-k experts of each token, lower index first among equal logits
+    (``jax.lax.top_k``'s order: a stable descending sort), and their gates,
+    a softmax over the k logits in fp32 cast to x's type.  Returns
+    ``(gates (T, k), experts (T, k) int64)``."""
+    logits = xt.float() @ p["router"]
+    if cfg.padded_experts != cfg.n_experts:
+        pad = torch.arange(cfg.padded_experts, device=xt.device) \
+            >= cfg.n_experts
+        logits = torch.where(pad[None, :], -1e30, logits)
+    top, experts = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top, experts = top[:, :cfg.top_k], experts[:, :cfg.top_k]
+    return torch.softmax(top, dim=-1).to(xt.dtype), experts
+
+
+def moe_dispatch(xt: torch.Tensor, experts: torch.Tensor, cfg: ModelConfig,
+                 capacity: int):
+    """Each (token, choice) pair's rank among the earlier pairs (flat
+    ``T * k`` order) that chose the same expert; pairs ranked past
+    ``capacity`` are dropped; the kept ones are copied into their expert's
+    buffer row.  Returns ``(buf (E, C, d), slot (T*k,), keep (T*k,),
+    rank (T*k,))``: ``slot`` is ``expert * C + rank`` where kept, ``E * C``
+    where dropped.  Nothing here waits for the device."""
+    e_pad, k = cfg.padded_experts, cfg.top_k
+    T, d = xt.shape
+    flat_e = experts.reshape(-1)
+    onehot = (torch.arange(e_pad, device=xt.device)[:, None] == flat_e[None, :]
+              ).to(torch.int32)                               # (E, T*k)
+    # exclusive per-expert count, exact in int64, scanned along each
+    # expert's row
+    excl = torch.cumsum(onehot, dim=1, dtype=torch.int64) - onehot
+    rank = excl.gather(0, flat_e[None, :])[0]
+    keep = rank < capacity
+    slot = torch.where(keep, flat_e * capacity + rank, e_pad * capacity)
+    token_idx = torch.arange(T, device=xt.device).repeat_interleave(k)
+    # kept slots are distinct; every dropped pair lands on the spare last
+    # row, which is cut off
+    buf = torch.zeros((e_pad * capacity + 1, d), dtype=xt.dtype,
+                      device=xt.device)
+    buf.index_copy_(0, slot, xt[token_idx])
+    return buf[:-1].reshape(e_pad, capacity, d), slot, keep, rank
+
+
+def moe_experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """Every expert's GLU FFN on its buffer: two batched products over the
+    expert axis ((E, C, d) -> (E, C, d))."""
+    return torch.bmm(_glu(torch.bmm(buf, p["we_i"])), p["we_o"])
+
+
+def moe_combine(out_e: torch.Tensor, gates: torch.Tensor, slot: torch.Tensor,
+                keep: torch.Tensor) -> torch.Tensor:
+    """Each token's kept choices, weighted by their gates in x's type, summed
+    in choice order from zeros with a rounding to x's type after each add:
+    the reference's ``zeros.at[token_idx].add(...)``, whose updates for one
+    token are consecutive, with no atomics (one result on every device).
+    Returns (T, d)."""
+    E, C, d = out_e.shape
+    T, k = gates.shape
+    flat = out_e.reshape(E * C, d)
+    gathered = flat[slot.clamp(0, E * C - 1)]
+    gathered = torch.where(keep[:, None], gathered, 0)
+    contrib = (gathered * gates.reshape(-1)[:, None]).reshape(T, k, d)
+    yt = torch.zeros((T, d), dtype=out_e.dtype, device=out_e.device)
+    for j in range(k):
+        yt = yt + contrib[:, j]
+    return yt
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE with capacity dispatch: the reference's dense-buffer path
+    (``_moe_ffn_dense``, one global capacity over the call's tokens), then
+    the shared experts added after the routed sum.  x: (B, S, d)."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    gates, experts = moe_route(p, xt, cfg)
+    buf, slot, keep, _ = moe_dispatch(xt, experts, cfg,
+                                      moe_capacity(cfg, B * S))
+    yt = moe_combine(moe_experts(p, buf), gates, slot, keep)
+    if "shared_i" in p:
+        yt = yt + ffn({"wi": p["shared_i"], "wo_f": p["shared_o"]}, xt)
+    return yt.reshape(B, S, d)

@@ -1,17 +1,22 @@
-"""Decoder-only LM of the dense family (the port of ``repro/models/lm.py``).
+"""Decoder-only LM of the dense, MoE, hybrid, ssm and vlm families (the
+port of ``repro/models/lm.py``).
 
 The reference groups layers into the config's repeating pattern period and
 ``lax.scan``s over stacked period parameters; the port walks one flat list
 of layers in the reference's order (head layers, each period's
 ``slot0..slotN``, tail layers), so ``params["layers"][i]`` and
-``cache[i]`` are layer ``i``'s.  Layer kinds ``"attn"`` and ``"swa"`` with a
-dense GLU FFN are ported; the recurrent kinds, MoE FFNs, the vision
-frontend and the training loss wait (ROADMAP A9).
+``cache[i]`` are layer ``i``'s.  Mixers: ``"attn"``, ``"swa"`` (attention),
+``"rglru"``, ``"mlstm"``, ``"slstm"`` (``models.recurrent``); FFNs: dense
+GLU, ``"dense_first"`` (deepseek's first layer, ``dense_d_ff`` wide),
+``"moe"`` or none.  The vision frontend projects precomputed patch
+embeddings (``img_proj``) into the first positions.  The training loss
+waits (ROADMAP A9-train).
 
-Serving: ``init_cache`` builds one ``(k, v)`` pair per layer, a full KV
-cache for ``"attn"`` and a ring buffer of ``window`` slots for ``"swa"``
-when ``kv_len >= window``; ``forward(..., cache=..., cache_pos=...)`` is the
-decode step and updates the caches in place.
+Serving: ``init_cache`` builds each layer's own state: a ``(k, v)`` pair
+(a full KV cache for ``"attn"``, a ring buffer of ``window`` slots for
+``"swa"`` when ``kv_len >= window``), or a recurrent state tuple;
+``forward(..., cache=..., cache_pos=...)`` is the decode step: it updates
+KV caches in place and returns each recurrent state anew.
 """
 from __future__ import annotations
 
@@ -21,12 +26,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
-__all__ = ["PORTED_KINDS", "layer_kinds", "init_params", "init_cache",
-           "forward"]
+__all__ = ["LAYER_KINDS", "ATTENTION_KINDS", "layer_kinds", "init_params",
+           "init_cache", "forward"]
 
 Params = Dict[str, Any]
-PORTED_KINDS = ("attn", "swa")
+ATTENTION_KINDS = ("attn", "swa")
+LAYER_KINDS = ATTENTION_KINDS + ("rglru", "mlstm", "slstm")
 
 
 def _dtype(cfg: ModelConfig):
@@ -56,28 +63,37 @@ def _layer_plan(cfg: ModelConfig):
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """``(kind, ffn_type)`` of every layer in the reference's order; raises
-    ``NotImplementedError`` for a kind or FFN the port does not have yet."""
+    ``ValueError`` for a layer kind the reference does not have."""
     head, pattern, npd, tail = _layer_plan(cfg)
     kinds = head + pattern * npd + tail
-    for kind, ft in kinds:
-        if kind not in PORTED_KINDS or ft not in ("dense", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} with a {ft!r} FFN is not "
-                f"ported yet (ROADMAP A9)")
+    for kind, _ in kinds:
+        if kind not in LAYER_KINDS:
+            raise ValueError(f"{cfg.name}: unknown layer kind {kind!r}")
     return kinds
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype, ffn_type: str
-                ) -> Params:
+_MIXER_PARAMS = {"attn": L.attn_params, "swa": L.attn_params,
+                 "rglru": R.rglru_params, "mlstm": R.mlstm_params,
+                 "slstm": R.slstm_params}
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype, kind: str,
+                ffn_type: str) -> Params:
     dev = gen.device
     p: Params = {"norm1": torch.zeros(cfg.d_model, dtype=dtype, device=dev),
-                 "mixer": L.attn_params(gen, cfg, dtype)}
-    if ffn_type == "dense":
+                 "mixer": _MIXER_PARAMS[kind](gen, cfg, dtype)}
+    if ffn_type != "none":
         p["norm2"] = torch.zeros(cfg.d_model, dtype=dtype, device=dev)
+    if ffn_type == "dense":
         p["ffn"] = L.ffn_params(gen, cfg.d_model, cfg.d_ff, dtype)
+    elif ffn_type == "dense_first":
+        p["ffn"] = L.ffn_params(gen, cfg.d_model, cfg.dense_d_ff or cfg.d_ff,
+                                dtype)
+    elif ffn_type == "moe":
+        p["ffn"] = L.moe_params(gen, cfg, dtype)
     return p
 
 
@@ -93,54 +109,85 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype)
-    p["layers"] = [_init_layer(gen, cfg, dtype, ft) for _, ft in kinds]
+    if cfg.frontend == "vision_patches":
+        p["img_proj"] = L.dense_init(gen, (cfg.frontend_dim, cfg.d_model),
+                                     dtype)
+    p["layers"] = [_init_layer(gen, cfg, dtype, kind, ft)
+                   for kind, ft in kinds]
     return p
 
 
 # ---------------------------------------------------------------------------
 # cache
 # ---------------------------------------------------------------------------
-def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
-               device: torch.device) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """One zeroed ``(k, v)`` pair per layer, each ``(batch, S_cache, Hkv,
-    D)``: ``S_cache`` is ``kv_len`` for ``"attn"`` and ``min(window,
-    kv_len)`` for ``"swa"``."""
-    cache = []
-    for kind, _ in layer_kinds(cfg):
-        s = min(cfg.window, kv_len) if kind == "swa" and cfg.window else kv_len
+def _init_layer_cache(kind: str, cfg: ModelConfig, batch: int, kv_len: int,
+                      dtype, device):
+    if kind in ATTENTION_KINDS:
+        s = min(cfg.window, kv_len) if kind == "swa" and cfg.window \
+            else kv_len
         shape = (batch, s, cfg.n_kv_heads, cfg.head_dim_)
-        cache.append((torch.zeros(shape, dtype=_dtype(cfg), device=device),
-                      torch.zeros(shape, dtype=_dtype(cfg), device=device)))
-    return cache
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+    if kind == "rglru":
+        return R.rglru_init_state(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return R.mlstm_init_state(cfg, batch, device)
+    return R.slstm_init_state(cfg, batch, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
+               device: torch.device) -> List[Tuple[torch.Tensor, ...]]:
+    """Each layer's zeroed state: a ``(k, v)`` pair of ``(batch, S_cache,
+    Hkv, D)`` (``S_cache`` is ``kv_len`` for ``"attn"`` and ``min(window,
+    kv_len)`` for ``"swa"``), or its recurrent state (``models.recurrent``:
+    RG-LRU's in the model's type, mLSTM's and sLSTM's fp32 with ``m`` at
+    -1e30)."""
+    return [_init_layer_cache(kind, cfg, batch, kv_len, _dtype(cfg), device)
+            for kind, _ in layer_kinds(cfg)]
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+_RECURRENT = {"rglru": R.rglru, "mlstm": R.mlstm, "slstm": R.slstm}
+
+
 def _layer_apply(lp: Params, x, kind: str, ffn_type: str, cfg: ModelConfig,
                  positions, cache, cache_pos, engine: str):
     mixer_in = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-    out, new_cache = L.attention(lp["mixer"], mixer_in, cfg, kind=kind,
-                                 positions=positions, cache=cache,
-                                 cache_pos=cache_pos, engine=engine)
+    if kind in ATTENTION_KINDS:
+        out, new_cache = L.attention(lp["mixer"], mixer_in, cfg, kind=kind,
+                                     positions=positions, cache=cache,
+                                     cache_pos=cache_pos, engine=engine)
+    else:
+        out, new_cache = _RECURRENT[kind](lp["mixer"], mixer_in, cfg,
+                                          state=cache)
     x = x + out
     if ffn_type != "none":
-        x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+        h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+        x = x + (L.moe_ffn(lp["ffn"], h, cfg) if ffn_type == "moe"
+                 else L.ffn(lp["ffn"], h))
     return x, new_cache
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            image_embeds: Optional[torch.Tensor] = None,
             cache: Optional[List] = None, cache_pos: Optional[int] = None,
             return_cache: bool = False, logits_slice: Optional[int] = None,
             engine: str = "auto"):
     """Returns (logits over the padded vocab, cache or None).
 
     Prefill: cache=None; positions are [0, S).  Decode: cache + cache_pos
-    (an int, the write position); positions are cache_pos + [0, S) and the
-    caches are updated in place."""
+    (an int, the write position); positions are cache_pos + [0, S); KV
+    caches are updated in place, recurrent states replaced in the returned
+    list.  ``image_embeds`` (B, n_img, frontend_dim), for the vision
+    frontend: projected by ``img_proj`` into positions [0, n_img)."""
     kinds = layer_kinds(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens]
+    if cfg.frontend == "vision_patches" and image_embeds is not None:
+        img = image_embeds.to(x.dtype) @ params["img_proj"]
+        x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
     start = 0 if cache_pos is None else int(cache_pos)
     positions = (start + torch.arange(S, dtype=torch.int32,
                                       device=x.device)).expand(B, S)

@@ -1,0 +1,270 @@
+"""Recurrent mixers: RG-LRU (Griffin / recurrentgemma) and the xLSTM blocks
+(the port of ``repro/models/recurrent.py``).
+
+RG-LRU is a gated linear recurrence: prefill runs it as a log-step
+(Hillis-Steele) scan over the sequence, decode as the cell update.  mLSTM
+prefills in its stabilized parallel form (an (S, S) decay matrix per head)
+and decodes with the (C, n, m) state update.  sLSTM's hidden-to-gate
+feedback is nonlinear, so it is a loop over the sequence in both modes.
+
+States, as the reference returns them: RG-LRU ``(h (B, R) in x's type,
+conv (B, cw-1, R))``; mLSTM ``(C (B, H, hd, hd), n (B, H, hd), m (B, H))``
+in fp32; sLSTM ``(c, n, h, m)`` each (B, H, hd) fp32; ``m`` starts at
+-1e30.  The xLSTM blocks use ``hd = d_model // n_heads``, not the
+config's ``head_dim``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import dense_init, logistic
+
+__all__ = ["rglru_params", "rglru", "rglru_init_state", "mlstm_params",
+           "mlstm", "mlstm_init_state", "slstm_params", "slstm",
+           "slstm_init_state", "linear_scan"]
+
+Params = Dict[str, torch.Tensor]
+
+_C_RGLRU = 8.0  # Griffin's fixed recurrence sharpness
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+def rglru_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, r = cfg.d_model, cfg.d_rnn_
+    dev = gen.device
+    lam = torch.log(torch.expm1(torch.linspace(0.9, 4.0, r,
+                                               dtype=torch.float32,
+                                               device=dev)))
+    return {
+        "wx": dense_init(gen, (d, r), dtype),
+        "wgate": dense_init(gen, (d, r), dtype),
+        "conv": dense_init(gen, (cfg.conv_width, r), dtype, scale=0.1),
+        "wi": dense_init(gen, (r, r), dtype),
+        "wr": dense_init(gen, (r, r), dtype),
+        "lam": lam,     # a^c ~ 0.9..0.999 (Griffin's appendix), fp32
+        "wo_r": dense_init(gen, (r, d), dtype),
+    }
+
+
+def _causal_conv1d(u: torch.Tensor, w: torch.Tensor,
+                   state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv; u: (B, S, R), w: (cw, R).  The taps are summed
+    in u's type in the reference's order, ``((t0 + t1) + t2) + ...``.
+    ``state`` (B, cw-1, R) holds the previous inputs (decode); returns
+    ``(y, new_state)``."""
+    cw = w.shape[0]
+    B, S, R = u.shape
+    if state is None:
+        state = torch.zeros((B, cw - 1, R), dtype=u.dtype, device=u.device)
+    ext = torch.cat([state, u], dim=1)
+    y = ext[:, 0:S] * w[0]
+    for i in range(1, cw):
+        y = y + ext[:, i:i + S] * w[i]
+    new_state = ext[:, -(cw - 1):] if cw > 1 else None
+    return y, new_state
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along axis 1, as a log-step
+    scan (Hillis-Steele: step ``d`` combines each element with the one ``d``
+    before it).  The reference's ``associative_scan`` combines in another
+    tree, so fp32 results differ in the last bits."""
+    S = a.shape[1]
+    d = 1
+    while d < S:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return b
+
+
+def rglru(p: Params, x: torch.Tensor, cfg: ModelConfig,
+          state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """RG-LRU mixer.  x: (B, S, d); state = (h (B, R), conv (B, cw-1, R)) for
+    decode.  Returns (out (B, S, d), new_state)."""
+    B, S, _ = x.shape
+    u = x @ p["wx"]
+    u, new_conv = _causal_conv1d(u, p["conv"],
+                                 state[1] if state is not None else None)
+    uf = u.float()
+    i_gate = logistic(uf @ p["wi"].float())
+    r_gate = logistic(uf @ p["wr"].float())
+    # jax.nn.softplus is logaddexp(x, 0)
+    log_a = -_C_RGLRU * torch.logaddexp(p["lam"], torch.zeros_like(p["lam"])) \
+        * r_gate
+    a = torch.exp(log_a)
+    gated_x = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i_gate * uf)
+    if state is None:
+        h = linear_scan(a, gated_x)
+        new_h = h[:, -1]
+    else:
+        h_t = state[0].float()
+        hs = []
+        for t in range(S):
+            h_t = a[:, t] * h_t + gated_x[:, t]
+            hs.append(h_t)
+        h = torch.stack(hs, dim=1)
+        new_h = h_t
+    # jax.nn.gelu defaults to the tanh approximation
+    gate = F.gelu((x @ p["wgate"]).float(), approximate="tanh")
+    out = (h * gate).to(x.dtype) @ p["wo_r"]
+    return out, (new_h.to(x.dtype), new_conv)
+
+
+def rglru_init_state(cfg: ModelConfig, batch: int, dtype, device):
+    r = cfg.d_rnn_
+    return (torch.zeros((batch, r), dtype=dtype, device=device),
+            torch.zeros((batch, cfg.conv_width - 1, r), dtype=dtype,
+                        device=device))
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+def mlstm_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wq": dense_init(gen, (d, d), dtype),
+        "wk": dense_init(gen, (d, d), dtype),
+        "wv": dense_init(gen, (d, d), dtype),
+        "wi": dense_init(gen, (d, h), torch.float32),
+        "wf": dense_init(gen, (d, h), torch.float32),
+        "wog": dense_init(gen, (d, d), dtype),
+        "wo_m": dense_init(gen, (d, d), dtype),
+    }
+
+
+def mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
+          state: Optional[Tuple] = None):
+    """mLSTM mixer: the stabilized parallel form (prefill, which builds
+    (B, S, S, H) fp32 tensors) or the recurrent form (decode, ``state`` =
+    (C, n, m)).  Returns (out, new_state)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, H, hd) / (hd ** 0.5)
+    v = (x @ p["wv"]).reshape(B, S, H, hd)
+    xf = x.float()
+    log_i = xf @ p["wi"]                                   # (B, S, H)
+    log_f = F.logsigmoid(xf @ p["wf"])                     # (B, S, H) <= 0
+    qf, kf, vf = q.float(), k.float(), v.float()
+
+    if state is None:
+        Fc = torch.cumsum(log_f, dim=1)
+        # L[t, s] = log_i[s] + F[t] - F[s] for s <= t
+        Lmat = Fc[:, :, None, :] + (log_i - Fc)[:, None, :, :]  # (B,t,s,H)
+        tpos = torch.arange(S, device=x.device)
+        causal = tpos[:, None] >= tpos[None, :]
+        Lmat = torch.where(causal[None, :, :, None], Lmat, -torch.inf)
+        m = Lmat.amax(dim=2)                               # (B, S, H)
+        Dmat = torch.exp(Lmat - m[:, :, None, :])
+        Smat = torch.einsum("bthd,bshd->btsh", qf, kf) * Dmat
+        norm = torch.maximum(Smat.sum(dim=2).abs(), torch.exp(-m))
+        h = torch.einsum("btsh,bshd->bthd", Smat / norm[:, :, None, :], vf)
+        # the decode state at the last position
+        mT = m[:, -1]
+        decay = torch.exp(Fc[:, -1][:, None, :] - Fc + log_i
+                          - mT[:, None, :])
+        C_end = torch.einsum("bsh,bshd,bshe->bhde", decay, kf, vf)
+        n_end = torch.einsum("bsh,bshd->bhd", decay, kf)
+        new_state = (C_end, n_end, mT)
+    else:
+        C, n, m_prev = state
+        hs = []
+        for t in range(S):
+            m_new = torch.maximum(log_f[:, t] + m_prev, log_i[:, t])  # (B,H)
+            fdec = torch.exp(log_f[:, t] + m_prev - m_new)[:, :, None]
+            idec = torch.exp(log_i[:, t] - m_new)[:, :, None]
+            kt, vt, qt = kf[:, t], vf[:, t], qf[:, t]
+            C = fdec[..., None] * C + idec[..., None] * torch.einsum(
+                "bhd,bhe->bhde", kt, vt)
+            n = fdec * n + idec * kt
+            num = torch.einsum("bhde,bhd->bhe", C, qt)
+            den = torch.maximum(torch.einsum("bhd,bhd->bh", n, qt).abs(),
+                                torch.exp(-m_new))[:, :, None]
+            hs.append(num / den)
+            m_prev = m_new
+        h = torch.stack(hs, dim=1)
+        new_state = (C, n, m_prev)
+
+    og = logistic(x @ p["wog"])
+    out = (og * h.reshape(B, S, d).to(x.dtype)) @ p["wo_m"]
+    return out, new_state
+
+
+def mlstm_init_state(cfg: ModelConfig, batch: int, device):
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.zeros((batch, H, hd, hd), **f32),
+            torch.zeros((batch, H, hd), **f32),
+            torch.full((batch, H), -1e30, **f32))
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+_SLSTM_GATES = ("i", "f", "z", "o")
+
+
+def slstm_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, H = cfg.d_model, cfg.n_heads
+    hd = d // H
+    p = {f"in_{g}": dense_init(gen, (d, d), torch.float32)
+         for g in _SLSTM_GATES}
+    for g in _SLSTM_GATES:
+        p[f"r_{g}"] = dense_init(gen, (H, hd, hd), torch.float32,
+                                 scale=hd ** -0.5)
+    p["wo_s"] = dense_init(gen, (d, d), dtype)
+    return p
+
+
+def slstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
+          state: Optional[Tuple] = None):
+    """sLSTM mixer: a loop over the sequence (hidden-to-gate recurrence) in
+    fp32, one batched product of the four recurrent matrices a step.
+    state = (c, n, h, m), each (B, H, hd).  Returns (out, new_state)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+    xf = x.float()
+    z = [(xf @ p[f"in_{g}"]).reshape(B, S, H, hd) for g in _SLSTM_GATES]
+    if state is None:
+        state = slstm_init_state(cfg, B, x.device)
+    c, n, h, m = state
+    # (H, hd, 4 hd): each gate's recurrent product is its own columns
+    r = torch.cat([p[f"r_{g}"] for g in _SLSTM_GATES], dim=-1)
+    hs = []
+    for t in range(S):
+        rec = torch.einsum("bhd,hde->bhe", h, r).split(hd, dim=-1)
+        gi = z[0][:, t] + rec[0]
+        gf = z[1][:, t] + rec[1]
+        gz = torch.tanh(z[2][:, t] + rec[2])
+        go = logistic(z[3][:, t] + rec[3])
+        log_f = F.logsigmoid(gf)
+        m_new = torch.maximum(log_f + m, gi)
+        fdec = torch.exp(log_f + m - m_new)
+        idec = torch.exp(gi - m_new)
+        c = fdec * c + idec * gz
+        n = fdec * n + idec
+        h = go * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    out = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype) @ p["wo_s"]
+    return out, (c, n, h, m)
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int, device):
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    f32 = dict(dtype=torch.float32, device=device)
+    zero = torch.zeros((batch, H, hd), **f32)
+    return (zero, zero, zero, torch.full((batch, H, hd), -1e30, **f32))

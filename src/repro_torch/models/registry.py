@@ -8,9 +8,11 @@
   bundle.init_cache(batch, kv_len, device)      -> cache
 
 ``engine`` is the attention engine of ``models.layers`` (``"torch"``,
-``"cuda"`` or ``"auto"``).  The dense decoder family is ported; a config of
-another family (MoE, hybrid, ssm, vlm, audio) or with unported layer kinds
-raises ``NotImplementedError`` (ROADMAP A9).
+``"cuda"`` or ``"auto"``).  Every family serves: decoder LMs through
+``models.lm`` (``batch["image_embeds"]`` for the vision frontend), the
+encoder-decoder through ``models.encdec`` (``batch["frames"]``, encoder
+frames; its caches hold ``src_len(kv_len)`` cross slots).  Training waits
+(ROADMAP A9-train).
 """
 from __future__ import annotations
 
@@ -23,9 +25,15 @@ import torch
 from repro_torch.configs.archs import get_config, reduced_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.columnar import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
 
-__all__ = ["ModelBundle", "get_bundle"]
+__all__ = ["ModelBundle", "get_bundle", "src_len"]
+
+
+def src_len(seq_len: int) -> int:
+    """Encoder frame count for enc-dec shapes (audio frames ~ seq / 4)."""
+    return max(64, seq_len // 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,35 +41,52 @@ class ModelBundle:
     cfg: ModelConfig
 
     def __post_init__(self):
-        c = self.cfg
-        if c.family != "dense" or c.is_encdec or c.frontend != "none" \
-                or c.n_experts:
-            raise NotImplementedError(
-                f"{c.name}: the {c.family!r} family is not ported yet "
-                f"(ROADMAP A9)")
-        LM.layer_kinds(c)
+        if not self.cfg.is_encdec:
+            LM.layer_kinds(self.cfg)
 
     def init(self, seed: int = 0, device=None) -> Any:
         """Random weights from a ``torch.Generator`` seeded with ``seed`` on
         ``device`` (None = CUDA)."""
         gen = torch.Generator(device=resolve_device(device))
         gen.manual_seed(int(seed))
+        if self.cfg.is_encdec:
+            return ED.init_params(self.cfg, gen)
         return LM.init_params(self.cfg, gen)
+
+    def train_loss(self, params, batch):
+        raise NotImplementedError(
+            f"{self.cfg.name}: training is not ported yet (ROADMAP A9-train)")
 
     def prefill(self, params, batch, engine: str = "auto") -> torch.Tensor:
         """Full-sequence forward emitting the last position's logits."""
+        if self.cfg.is_encdec:
+            memory = ED.encode(params, self.cfg, batch["frames"],
+                               engine=engine)
+            logits, _ = ED.decode_forward(params, self.cfg, batch["tokens"],
+                                          memory=memory, logits_slice=1,
+                                          engine=engine)
+            return logits
         logits, _ = LM.forward(params, self.cfg, batch["tokens"],
+                               image_embeds=batch.get("image_embeds"),
                                logits_slice=1, engine=engine)
         return logits
 
     def decode(self, params, cache, batch, engine: str = "auto"):
-        """One decode step at ``batch["pos"]`` against the cache, which is
-        updated in place."""
+        """One decode step at ``batch["pos"]`` against the cache (KV caches
+        are updated in place, recurrent states returned anew)."""
+        if self.cfg.is_encdec:
+            return ED.decode_forward(params, self.cfg, batch["tokens"],
+                                     cache=cache, cache_pos=batch["pos"],
+                                     engine=engine)
         return LM.forward(params, self.cfg, batch["tokens"], cache=cache,
                           cache_pos=batch["pos"], engine=engine)
 
     def init_cache(self, batch: int, kv_len: int, device=None):
-        return LM.init_cache(self.cfg, batch, kv_len, resolve_device(device))
+        dev = resolve_device(device)
+        if self.cfg.is_encdec:
+            return ED.init_cache(self.cfg, batch, kv_len, src_len(kv_len),
+                                 dev)
+        return LM.init_cache(self.cfg, batch, kv_len, dev)
 
 
 @functools.lru_cache(maxsize=None)

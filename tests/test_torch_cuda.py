@@ -662,6 +662,16 @@ ATTN_CASES += [(2, 16, 8, 257, 400, 240, False, 0, None, 200),
                # no key at all (every block walks no tile), a window of one
                (1, 8, 2, 40, 64, 80, False, 0, 5, 0),
                (1, 4, 4, 300, 300, 64, True, 1, None, None)]
+# head dim 96 (phi-3-vision: 32 heads of 96) on every route: a causal
+# prefill, a full-cache decode step; and non-causal calls with Sq != Skv
+# at q_offset 0 (seamless's encoder and cross-attention: more queries than
+# keys, fewer, and a decode step's cross-attention)
+ATTN_CASES += [(1, 32, 32, 520, 520, 96, True, 0, None, None),
+               (4, 32, 32, 1, 2048, 96, True, 0, 1500, 2048),
+               (2, 16, 16, 300, 100, 64, False, 0, 0, None),
+               (2, 16, 16, 100, 1024, 64, False, 0, 0, None),
+               (4, 16, 16, 1, 256, 64, False, 0, 0, None),
+               (1, 8, 8, 257, 129, 96, False, 0, 0, None)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -694,8 +704,8 @@ def test_flash_attention_kernel_matches_plain(device, case, dtype):
 
 
 def test_flash_attention_kernel_refuses_other_head_dims(device):
-    q = torch.zeros(1, 2, 4, 96, device=device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 96"):
+    q = torch.zeros(1, 2, 4, 48, device=device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 48"):
         swa.flash_swa_attention(q, q, q)
 
 
@@ -768,3 +778,47 @@ def test_lm_on_cuda_launches_b6_per_layer(device, dtype):
                      ) <= tol
     # every decode step's attention took the decode route
     assert launch_counts["flash_decode"] == before + 24 * b.cfg.n_layers
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,changes", [
+    (2, 64, {}),                                  # prefill: some drop
+    (4, 1, dict(n_experts=32, top_k=6)),          # decode: capacity 1
+])
+def test_moe_ffn_card_matches_cpu(device, B, S, changes, dtype):
+    """Reduced deepseek-moe-16b's MoE FFN on the card against the CPU on the
+    same weights: the same routing (expert ids and kept choices), outputs
+    within 1e-4 (fp32) / 2 bf16 ulps of the largest output, and the ordered
+    combine (no atomics) bit for bit the same on a second call."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(reduced_config("deepseek-moe-16b"),
+                              dtype=dtype, **changes)
+    dt = getattr(torch, dtype)
+    p = L.moe_params(torch.Generator().manual_seed(0), cfg, dt)
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn((B, S, cfg.d_model), generator=g)
+         + torch.randn(cfg.d_model, generator=g)).to(dt)
+    pc = {k: v.to(device) for k, v in p.items()}
+    xc = x.to(device)
+    routes = []
+    for pp, xx in ((p, x), (pc, xc)):
+        xt = xx.reshape(-1, cfg.d_model)
+        _, experts = L.moe_route(pp, xt, cfg)
+        keep = L.moe_dispatch(xt, experts, cfg,
+                              L.moe_capacity(cfg, xt.shape[0]))[2]
+        routes.append((experts.cpu(), keep.cpu()))
+    assert torch.equal(routes[0][0], routes[1][0])
+    assert torch.equal(routes[0][1], routes[1][1])
+    assert not bool(routes[0][1].all())
+    want = L.moe_ffn(p, x, cfg).float()
+    got = L.moe_ffn(pc, xc, cfg)
+    assert torch.equal(got, L.moe_ffn(pc, xc, cfg))
+    err = float((got.float().cpu() - want).abs().max())
+    big = float(want.abs().max())
+    tol = 1e-4 * max(1.0, big) if dtype == "float32" \
+        else 2 * 2.0 ** (np.floor(np.log2(big)) - 7)
+    assert err <= tol, (err, tol)

@@ -1,10 +1,11 @@
-"""The port's dense decoder LM against the reference (``repro.models``) on
-the same numpy-seeded weights and inputs: the layers in fp32 at 1e-5 under
+"""The port's decoder LMs against the reference (``repro.models``) on the
+same numpy-seeded weights and inputs: the layers in fp32 at 1e-5 under
 both attention engines and in all three attention modes (prefill,
 full-cache decode, ring-buffer decode); whole-model logits for reduced
-h2o-danube-1.8b, llama3.2-3b and qwen2-1.5b; decode against the parallel
-forward with the ring wrapping; the weight converter; and the registry's
-refusal of unported families.
+h2o-danube-1.8b, llama3.2-3b and qwen2-1.5b, and for the six other
+families (MoE, recurrent, xLSTM, vision, encoder-decoder); decode against
+the parallel forward with the ring wrapping; the weight converter; and
+every reduced bundle's prefill and decode.
 
 Weights come from the reference's own initialisers, with every norm scale
 and QKV bias (zero at init) replaced by seeded noise so that both are
@@ -20,7 +21,9 @@ import torch
 from repro.configs.archs import reduced_config as ref_reduced_config
 from repro.kernels import ops as RO
 from repro.models import layers as RL
+from repro.models import encdec as RED
 from repro.models import lm as RLM
+from repro.models.registry import ModelBundle as RefBundle
 from repro_torch.configs import reduced_config
 from repro_torch.interop import lm_params_from_numpy
 from repro_torch.kernels import launch_counts
@@ -29,6 +32,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 
 ARCHS = ["h2o-danube-1.8b", "llama3.2-3b", "qwen2-1.5b"]
+# the families this port added after the dense one
+FAMILIES = ["deepseek-moe-16b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
+            "xlstm-125m", "phi-3-vision-4.2b", "seamless-m4t-medium"]
 ENGINES = ["torch", "cuda"]
 
 
@@ -46,8 +52,8 @@ def _noisy(tree, rng):
 
 def _params(rcfg, pcfg, seed):
     rng = np.random.default_rng(seed)
-    ref = _noisy(jax.tree.map(np.asarray,
-                              RLM.init_params(rcfg, jax.random.key(seed))),
+    init = RED.init_params if rcfg.is_encdec else RLM.init_params
+    ref = _noisy(jax.tree.map(np.asarray, init(rcfg, jax.random.key(seed))),
                  rng)
     return ref, lm_params_from_numpy(ref, pcfg, "cpu")
 
@@ -260,6 +266,127 @@ def test_forward_matches_reference(arch, dtype, monkeypatch):
             (arch, dtype, engine, err, tol)
 
 
+def _family_batch(cfg, seed, B=2, S=32):
+    """Tokens, and the frontend's inputs where the family has one (as the
+    reference's ``input_specs``: frames of ``max(64, S // 4)``, one image
+    embedding a frontend token), fp32 holding bf16 values, so that every
+    precision sees the same inputs."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(3, cfg.vocab_size, (B, S)
+                                    ).astype(np.int32)}
+    shapes = {}
+    if cfg.is_encdec:
+        shapes["frames"] = (B, max(64, S // 4), cfg.frontend_dim)
+    if cfg.frontend == "vision_patches":
+        shapes["image_embeds"] = (B, cfg.n_frontend_tokens, cfg.frontend_dim)
+    for k, shape in shapes.items():
+        batch[k] = np.asarray(jnp.asarray(rng.normal(size=shape),
+                                          jnp.bfloat16), np.float32)
+    return batch
+
+
+def _ref_family_logits(ref, rcfg, batch, dtype):
+    """All positions' logits of the reference's forward (the encoder-decoder:
+    encode, then the decoder over the memory), compiled without excess
+    precision; in bf16 the fp32 leaves (routers, gates) stay fp32."""
+    rp = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32)
+                      if dtype == "float32" else jnp.asarray(a), ref)
+    rcfg = dataclasses.replace(rcfg, dtype=dtype)
+    jb = {k: jnp.asarray(v) if k == "tokens" else
+          jnp.asarray(v, jnp.dtype(dtype)) for k, v in batch.items()}
+    if rcfg.is_encdec:
+        def f(p, b):
+            mem = RED.encode(p, rcfg, b["frames"])
+            return RED.decode_forward(p, rcfg, b["tokens"], memory=mem)[0]
+    else:
+        def f(p, b):
+            return RLM.forward(p, rcfg, b["tokens"],
+                               image_embeds=b.get("image_embeds"))[0]
+    exe = jax.jit(f).lower(rp, jb).compile(
+        compiler_options=_NO_EXCESS_PRECISION)
+    return np.asarray(exe(rp, jb), np.float32)
+
+
+def _port_family_logits(params, pcfg, batch, dtype, engine):
+    from repro_torch.models import encdec as ED
+
+    tb = {k: torch.from_numpy(v) if k == "tokens" else
+          _t(v).to(getattr(torch, dtype)) for k, v in batch.items()}
+    if pcfg.is_encdec:
+        mem = ED.encode(params, pcfg, tb["frames"], engine=engine)
+        got, _ = ED.decode_forward(params, pcfg, tb["tokens"], memory=mem,
+                                   engine=engine)
+    else:
+        got, _ = LM.forward(params, pcfg, tb["tokens"],
+                            image_embeds=tb.get("image_embeds"),
+                            engine=engine)
+    assert got.dtype == getattr(torch, dtype)
+    return _np(got)
+
+
+# The bf16 case cuts reduced recurrentgemma (5 layers) to one period
+# (rglru, rglru, swa) and seamless (2 + 2) to one encoder and one decoder
+# layer: deeper, a single 1-ulp flip (a bf16 product summed in another
+# order) spreads through later layers' attention (up to 2.75 ulps and 0.52
+# ulp rms at seeds 0, 1 and 5, against a reference bf16-vs-fp32 spread of
+# 4.3-6.0 and 0.66-0.97).  At the cut depth, seeds 0, 1, 5 and 7, both
+# engines: at most 1.5 ulps (max) and 0.19 ulp (rms), against a spread of
+# 1.66-4.79 and 0.31-0.73.
+_BF16_DEPTH = {"recurrentgemma-2b": dict(n_layers=3),
+               "seamless-m4t-medium": dict(n_layers=1, n_encoder_layers=1)}
+# fp32 reference logits (through its sdpa) by (arch, cut): the fp32 case's
+# reference and the bf16 case's spread, compiled once
+_REF32 = {}
+
+
+def _ref32(arch, ref, rcfg, batch):
+    key = (arch, rcfg.n_layers, rcfg.n_encoder_layers)
+    if key not in _REF32:
+        _REF32[key] = _ref_family_logits(ref, rcfg, batch, "float32")
+    return _REF32[key]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_forward_matches_reference(arch, dtype, monkeypatch):
+    """Every position's logits of a 32-token prefill of the reduced MoE,
+    recurrent, xLSTM, vision and encoder-decoder models, under both engines.
+    fp32 at 1e-4, both engines against the reference through its ``sdpa``
+    (B6's plain version computes the same function; its summation order
+    moves fp32 logits by ~1e-6).  bf16: the torch engine against the
+    reference, the cuda engine against the reference with its Pallas B6 at
+    every attention site (the encoder's bidirectional and the decoder's
+    cross attention included: B6 keeps fp32 probabilities where ``sdpa``
+    rounds them to bf16), both at test_forward_matches_reference's gates,
+    2 ulps of the largest logit (max) and a quarter ulp (rms), with the
+    reference's own bf16-vs-fp32 spread above one of them (asserted;
+    reduced phi-3-vision's max spread under B6, 0.061, sits just under 2
+    ulps, 0.0625, its rms spread above); recurrentgemma and seamless at the
+    depth of ``_BF16_DEPTH``."""
+    rcfg, pcfg = _configs(arch, dtype)
+    if dtype == "bfloat16" and arch in _BF16_DEPTH:
+        rcfg = dataclasses.replace(rcfg, **_BF16_DEPTH[arch])
+        pcfg = dataclasses.replace(pcfg, **_BF16_DEPTH[arch])
+    ref, params = _params(rcfg, pcfg, seed=5)
+    batch = _family_batch(rcfg, seed=5)
+    want32 = _ref32(arch, ref, rcfg, batch)
+    for engine in ENGINES:
+        want, tol = want32, (1e-4, np.inf)
+        if dtype == "bfloat16":
+            if engine == "cuda":
+                monkeypatch.setattr(RL, "sdpa", _flash_sdpa)
+            want = _ref_family_logits(ref, rcfg, batch, dtype)
+            ulp = _bf16_ulp(float(np.abs(want).max()))
+            tol = (2 * ulp, ulp / 4)
+            spread = _max_rms(want32 - want)
+            assert spread[0] > tol[0] or spread[1] > tol[1], \
+                (arch, engine, spread, tol)
+        err = _max_rms(_port_family_logits(params, pcfg, batch, dtype,
+                                           engine) - want)
+        assert err[0] <= tol[0] and err[1] <= tol[1], \
+            (arch, dtype, engine, err, tol)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("engine", ENGINES)
 def test_decode_matches_parallel_with_ring_wrap(engine, dtype):
@@ -324,37 +451,93 @@ def test_cpu_forward_launches_no_kernel():
 # ---------------------------------------------------------------------------
 # weights and registry
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS + ["gemma3-12b"])
-def test_converter_round_trip(arch):
-    """Every leaf of the reference's pytree reaches the port unchanged (bf16
-    by its bits), and the layers come out in the reference's order: head
-    layers, then period i's slot j as layer i * len(pattern) + j, then tail
-    layers."""
-    rcfg = ref_reduced_config(arch)
-    ref = jax.tree.map(np.asarray, RLM.init_params(rcfg, jax.random.key(4)))
-    params = lm_params_from_numpy(ref, reduced_config(arch), "cpu")
-    assert params["embed"].dtype == torch.bfloat16
+def _ref_layers(ref, rcfg):
+    """The reference pytree's layers in the port's order (head layers, then
+    period i's slot j as layer i * len(pattern) + j, then tail layers), or
+    its unstacked encoder and decoder layers."""
+    if rcfg.is_encdec:
+        return {key: [jax.tree.map(lambda a: a[i], ref[key])
+                      for i in range(n)]
+                for key, n in (("enc_layers", rcfg.n_encoder_layers),
+                               ("dec_layers", rcfg.n_layers))}
     head, pattern, npd, tail = RLM._layer_plan(rcfg)
     P = len(pattern)
-    layers = list(ref["head_layers"]) + [
+    return {"layers": list(ref["head_layers"]) + [
         jax.tree.map(lambda a: a[n // P], ref["periods"][f"slot{n % P}"])
-        for n in range(npd * P)] + list(ref["tail_layers"])
+        for n in range(npd * P)] + list(ref["tail_layers"])}
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["gemma3-12b"] + FAMILIES)
+def test_converter_round_trip(arch):
+    """Every leaf of the reference's pytree reaches the port unchanged and in
+    its dtype (bf16 by its bits; fp32 routers and gates stay fp32), the
+    top-level leaves included (``img_proj``, ``frontend_proj``,
+    ``enc_norm``), and the layers come out in the reference's order."""
+    rcfg = ref_reduced_config(arch)
+    init = RED.init_params if rcfg.is_encdec else RLM.init_params
+    ref = jax.tree.map(np.asarray, init(rcfg, jax.random.key(4)))
+    params = lm_params_from_numpy(ref, reduced_config(arch), "cpu")
+    assert params["embed"].dtype == torch.bfloat16
     want = {k: v for k, v in ref.items()
-            if k not in ("head_layers", "periods", "tail_layers")}
-    want["layers"] = layers
-    got = jax.tree.map(lambda t: t.float().numpy(), params)
-    assert len(params["layers"]) == rcfg.n_layers
-    assert jax.tree.structure(got) == jax.tree.structure(want)
-    for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
-        np.testing.assert_array_equal(np.asarray(a, np.float32), b)
+            if k not in ("head_layers", "periods", "tail_layers",
+                         "enc_layers", "dec_layers")}
+    want.update(_ref_layers(ref, rcfg))
+    assert jax.tree.structure(params) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(params)):
+        assert str(b.dtype) == f"torch.{a.dtype}"
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      b.float().numpy())
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-2b",
-                                  "xlstm-125m", "phi-3-vision-4.2b",
-                                  "seamless-m4t-medium"])
-def test_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        get_bundle(arch, reduced=True)
+def test_converter_refuses_a_leaf_it_cannot_place():
+    rcfg = ref_reduced_config("phi-3-vision-4.2b")
+    ref = jax.tree.map(np.asarray, RLM.init_params(rcfg, jax.random.key(4)))
+    ref["extra"] = {"w": ref["img_proj"]}
+    with pytest.raises(ValueError, match="extra"):
+        lm_params_from_numpy(ref, reduced_config("phi-3-vision-4.2b"), "cpu")
+
+
+def _cache_leaves(tree):
+    """(structure, [(shape, dtype name), ...]) of a cache pytree."""
+    leaves, treedef = jax.tree.flatten(tree)
+    return treedef, [(tuple(a.shape), str(a.dtype).replace("torch.", ""))
+                     for a in leaves]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_prefills_and_decodes_on_the_cpu(arch):
+    """Each reduced bundle of the families ported after the dense one
+    prefills and decodes one step on the CPU under both engines, with
+    finite logits; the decoded cache keeps ``init_cache``'s structure,
+    shapes and dtypes, which are the reference's cache's, layer by layer
+    (fp32 xLSTM states, KV caches and RG-LRU states in the model's type)."""
+    b = get_bundle(arch, reduced=True)
+    cfg = b.cfg
+    params = b.init(0, device="cpu")
+    batch = {k: torch.from_numpy(v) if k == "tokens" else
+             _t(v).to(torch.bfloat16)
+             for k, v in _family_batch(cfg, seed=6).items()}
+    rcfg = ref_reduced_config(arch)
+    rcache = jax.tree.map(np.asarray, RefBundle(rcfg).init_cache(2, 64))
+    want = _cache_leaves(rcache if cfg.is_encdec
+                         else _ref_layers(rcache, rcfg)["layers"])
+    for engine in ENGINES:
+        pre = b.prefill(params, batch, engine=engine)
+        assert pre.shape == (2, 1, cfg.padded_vocab)
+        assert bool(torch.isfinite(pre.float()).all())
+        cache = b.init_cache(2, 64, device="cpu")
+        assert _cache_leaves(cache) == want
+        logits, new = b.decode(params, cache,
+                               {"tokens": batch["tokens"][:, :1], "pos": 3},
+                               engine=engine)
+        assert logits.shape == (2, 1, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits.float()).all())
+        assert _cache_leaves(new) == want
+
+
+def test_training_is_refused():
+    with pytest.raises(NotImplementedError, match="A9-train"):
+        get_bundle("deepseek-moe-16b", reduced=True).train_loss({}, {})
 
 
 def test_bad_engine_raises():

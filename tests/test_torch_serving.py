@@ -61,28 +61,46 @@ def test_greedy_decode_matches_prefill_argmax(engine):
     assert torch.equal(torch.argmax(logits[:, 0], dim=-1), want)
 
 
+# the reference batcher's tokens by (arch, kv_len): run once for both
+# engines' cases
+_REF_TOKENS = {}
+
+
+def _ref_tokens(arch, kv_len, rb, rparams, prompts):
+    if (arch, kv_len) not in _REF_TOKENS:
+        ref = RefBatcher(rb, rparams, n_slots=2, kv_len=kv_len)
+        reqs = [RefRequest(rid=i, prompt=p, max_new=8)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            ref.submit(r)
+        ref.run(max_steps=200)
+        _REF_TOKENS[arch, kv_len] = [r.out for r in reqs]
+    return _REF_TOKENS[arch, kv_len]
+
+
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("arch,kv_len", [("h2o-danube-1.8b", 32),
-                                         ("qwen2-1.5b", 48)])
+                                         ("qwen2-1.5b", 48),
+                                         ("deepseek-moe-16b", 48),
+                                         ("recurrentgemma-2b", 32)])
 def test_batcher_gives_the_reference_tokens(arch, kv_len, engine):
     """Six requests over two slots: reduced h2o-danube's caches are 16-slot
-    rings that wrap (prompts up to 20 tokens, 8 new), qwen2's full caches."""
+    rings that wrap (prompts up to 20 tokens, 8 new), qwen2's full caches,
+    deepseek's MoE layers (capacity 1 at two tokens a step: colliding
+    choices drop) and recurrentgemma's RG-LRU states beside 16-slot
+    rings."""
     rb, rparams, pb, pparams = _f32_bundles(arch)
     prompts = _prompts(6, 4, 20, rb.cfg.vocab_size)
-    ref = RefBatcher(rb, rparams, n_slots=2, kv_len=kv_len)
     port = ContinuousBatcher(pb, pparams, n_slots=2, kv_len=kv_len,
                              engine=engine)
-    rreqs = [RefRequest(rid=i, prompt=p, max_new=8)
-             for i, p in enumerate(prompts)]
     preqs = [Request(rid=i, prompt=p, max_new=8)
              for i, p in enumerate(prompts)]
-    for r, p in zip(rreqs, preqs):
-        ref.submit(r)
+    for p in preqs:
         port.submit(p)
-    ref.run(max_steps=200)
     port.run(max_steps=200)
     assert all(r.done for r in preqs)
-    assert [r.out for r in preqs] == [r.out for r in rreqs]
+    assert [r.out for r in preqs] == _ref_tokens(arch, kv_len, rb, rparams,
+                                                 prompts)
 
 
 def _layer0(cache_port, cache_ref):
@@ -136,6 +154,16 @@ def test_launcher_serves_on_the_cpu(capsys):
     reqs = serve.main(["--arch", "h2o-danube-1.8b", "--requests", "3",
                        "--slots", "2", "--kv-len", "32", "--max-new", "4",
                        "--device", "cpu"])
+    assert all(r.done and 1 <= len(r.out) <= 4 for r in reqs)
+    assert "3 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen2-moe-a2.7b",
+                                  "recurrentgemma-2b", "xlstm-125m",
+                                  "phi-3-vision-4.2b", "seamless-m4t-medium"])
+def test_launcher_serves_every_family(arch, capsys):
+    reqs = serve.main(["--arch", arch, "--requests", "3", "--slots", "2",
+                       "--kv-len", "32", "--max-new", "4", "--device", "cpu"])
     assert all(r.done and 1 <= len(r.out) <= 4 for r in reqs)
     assert "3 requests" in capsys.readouterr().out
 
