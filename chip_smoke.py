@@ -204,16 +204,41 @@ nothing falls back to the CPU):
      launches), and B6 timed at phi-3-vision's prefill shape and at
      seamless's cross-attention (4,096 queries over 1,024 frames) as in
      phase 10.
+  16. training: B6's backward (``csrc/swa_backward.cu``) against its plain
+     backward over the forward's sweep, every head dim with ragged Sq,
+     Skv and kv_len and a window edge inside a tile, GQA 1-10, non-causal
+     and cross calls, rows that see no key, fp32 and bf16 (within
+     ATTN_TOL of each gradient's largest |value| and ATTN_ROW_TOL a row),
+     and autograd through ``FlashAttention`` against autograd through the
+     plain forward; h2o-danube-1.8b at full width (bf16, remat, seeded
+     random weights) trained by ``launch.train.train`` from the claims
+     stream, 4 AdamW steps of 2 x 8,192 tokens: finite losses, B6's
+     forward 48 and backward 24 launches a step (the decode route never),
+     every parameter's gradient finite and nonzero on the next batch, the
+     warm step's wall, tokens/s and peak memory, one step traced
+     (``chiprun_out/train_step_trace.json``: device time of the forward,
+     backward and optimizer ranges, top kernels, idle share); at full
+     width cut to 2 layers, the cuda engine against the torch engine in
+     fp32 (loss within 1e-5 relative, every gradient leaf within 1e-3 of
+     its largest |value|) and in bf16 against the fp32 loss
+     (``bf16_gate``); reduced danube, deepseek-moe-16b and
+     seamless-m4t-medium in fp32 end to end, 3 steps on the card against
+     the CPU (losses and master within 1e-5); the reference's restart
+     test on the card (reduced xlstm-125m: 6 steps against 3 + save +
+     restore + 3, bit for bit); and B6's backward timed at danube's
+     training shape beside its plain version, the backward of SDPA with a
+     boolean mask and its bound (10 D flops a visible pair and head).
 
 Each kernel's launches are counted over the two studies' first runs, the
 first chunked run (with prefetch), the spec corpus, the timed pipelined
 service serve, the serving path (prefill and batcher), gemma3-12b's
 prefill, the sharded run's first cuda run, the sharded service's timed
 pipelined serve (both summed over ranks) and each family's prefill and
-batcher (phase 15), with the counts set to 0 just before each.  B6's
-``flash_attention`` count takes one per call on either route; its record's
-launches are those calls less the decode route's (``flash_decode``), which
-has a record of its own.  B2b runs on none of these paths (no caller
+batcher (phase 15) and the full-width training run (phase 16), with the
+counts set to 0 just before each.  B6's ``flash_attention`` count takes one
+per call on either route; its record's launches are those calls less the
+decode route's (``flash_decode``), which has a record of its own; its
+backward (``flash_attention_bwd``) launches only in training.  B2b runs on none of these paths (no caller
 compacts by a bool mask): its count is 0.  The last lines of standard output
 are the card's name and power limit, one JSON line with the kernel records,
 and ``{"ok": true, "device": {...}}``.
@@ -2090,11 +2115,14 @@ def attention_battery(device) -> None:
         f"{ATTN_ROW_TOL['bfloat16']})")
 
 
-def attention_bound(q, k, kw, rate):
+def attention_bound(q, k, kw, rate, flops_per_pair: int = 4,
+                    q_tensors: int = 2, kv_tensors: int = 2):
     """(bound ms, 'bytes' or 'operations', visible pairs): the larger of the
-    bytes B6 must move (q and o once, the K/V rows some query can see once)
-    over the memory rate, and 4 D flops per visible (query, key) pair and
-    query head over the peak rate of the type."""
+    bytes B6 must move (q and o once, the K/V rows some query can see once;
+    the backward's ``q_tensors`` = 4, q, o, dout and dq, and ``kv_tensors``
+    = 4, k, v, dk and dv) over the memory rate, and ``flops_per_pair`` D
+    flops (4 forward, 10 backward) per visible (query, key) pair and query
+    head over the peak rate of the type."""
     import numpy as np
 
     B, Hq, Sq, D = q.shape
@@ -2110,8 +2138,9 @@ def attention_bound(q, k, kw, rate):
     pairs = int(n.sum())
     keys = int(hi.max() - lo.min() + 1) if pairs else 0
     esize = q.element_size()
-    nbytes = esize * (2 * B * Hq * Sq * D + 2 * B * Hkv * keys * D)
-    flops = 4 * D * pairs * B * Hq
+    nbytes = esize * (q_tensors * B * Hq * Sq * D
+                      + kv_tensors * B * Hkv * keys * D)
+    flops = flops_per_pair * D * pairs * B * Hq
     dname = str(q.dtype).replace("torch.", "")
     t_bytes, t_ops = nbytes / rate, flops / PEAK_FLOPS[dname]
     return (max(t_bytes, t_ops) * 1e3,
@@ -3757,6 +3786,567 @@ def sharded_phase(n_patients: int, cpu_patients: int, reps: int,
     return launches, timing, sv_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training (A9-train) and B6's backward
+# ---------------------------------------------------------------------------
+# B6's backward against its plain backward (dq, dk, dv): an absolute gate
+# over the tensor's largest |value| (the forward's ATTN_TOL, read relative:
+# dk and dv sum over up to thousands of rows and reach magnitudes of 10-100
+# where the forward's outputs stay under 1), and the forward's per-row gate
+# over max(the row's largest |value|, 1e-2 of the tensor's): a row whose
+# terms cancel (dq of a row that sees one key is sum_j dS_ij k_j with dS ~ 0)
+# holds only rounding noise, which the floor keeps from reading as 100 %.
+BWD_ROW_FLOOR = 1e-2
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len): the forward's
+# sweep; every head dim with ragged Sq, Skv and kv_len and a window edge
+# inside a tile; GQA 1, 2, 4 and 10; non-causal and cross-attention with
+# Sq != Skv at q_offset 0; rows that see no key (kv_len 0, a negative
+# offset); a key tile past kv_len; danube's shape at 1,100 tokens and MQA
+# with window 2,048 at head dim 256 (recurrentgemma's)
+BWD_CASES = (
+    ATTN_SWEEP
+    + [(1, 4, 2, 300, 333, D, True, 50, None, 317) for D in
+       (16, 32, 64, 80, 96, 128, 240, 256)]
+    + [(2, 4, 4, 130, 130, 64, True, 0, None, None),
+       (1, 20, 2, 77, 77, 32, True, 30, None, None),
+       (1, 10, 1, 200, 200, 256, True, 2048, None, None),
+       (2, 16, 16, 300, 100, 64, False, 0, 0, None),
+       (2, 16, 16, 70, 260, 64, False, 0, 0, 250),
+       (2, 8, 2, 40, 64, 80, True, 0, -20, None),
+       (1, 8, 4, 65, 65, 96, False, 16, 0, None),
+       (3, 32, 8, 5, 33, 80, True, 0, -2, None),
+       (1, 32, 8, 1100, 1100, 80, True, 300, None, None)])
+BWD_LIBRARY_REPS = 5        # reps of the plain and SDPA backward (~0.25 s)
+# h2o-danube-1.8b's training shape: 2 x 8,192 tokens, 32/8 heads of 80
+BWD_DANUBE = (2, 32, 8, 8192, 8192, 80, True, 4096, None, None)
+
+
+def check_grads(got, want, what: str):
+    """(max abs error over the largest |value|, worst row error) of each of
+    dq, dk, dv, the worst of the three; fails past ATTN_TOL or ATTN_ROW_TOL
+    (per row over max(row's largest |value|, BWD_ROW_FLOOR of the
+    tensor's))."""
+    import torch
+
+    err = row = 0.0
+    dname = str(want[0].dtype).replace("torch.", "")
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"flash_attention backward ({what}): {name} is "
+                 f"{tuple(g.shape)} {g.dtype}, want {tuple(w.shape)} "
+                 f"{w.dtype}")
+        if not bool(torch.isfinite(g).all()):
+            fail(f"flash_attention backward ({what}): {name} not finite")
+        d = (g.float() - w.float()).abs().amax(dim=-1)
+        s = w.float().abs().amax(dim=-1)
+        top = float(s.max()) if s.numel() else 0.0
+        if top == 0.0:
+            if float(d.max() if d.numel() else 0.0) != 0.0:
+                fail(f"flash_attention backward ({what}): {name} should be 0")
+            continue
+        err = max(err, float(d.max()) / top)
+        row = max(row, float((d / s.clamp_min(BWD_ROW_FLOOR * top)).max()))
+    if not (err <= ATTN_TOL[dname] and row <= ATTN_ROW_TOL[dname]):
+        fail(f"flash_attention backward kernel != plain ({dname}, {what}): "
+             f"max abs error over the largest |value| {err} (gate "
+             f"{ATTN_TOL[dname]}), worst row error {row} (gate "
+             f"{ATTN_ROW_TOL[dname]})")
+    return err, row
+
+
+def _bwd_inputs(case, dt, device, seed: int, transposed: bool):
+    import torch
+
+    B, Hq, Hkv, Sq, Skv, D = case[:6]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(sh, generator=g, device=device).to(dt)
+                   for sh in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                              (B, Hkv, Skv, D), (B, Hq, Sq, D)))
+    if transposed:                     # the model's (B, S, H, D) views
+        q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in (q, k, v))
+    return q, k, v, do
+
+
+def backward_battery(device) -> dict:
+    """B6's backward kernel against its plain backward on the card over
+    ``BWD_CASES`` in fp32 and bf16 (odd cases through transposed views, as
+    the model passes them); then ``torch.autograd.grad`` through
+    ``FlashAttention`` against autograd through the plain forward (fp32,
+    the cases where every row sees a key: there autograd's 0/0 gives
+    NaN)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import swa_attention as swa
+
+    worst = {}
+    dims = set()
+    for i, case in enumerate(BWD_CASES):
+        errs = []
+        for dname in ATTN_TOL:
+            dt = getattr(torch, dname)
+            q, k, v, do = _bwd_inputs(case, dt, device, 1000 + i, i % 2 == 1)
+            kw = _attn_kwargs(case)
+            o = swa.flash_swa_attention(q, k, v, **kw)
+            before = launch_counts["flash_attention_bwd"]
+            got = swa.flash_swa_attention_backward(q, k, v, o, do, **kw)
+            if launch_counts["flash_attention_bwd"] != before + 1:
+                fail(f"flash_attention backward {case}: no launch counted")
+            want = swa.flash_swa_attention_backward_plain(q, k, v, o, do,
+                                                          **kw)
+            err = check_grads(got, want, str(case))
+            w = worst.get(dname, (0.0, 0.0))
+            worst[dname] = (max(w[0], err[0]), max(w[1], err[1]))
+            errs.append(f"{dname} {err[0]:.3g} / {err[1]:.3g}")
+            dims.add(case[5])
+            del q, k, v, do, o, got, want
+        log(f"attention backward: {case}: max abs / worst row error "
+            f"{', '.join(errs)}")
+    if dims != set(swa.HEAD_DIMS):
+        fail(f"attention backward: head dims {sorted(dims)} checked, not "
+             f"every one")
+    auto = 0.0
+    for i, case in enumerate(BWD_CASES):
+        B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
+        kv = Skv if kv_len is None else kv_len
+        off = kv - Sq if q_offset is None else q_offset
+        # every row must see a key (a window only hides keys behind one
+        # that the causal mask keeps: the row's own position)
+        if kv == 0 or (causal and (off < 0 or off >= kv)):
+            continue
+        q, k, v, do = _bwd_inputs(case, torch.float32, device, 2000 + i,
+                                  i % 2 == 1)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        kw = _attn_kwargs(case)
+        out = swa.FlashAttention.apply(*leaves, causal, window, q_offset,
+                                       kv_len)
+        got = torch.autograd.grad(out, leaves, do)
+        plain = swa.flash_swa_attention_plain(*leaves, **kw)
+        want = torch.autograd.grad(plain, leaves, do)
+        auto = max(auto, check_grads(got, want, f"autograd {case}")[0])
+        del q, k, v, do, leaves, out, got, plain, want
+    log(f"attention backward: {2 * len(BWD_CASES)} kernel-vs-plain checks, "
+        f"max abs (over the largest |value|) / worst row error fp32 "
+        f"{worst['float32'][0]} / {worst['float32'][1]} (gates "
+        f"{ATTN_TOL['float32']} / {ATTN_ROW_TOL['float32']}), bf16 "
+        f"{worst['bfloat16'][0]} / {worst['bfloat16'][1]} (gates "
+        f"{ATTN_TOL['bfloat16']} / {ATTN_ROW_TOL['bfloat16']}); autograd "
+        f"through FlashAttention vs through the plain forward (fp32): max "
+        f"{auto}")
+    return worst
+
+
+def time_attention_backward(label, q, k, v, kw, reps, rate) -> dict:
+    """B6's backward at one shape: the kernel (checked against the plain
+    backward first), the plain backward, and the backward of torch's
+    scaled_dot_product_attention with an explicit boolean mask (K/V repeated
+    over the group, contiguous copies; its forward runs once, outside the
+    timed window; a yardstick only), each the middle of ``TIMING_CALLS``
+    medians (the plain backward and the yardstick: of ``BWD_LIBRARY_REPS``
+    reps), with their min-max;
+    the forward kernel's time at the same shape beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import swa_attention as swa
+
+    g = torch.Generator(device=q.device).manual_seed(7)
+    o = swa.flash_swa_attention(q, k, v, **kw)
+    do = torch.randn(o.shape, generator=g, device=q.device).to(q.dtype)
+    kern = lambda: swa.flash_swa_attention_backward(  # noqa: E731
+        q, k, v, o, do, **kw)
+    plain = lambda: swa.flash_swa_attention_backward_plain(  # noqa: E731
+        q, k, v, o, do, **kw)
+    err, row = check_grads(kern(), plain(), label)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    kv_len = Skv if kw["kv_len"] is None else kw["kv_len"]
+    q_off = kv_len - Sq if kw["q_offset"] is None else kw["q_offset"]
+    qpos = q_off + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = (kpos < kv_len).expand(Sq, Skv)
+    if kw["causal"]:
+        mask = mask & (kpos <= qpos)
+    if kw["window"] > 0:
+        mask = mask & (kpos > qpos - kw["window"])
+    leaves = [q.detach().contiguous().requires_grad_(True)] + [
+        x.detach().repeat_interleave(Hq // Hkv, dim=1).contiguous()
+        .requires_grad_(True) for x in (k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             scale=D ** -0.5)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, leaves, do, retain_graph=True)
+    bound_ms, bound_by, pairs = attention_bound(q, k, kw, rate, 10, 4, 4)
+    out = dict(shape=(B, Hq, Hkv, Sq, Skv, D), kv_len=kv_len, pairs=pairs,
+               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+               row_err=row)
+    fwd = lambda: swa.flash_swa_attention(q, k, v, **kw)  # noqa: E731
+    for key, fn, n in (("ms", kern, reps),
+                       ("plain_ms", plain, BWD_LIBRARY_REPS),
+                       ("library_ms", lib, BWD_LIBRARY_REPS),
+                       ("forward_ms", fwd, reps)):
+        out[key], lo, hi = spread_ms(fn, n)
+        out[key + "_range"] = (lo, hi)
+    log(f"timing: flash_attention backward {label} {out['shape']} kv_len "
+        f"{kv_len} {q.dtype} causal {kw['causal']} window {kw['window']} "
+        f"({pairs} visible pairs x heads); middle of {TIMING_CALLS} medians "
+        f"[min-max of the medians]: kernel {out['ms']:.4f} ms "
+        f"[{out['ms_range'][0]:.4f}-{out['ms_range'][1]:.4f}] ({reps} reps),"
+        f" plain {out['plain_ms']:.4f} ms [{out['plain_ms_range'][0]:.4f}-"
+        f"{out['plain_ms_range'][1]:.4f}] ({BWD_LIBRARY_REPS} reps), "
+        f"sdpa+mask backward "
+        f"{out['library_ms']:.4f} ms [{out['library_ms_range'][0]:.4f}-"
+        f"{out['library_ms_range'][1]:.4f}] ({BWD_LIBRARY_REPS} reps), "
+        f"bound {bound_ms:.4f} ms ({bound_by}, 10 D flops a pair; "
+        f"{100 * bound_ms / out['ms']:.1f} % reached); the forward kernel "
+        f"{out['forward_ms']:.4f} ms [{out['forward_ms_range'][0]:.4f}-"
+        f"{out['forward_ms_range'][1]:.4f}]; kernel-vs-plain max abs error "
+        f"over the largest |value| {err}, worst row error {row}")
+    return out
+
+
+TRAIN_STEPS = 4            # full-width danube, 2 x 8,192 tokens a step
+TRAIN_BATCH, TRAIN_SEQ = 2, 8192
+ENGINE_LAYERS = 2          # the engines' comparison depth at full width
+TRAIN_ENGINE_GATE = {"loss": 1e-5, "grad": 1e-3}   # fp32, cuda vs torch
+TRAIN_CPU_ARCHS = ("h2o-danube-1.8b", "deepseek-moe-16b",
+                   "seamless-m4t-medium")
+TRAIN_CPU_STEPS = 3
+TRAIN_CPU_GATE = 1e-5      # losses, gradients (relative), master, fp32
+ADAM_FLOOR = 1e-4          # gradients under this of their leaf's largest
+TRAIN_OPT = dict(lr_peak=1e-3, warmup_steps=20)    # the launcher's
+RESTART_ARCH = "xlstm-125m"   # the reference's restart test's model
+
+
+def _finite_nonzero(grads, what: str) -> int:
+    """Fails unless every gradient leaf is finite and nonzero somewhere (a
+    cut graph leaves a parameter with no gradient: zeros); the count."""
+    import torch
+
+    from repro_torch.train.optimizer import tree_leaves
+
+    leaves = tree_leaves(grads)
+    for i, g in enumerate(leaves):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{what}: gradient leaf {i} {tuple(g.shape)} not finite")
+        if not bool(g.any()):
+            fail(f"{what}: gradient leaf {i} {tuple(g.shape)} is all zero")
+    return len(leaves)
+
+
+def _device_split(trace_path, prefix: str) -> dict:
+    """Device time (ms) of the kernels, copies and fills inside each device
+    range (``gpu_user_annotation``) whose name starts with ``prefix``, and
+    of all of them (``device_busy``)."""
+    events = json.loads(Path(trace_path).read_text())["traceEvents"]
+    ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "gpu_user_annotation"
+              and e["name"].startswith(prefix)}
+    split = {k: 0.0 for k in ranges}
+    split["device_busy"] = 0.0
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            split["device_busy"] += e["dur"] / 1e3
+            for k, (lo, hi) in ranges.items():
+                if lo <= e["ts"] <= hi:
+                    split[k] += e["dur"] / 1e3
+    return split
+
+
+def train_full_width() -> tuple:
+    """h2o-danube-1.8b at full width through ``launch.train.train`` from
+    the claims stream: launches, every gradient, the warm step's wall,
+    tokens/s and peak memory, and one traced step."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import claims_token_stream, train
+    from repro_torch.models import get_bundle
+    from repro_torch.train import AdamWConfig, make_train_step
+    from repro_torch.train.train_step import loss_and_grads
+
+    bundle = get_bundle(DANUBE)
+    cfg = bundle.cfg
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train(DANUBE, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, reduced=False, device="cuda", log_every=1)
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(
+            x == x and abs(x) < float("inf") for x in losses):
+        fail(f"training: losses {losses}")
+    n_attn = cfg.n_layers
+    want = {"flash_attention": 2 * n_attn * TRAIN_STEPS,    # remat: twice
+            "flash_attention_bwd": n_attn * TRAIN_STEPS, "flash_decode": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"training: B6 launches {got}, want {want} ({TRAIN_STEPS} "
+             f"steps, remat on)")
+    state = out["state"]
+    # one more batch of the stream: every parameter must get a gradient
+    stream = claims_token_stream(TRAIN_SEQ, TRAIN_BATCH, cfg.vocab_size, 0,
+                                 device="cuda")
+    for _ in range(TRAIN_STEPS):
+        next(stream)
+    batch = next(stream)
+    before = dict(launch_counts)
+    loss, grads = loss_and_grads(bundle, state["params"], batch)
+    n_leaves = _finite_nonzero(grads, "training (full width)")
+    if launch_counts["flash_attention_bwd"] - before["flash_attention_bwd"] \
+            != n_attn:
+        fail("training: the gradient pass did not launch B6's backward once "
+             "a layer")
+    del grads
+    valid = float(batch["loss_mask"].sum())
+    step_fn = make_train_step(bundle, AdamWConfig(total_steps=TRAIN_STEPS
+                                                  + 2, **TRAIN_OPT))
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        traced_us = (time.perf_counter() - t1) * 1e6
+    lines = trace_report("train_step", prof, traced_us)
+    for line in lines:
+        log(line)
+    split = _device_split(REPO / "chiprun_out" / "train_step_trace.json",
+                          "train_step.")
+    # autograd launches the backward's kernels from its own thread, outside
+    # the host range: the backward is what the forward and optimizer leave
+    split["train_step.backward"] = split["device_busy"] - split.get(
+        "train_step.forward", 0.0) - split.get("train_step.optimizer", 0.0)
+    warm = out["step_times"][-1]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    info = dict(losses=losses, step_s=out["step_times"], warm_step_s=warm,
+                tokens_per_s=tokens / warm, peak_gib=peak / 2 ** 30,
+                launcher_wall_s=wall, grad_leaves=n_leaves,
+                loss_tokens=valid, split_ms=split,
+                traced_step_ms=traced_us / 1e3, idle=lines[0])
+    log(f"training: {DANUBE} at full width ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim_}, window {cfg.window}, bf16, remat) from the claims "
+        f"stream, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"({valid:.0f} of {tokens} tokens in the loss mask of the checked "
+        f"batch): losses {losses}, step walls {out['step_times']} s; warm "
+        f"step {warm:.3f} s = {tokens / warm:.1f} tokens/s; peak device "
+        f"memory {peak / 2 ** 30:.2f} GiB; launcher wall {wall:.3f} s "
+        f"(stream build included); B6 launches {got}; {n_leaves} gradient "
+        f"leaves all finite and nonzero; traced step {traced_us / 1e3:.3f} "
+        f"ms, device time by part {json.dumps(split)}")
+    del state, out, batch, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, info
+
+
+def train_engines(batch) -> dict:
+    """danube at full width cut to ``ENGINE_LAYERS`` layers: the cuda
+    engine against the torch engine in fp32 (loss, every gradient leaf),
+    then in bf16 against the fp32 loss (``bf16_gate``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import tree_map
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(DANUBE), n_layers=ENGINE_LAYERS,
+                              dtype="float32")
+    b = ModelBundle(cfg)
+    params = b.init(2, device="cuda")
+    res = {}
+    for engine in ("cuda", "torch"):
+        t0 = time.perf_counter()
+        res[engine] = loss_and_grads(b, params, batch, engine)
+        torch.cuda.synchronize()
+        log(f"training: engines, fp32 {engine}: loss "
+            f"{float(res[engine][0])}, loss and gradients in "
+            f"{time.perf_counter() - t0:.3f} s")
+    lc, lt = float(res["cuda"][0]), float(res["torch"][0])
+    loss_err = abs(lc - lt) / abs(lt)
+    grad_err = 0.0
+    for gc_, gt in zip(tree_leaves(res["cuda"][1]),
+                       tree_leaves(res["torch"][1])):
+        top = max(float(gt.abs().max()), 1e-30)
+        grad_err = max(grad_err, float((gc_ - gt).abs().max()) / top)
+    _finite_nonzero(res["cuda"][1], "training engines (cuda, fp32)")
+    del res
+    if not (loss_err <= TRAIN_ENGINE_GATE["loss"]
+            and grad_err <= TRAIN_ENGINE_GATE["grad"]):
+        fail(f"training engines (fp32, {ENGINE_LAYERS} layers at full "
+             f"width): loss relative error {loss_err} (gate "
+             f"{TRAIN_ENGINE_GATE['loss']}), worst gradient leaf error over "
+             f"its largest |value| {grad_err} (gate "
+             f"{TRAIN_ENGINE_GATE['grad']})")
+    b16 = ModelBundle(dataclasses.replace(cfg, dtype="bfloat16"))
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    l16 = {e: float(loss_and_grads(b16, p16, batch, e)[0])
+           for e in ("cuda", "torch")}
+    d_torch, d_cuda = abs(l16["torch"] - lt), abs(l16["cuda"] - lt)
+    gate = bf16_gate(d_torch, abs(lt))
+    if not d_cuda <= gate:
+        fail(f"training engines (bf16): the cuda engine's loss {l16['cuda']}"
+             f" is {d_cuda} from the fp32 loss {lt}, past {gate} (the torch "
+             f"engine's {d_torch})")
+    out = dict(fp32_loss_rel=loss_err, fp32_grad_rel=grad_err,
+               bf16_cuda_vs_fp32=d_cuda, bf16_torch_vs_fp32=d_torch,
+               bf16_gate=gate, loss_fp32=lt)
+    log(f"training: engines at full width, {ENGINE_LAYERS} layers, "
+        f"{tuple(batch['tokens'].shape)} tokens: {json.dumps(out)} (gates "
+        f"{json.dumps(TRAIN_ENGINE_GATE)}, bf16_gate)")
+    return out
+
+
+def train_card_vs_cpu() -> dict:
+    """Reduced danube, deepseek-moe and seamless in fp32 end to end
+    (``param_dtype`` fp32: at the default bf16 cast, ROADMAP C16, the second
+    step's forward runs in bf16, where the card's and the CPU's roundings
+    differ), ``TRAIN_CPU_STEPS`` steps under the cuda engine on the card
+    and on the CPU (B6's plain versions) from the same weights: every
+    step's loss, the first step's gradients (of each leaf's largest
+    |value|; later ones are printed) and the master weights after the last
+    step within ``TRAIN_CPU_GATE``.
+    The master gate skips the elements whose CPU gradient was nonzero but
+    under ``ADAM_FLOOR`` of its leaf's largest at some step: Adam divides
+    each step by the gradient's own size, so there the devices' fp32
+    rounding (~1e-6 of the largest) moves the weight by up to 2 lr; they
+    are counted, and their gradients are held by the gradient gate.  Then
+    the reference's restart test on the card: reduced xlstm, 6 steps
+    against 3 + save + restore + 3, bit for bit."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.interop import tree_map
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train import (AdamWConfig, adamw_init,
+                                   init_train_state, make_train_step,
+                                   restore_checkpoint, save_checkpoint)
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import loss_and_grads
+
+    out = {}
+    for arch in TRAIN_CPU_ARCHS:
+        b = ModelBundle(dataclasses.replace(get_bundle(arch, reduced=True).cfg,
+                                            dtype="float32"))
+        rng = np.random.default_rng(6)
+        batches = []
+        for _ in range(TRAIN_CPU_STEPS):
+            bt = family_batch(b.cfg, 2, 64, rng, "cpu")
+            batches.append({k: v if k == "tokens" else v.float()
+                            for k, v in bt.items()})
+        runs = {}
+        for name, dev in (("cpu", "cpu"), ("card", "cuda")):
+            params = tree_map(lambda t: t.to(dev), b.init(0, device="cpu"))
+            state = {"params": params, "opt": adamw_init(params)}
+            step = make_train_step(b, AdamWConfig(total_steps=10,
+                                                  **TRAIN_OPT),
+                                   engine="cuda", param_dtype=torch.float32)
+            losses, grads = [], []
+            for bt in batches:
+                bt = {k: v.to(dev) for k, v in bt.items()}
+                grads.append([g.cpu() for g in tree_leaves(
+                    loss_and_grads(b, state["params"], bt, "cuda")[1])])
+                state, m = step(state, bt)
+                losses.append(float(m["loss"]))
+            runs[name] = (losses, grads, [x.cpu() for x in tree_leaves(
+                state["opt"]["master"])])
+        (lc, gc_, mc), (lg, gg, mg) = runs["cpu"], runs["card"]
+        loss_err = max(abs(a - c) / abs(c) for a, c in zip(lg, lc))
+        rel = [max(float((a - c).abs().max())
+                   / max(float(c.abs().max()), 1e-30)
+                   for a, c in zip(ga, gc1)) for ga, gc1 in zip(gg, gc_)]
+        grad_err = rel[0]       # later steps start from unequal masters
+        master_err, skipped = 0.0, 0
+        for i, (a, c) in enumerate(zip(mg, mc)):
+            ill = torch.zeros(c.shape, dtype=torch.bool)
+            for g in (step_g[i] for step_g in gc_):
+                ill |= (g != 0) & (g.abs() < ADAM_FLOOR * g.abs().max())
+            skipped += int(ill.sum())
+            d = (a - c).abs()[~ill]
+            master_err = max(master_err, float(d.max()) if d.numel() else 0.0)
+        n = sum(x.numel() for x in mc)
+        out[arch] = dict(loss_rel=loss_err, grad_rel=rel,
+                         master_abs=master_err, master_skipped=skipped,
+                         master_elements=n, losses=lg)
+        if not (loss_err <= TRAIN_CPU_GATE and grad_err <= TRAIN_CPU_GATE
+                and master_err <= TRAIN_CPU_GATE):
+            fail(f"training card vs CPU ({arch}, fp32, {TRAIN_CPU_STEPS} "
+                 f"steps): loss relative error {loss_err}, gradient error "
+                 f"{grad_err}, master error {master_err} over {n - skipped} "
+                 f"of {n} elements (gate {TRAIN_CPU_GATE})")
+    b = get_bundle(RESTART_ARCH, reduced=True)
+    step = make_train_step(b, AdamWConfig(lr_peak=1e-3, warmup_steps=2,
+                                          total_steps=10))
+    rng = np.random.default_rng(100)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        3, b.cfg.vocab_size, (4, 32)).astype(np.int32)).cuda()}
+        for _ in range(6)]
+    state_a = init_train_state(b, 0, "cuda")
+    for bt in batches:
+        state_a, _ = step(state_a, bt)
+    state_b = init_train_state(b, 0, "cuda")
+    for bt in batches[:3]:
+        state_b, _ = step(state_b, bt)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, 3, state_b, meta={"arch": RESTART_ARCH})
+        state_b, _ = restore_checkpoint(tmp, 3, state_b, device="cuda")
+    for bt in batches[3:]:
+        state_b, _ = step(state_b, bt)
+    la, lb = tree_leaves(state_a), tree_leaves(state_b)
+    if len(la) != len(lb) or not all(
+            x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb)):
+        fail(f"training restart ({RESTART_ARCH} on the card): 3 + restore "
+             f"+ 3 steps differ from 6")
+    out["restart"] = f"{RESTART_ARCH}: {len(la)} leaves bit for bit"
+    log(f"training: card vs CPU (fp32, {TRAIN_CPU_STEPS} steps, gate "
+        f"{TRAIN_CPU_GATE}) and restart: {json.dumps(out)}")
+    return out
+
+
+def training_phase(reps: int, rate: float):
+    """Phase 16: B6's backward battery, full-width danube training from the
+    claims stream, the engines, card against CPU, the restart, and B6's
+    backward timed at danube's training shape.  Returns the launches of
+    the training run, the backward's timing record and a summary."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import claims_token_stream
+
+    worst = backward_battery(torch.device("cuda"))
+    launches, info = train_full_width()
+    stream = claims_token_stream(TRAIN_SEQ, TRAIN_BATCH,
+                                 get_config(DANUBE).vocab_size, 0,
+                                 device="cuda")
+    engines = train_engines(next(stream))
+    del stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu = train_card_vs_cpu()
+    q, k, v, _ = _bwd_inputs(BWD_DANUBE, torch.bfloat16,
+                             torch.device("cuda"), 3, True)
+    timing = time_attention_backward("danube training", q, k, v,
+                                     _attn_kwargs(BWD_DANUBE), reps, rate)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return launches, timing, dict(run=info, engines=engines, card_vs_cpu=cpu,
+                                  battery=worst)
+
+
 KERNELS = {
     "predicate_bitset": ("src/repro_torch/csrc/predicate.cu",
                          "src/repro/kernels/predicate.py:358"),
@@ -3774,6 +4364,9 @@ KERNELS = {
                             "src/repro/kernels/hash_partition.py:44"),
     "filter_compact_mask": ("src/repro_torch/csrc/filter_compact.cu",
                             "src/repro/kernels/filter_compact.py:113"),
+    # no Pallas backward: the reference differentiates its XLA attention
+    "flash_attention_bwd": ("src/repro_torch/csrc/swa_backward.cu",
+                            "src/repro/models/layers.py:130"),
 }
 
 
@@ -3832,6 +4425,11 @@ def main() -> int:
         # head dim 96 (phi-3-vision's) must keep its state in registers
         if D == 96 and "0 bytes spill stores, 0 bytes spill loads" not in b6:
             fail(f"B6's flash_wgmma<96> spills: {b6}")
+    # B6's backward at danube's training shape and at the widest head dim
+    for D in (80, 256):
+        for kern in ("bwd_dq", "bwd_dkdv"):
+            log(f"ptxas: B6 backward {kern}<bf16, {D}>: " + ptxas_report(
+                info["log"], f"{kern}I13__nv_bfloat16Li{D}E"))
     # B1 must keep its whole state in registers and shared memory
     for rows in (16, 8):
         b1 = ptxas_report(info["log"], f"predicate_kernelILi{rows}E")
@@ -3916,6 +4514,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     m_launches, f_timing, families = timed("families", families_phase,
                                              REPS, rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_launches, b_timing, training = timed("training", training_phase, REPS,
+                                           rate)
     # B1-B3 are timed at the quickstart's (larger) shapes, B4 at the cohort
     # study's, B6's prefill kernel at the prefill's and its decode route at
     # the batcher's full-ring shape (L2 cleared); launches are summed over
@@ -3924,13 +4526,14 @@ def main() -> int:
     timing.update({"segmented_scan": c_timing["segmented_scan"],
                    "flash_attention": s_timing, "flash_decode": decode,
                    "hash_partition_plan": h_timing,
-                   "filter_compact_mask": mask_timing})
+                   "filter_compact_mask": mask_timing,
+                   "flash_attention_bwd": b_timing})
     log(f"launches: quickstart {q_launches}, chunked {k_launches}, spec "
         f"corpus {f_launches}, service {v_launches}, cohort study "
         f"{c_launches}, serving {s_launches}, gemma3 prefill "
         f"{g_launches}, sharded (summed over ranks) {h_launches}, sharded "
         f"service (summed over ranks) {sv_launches}, families "
-        f"{m_launches}")
+        f"{m_launches}, training {t_launches}")
     log(f"serving: B6 at the batcher's decode shape {json.dumps(decode)}")
     log(f"serving: B6 prefill at danube's shape {json.dumps(s_timing)}")
     for label, t in g_timing.items():
@@ -3938,6 +4541,9 @@ def main() -> int:
     for label, t in f_timing.items():
         log(f"families: B6 at {label}'s shape {json.dumps(t)}")
     log(f"families: {json.dumps(families)}")
+    log(f"training: B6 backward at danube's training shape "
+        f"{json.dumps(b_timing)}")
+    log(f"training: {json.dumps(training)}")
     log(f"serving: gates prefill {prefill_err}, teacher-forced "
         f"{json.dumps(tf)}, card vs CPU {cpu_err}; gemma3 prefill "
         f"{json.dumps(gemma_err)}, ring decode {json.dumps(ring_err)}")
@@ -3947,7 +4553,7 @@ def main() -> int:
     launches = {k: q_launches[k] + k_launches[k] + f_launches[k]
                 + v_launches[k] + c_launches[k] + s_launches[k]
                 + g_launches[k] + h_launches[k] + sv_launches[k]
-                + m_launches[k] for k in KERNELS}
+                + m_launches[k] + t_launches[k] for k in KERNELS}
     # the flash_attention count takes one per call on both of B6's routes:
     # its prefill kernel launched on the calls the decode route did not take
     launches["flash_attention"] -= launches["flash_decode"]

@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["world_size", "group_key", "all_to_all", "all_reduce_sum",
+           "all_reduce_max",
            "all_gather_cat", "all_gather_object", "broadcast_object",
            "stats", "reset_stats"]
 
@@ -116,6 +117,18 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
         return _to_device(host, x.device)
     out = x.clone()
     dist.all_reduce(out, group=group)
+    return out
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over ranks (``jax.lax.pmax``), as a new tensor."""
+    _count("all_reduce")
+    if _staged(x, group):
+        host = _to_host(x)
+        dist.all_reduce(host, op=dist.ReduceOp.MAX, group=group)
+        return _to_device(host, x.device)
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
 
 

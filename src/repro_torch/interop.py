@@ -11,7 +11,9 @@ for the encoder-decoder ``enc_layers``/``dec_layers`` stacked); the port
 keeps flat lists of layers in the reference's order.  Every leaf keeps its
 dtype (fp32 routers and gates inside bf16 models).  bf16 leaves are
 ``ml_dtypes`` arrays, which ``torch.from_numpy`` refuses: they cross as
-their ``uint16`` bits, recognised by the dtype's name.
+their ``uint16`` bits, recognised by the dtype's name.  A train state
+(``{"params", "opt": {"master", "m", "v", "step"}}``) crosses tree by tree
+(``train_state_from_numpy``), so both packages can start from one step.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.columnar import ColumnarTable, as_tensor, resolve_device
 
 __all__ = ["tables_from_numpy", "tables_to_numpy", "lm_params_from_numpy",
-           "tree_map"]
+           "train_state_from_numpy", "tree_map"]
 
 
 def tables_from_numpy(star: Mapping[str, Mapping], device=None
@@ -129,3 +131,18 @@ def _encdec_params_from_numpy(params: Mapping[str, Any], cfg: ModelConfig,
         out[key] = [tree_map(lambda a: _leaf_to_tensor(a, dev), lp)
                     for lp in _unstack(params[key], n)]
     return out
+
+
+def train_state_from_numpy(state: Mapping[str, Any], cfg: ModelConfig,
+                           device=None) -> Dict[str, Any]:
+    """The reference's train state (numpy leaves) -> the port's on
+    ``device`` (None = CUDA): ``params``, and the optimizer's ``master``,
+    ``m`` and ``v`` (each shaped as the parameters) through
+    ``lm_params_from_numpy``, ``step`` as an int32 scalar."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    return {"params": lm_params_from_numpy(state["params"], cfg, dev),
+            "opt": {**{k: lm_params_from_numpy(opt[k], cfg, dev)
+                       for k in ("master", "m", "v")},
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=dev)}}

@@ -28,7 +28,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu",
            "segment_scan.cu", "swa_attention.cu", "swa_prefill.cu",
-           "swa_decode.cu", "hash_partition.cu")
+           "swa_decode.cu", "swa_backward.cu", "hash_partition.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -143,6 +143,12 @@ def _declare(lib: ctypes.CDLL) -> None:
                                        + [_I64] + [_I32] * 5 + [_P]
                                        + [_I32] * 2 + [_P])
     lib.repro_flash_decode.restype = _I32
+    # q, k, v, o, dout, dq, dk, dv, lse, delta; 24 strides; B, Hq, Hkv, Sq,
+    # Skv, D, causal, window; q_offset; kv_len, is_bf16; stream
+    lib.repro_flash_attention_bwd.argtypes = ([_P] * 10 + [_I64] * 24
+                                              + [_I32] * 8 + [_I64, _I32, _I32,
+                                                              _P])
+    lib.repro_flash_attention_bwd.restype = _I32
 
 
 def _load(info: dict) -> ctypes.CDLL:

@@ -117,7 +117,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: Optional[int] = None) -> torch.Tensor:
     """Flash attention (GQA, causal, sliding window) in the reference's
     ``(B, H, S, D)`` layout; ``q_offset`` defaults to ``kv_len - Sq`` and
-    ``kv_len`` (keys at or past it are never attended) to ``Skv``."""
+    ``kv_len`` (keys at or past it are never attended) to ``Skv``.  Where
+    autograd records (grad mode on, an input that requires grad) the call
+    goes through ``swa_attention.FlashAttention``, whose backward is B6's
+    backward kernel on CUDA tensors (its plain version on CPU tensors)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _swa.FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                         kv_len)
     if q.device.type == "cuda":
         return _swa.flash_swa_attention(q, k, v, causal=causal, window=window,
                                         q_offset=q_offset, kv_len=kv_len)

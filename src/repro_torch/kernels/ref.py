@@ -22,8 +22,12 @@ from repro_torch.kernels.predicate import \
 from repro_torch.kernels.segment_scan import segmented_scan_plain
 from repro_torch.kernels.swa_attention import \
     flash_swa_attention_plain as attention_ref
+# B6's gradient, which has no Pallas kernel (the reference differentiates
+# its XLA attention)
+from repro_torch.kernels.swa_attention import \
+    flash_swa_attention_backward_plain as attention_bwd_ref
 
-__all__ = ["attention_ref", "bitset_op_ref", "bitset_expr_plain",
+__all__ = ["attention_ref", "attention_bwd_ref", "bitset_op_ref", "bitset_expr_plain",
            "filter_compact_mask_ref",
            "filter_compact_ref", "hash_partition_plan_ref",
            "predicate_bitset_ref", "segmented_scan_plain"]

@@ -30,6 +30,13 @@ its sorting of (query tile, key tile) pairs into skipped, full and edge
 tiles) and ``csrc/swa_attention.cu`` in fp32.  Both routes take head dims
 ``HEAD_DIMS``; bf16 operands need 16-byte aligned bases and strides that
 are multiples of 8 elements (TMA's rule), else the call raises.
+
+The gradient: ``FlashAttention`` (a ``torch.autograd.Function``) runs the
+forward above and, in its backward, ``flash_swa_attention_backward``
+(``csrc/swa_backward.cu``: dQ, dK and dV in two launches, fp32 on the CUDA
+cores, no atomics) on CUDA tensors, or ``flash_swa_attention_backward_plain``
+on CPU tensors.  The forward keeps no log-sum-exp: the backward recomputes
+each row's from q and k.
 """
 from __future__ import annotations
 
@@ -42,6 +49,8 @@ from repro_torch.kernels import launch_counts, require_kernel_operand
 
 __all__ = ["HEAD_DIMS", "DECODE_ROWS", "DECODE_KEYS", "PREFILL_ROWS",
            "flash_swa_attention", "flash_swa_attention_plain",
+           "flash_swa_attention_backward",
+           "flash_swa_attention_backward_plain", "FlashAttention",
            "decode_key_range", "plan_decode_splits", "partials_plain",
            "combine_partials_plain", "prefill_keys_per_tile",
            "prefill_tile_class", "prefill_tiles"]
@@ -346,3 +355,156 @@ def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch_counts["flash_attention"] += 1
     check(status, "flash_attention")
     return out
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+def _check_grad_args(q, o, do) -> None:
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention backward: o {tuple(o.shape)} and "
+                         f"dout {tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if not (o.dtype == do.dtype == q.dtype):
+        raise ValueError(f"flash_attention backward: q, o, dout dtypes differ "
+                         f"({q.dtype}, {o.dtype}, {do.dtype})")
+
+
+def flash_swa_attention_backward_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        do: torch.Tensor, *, causal: bool = True, window: int = 0,
+        q_offset: Optional[int] = None, kv_len: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of ``flash_swa_attention_plain`` at ``(q, k, v)``
+    for the output gradient ``do``, given the forward's output ``o``: the
+    explicit fp32 formulas, a block of query rows at a time.  With P the
+    masked softmax and ``Delta = sum_d do * o`` per row, ``dS = P (do v^T -
+    Delta)``, ``dq = dS k / sqrt(D)``, ``dk = dS^T q / sqrt(D)`` and ``dv =
+    P^T do``, dk and dv summed over each KV head's group; a row with no
+    visible key gets 0.  Gradients in the inputs' dtype."""
+    q_offset, kv_len = _check_args(q, k, v, window, q_offset, kv_len)
+    _check_grad_args(q, o, do)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    dev = q.device
+    qf = q.float().reshape(B, Hkv, g, Sq, D)
+    of = o.float().reshape(B, Hkv, g, Sq, D)
+    gf = do.float().reshape(B, Hkv, g, Sq, D)
+    kf, vf = k.float(), v.float()
+    scale = 1.0 / D ** 0.5
+    dq = torch.empty((B, Hkv, g, Sq, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Hkv, Skv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Hkv, Skv, D), dtype=torch.float32, device=dev)
+    kpos = torch.arange(Skv, device=dev)
+    step = max(1, _PLAIN_CHUNK // max(1, B * Hq * Skv))
+    for lo in range(0, Sq, step):
+        hi = min(lo + step, Sq)
+        qpos = q_offset + torch.arange(lo, hi, device=dev)[:, None]
+        mask = (kpos < kv_len)[None, :].expand(hi - lo, Skv)
+        if causal:
+            mask = mask & (kpos[None, :] <= qpos)
+        if window > 0:
+            mask = mask & (kpos[None, :] > qpos - window)
+        qc, gc = qf[:, :, :, lo:hi], gf[:, :, :, lo:hi]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * scale
+        s = s.masked_fill(~mask, float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp(s - m)
+        den = p.sum(dim=-1, keepdim=True)
+        p = torch.where(den > 0, p / den, torch.zeros_like(p))
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", gc, vf)
+        delta = (gc * of[:, :, :, lo:hi]).sum(dim=-1, keepdim=True)
+        ds = p * (dp - delta)
+        dq[:, :, :, lo:hi] = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+        dk += torch.einsum("bhgqk,bhgqd->bhkd", ds, qc) * scale
+        dv += torch.einsum("bhgqk,bhgqd->bhkd", p, gc)
+    return (dq.reshape(B, Hq, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _grad_like(t: torch.Tensor) -> torch.Tensor:
+    """An output buffer of t's shape and dtype, in t's strides where t is
+    dense with unit stride on d (a transposed view's gradient then goes back
+    through the transpose without a copy)."""
+    out = torch.empty_like(t)
+    return out if out.stride(-1) == 1 else torch.empty(
+        t.shape, dtype=t.dtype, device=t.device)
+
+
+def flash_swa_attention_backward(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        do: torch.Tensor, *, causal: bool = True, window: int = 0,
+        q_offset: Optional[int] = None, kv_len: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch B6's backward (``csrc/swa_backward.cu``) on CUDA tensors;
+    returns ``(dq, dk, dv)`` in the inputs' dtype.  The kernel reads every
+    operand element by element through its strides: an operand without unit
+    stride on d is copied first (autograd's ``do`` may be any view)."""
+    from repro_torch.kernels.build import check, library
+
+    for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "dout")):
+        require_kernel_operand(t, f"flash_attention backward {name}",
+                               dtypes=KERNEL_DTYPES, contiguous=False)
+    q_offset, kv_len = _check_args(q, k, v, window, q_offset, kv_len)
+    _check_grad_args(q, o, do)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention backward kernel: head dim {D} is "
+                         f"not one of {HEAD_DIMS}")
+    if len({t.device for t in (q, k, v, o, do)}) != 1:
+        raise ValueError("flash_attention backward: operands must share a "
+                         "device")
+    if B * Hkv > _MAX_BH:
+        raise ValueError(f"flash_attention backward kernel: B * Hkv = "
+                         f"{B * Hkv} > {_MAX_BH}")
+    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
+                      for t in (q, k, v, o, do))
+    dq, dk, dv = _grad_like(q), _grad_like(k), _grad_like(v)
+    if B == 0:
+        return dq, dk, dv
+    rows = (Hq // Hkv) * Sq
+    # each row's log-sum-exp and Delta, written by the first launch
+    ws = torch.empty((2, max(1, B * Hkv * rows)), dtype=torch.float32,
+                     device=q.device)
+    st = [ctypes.c_longlong(s) for t in (q, k, v, o, do, dq, dk, dv)
+          for s in t.stride()[:3]]
+    status = library().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ws[0].data_ptr(), ws[1].data_ptr(), *st, B, Hq, Hkv, Sq, Skv, D,
+        int(bool(causal)), int(window), ctypes.c_longlong(q_offset), kv_len,
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    launch_counts["flash_attention_bwd"] += 1
+    check(status, "flash_attention backward")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """B6 under autograd: the forward launches ``flash_swa_attention`` (its
+    plain version on CPU tensors) and saves q, k, v and the output; the
+    backward launches ``flash_swa_attention_backward`` on CUDA tensors and
+    runs ``flash_swa_attention_backward_plain`` on CPU tensors.
+    ``FlashAttention.apply(q, k, v, causal, window, q_offset, kv_len)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
+        kw = dict(causal=causal, window=window, q_offset=q_offset,
+                  kv_len=kv_len)
+        fwd = flash_swa_attention if q.device.type == "cuda" \
+            else flash_swa_attention_plain
+        out = fwd(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        bwd = flash_swa_attention_backward if do.device.type == "cuda" \
+            else flash_swa_attention_backward_plain
+        dq, dk, dv = bwd(q, k, v, out, do.to(q.dtype), **ctx.kw)
+        return dq, dk, dv, None, None, None, None

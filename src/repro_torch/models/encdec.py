@@ -14,19 +14,26 @@ B, src_len, Hkv, D)}``; a decode step writes its self-attention K/V in
 place.  ``init_cache`` zeroes the cross K/V and nothing on the reference's
 serving path fills them (``prefill_cross`` does, when a caller asks): the
 reference's served enc-dec attends zeros (ROADMAP C14), and the port
-matches it.  The training loss waits (ROADMAP A9-train).
+matches it.
+
+Training: ``train_loss`` encodes the frames, runs the decoder over the
+tokens and takes ``lm.cross_entropy`` of the next token (every position but
+the last).  With ``cfg.remat`` each encoder layer and each decoder layer
+runs under ``torch.utils.checkpoint`` while autograd records, as the
+reference's scan bodies run under ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 __all__ = ["init_params", "encode", "init_cache", "prefill_cross",
-           "decode_forward"]
+           "decode_forward", "train_loss"]
 
 Params = Dict[str, Any]
 
@@ -76,16 +83,37 @@ def _positions(B: int, S: int, start: int, device) -> torch.Tensor:
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
            engine: str = "auto") -> torch.Tensor:
     """frames: (B, S_src, frontend_dim) -> memory (B, S_src, d)."""
-    x = frames.to(_dtype(cfg)) @ params["frontend_proj"]
+    x = L.mm(frames.to(_dtype(cfg)), params["frontend_proj"])
     B, S, _ = x.shape
     positions = _positions(B, S, 0, x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["enc_layers"]:
-        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-        out, _ = L.attention(lp["attn"], h, cfg, kind="attn",
-                             positions=positions, causal=False, engine=engine)
-        x = x + out
-        x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+        x = checkpoint(_enc_layer, lp, x, cfg, positions, engine,
+                       use_reentrant=False) if remat \
+            else _enc_layer(lp, x, cfg, positions, engine)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _enc_layer(lp, x, cfg, positions, engine):
+    h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    out, _ = L.attention(lp["attn"], h, cfg, kind="attn",
+                         positions=positions, causal=False, engine=engine)
+    x = x + out
+    return x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+
+
+def _dec_layer(lp, x, memory, cfg, positions, engine):
+    """One decoder layer of a full pass (no cache)."""
+    h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+    out, _ = L.attention(lp["self_attn"], h, cfg, kind="attn",
+                         positions=positions, engine=engine)
+    x = x + out
+    h = L.rmsnorm(lp["norm_x"], x, cfg.norm_eps)
+    out, _ = L.attention(lp["cross_attn"], h, cfg, kind="attn",
+                         positions=positions, kv_input=memory, causal=False,
+                         engine=engine)
+    x = x + out
+    return x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
 
 
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, src_len: int,
@@ -106,9 +134,9 @@ def prefill_cross(params: Params, cfg: ModelConfig, memory: torch.Tensor
     (done once): ``(ck, cv)``, each (n_layers, B, S_src, Hkv, D)."""
     B, S, _ = memory.shape
     shape = (B, S, cfg.n_kv_heads, cfg.head_dim_)
-    ck = [(memory @ lp["cross_attn"]["wk"]).reshape(shape)
+    ck = [L.mm(memory, lp["cross_attn"]["wk"]).reshape(shape)
           for lp in params["dec_layers"]]
-    cv = [(memory @ lp["cross_attn"]["wv"]).reshape(shape)
+    cv = [L.mm(memory, lp["cross_attn"]["wv"]).reshape(shape)
           for lp in params["dec_layers"]]
     return torch.stack(ck), torch.stack(cv)
 
@@ -126,26 +154,44 @@ def decode_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = params["embed"][tokens]
     positions = _positions(B, S, 0 if cache_pos is None else int(cache_pos),
                            x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, lp in enumerate(params["dec_layers"]):
+        if cache is None:
+            x = checkpoint(_dec_layer, lp, x, memory, cfg, positions, engine,
+                           use_reentrant=False) if remat \
+                else _dec_layer(lp, x, memory, cfg, positions, engine)
+            continue
         h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
-        self_cache = None if cache is None else (cache["self_k"][i],
-                                                 cache["self_v"][i])
         out, _ = L.attention(lp["self_attn"], h, cfg, kind="attn",
-                             positions=positions, cache=self_cache,
+                             positions=positions,
+                             cache=(cache["self_k"][i], cache["self_v"][i]),
                              cache_pos=cache_pos, engine=engine)
         x = x + out
         h = L.rmsnorm(lp["norm_x"], x, cfg.norm_eps)
-        if cache is None:
-            out, _ = L.attention(lp["cross_attn"], h, cfg, kind="attn",
-                                 positions=positions, kv_input=memory,
-                                 causal=False, engine=engine)
-        else:
-            out = L.cross_attention(lp["cross_attn"], h, cache["cross_k"][i],
-                                    cache["cross_v"][i], cfg,
-                                    positions=positions, engine=engine)
-        x = x + out
+        x = x + L.cross_attention(lp["cross_attn"], h, cache["cross_k"][i],
+                                  cache["cross_v"][i], cfg,
+                                  positions=positions, engine=engine)
         x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:, :]
-    return x @ params["lm_head"], cache
+    return L.mm(x, params["lm_head"]), cache
+
+
+def train_loss(params: Params, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor], engine: str = "auto"
+               ) -> torch.Tensor:
+    """The reference's loss: encode ``batch["frames"]``, decode
+    ``batch["tokens"]`` over the memory, next-token cross entropy with the
+    last position masked; an fp32 scalar."""
+    from repro_torch.models.lm import cross_entropy
+
+    memory = encode(params, cfg, batch["frames"], engine=engine)
+    tokens = batch["tokens"]
+    logits, _ = decode_forward(params, cfg, tokens, memory=memory,
+                               engine=engine)
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return cross_entropy(logits, labels, mask, cfg.vocab_size)

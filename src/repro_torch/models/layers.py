@@ -1,7 +1,8 @@
 """Transformer layers: norms, RoPE, GQA attention (full, sliding-window,
 bidirectional or cross), the GLU FFN and the top-k MoE FFN with capacity
-dispatch (the port of ``repro/models/layers.py``; its expert-parallel MoE
-path and load-balance loss wait for ROADMAP A9-shard and A9-train).
+dispatch, and the MoE load-balance loss (the port of
+``repro/models/layers.py``; its expert-parallel MoE path waits for ROADMAP
+A9-shard).
 
 Conventions, the reference's: params are plain dicts of tensors (``wq``
 ``(d, Hq*D)``, ``wi`` ``(d, 2*d_ff)`` with gate || up, ...), activations
@@ -22,15 +23,16 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
-__all__ = ["ATTENTION_ENGINES", "resolve_attention_engine", "dense_init",
+__all__ = ["ATTENTION_ENGINES", "resolve_attention_engine", "mm", "dense_init",
            "rmsnorm", "rope", "attn_params", "sdpa", "attention",
            "cross_attention", "logistic", "ffn_params", "ffn", "moe_params",
            "moe_capacity", "moe_route", "moe_dispatch", "moe_experts",
-           "moe_combine", "moe_ffn"]
+           "moe_combine", "moe_ffn", "moe_load_balance_loss"]
 
 Params = Dict[str, torch.Tensor]
 ATTENTION_ENGINES = ("torch", "cuda", "auto")
@@ -44,6 +46,24 @@ def resolve_attention_engine(engine: str, device) -> str:
     if engine == "auto":
         return "cuda" if torch.device(device).type == "cuda" else "torch"
     return engine
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's type promotion: operands of two float types meet
+    in the wider one (the reference's fp32 activations against bf16 weights
+    after an optimizer step, ROADMAP C16, compute in fp32)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
+def bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` with ``mm``'s promotion."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.bmm(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +135,7 @@ def _proj_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
     hd = cfg.head_dim_
     kv_src = x if kv_input is None else kv_input
-    q, k, v = x @ p["wq"], kv_src @ p["wk"], kv_src @ p["wv"]
+    q, k, v = mm(x, p["wq"]), mm(kv_src, p["wk"]), mm(kv_src, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     Skv = kv_src.shape[1]
@@ -172,25 +192,38 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     return out.reshape(B, Sq, Hq * D)
 
 
+def _chunk_step(m, den, acc, qg, k_i, v_i, q_positions, lo, causal, window,
+                kv_valid_len):
+    """One 1,024-key chunk of the flash recurrence: the new (max, sum,
+    accumulator)."""
+    s = _masked_scores(qg, k_i, q_positions, lo, causal, window,
+                       kv_valid_len)                         # (B,h,g,Sq,bk)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    den = den * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_i.dtype), v_i)
+    return m_new, den, acc * alpha[..., None].to(acc.dtype) + pv
+
+
 def _sdpa_chunked(qg, k, v, *, causal, window, q_positions, kv_valid_len):
     """The flash recurrence over 1,024-key chunks (the reference's
-    ``lax.scan``; its accumulator is in v's dtype)."""
+    ``lax.scan``; its accumulator is in v's dtype).  While autograd records,
+    each chunk runs under ``torch.utils.checkpoint``, as the reference's
+    scan body runs under ``jax.checkpoint``: the backward keeps one chunk's
+    scores at a time, not the whole (Sq, Skv) product."""
     B, Sq, Hkv, g, D = qg.shape
     dev = k.device
     m = torch.full((B, Hkv, g, Sq), -1e30, dtype=torch.float32, device=dev)
     den = torch.zeros((B, Hkv, g, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hkv, g, Sq, D), dtype=v.dtype, device=dev)
+    remat = torch.is_grad_enabled()
     for lo in range(0, k.shape[1], _KV_CHUNK):
-        k_i, v_i = k[:, lo:lo + _KV_CHUNK], v[:, lo:lo + _KV_CHUNK]
-        s = _masked_scores(qg, k_i, q_positions, lo, causal, window,
-                           kv_valid_len)                     # (B,h,g,Sq,bk)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        den = den * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_i.dtype), v_i)
-        acc = acc * alpha[..., None].to(acc.dtype) + pv
-        m = m_new
+        args = (m, den, acc, qg, k[:, lo:lo + _KV_CHUNK],
+                v[:, lo:lo + _KV_CHUNK], q_positions, lo, causal, window,
+                kv_valid_len)
+        m, den, acc = checkpoint(_chunk_step, *args, use_reentrant=False) \
+            if remat else _chunk_step(*args)
     out = acc / torch.clamp(den, min=1e-30)[..., None].to(acc.dtype)
     return out.permute(0, 3, 1, 2, 4)                        # (B,Sq,Hkv,g,D)
 
@@ -214,6 +247,10 @@ def _flash(q, k, v, *, causal, window, q_offset, kv_len):
     """B6 on the model's (B, S, H, D) tensors: transposed views go in, and
     the output comes back in q's layout as (B, Sq, Hq*D)."""
     B, Sq, Hq, D = q.shape
+    if not q.dtype == k.dtype == v.dtype:   # the reference's sdpa promotes
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                 v.dtype)
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, window=window,
                               q_offset=q_offset, kv_len=kv_len)
@@ -261,7 +298,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
             # where a cross-attention's Sq exceeds its Skv
             out = _flash(q, k, v, causal=causal, window=window, q_offset=0,
                          kv_len=k.shape[1])
-        return out @ p["wo"], None
+        return mm(out, p["wo"]), None
 
     kc, vc = cache
     S_cache = kc.shape[1]
@@ -287,7 +324,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
             # the decode route, larger calls the prefill kernel.
             out = _flash(q, kc, vc, causal=False, window=0, q_offset=pos,
                          kv_len=min(pos + 1, window))
-        return out @ p["wo"], (kc, vc)
+        return mm(out, p["wo"]), (kc, vc)
     # full cache: write at pos, attend with the causal (and window) mask,
     # which hides the slots not yet written
     _write_cache(kc, vc, k, v, pos)
@@ -297,7 +334,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     else:
         out = _flash(q, kc, vc, causal=causal, window=window, q_offset=pos,
                      kv_len=S_cache)
-    return out @ p["wo"], (kc, vc)
+    return mm(out, p["wo"]), (kc, vc)
 
 
 def cross_attention(p: Params, x: torch.Tensor, ck: torch.Tensor,
@@ -309,13 +346,13 @@ def cross_attention(p: Params, x: torch.Tensor, ck: torch.Tensor,
     ``sdpa(q, ck, cv, causal=False)`` on ``x @ wq``, then ``wo``."""
     engine = resolve_attention_engine(engine, x.device)
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim_)
+    q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim_)
     if engine == "torch":
         out = sdpa(q, ck, cv, causal=False, window=0, q_positions=positions)
     else:
         out = _flash(q, ck, cv, causal=False, window=0, q_offset=0,
                      kv_len=ck.shape[1])
-    return out @ p["wo"]
+    return mm(out, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +380,7 @@ def ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.silu is x * logistic(x), and XLA lowers logistic to
     # 1 / (1 + exp(-x)) with every step rounded to x's type.  F.silu rounds
     # once, which moves 2 in 5 bf16 outputs by an ulp.
-    return _glu(x @ p["wi"]) @ p["wo_f"]
+    return mm(_glu(mm(x, p["wi"])), p["wo_f"])
 
 
 def moe_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
@@ -373,7 +410,7 @@ def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig):
     (``jax.lax.top_k``'s order: a stable descending sort), and their gates,
     a softmax over the k logits in fp32 cast to x's type.  Returns
     ``(gates (T, k), experts (T, k) int64)``."""
-    logits = xt.float() @ p["router"]
+    logits = mm(xt.float(), p["router"])
     if cfg.padded_experts != cfg.n_experts:
         pad = torch.arange(cfg.padded_experts, device=xt.device) \
             >= cfg.n_experts
@@ -414,7 +451,7 @@ def moe_dispatch(xt: torch.Tensor, experts: torch.Tensor, cfg: ModelConfig,
 def moe_experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
     """Every expert's GLU FFN on its buffer: two batched products over the
     expert axis ((E, C, d) -> (E, C, d))."""
-    return torch.bmm(_glu(torch.bmm(buf, p["we_i"])), p["we_o"])
+    return bmm(_glu(bmm(buf, p["we_i"])), p["we_o"])
 
 
 def moe_combine(out_e: torch.Tensor, gates: torch.Tensor, slot: torch.Tensor,
@@ -449,3 +486,22 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "shared_i" in p:
         yt = yt + ffn({"wi": p["shared_i"], "wo_f": p["shared_o"]}, xt)
     return yt.reshape(B, S, d)
+
+
+def moe_load_balance_loss(p: Params, x: torch.Tensor, cfg: ModelConfig
+                          ) -> torch.Tensor:
+    """The reference's auxiliary load-balance loss: ``n_experts * sum_e
+    (share of tokens routed to e) * (mean router probability of e)``, with
+    the fp32 router over the padded experts (padded ones at -1e30) and the
+    top-k by ``moe_route``'s stable descending sort.  x: (B, S, d)."""
+    xt = x.reshape(-1, x.shape[-1])
+    logits = mm(xt.float(), p["router"])
+    if cfg.padded_experts != cfg.n_experts:
+        pad = torch.arange(cfg.padded_experts, device=x.device) \
+            >= cfg.n_experts
+        logits = torch.where(pad[None, :], -1e30, logits)
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(logits, dim=-1, descending=True, stable=True)[1]
+    onehot = torch.nn.functional.one_hot(
+        top[:, :cfg.top_k], cfg.padded_experts).to(torch.float32).sum(1)
+    return cfg.n_experts * torch.sum(onehot.mean(0) * probs.mean(0))

@@ -9,8 +9,16 @@ of layers in the reference's order (head layers, each period's
 ``"rglru"``, ``"mlstm"``, ``"slstm"`` (``models.recurrent``); FFNs: dense
 GLU, ``"dense_first"`` (deepseek's first layer, ``dense_d_ff`` wide),
 ``"moe"`` or none.  The vision frontend projects precomputed patch
-embeddings (``img_proj``) into the first positions.  The training loss
-waits (ROADMAP A9-train).
+embeddings (``img_proj``) into the first positions.
+
+Training: ``train_loss`` is the reference's next-token cross entropy
+(``cross_entropy``: padded vocab at -1e30, logsumexp in fp32; the last
+position and the image positions masked) plus, for MoE models, 0.01 x the
+load-balance loss of the reference's choice of router (period 0's
+``slot0``, layer ``len(head layers)`` of the flat list) on the token
+embeddings.  With ``cfg.remat`` each period layer (not the head or tail
+layers, as in the reference) runs under ``torch.utils.checkpoint`` while
+autograd records, so its activations are recomputed in the backward.
 
 Serving: ``init_cache`` builds each layer's own state: a ``(k, v)`` pair
 (a full KV cache for ``"attn"``, a ring buffer of ``window`` slots for
@@ -23,13 +31,14 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
 __all__ = ["LAYER_KINDS", "ATTENTION_KINDS", "layer_kinds", "init_params",
-           "init_cache", "forward"]
+           "init_cache", "forward", "cross_entropy", "train_loss"]
 
 Params = Dict[str, Any]
 ATTENTION_KINDS = ("attn", "swa")
@@ -170,6 +179,11 @@ def _layer_apply(lp: Params, x, kind: str, ffn_type: str, cfg: ModelConfig,
     return x, new_cache
 
 
+def _remat_layer(lp, x, kind, ft, cfg, positions, engine):
+    return _layer_apply(lp, x, kind, ft, cfg, positions, None, None,
+                        engine)[0]
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             image_embeds: Optional[torch.Tensor] = None,
             cache: Optional[List] = None, cache_pos: Optional[int] = None,
@@ -186,13 +200,23 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     B, S = tokens.shape
     x = params["embed"][tokens]
     if cfg.frontend == "vision_patches" and image_embeds is not None:
-        img = image_embeds.to(x.dtype) @ params["img_proj"]
+        img = L.mm(image_embeds.to(x.dtype), params["img_proj"])
         x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
     start = 0 if cache_pos is None else int(cache_pos)
     positions = (start + torch.arange(S, dtype=torch.int32,
                                       device=x.device)).expand(B, S)
     new_cache = []
+    head, pattern, npd, _ = _layer_plan(cfg)
+    periods = range(len(head), len(head) + npd * len(pattern))
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i, ((kind, ft), lp) in enumerate(zip(kinds, params["layers"])):
+        if remat and i in periods:
+            # per layer, as the reference's jax.checkpoint: the backward
+            # holds one layer's activations at a time
+            x = checkpoint(_remat_layer, lp, x, kind, ft, cfg, positions,
+                           engine, use_reentrant=False)
+            new_cache.append(None)
+            continue
         x, nc = _layer_apply(lp, x, kind, ft, cfg, positions,
                              cache[i] if cache is not None else None,
                              cache_pos, engine)
@@ -201,7 +225,58 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if logits_slice is not None:
         x = x[:, -logits_slice:, :]
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        logits = L.mm(x, params["embed"].T)
     else:
-        logits = x @ params["lm_head"]
+        logits = L.mm(x, params["lm_head"])
     return logits, (new_cache if (return_cache or cache is not None) else None)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """Masked mean next-token NLL over (possibly padded) logits: the padded
+    vocab at -1e30, the logsumexp in fp32."""
+    x = logits.float()
+    V = x.shape[-1]
+    if V != vocab_size:
+        vidx = torch.arange(V, device=x.device)
+        x = torch.where(vidx < vocab_size, x, -1e30)
+    lse = torch.logsumexp(x, dim=-1)
+    gold = x.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def train_loss(params: Params, cfg: ModelConfig,
+               batch: Dict[str, torch.Tensor], engine: str = "auto"
+               ) -> torch.Tensor:
+    """The reference's training loss: ``batch["tokens"]`` (B, S), optional
+    ``loss_mask`` (B, S) and ``image_embeds``; an fp32 scalar."""
+    tokens = batch["tokens"]
+    logits, _ = forward(params, cfg, tokens,
+                        image_embeds=batch.get("image_embeds"),
+                        engine=engine)
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    mask = batch.get("loss_mask")
+    mask = torch.ones(tokens.shape, dtype=torch.float32,
+                      device=tokens.device) if mask is None \
+        else mask.to(torch.float32).clone()
+    mask[:, -1] = 0.0
+    if cfg.frontend == "vision_patches":
+        is_img = torch.arange(tokens.shape[1], device=tokens.device) \
+            < cfg.n_frontend_tokens
+        mask = mask * (~is_img)[None, :].to(torch.float32)
+    loss = cross_entropy(logits, labels, mask, cfg.vocab_size)
+    head, _, npd, _ = _layer_plan(cfg)
+    if cfg.n_experts and npd:
+        # the reference's cheap proxy: the first period's slot0 router (not
+        # "the first MoE layer") on the token embeddings
+        first = params["layers"][len(head)]
+        if "router" in first.get("ffn", {}):
+            h = params["embed"][tokens]
+            loss = loss + 0.01 * L.moe_load_balance_loss(first["ffn"], h,
+                                                         cfg)
+    return loss

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, logistic
+from repro_torch.models.layers import dense_init, logistic, mm
 
 __all__ = ["rglru_params", "rglru", "rglru_init_state", "mlstm_params",
            "mlstm", "mlstm_init_state", "slstm_params", "slstm",
@@ -89,7 +89,7 @@ def rglru(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """RG-LRU mixer.  x: (B, S, d); state = (h (B, R), conv (B, cw-1, R)) for
     decode.  Returns (out (B, S, d), new_state)."""
     B, S, _ = x.shape
-    u = x @ p["wx"]
+    u = mm(x, p["wx"])
     u, new_conv = _causal_conv1d(u, p["conv"],
                                  state[1] if state is not None else None)
     uf = u.float()
@@ -113,8 +113,8 @@ def rglru(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h = torch.stack(hs, dim=1)
         new_h = h_t
     # jax.nn.gelu defaults to the tanh approximation
-    gate = F.gelu((x @ p["wgate"]).float(), approximate="tanh")
-    out = (h * gate).to(x.dtype) @ p["wo_r"]
+    gate = F.gelu(mm(x, p["wgate"]).float(), approximate="tanh")
+    out = mm((h * gate).to(x.dtype), p["wo_r"])
     return out, (new_h.to(x.dtype), new_conv)
 
 
@@ -149,12 +149,12 @@ def mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     H = cfg.n_heads
     hd = d // H
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, H, hd) / (hd ** 0.5)
-    v = (x @ p["wv"]).reshape(B, S, H, hd)
+    q = mm(x, p["wq"]).reshape(B, S, H, hd)
+    k = mm(x, p["wk"]).reshape(B, S, H, hd) / (hd ** 0.5)
+    v = mm(x, p["wv"]).reshape(B, S, H, hd)
     xf = x.float()
-    log_i = xf @ p["wi"]                                   # (B, S, H)
-    log_f = F.logsigmoid(xf @ p["wf"])                     # (B, S, H) <= 0
+    log_i = mm(xf, p["wi"])                                # (B, S, H)
+    log_f = F.logsigmoid(mm(xf, p["wf"]))                  # (B, S, H) <= 0
     qf, kf, vf = q.float(), k.float(), v.float()
 
     if state is None:
@@ -195,8 +195,8 @@ def mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h = torch.stack(hs, dim=1)
         new_state = (C, n, m_prev)
 
-    og = logistic(x @ p["wog"])
-    out = (og * h.reshape(B, S, d).to(x.dtype)) @ p["wo_m"]
+    og = logistic(mm(x, p["wog"]))
+    out = mm(og * h.reshape(B, S, d).to(x.dtype), p["wo_m"])
     return out, new_state
 
 
@@ -236,12 +236,12 @@ def slstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
     H = cfg.n_heads
     hd = d // H
     xf = x.float()
-    z = [(xf @ p[f"in_{g}"]).reshape(B, S, H, hd) for g in _SLSTM_GATES]
+    z = [mm(xf, p[f"in_{g}"]).reshape(B, S, H, hd) for g in _SLSTM_GATES]
     if state is None:
         state = slstm_init_state(cfg, B, x.device)
     c, n, h, m = state
     # (H, hd, 4 hd): each gate's recurrent product is its own columns
-    r = torch.cat([p[f"r_{g}"] for g in _SLSTM_GATES], dim=-1)
+    r = torch.cat([p[f"r_{g}"] for g in _SLSTM_GATES], dim=-1).float()
     hs = []
     for t in range(S):
         rec = torch.einsum("bhd,hde->bhe", h, r).split(hd, dim=-1)
@@ -258,7 +258,7 @@ def slstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h = go * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype) @ p["wo_s"]
+    out = mm(torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype), p["wo_s"])
     return out, (c, n, h, m)
 
 

@@ -6,13 +6,15 @@
   bundle.prefill(params, batch, engine)         -> last-token logits
   bundle.decode(params, cache, batch, engine)   -> (logits, cache)
   bundle.init_cache(batch, kv_len, device)      -> cache
+  bundle.train_loss(params, batch, engine)      -> loss
 
 ``engine`` is the attention engine of ``models.layers`` (``"torch"``,
 ``"cuda"`` or ``"auto"``).  Every family serves: decoder LMs through
 ``models.lm`` (``batch["image_embeds"]`` for the vision frontend), the
 encoder-decoder through ``models.encdec`` (``batch["frames"]``, encoder
-frames; its caches hold ``src_len(kv_len)`` cross slots).  Training waits
-(ROADMAP A9-train).
+frames; its caches hold ``src_len(kv_len)`` cross slots).
+``bundle.train_loss(params, batch, engine)`` is the training loss of
+either (``repro_torch.train`` differentiates it).
 """
 from __future__ import annotations
 
@@ -53,9 +55,13 @@ class ModelBundle:
             return ED.init_params(self.cfg, gen)
         return LM.init_params(self.cfg, gen)
 
-    def train_loss(self, params, batch):
-        raise NotImplementedError(
-            f"{self.cfg.name}: training is not ported yet (ROADMAP A9-train)")
+    def train_loss(self, params, batch, engine: str = "auto"
+                   ) -> torch.Tensor:
+        """The reference's training loss (next-token cross entropy, MoE
+        load balance), an fp32 scalar that autograd differentiates."""
+        if self.cfg.is_encdec:
+            return ED.train_loss(params, self.cfg, batch, engine=engine)
+        return LM.train_loss(params, self.cfg, batch, engine=engine)
 
     def prefill(self, params, batch, engine: str = "auto") -> torch.Tensor:
         """Full-sequence forward emitting the last position's logits."""

@@ -1,0 +1,101 @@
+"""Train-step builder (the port of ``repro/train/train_step.py``): loss ->
+gradients -> clip -> AdamW, with optional microbatch accumulation and
+optional cross-pod gradient compression.
+
+A train state is ``{"params": tree, "opt": adamw state}``.  The step
+differentiates ``bundle.train_loss`` with ``torch.autograd.grad`` with
+respect to detached views of the parameters (so the parameters themselves
+never require grad and take their update in place), then updates the state
+in place (``optimizer.adamw_update``; the reference donates its state).
+Profiler ranges ``train_step.forward``, ``.backward`` and ``.optimizer``
+mark the three parts in a trace (no cost without a profiler).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.interop import tree_map
+from repro_torch.models.registry import ModelBundle
+from repro_torch.train.grad_compression import compress_grads_crosspod
+from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                         adamw_update, tree_leaves,
+                                         tree_unflatten)
+
+__all__ = ["TrainState", "make_train_step", "init_train_state",
+           "loss_and_grads"]
+
+TrainState = Dict[str, Any]  # {"params": ..., "opt": adamw state}
+
+
+def init_train_state(bundle: ModelBundle, seed: int = 0, device=None
+                     ) -> TrainState:
+    """Random weights from ``seed`` on ``device`` (None = CUDA) and a fresh
+    AdamW state."""
+    params = bundle.init(seed, device=device)
+    return {"params": params, "opt": adamw_init(params)}
+
+
+def loss_and_grads(bundle: ModelBundle, params, batch, engine: str = "auto"):
+    """``(loss, grads)`` of ``bundle.train_loss`` at ``params``: the loss
+    detached, the gradients a tree shaped as ``params`` in each leaf's dtype
+    (zeros for a leaf the loss does not reach, as ``jax.grad`` gives)."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with record_function("train_step.forward"):
+        loss = bundle.train_loss(tree_unflatten(params, leaves), batch,
+                                 engine=engine)
+    with record_function("train_step.backward"):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def make_train_step(bundle: ModelBundle, opt_cfg: Optional[AdamWConfig] = None,
+                    microbatches: int = 1, compress_crosspod: bool = False,
+                    pod_axis=None, engine: str = "auto",
+                    param_dtype=torch.bfloat16
+                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Any]:
+    """Builds ``train_step(state, batch) -> (state, metrics)``.
+
+    ``microbatches > 1``: the batch is split on axis 0 and the gradients of
+    the parts accumulate in fp32 from zeros and are divided by the count
+    (the reference's ``lax.scan``), as is the loss.  ``compress_crosspod``
+    with a ``pod_axis`` (a ``torch.distributed`` group): the gradients are
+    quantized to int8 and back (``grad_compression``).  ``engine`` is the
+    attention engine of ``models.layers``.  ``param_dtype`` is the type the
+    parameters take after a step: bf16, the reference's (it never passes
+    another, ROADMAP C16), or fp32 for a run that stays fp32 end to end."""
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        params = state["params"]
+        if microbatches == 1:
+            loss, grads = loss_and_grads(bundle, params, batch, engine)
+        else:
+            parts = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                                  *v.shape[1:]) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = 0.0
+            for i in range(microbatches):
+                l_i, g_i = loss_and_grads(
+                    bundle, params, {k: v[i] for k, v in parts.items()},
+                    engine)
+                for acc, g in zip(tree_leaves(grads), tree_leaves(g_i)):
+                    acc.add_(g)
+                loss = loss + l_i
+            grads = tree_map(lambda g: g / microbatches, grads)
+            loss = loss / microbatches
+        if compress_crosspod and pod_axis is not None:
+            grads = compress_grads_crosspod(grads, pod_axis)
+        with record_function("train_step.optimizer"):
+            new_params, new_opt, metrics = adamw_update(
+                opt_cfg, grads, state["opt"], param_dtype=param_dtype,
+                params=params)
+        metrics["loss"] = loss
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step

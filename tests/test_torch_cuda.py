@@ -822,3 +822,120 @@ def test_moe_ffn_card_matches_cpu(device, B, S, changes, dtype):
     tol = 1e-4 * max(1.0, big) if dtype == "float32" \
         else 2 * 2.0 ** (np.floor(np.log2(big)) - 7)
     assert err <= tol, (err, tol)
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len): B6's backward
+BWD_CASES = [(2, 4, 2, 130, 130, 64, True, 0, None, None),
+             (1, 8, 2, 300, 333, 80, True, 50, None, 317),
+             (2, 16, 16, 70, 260, 128, False, 0, 0, 250),
+             (1, 10, 1, 200, 200, 256, True, 2048, None, None),
+             (3, 8, 8, 5, 33, 16, True, 0, -2, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_backward_kernel_matches_plain(device, case, dtype):
+    """dq, dk, dv of the kernel against the plain backward: within 2e-5
+    (fp32) / 2e-2 (bf16) of each gradient's largest |value|, rows that see
+    no key exactly 0, one launch counted, gradients in q's layout."""
+    B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
+    g = torch.Generator(device=device).manual_seed(Sq + Skv)
+    q, k, v, do = (torch.randn(s, generator=g, device=device).to(dtype)
+                   for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                             (B, Hkv, Skv, D), (B, Hq, Sq, D)))
+    q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
+               for x in (q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    o = swa.flash_swa_attention(q, k, v, **kw)
+    before = launch_counts["flash_attention_bwd"]
+    got = swa.flash_swa_attention_backward(q, k, v, o, do, **kw)
+    assert launch_counts["flash_attention_bwd"] == before + 1
+    assert got[0].stride() == q.stride()
+    want = swa.flash_swa_attention_backward_plain(q, k, v, o, do, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        top = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= tol * top
+        assert torch.count_nonzero(a[(b == 0).all(dim=-1)]) == 0
+
+
+def test_training_runs_b6_backward_per_layer(device):
+    """Reduced h2o-danube-1.8b on the card under the cuda engine: one
+    forward and one backward launch of B6 per layer (remat off), every
+    parameter with a finite gradient, nonzero somewhere; the loss within
+    1e-2 of the CPU's (bf16, whose roundings differ between devices)."""
+    from repro_torch.models import get_bundle
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import loss_and_grads
+
+    b = get_bundle("h2o-danube-1.8b", reduced=True)
+    params = b.init(0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        3, b.cfg.vocab_size, (2, 64)).astype(np.int32))
+    before = dict(launch_counts)
+    loss, grads = loss_and_grads(b, _to(params, device),
+                                 {"tokens": tokens.to(device)}, "cuda")
+    assert launch_counts["flash_attention"] - before["flash_attention"] \
+        == b.cfg.n_layers
+    assert launch_counts["flash_attention_bwd"] \
+        - before["flash_attention_bwd"] == b.cfg.n_layers
+    closs, _ = loss_and_grads(b, params, {"tokens": tokens}, "cuda")
+    assert abs(float(loss) - float(closs)) <= 1e-2 * abs(float(closs))
+    for g in tree_leaves(grads):
+        assert bool(torch.isfinite(g).all()) and bool(g.any())
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_train_step_card_matches_cpu(device):
+    """Reduced h2o-danube-1.8b in fp32 end to end (``param_dtype`` fp32),
+    three train steps on the card and on the CPU from the same weights:
+    losses within 1e-5 relative, the first step's gradients within 1e-5 of
+    each leaf's largest |value|, and master within 1e-5 wherever the CPU's
+    gradient stayed 0 or above 1e-4 of its leaf's largest (Adam divides by
+    the gradient's own size: near 0 the devices' rounding moves a weight by
+    up to 2 lr, ``chip_smoke.py``'s phase 16)."""
+    import dataclasses
+
+    from repro_torch.models.registry import ModelBundle, get_bundle
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import loss_and_grads
+
+    cfg = dataclasses.replace(get_bundle("h2o-danube-1.8b",
+                                         reduced=True).cfg, dtype="float32")
+    b = ModelBundle(cfg)
+    rng = np.random.default_rng(1)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, (2, 64)).astype(np.int32))} for _ in range(3)]
+    runs = {}
+    for dev in ("cpu", device):
+        params = _to(b.init(0, device="cpu"), dev)
+        state = {"params": params, "opt": adamw_init(params)}
+        step = make_train_step(b, AdamWConfig(lr_peak=1e-3, warmup_steps=20),
+                               engine="cuda", param_dtype=torch.float32)
+        losses, grads = [], []
+        for bt in batches:
+            bt = {k: v.to(dev) for k, v in bt.items()}
+            grads.append([g.cpu() for g in tree_leaves(
+                loss_and_grads(b, state["params"], bt, "cuda")[1])])
+            state, m = step(state, bt)
+            losses.append(float(m["loss"]))
+        runs[str(dev)] = (losses, grads, [x.cpu() for x in tree_leaves(
+            state["opt"]["master"])])
+    (lc, gc, mc), (lg, gg, mg) = runs["cpu"], runs[str(device)]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for a, c in zip(gg[0], gc[0]):
+        assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max())
+    for i, (a, c) in enumerate(zip(mg, mc)):
+        ill = torch.zeros(c.shape, dtype=torch.bool)
+        for g in (step_g[i] for step_g in gc):
+            ill |= (g != 0) & (g.abs() < 1e-4 * g.abs().max())
+        assert float((a - c).abs()[~ill].max()) <= 1e-5

@@ -535,11 +535,6 @@ def test_family_prefills_and_decodes_on_the_cpu(arch):
         assert _cache_leaves(new) == want
 
 
-def test_training_is_refused():
-    with pytest.raises(NotImplementedError, match="A9-train"):
-        get_bundle("deepseek-moe-16b", reduced=True).train_loss({}, {})
-
-
 def test_bad_engine_raises():
     with pytest.raises(ValueError, match="attention engine"):
         L.resolve_attention_engine("pallas", "cpu")
