@@ -2021,12 +2021,12 @@ class B6Calls:
         self.swa, self.fn, self.keys = swa, swa.flash_swa_attention, set()
 
     def __call__(self, q, k, v, *, causal=True, window=0, q_offset=None,
-                 kv_len=None):
+                 kv_len=None, lse=None):
         B, Hq, Sq, D = q.shape
         self.keys.add(b6_key((B, Hq, k.shape[1], Sq, k.shape[2], D, causal,
                               window, q_offset, kv_len)))
         return self.fn(q, k, v, causal=causal, window=window,
-                       q_offset=q_offset, kv_len=kv_len)
+                       q_offset=q_offset, kv_len=kv_len, lse=lse)
 
     def __enter__(self):
         self.swa.flash_swa_attention = self
@@ -3819,6 +3819,18 @@ BWD_CASES = (
 BWD_LIBRARY_REPS = 5        # reps of the plain and SDPA backward (~0.25 s)
 # h2o-danube-1.8b's training shape: 2 x 8,192 tokens, 32/8 heads of 80
 BWD_DANUBE = (2, 32, 8, 8192, 8192, 80, True, 4096, None, None)
+# recurrentgemma's attention at 1 x 4,096 tokens: MQA 10/1 of 256, window
+# 2,048 (the backward's split-d path)
+BWD_WIDE = (1, 10, 1, 4096, 4096, 256, True, 2048, None, None)
+# each row's log-sum-exp from the forward kernels against the plain
+# version's, over max(|plain|, 1): fp32 sums in another order, ex2.approx
+LSE_TOL = 1e-5
+# a row of dq, dk or dv that is exactly 0 in the plain backward (masked out,
+# or every term cancels: dq of a row that sees one key has dS = dP - Delta
+# = 0), over the tensor's largest |value|: both kernels sum dP and Delta in
+# other orders than the plain backward and keep their rounding noise there
+# (at most 3.5e-7 in fp32 and 2.7e-7 in bf16 over BWD_CASES on an H100)
+BWD_ZERO_ROW_TOL = 1e-5
 
 
 def check_grads(got, want, what: str):
@@ -3854,6 +3866,38 @@ def check_grads(got, want, what: str):
     return err, row
 
 
+def zero_rows(got, want, what: str) -> float:
+    """The largest |value| of dq, dk, dv on the rows that are exactly 0 in
+    the plain backward, over each tensor's largest |plain value|; fails past
+    BWD_ZERO_ROW_TOL."""
+    worst = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        zero = (w == 0).all(dim=-1)
+        top = float(w.float().abs().max()) if w.numel() else 0.0
+        if not bool(zero.any()) or top == 0.0:
+            continue
+        worst = max(worst, float(g[zero].float().abs().max()) / top)
+    if worst > BWD_ZERO_ROW_TOL:
+        fail(f"flash_attention backward ({want[0].dtype}, {what}): rows that "
+             f"are 0 in the plain backward reach {worst} of the largest "
+             f"|value| (gate {BWD_ZERO_ROW_TOL})")
+    return worst
+
+
+def check_bwd_tiles() -> None:
+    """The Python twins of the bf16 backward's tile plan (the walks that the
+    CPU tests hold against the mask) against the kernel's own, at every
+    head dim."""
+    from repro_torch.kernels import swa_attention as swa
+
+    for D in swa.HEAD_DIMS:
+        twin = (swa.BWD_DQ_ROWS, swa.backward_dq_keys(D),
+                swa.backward_dkdv_keys(D), swa.backward_dkdv_rows(D))
+        if swa.backward_kernel_tiles(D) != twin:
+            fail(f"flash_attention backward D={D}: the kernel's tiles "
+                 f"{swa.backward_kernel_tiles(D)}, the Python twins' {twin}")
+
+
 def _bwd_inputs(case, dt, device, seed: int, transposed: bool):
     import torch
 
@@ -3868,44 +3912,95 @@ def _bwd_inputs(case, dt, device, seed: int, transposed: bool):
     return q, k, v, do
 
 
+def check_lse(got, want, what: str) -> float:
+    """Worst |kernel - plain| log-sum-exp over max(|plain|, 1); fails past
+    ``LSE_TOL`` (a row with no visible key is 0 in the plain LSE, so the
+    kernel's must be within the gate of 0) or on a value that is not
+    finite."""
+    import torch
+
+    d = (got - want).abs() / want.abs().clamp_min(1.0)
+    err = float(d.max()) if d.numel() else 0.0
+    if not err <= LSE_TOL or not bool(torch.isfinite(got).all()):
+        fail(f"flash_attention forward's lse != plain ({what}): relative "
+             f"error {err} (gate {LSE_TOL})")
+    return err
+
+
 def backward_battery(device) -> dict:
     """B6's backward kernel against its plain backward on the card over
     ``BWD_CASES`` in fp32 and bf16 (odd cases through transposed views, as
-    the model passes them); then ``torch.autograd.grad`` through
-    ``FlashAttention`` against autograd through the plain forward (fp32,
-    the cases where every row sees a key: there autograd's 0/0 gives
-    NaN)."""
+    the model passes them), each fed the forward kernel's output and
+    log-sum-exp (the forward is asked for one, so it takes the prefill
+    kernels at every size: its output is checked against the plain
+    forward's with the forward's gates, and its LSE against the plain
+    LSE); the bf16 backward twice at one shape, bit for bit; then
+    ``torch.autograd.grad`` through ``FlashAttention`` against autograd
+    through the plain forward (fp32, the cases where every row sees a key:
+    there autograd's 0/0 gives NaN)."""
     import torch
 
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels import swa_attention as swa
 
+    check_bwd_tiles()
     worst = {}
     dims = set()
+    lse_worst = {}
+    zero_worst = {}
+    forced = 0                   # prefill-kernel calls at decode-route sizes
     for i, case in enumerate(BWD_CASES):
         errs = []
+        forced += int(case[1] // case[2] * case[3] <= swa.DECODE_ROWS)
         for dname in ATTN_TOL:
             dt = getattr(torch, dname)
             q, k, v, do = _bwd_inputs(case, dt, device, 1000 + i, i % 2 == 1)
             kw = _attn_kwargs(case)
-            o = swa.flash_swa_attention(q, k, v, **kw)
-            before = launch_counts["flash_attention_bwd"]
-            got = swa.flash_swa_attention_backward(q, k, v, o, do, **kw)
-            if launch_counts["flash_attention_bwd"] != before + 1:
+            lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
+            before = dict(launch_counts)
+            o = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
+            if launch_counts["flash_decode"] != before["flash_decode"]:
+                fail(f"flash_attention {case}: asked for an lse, it took the "
+                     f"decode route")
+            po, plse = swa.flash_swa_attention_plain(q, k, v, return_lse=True,
+                                                     **kw)
+            check_attention(o, po, f"{case} with lse")
+            lse_worst[dname] = max(lse_worst.get(dname, 0.0),
+                                   check_lse(lse, plse, f"{dname} {case}"))
+            got = swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse,
+                                                   **kw)
+            if launch_counts["flash_attention_bwd"] \
+                    != before["flash_attention_bwd"] + 1:
                 fail(f"flash_attention backward {case}: no launch counted")
             want = swa.flash_swa_attention_backward_plain(q, k, v, o, do,
                                                           **kw)
             err = check_grads(got, want, str(case))
+            zero_worst[dname] = max(zero_worst.get(dname, 0.0),
+                                    zero_rows(got, want, str(case)))
             w = worst.get(dname, (0.0, 0.0))
             worst[dname] = (max(w[0], err[0]), max(w[1], err[1]))
             errs.append(f"{dname} {err[0]:.3g} / {err[1]:.3g}")
             dims.add(case[5])
-            del q, k, v, do, o, got, want
+            del q, k, v, do, o, got, want, po, plse, lse
         log(f"attention backward: {case}: max abs / worst row error "
             f"{', '.join(errs)}")
     if dims != set(swa.HEAD_DIMS):
         fail(f"attention backward: head dims {sorted(dims)} checked, not "
              f"every one")
+    if not forced:
+        fail("attention backward: no case forced the prefill kernels at a "
+             "decode-route size")
+    # no atomics: a rerun gives the same bits
+    q, k, v, do = _bwd_inputs(BWD_CASES[-1], torch.bfloat16, device, 5, True)
+    kw = _attn_kwargs(BWD_CASES[-1])
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
+    o = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
+    runs = [swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse, **kw)
+            for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        fail(f"flash_attention backward (bf16, {BWD_CASES[-1]}): two runs "
+             f"differ")
+    del q, k, v, do, o, runs, lse
     auto = 0.0
     for i, case in enumerate(BWD_CASES):
         B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
@@ -3927,13 +4022,22 @@ def backward_battery(device) -> dict:
         auto = max(auto, check_grads(got, want, f"autograd {case}")[0])
         del q, k, v, do, leaves, out, got, plain, want
     log(f"attention backward: {2 * len(BWD_CASES)} kernel-vs-plain checks, "
-        f"max abs (over the largest |value|) / worst row error fp32 "
+        f"each on the forward kernel's output and log-sum-exp, max abs (over "
+        f"the largest |value|) / worst row error fp32 "
         f"{worst['float32'][0]} / {worst['float32'][1]} (gates "
         f"{ATTN_TOL['float32']} / {ATTN_ROW_TOL['float32']}), bf16 "
         f"{worst['bfloat16'][0]} / {worst['bfloat16'][1]} (gates "
-        f"{ATTN_TOL['bfloat16']} / {ATTN_ROW_TOL['bfloat16']}); autograd "
-        f"through FlashAttention vs through the plain forward (fp32): max "
-        f"{auto}")
+        f"{ATTN_TOL['bfloat16']} / {ATTN_ROW_TOL['bfloat16']}); the "
+        f"forward's lse against the plain lse, worst relative error "
+        f"{json.dumps(lse_worst)} (gate {LSE_TOL}; {forced} of "
+        f"{len(BWD_CASES)} cases at decode-route sizes); rows 0 in the "
+        f"plain backward, largest |value| over the tensor's "
+        f"{json.dumps(zero_worst)} (gate {BWD_ZERO_ROW_TOL}); "
+        f"the bf16 tile plan's Python twins equal the kernel's; the bf16 "
+        f"backward twice, bit for bit; autograd through FlashAttention vs "
+        f"through the plain forward (fp32): max {auto}")
+    worst["lse"] = lse_worst
+    worst["zero_rows"] = zero_worst
     return worst
 
 
@@ -3945,17 +4049,19 @@ def time_attention_backward(label, q, k, v, kw, reps, rate) -> dict:
     timed window; a yardstick only), each the middle of ``TIMING_CALLS``
     medians (the plain backward and the yardstick: of ``BWD_LIBRARY_REPS``
     reps), with their min-max;
-    the forward kernel's time at the same shape beside them."""
+    the forward kernel's time at the same shape (writing the log-sum-exp,
+    as the training forward does) beside them."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import swa_attention as swa
 
     g = torch.Generator(device=q.device).manual_seed(7)
-    o = swa.flash_swa_attention(q, k, v, **kw)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    o = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
     do = torch.randn(o.shape, generator=g, device=q.device).to(q.dtype)
     kern = lambda: swa.flash_swa_attention_backward(  # noqa: E731
-        q, k, v, o, do, **kw)
+        q, k, v, o, do, lse=lse, **kw)
     plain = lambda: swa.flash_swa_attention_backward_plain(  # noqa: E731
         q, k, v, o, do, **kw)
     err, row = check_grads(kern(), plain(), label)
@@ -3981,7 +4087,7 @@ def time_attention_backward(label, q, k, v, kw, reps, rate) -> dict:
     out = dict(shape=(B, Hq, Hkv, Sq, Skv, D), kv_len=kv_len, pairs=pairs,
                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                row_err=row)
-    fwd = lambda: swa.flash_swa_attention(q, k, v, **kw)  # noqa: E731
+    fwd = lambda: swa.flash_swa_attention(q, k, v, lse=lse, **kw)  # noqa: E731
     for key, fn, n in (("ms", kern, reps),
                        ("plain_ms", plain, BWD_LIBRARY_REPS),
                        ("library_ms", lib, BWD_LIBRARY_REPS),
@@ -4000,6 +4106,7 @@ def time_attention_backward(label, q, k, v, kw, reps, rate) -> dict:
         f"{out['library_ms_range'][1]:.4f}] ({BWD_LIBRARY_REPS} reps), "
         f"bound {bound_ms:.4f} ms ({bound_by}, 10 D flops a pair; "
         f"{100 * bound_ms / out['ms']:.1f} % reached); the forward kernel "
+        f"(writing the lse) "
         f"{out['forward_ms']:.4f} ms [{out['forward_ms_range'][0]:.4f}-"
         f"{out['forward_ms_range'][1]:.4f}]; kernel-vs-plain max abs error "
         f"over the largest |value| {err}, worst row error {row}")
@@ -4320,7 +4427,8 @@ def train_card_vs_cpu() -> dict:
 def training_phase(reps: int, rate: float):
     """Phase 16: B6's backward battery, full-width danube training from the
     claims stream, the engines, card against CPU, the restart, and B6's
-    backward timed at danube's training shape.  Returns the launches of
+    backward timed at danube's training shape and at recurrentgemma's
+    (head dim 256).  Returns the launches of
     the training run, the backward's timing record and a summary."""
     import torch
 
@@ -4341,10 +4449,14 @@ def training_phase(reps: int, rate: float):
                              torch.device("cuda"), 3, True)
     timing = time_attention_backward("danube training", q, k, v,
                                      _attn_kwargs(BWD_DANUBE), reps, rate)
+    q, k, v, _ = _bwd_inputs(BWD_WIDE, torch.bfloat16, torch.device("cuda"),
+                             4, True)
+    wide = time_attention_backward("recurrentgemma, head dim 256", q, k, v,
+                                   _attn_kwargs(BWD_WIDE), reps, rate)
     del q, k, v
     torch.cuda.empty_cache()
     return launches, timing, dict(run=info, engines=engines, card_vs_cpu=cpu,
-                                  battery=worst)
+                                  battery=worst, backward_d256=wide)
 
 
 KERNELS = {
@@ -4364,8 +4476,9 @@ KERNELS = {
                             "src/repro/kernels/hash_partition.py:44"),
     "filter_compact_mask": ("src/repro_torch/csrc/filter_compact.cu",
                             "src/repro/kernels/filter_compact.py:113"),
-    # no Pallas backward: the reference differentiates its XLA attention
-    "flash_attention_bwd": ("src/repro_torch/csrc/swa_backward.cu",
+    # no Pallas backward: the reference differentiates its XLA attention.
+    # bf16 at every head dim; fp32 runs src/repro_torch/csrc/swa_backward.cu
+    "flash_attention_bwd": ("src/repro_torch/csrc/swa_backward_bf16.cu",
                             "src/repro/models/layers.py:130"),
 }
 
@@ -4425,11 +4538,32 @@ def main() -> int:
         # head dim 96 (phi-3-vision's) must keep its state in registers
         if D == 96 and "0 bytes spill stores, 0 bytes spill loads" not in b6:
             fail(f"B6's flash_wgmma<96> spills: {b6}")
-    # B6's backward at danube's training shape and at the widest head dim
+    # the bf16 prefill kernel writes the log-sum-exp for the backward now:
+    # its danube instantiation must keep 168 registers and no spills
+    b6 = kernel_registers(info["log"], "flash_wgmma", 80)
+    if "0 bytes spill stores, 0 bytes spill loads" not in b6:
+        fail(f"B6's flash_wgmma<80> spills: {b6}")
+    # B6's backward: bf16 on the tensor cores at every head dim (no spills,
+    # no serialized wgmma, setmaxnreg kept), fp32 on the CUDA cores at
+    # danube's head dim and at 256
+    bwd_log = info["log"].split("== swa_backward_bf16.cu")[1].split("\n== ")[0]
+    if "serialized" in bwd_log or "ignored" in bwd_log:
+        fail("B6's bf16 backward: ptxas serializes its wgmma or ignores "
+             "setmaxnreg: " + " | ".join(
+                 x.strip() for x in bwd_log.splitlines()
+                 if "serialized" in x or "ignored" in x))
+    from repro_torch.kernels.swa_attention import HEAD_DIMS
+
+    for D in HEAD_DIMS:
+        for kern in ("bwd_dq_wgmma", "bwd_dkdv_wgmma"):
+            rep = kernel_registers(info["log"], kern, D)
+            log(f"ptxas: B6 backward {kern}<{D}>: {rep}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in rep:
+                fail(f"B6's bf16 backward {kern}<{D}> spills: {rep}")
     for D in (80, 256):
         for kern in ("bwd_dq", "bwd_dkdv"):
-            log(f"ptxas: B6 backward {kern}<bf16, {D}>: " + ptxas_report(
-                info["log"], f"{kern}I13__nv_bfloat16Li{D}E"))
+            log(f"ptxas: B6 fp32 backward {kern}<{D}>: "
+                + kernel_registers(info["log"], kern, D))
     # B1 must keep its whole state in registers and shared memory
     for rows in (16, 8):
         b1 = ptxas_report(info["log"], f"predicate_kernelILi{rows}E")

@@ -14,6 +14,9 @@
 // the softmax and both sums run in fp32, the output is in the input type,
 // and a row with no visible key is 0.  q_offset and kv_len are runtime
 // arguments (static in Pallas), so one build serves every decode step.
+// Given an lse buffer (the training forward's), both kernels also write each
+// row's log-sum-exp of the scaled scores, natural log, 0 for a row with no
+// visible key: the backward (csrc/swa_backward*.cu) reads it.
 //
 // Routes.  bf16 prefill runs csrc/swa_prefill.cu (TMA, wgmma, warp
 // specialisation; repro_flash_prefill_bf16); calls with group * Sq <= 16 rows
@@ -56,6 +59,7 @@ struct Args {
   long long rows;  // group * Sq rows per (batch, KV head)
   int Hkv, group, causal, window, kv_len;
   float scale;  // D ** -0.5
+  float* lse;   // (B, Hq, Sq) fp32, each row's log-sum-exp; null: not kept
 };
 
 __device__ __forceinline__ bool visible(int key, long long qpos, const Args& a) {
@@ -197,6 +201,10 @@ __global__ void __launch_bounds__(kThreads) flash_f32(const Args a) {
     const long long r = r0 + warp * RPW + i;
     const long long head = (long long)kvh * a.group + r % a.group;
     float* orow = o + b * a.sob + head * a.soh + (r / a.group) * a.sos;
+    // the row's log-sum-exp for the backward, 0 for a row with no visible key
+    if (a.lse != nullptr && lane == 0)
+      a.lse[((long long)b * a.Hkv * a.group + head) * (a.rows / a.group) + r / a.group] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;
 #pragma unroll
     for (int jj = 0; jj < DV; ++jj) {
       const int d = lane + 32 * jj;
@@ -228,17 +236,19 @@ extern "C" int repro_flash_prefill_bf16(const void* q, const void* k, const void
                                         long long sob, long long soh, long long sos, int B,
                                         int Hq, int Hkv, int Sq, int D, int causal,
                                         int window, long long q_offset, int kv_len,
-                                        void* stream);
+                                        float* lse, void* stream);
 
 // q, k, v, o: element strides (b, h, s) each, unit stride on d; bf16 operands
-// 16-byte aligned with strides that are multiples of 8 elements (TMA).
-// Returns the launch error (0 when launched).
+// 16-byte aligned with strides that are multiples of 8 elements (TMA).  lse:
+// null, or (B, Hq, Sq) fp32 that receives each row's log-sum-exp (natural
+// log; 0 for a row with no visible key) for the backward.  Returns the
+// launch error (0 when launched).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, long long sqb,
     long long sqh, long long sqs, long long skb, long long skh, long long sks,
     long long svb, long long svh, long long svs, long long sob, long long soh,
     long long sos, int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
-    int window, long long q_offset, int kv_len, int is_bf16, void* stream) {
+    int window, long long q_offset, int kv_len, int is_bf16, float* lse, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || kv_len < 0 || kv_len > Skv || window < 0 ||
       (long long)B * Hkv > 65535)
@@ -246,7 +256,7 @@ extern "C" int repro_flash_attention(
   if (is_bf16)
     return repro_flash_prefill_bf16(q, k, v, o, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob,
                                     soh, sos, B, Hq, Hkv, Sq, D, causal, window, q_offset,
-                                    kv_len, stream);
+                                    kv_len, lse, stream);
   Args a;
   a.q = q;
   a.k = k;
@@ -264,6 +274,7 @@ extern "C" int repro_flash_attention(
   a.window = window;
   a.kv_len = kv_len;
   a.scale = (float)(1.0 / sqrt((double)D));
+  a.lse = lse;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_bh = B * Hkv;
   switch (D) {

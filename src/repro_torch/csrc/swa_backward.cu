@@ -1,5 +1,7 @@
-// B6 backward: dQ, dK and dV of the flash attention forward (GQA, causal and
-// sliding-window masks, a query offset and KV-length masking), for sm_90a.
+// B6 backward on the CUDA cores: dQ, dK and dV of the flash attention forward
+// (GQA, causal and sliding-window masks, a query offset and KV-length
+// masking), for sm_90a, in fp32 (no TF32: the fp32 gate is 2e-5); bf16 runs
+// csrc/swa_backward_bf16.cu on the tensor cores.
 //
 // Replaces no Pallas kernel: the reference differentiates its XLA
 // formulation (repro/models/layers.py:130 sdpa, and _sdpa_chunked's
@@ -19,25 +21,26 @@
 //   dV_j = sum_i P_ij dout_i, dS_ij = P_ij (dout_i . v_j - Delta_i),
 //   dQ_i = s' sum_j dS_ij k_j, dK_j = s' sum_i dS_ij q_i   (s' = D**-0.5),
 // with dK and dV summed over the KV head's group of query heads.  Every
-// product and sum is fp32 (bf16 inputs are widened on load); the gradients are
-// written in the input type.  A row with no visible key, and a key no row
+// product and sum is fp32.  A row with no visible key, and a key no row
 // sees (at or past kv_len included), gets zero gradient.
 //
+// Each row's log-sum-exp (LSE) comes from the forward, which writes it when
+// it is given a buffer (kernels/swa_attention.py:FlashAttention does):
+// (B, Hq, Sq) fp32, natural log, 0 for a row with no visible key.
+//
 // Design: two launches, deterministic and free of atomics; fp32 on the CUDA
-// cores (no TF32), 256 threads a block as a 16 x 16 grid (tx, ty).
+// cores, 256 threads a block as a 16 x 16 grid (tx, ty).
 //   1. bwd_dq, one block per (batch, KV head, tile of BM rows).  Rows are
 //      (query position, head of the KV head's group) pairs, position-major, so
 //      the group shares every staged K/V tile (the forward's order).  It reads
 //      the tile's q and dout rows into shared memory, computes Delta, then
-//      walks the key tiles any of its rows can see (the forward's cull) twice:
-//      first for each row's log-sum-exp (the forward does not keep it: this
-//      pass recomputes it, one q.k product a visible pair), then for dS and
-//      dQ += dS K.  It writes the rows' log-sum-exp and Delta (fp32) to a
-//      workspace for the second launch.
+//      walks the key tiles any of its rows can see (the forward's cull) for
+//      P = exp(s - LSE), dS and dQ += dS K.  It writes the rows' Delta (fp32)
+//      to a workspace for the second launch.
 //   2. bwd_dkdv, one block per (batch, KV head, tile of BN keys).  It keeps
 //      the tile's K and V in shared memory and dK, dV in registers, and walks
 //      the row tiles (every head of the group) whose positions can see a key
-//      of the tile: P = exp(s - lse) and dS from the workspace's rows, then
+//      of the tile: P = exp(s - LSE) and dS from the LSE and Delta, then
 //      dV += P^T dout and dK += dS^T q through shared memory.
 //   Score tiles: thread (tx, ty) takes rows ty + 16 m and keys tx + 16 c;
 //   products into D columns: rows (or keys) ty + 16 m and columns tx + 16 e.
@@ -46,10 +49,8 @@
 //   most 166 KB, D = 128's bwd_dkdv).
 //
 // Bound: operations.  10 D flops a visible (query, key) pair and query head
-// (q.k, dout.v, P^T dout, dS^T q, dS k); this kernel spends 12 D (the
-// log-sum-exp pass and the dK/dV launch's own q.k and dout.v), on the CUDA
-// cores, where the card's tensor cores would do the bf16 work 15x faster.
-#include <cuda_bf16.h>
+// (q.k, dout.v, P^T dout, dS^T q, dS k); this kernel spends 14 D (the dK/dV
+// launch recomputes q.k and dout.v), on the CUDA cores' 67 TFLOP/s.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -57,7 +58,6 @@
 namespace {
 
 constexpr int kThreads = 256;        // 16 x 16
-constexpr float kNone = -1e30f;      // running max before any visible key
 constexpr unsigned kFull = 0xffffffffu;
 
 struct BwdArgs {
@@ -69,8 +69,8 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
-  float* lse;    // (B * Hkv, rows): each row's log-sum-exp, 0 with no key
-  float* delta;  // (B * Hkv, rows): sum_d dout o
+  const float* lse;  // (B, Hq, Sq): each row's log-sum-exp (the forward's), 0 with no key
+  float* delta;      // (B * Hkv, rows): sum_d dout o
   long long sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos;
   long long sdob, sdoh, sdos, sdqb, sdqh, sdqs, sdkb, sdkh, sdks, sdvb, sdvh, sdvs;
   long long q_offset;
@@ -79,15 +79,10 @@ struct BwdArgs {
   float scale;  // D ** -0.5
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+// Index of row r's log-sum-exp: position r / group of head kvh * group + r %
+// group, in the forward's (B, Hq, Sq) layout.
+__device__ __forceinline__ long long lse_index(const BwdArgs& a, long long r, int b, int kvh) {
+  return ((long long)(b * a.Hkv + kvh) * a.group + r % a.group) * a.Sq + r / a.group;
 }
 
 __device__ __forceinline__ bool visible(long long key, long long qpos, const BwdArgs& a) {
@@ -105,25 +100,25 @@ __device__ __forceinline__ long long row_off(long long r, int b, int kvh, int gr
 }
 
 // ROWS rows from r0 (those below rend; the rest 0) into dst[ROWS][D + 1].
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(float (*dst)[D + 1], const T* base, long long r0,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float (*dst)[D + 1], const float* base, long long r0,
                                           long long rend, int b, int kvh, int group, long long sb,
                                           long long sh, long long ss) {
   for (int c = threadIdx.x; c < ROWS * D; c += kThreads) {
     const int rr = c / D, d = c % D;
     const long long r = r0 + rr;
-    dst[rr][d] = r < rend ? to_f(base[row_off(r, b, kvh, group, sb, sh, ss) + d]) : 0.f;
+    dst[rr][d] = r < rend ? base[row_off(r, b, kvh, group, sb, sh, ss) + d] : 0.f;
   }
 }
 
 // KEYS keys from k0 (those below kv_len; the rest 0) of one KV head.
-template <typename T, int D, int KEYS>
-__device__ __forceinline__ void load_keys(float (*dst)[D + 1], const T* head, long long k0,
+template <int D, int KEYS>
+__device__ __forceinline__ void load_keys(float (*dst)[D + 1], const float* head, long long k0,
                                           int kv_len, long long ss) {
   for (int c = threadIdx.x; c < KEYS * D; c += kThreads) {
     const int kk = c / D, d = c % D;
     const long long key = k0 + kk;
-    dst[kk][d] = key < kv_len ? to_f(head[key * ss + d]) : 0.f;
+    dst[kk][d] = key < kv_len ? head[key * ss + d] : 0.f;
   }
 }
 
@@ -131,12 +126,6 @@ __device__ __forceinline__ void load_keys(float (*dst)[D + 1], const T* head, lo
 __device__ __forceinline__ float half_sum(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
   return x;
 }
 
@@ -150,7 +139,7 @@ struct Smem {
       sizeof(float) * (2 * BN * P + 2 * BM * P + 2 * BM * (BN + 1) + 2 * BM);
 };
 
-template <typename T, int D, int BM, int BN>
+template <int D, int BM, int BN>
 __global__ void __launch_bounds__(kThreads, 1) bwd_dq(const BwdArgs a) {
   constexpr int MI = BM / 16, NJ = BN / 16, DE = D / 16, P = D + 1;
   extern __shared__ float smem[];
@@ -164,31 +153,34 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dq(const BwdArgs a) {
   const int b = blockIdx.y / a.Hkv, kvh = blockIdx.y % a.Hkv;
   const long long r0 = (long long)blockIdx.x * BM;
   const long long r1 = min(r0 + BM, a.rows);
-  const T* q = static_cast<const T*>(a.q);
-  const T* o = static_cast<const T*>(a.o);
-  const T* dout = static_cast<const T*>(a.dout);
-  const T* khead = static_cast<const T*>(a.k) + b * a.skb + kvh * a.skh;
-  const T* vhead = static_cast<const T*>(a.v) + b * a.svb + kvh * a.svh;
+  const float* q = static_cast<const float*>(a.q);
+  const float* o = static_cast<const float*>(a.o);
+  const float* dout = static_cast<const float*>(a.dout);
+  const float* khead = static_cast<const float*>(a.k) + b * a.skb + kvh * a.skh;
+  const float* vhead = static_cast<const float*>(a.v) + b * a.svb + kvh * a.svh;
 
-  load_rows<T, D, BM>(Qs, q, r0, r1, b, kvh, a.group, a.sqb, a.sqh, a.sqs);
-  load_rows<T, D, BM>(dOs, dout, r0, r1, b, kvh, a.group, a.sdob, a.sdoh, a.sdos);
+  load_rows<D, BM>(Qs, q, r0, r1, b, kvh, a.group, a.sqb, a.sqh, a.sqs);
+  load_rows<D, BM>(dOs, dout, r0, r1, b, kvh, a.group, a.sdob, a.sdoh, a.sdos);
   __syncthreads();
 
   bool rv[MI];
   long long qpos[MI];
   float delta[MI], lse[MI];
+  float* delta_out = a.delta + (long long)blockIdx.y * a.rows;
 #pragma unroll
   for (int m = 0; m < MI; ++m) {
     const long long r = r0 + ty + 16 * m;
     rv[m] = r < r1;
     qpos[m] = a.q_offset + (rv[m] ? r / a.group : 0);
+    lse[m] = rv[m] ? a.lse[lse_index(a, r, b, kvh)] : 0.f;
     float s = 0.f;
     if (rv[m]) {
-      const T* orow = o + row_off(r, b, kvh, a.group, a.sob, a.soh, a.sos);
+      const float* orow = o + row_off(r, b, kvh, a.group, a.sob, a.soh, a.sos);
 #pragma unroll
-      for (int e = 0; e < DE; ++e) s = fmaf(dOs[ty + 16 * m][tx + 16 * e], to_f(orow[tx + 16 * e]), s);
+      for (int e = 0; e < DE; ++e) s = fmaf(dOs[ty + 16 * m][tx + 16 * e], orow[tx + 16 * e], s);
     }
     delta[m] = half_sum(s);
+    if (tx == 0 && rv[m]) delta_out[r] = delta[m];
   }
 
   // keys [kb, ke) that some row of the tile can see (the forward's cull)
@@ -199,66 +191,7 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dq(const BwdArgs a) {
   const long long t_begin = kb / BN;
   const long long t_end = ke > kb ? (ke + BN - 1) / BN : t_begin;
 
-  // pass 1: each row's log-sum-exp, from per-lane running (max, sum)
-  float mrow[MI], lrow[MI];
-#pragma unroll
-  for (int m = 0; m < MI; ++m) mrow[m] = kNone, lrow[m] = 0.f;
-  for (long long t = t_begin; t < t_end; ++t) {
-    const long long k0 = t * BN;
-    __syncthreads();
-    load_keys<T, D, BN>(Ks, khead, k0, a.kv_len, a.sks);
-    __syncthreads();
-    float s[MI][NJ];
-#pragma unroll
-    for (int m = 0; m < MI; ++m)
-#pragma unroll
-      for (int c = 0; c < NJ; ++c) s[m][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[MI], kv[NJ];
-#pragma unroll
-      for (int m = 0; m < MI; ++m) qv[m] = Qs[ty + 16 * m][d];
-#pragma unroll
-      for (int c = 0; c < NJ; ++c) kv[c] = Ks[tx + 16 * c][d];
-#pragma unroll
-      for (int m = 0; m < MI; ++m)
-#pragma unroll
-        for (int c = 0; c < NJ; ++c) s[m][c] = fmaf(qv[m], kv[c], s[m][c]);
-    }
-#pragma unroll
-    for (int m = 0; m < MI; ++m) {
-      float tmax = kNone;
-#pragma unroll
-      for (int c = 0; c < NJ; ++c) {
-        const bool vis = rv[m] && visible(k0 + tx + 16 * c, qpos[m], a);
-        s[m][c] = vis ? s[m][c] * a.scale : kNone;
-        tmax = fmaxf(tmax, s[m][c]);
-      }
-      if (tmax > kNone) {
-        const float mn = fmaxf(mrow[m], tmax);
-        float add = 0.f;
-#pragma unroll
-        for (int c = 0; c < NJ; ++c)
-          if (s[m][c] > kNone) add += expf(s[m][c] - mn);
-        lrow[m] = lrow[m] * expf(mrow[m] - mn) + add;
-        mrow[m] = mn;
-      }
-    }
-  }
-  float* lse_out = a.lse + (long long)blockIdx.y * a.rows;
-  float* delta_out = a.delta + (long long)blockIdx.y * a.rows;
-#pragma unroll
-  for (int m = 0; m < MI; ++m) {
-    const float M = half_max(mrow[m]);
-    const float L = half_sum(lrow[m] > 0.f ? lrow[m] * expf(mrow[m] - M) : 0.f);
-    lse[m] = L > 0.f ? M + logf(L) : 0.f;
-    if (tx == 0 && rv[m]) {
-      lse_out[r0 + ty + 16 * m] = lse[m];
-      delta_out[r0 + ty + 16 * m] = delta[m];
-    }
-  }
-
-  // pass 2: dS = P (dout.v - Delta), dQ += dS K
+  // dS = P (dout.v - Delta), dQ += dS K
   float acc[MI][DE];
 #pragma unroll
   for (int m = 0; m < MI; ++m)
@@ -267,8 +200,8 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dq(const BwdArgs a) {
   for (long long t = t_begin; t < t_end; ++t) {
     const long long k0 = t * BN;
     __syncthreads();
-    load_keys<T, D, BN>(Ks, khead, k0, a.kv_len, a.sks);
-    load_keys<T, D, BN>(Vs, vhead, k0, a.kv_len, a.svs);
+    load_keys<D, BN>(Ks, khead, k0, a.kv_len, a.sks);
+    load_keys<D, BN>(Vs, vhead, k0, a.kv_len, a.svs);
     __syncthreads();
     float s[MI][NJ], dp[MI][NJ];
 #pragma unroll
@@ -312,17 +245,17 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dq(const BwdArgs a) {
       }
     }
   }
-  T* dq = static_cast<T*>(a.dq);
+  float* dq = static_cast<float*>(a.dq);
 #pragma unroll
   for (int m = 0; m < MI; ++m) {
     if (!rv[m]) continue;
-    T* row = dq + row_off(r0 + ty + 16 * m, b, kvh, a.group, a.sdqb, a.sdqh, a.sdqs);
+    float* row = dq + row_off(r0 + ty + 16 * m, b, kvh, a.group, a.sdqb, a.sdqh, a.sdqs);
 #pragma unroll
-    for (int e = 0; e < DE; ++e) row[tx + 16 * e] = from_f<T>(acc[m][e] * a.scale);
+    for (int e = 0; e < DE; ++e) row[tx + 16 * e] = acc[m][e] * a.scale;
   }
 }
 
-template <typename T, int D, int BM, int BN>
+template <int D, int BM, int BN>
 __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv(const BwdArgs a) {
   constexpr int MI = BM / 16, NJ = BN / 16, DE = D / 16, P = D + 1;
   extern __shared__ float smem[];
@@ -339,14 +272,13 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv(const BwdArgs a) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int b = blockIdx.y / a.Hkv, kvh = blockIdx.y % a.Hkv;
   const long long k0 = (long long)blockIdx.x * BN;
-  const T* q = static_cast<const T*>(a.q);
-  const T* dout = static_cast<const T*>(a.dout);
-  const float* lse_in = a.lse + (long long)blockIdx.y * a.rows;
+  const float* q = static_cast<const float*>(a.q);
+  const float* dout = static_cast<const float*>(a.dout);
   const float* delta_in = a.delta + (long long)blockIdx.y * a.rows;
 
-  load_keys<T, D, BN>(Ks, static_cast<const T*>(a.k) + b * a.skb + kvh * a.skh, k0, a.kv_len,
+  load_keys<D, BN>(Ks, static_cast<const float*>(a.k) + b * a.skb + kvh * a.skh, k0, a.kv_len,
                       a.sks);
-  load_keys<T, D, BN>(Vs, static_cast<const T*>(a.v) + b * a.svb + kvh * a.svh, k0, a.kv_len,
+  load_keys<D, BN>(Vs, static_cast<const float*>(a.v) + b * a.svb + kvh * a.svh, k0, a.kv_len,
                       a.svs);
 
   // rows whose positions can see a key of [k0, k_last]
@@ -368,11 +300,11 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv(const BwdArgs a) {
   for (long long r0 = r_begin; r0 < r_end; r0 += BM) {
     const long long r1 = min(r0 + BM, r_end);
     __syncthreads();
-    load_rows<T, D, BM>(Qs, q, r0, r1, b, kvh, a.group, a.sqb, a.sqh, a.sqs);
-    load_rows<T, D, BM>(dOs, dout, r0, r1, b, kvh, a.group, a.sdob, a.sdoh, a.sdos);
+    load_rows<D, BM>(Qs, q, r0, r1, b, kvh, a.group, a.sqb, a.sqh, a.sqs);
+    load_rows<D, BM>(dOs, dout, r0, r1, b, kvh, a.group, a.sdob, a.sdoh, a.sdos);
     for (int i = threadIdx.x; i < BM; i += kThreads) {
       const bool ok = r0 + i < r1;
-      Ls[i] = ok ? lse_in[r0 + i] : 0.f;
+      Ls[i] = ok ? a.lse[lse_index(a, r0 + i, b, kvh)] : 0.f;
       Ds[i] = ok ? delta_in[r0 + i] : 0.f;
     }
     __syncthreads();
@@ -427,54 +359,53 @@ __global__ void __launch_bounds__(kThreads, 1) bwd_dkdv(const BwdArgs a) {
       }
     }
   }
-  T* dk = static_cast<T*>(a.dk) + b * a.sdkb + kvh * a.sdkh;
-  T* dv = static_cast<T*>(a.dv) + b * a.sdvb + kvh * a.sdvh;
+  float* dk = static_cast<float*>(a.dk) + b * a.sdkb + kvh * a.sdkh;
+  float* dv = static_cast<float*>(a.dv) + b * a.sdvb + kvh * a.sdvh;
 #pragma unroll
   for (int c = 0; c < NJ; ++c) {
     const long long key = k0 + ty + 16 * c;
     if (key >= a.Skv) continue;
 #pragma unroll
     for (int e = 0; e < DE; ++e) {
-      dk[key * a.sdks + tx + 16 * e] = from_f<T>(acc_k[c][e] * a.scale);
-      dv[key * a.sdvs + tx + 16 * e] = from_f<T>(acc_v[c][e]);
+      dk[key * a.sdks + tx + 16 * e] = acc_k[c][e] * a.scale;
+      dv[key * a.sdvs + tx + 16 * e] = acc_v[c][e];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch_bwd(const BwdArgs& a, int n_bh, cudaStream_t st) {
   constexpr int BM = D > 128 ? 32 : 64, BN = BM;
   using S = Smem<D, BM, BN>;
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      bwd_dq<T, D, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::dq);
+      bwd_dq<D, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::dq);
   static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      bwd_dkdv<T, D, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::dkdv);
+      bwd_dkdv<D, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::dkdv);
   if (attr_dq != cudaSuccess) return (int)attr_dq;
   if (attr_kv != cudaSuccess) return (int)attr_kv;
   if (a.rows > 0) {
     const dim3 grid((unsigned)((a.rows + BM - 1) / BM), (unsigned)n_bh);
-    bwd_dq<T, D, BM, BN><<<grid, kThreads, S::dq, st>>>(a);
+    bwd_dq<D, BM, BN><<<grid, kThreads, S::dq, st>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (a.Skv > 0) {
     const dim3 grid((unsigned)((a.Skv + BN - 1) / BN), (unsigned)n_bh);
-    bwd_dkdv<T, D, BM, BN><<<grid, kThreads, S::dkdv, st>>>(a);
+    bwd_dkdv<D, BM, BN><<<grid, kThreads, S::dkdv, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const BwdArgs& a, int D, int n_bh, cudaStream_t st) {
   switch (D) {
-    case 16: return launch_bwd<T, 16>(a, n_bh, st);
-    case 32: return launch_bwd<T, 32>(a, n_bh, st);
-    case 64: return launch_bwd<T, 64>(a, n_bh, st);
-    case 80: return launch_bwd<T, 80>(a, n_bh, st);
-    case 96: return launch_bwd<T, 96>(a, n_bh, st);
-    case 128: return launch_bwd<T, 128>(a, n_bh, st);
-    case 240: return launch_bwd<T, 240>(a, n_bh, st);
-    case 256: return launch_bwd<T, 256>(a, n_bh, st);
+    case 16: return launch_bwd<16>(a, n_bh, st);
+    case 32: return launch_bwd<32>(a, n_bh, st);
+    case 64: return launch_bwd<64>(a, n_bh, st);
+    case 80: return launch_bwd<80>(a, n_bh, st);
+    case 96: return launch_bwd<96>(a, n_bh, st);
+    case 128: return launch_bwd<128>(a, n_bh, st);
+    case 240: return launch_bwd<240>(a, n_bh, st);
+    case 256: return launch_bwd<256>(a, n_bh, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -482,17 +413,18 @@ int dispatch(const BwdArgs& a, int D, int n_bh, cudaStream_t st) {
 }  // namespace
 
 // q, k, v, o, dout, dq, dk, dv: element strides (b, h, s) each, unit stride
-// on d; lse and delta: fp32 workspaces of B * Hkv * (Hq / Hkv) * Sq floats.
-// Writes every element of dq, dk and dv.  Returns the launch error (0 when
+// on d; lse: the forward's (B, Hq, Sq) fp32 log-sum-exp; delta: an fp32
+// workspace of B * Hkv * (Hq / Hkv) * Sq floats; every operand fp32.  Writes
+// every element of dq, dk and dv.  Returns the launch error (0 when
 // launched).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout, void* dq,
-    void* dk, void* dv, void* lse, void* delta, long long sqb, long long sqh, long long sqs,
+    void* dk, void* dv, const void* lse, void* delta, long long sqb, long long sqh, long long sqs,
     long long skb, long long skh, long long sks, long long svb, long long svh, long long svs,
     long long sob, long long soh, long long sos, long long sdob, long long sdoh, long long sdos,
     long long sdqb, long long sdqh, long long sdqs, long long sdkb, long long sdkh, long long sdks,
     long long sdvb, long long sdvh, long long sdvs, int B, int Hq, int Hkv, int Sq, int Skv, int D,
-    int causal, int window, long long q_offset, int kv_len, int is_bf16, void* stream) {
+    int causal, int window, long long q_offset, int kv_len, void* stream) {
   if (B <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || kv_len < 0 || kv_len > Skv || window < 0 || Sq < 0 ||
       (long long)B * Hkv > 65535)
@@ -500,7 +432,7 @@ extern "C" int repro_flash_attention_bwd(
   BwdArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.dq = dq; a.dk = dk; a.dv = dv;
-  a.lse = static_cast<float*>(lse);
+  a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.sqb = sqb; a.sqh = sqh; a.sqs = sqs;
   a.skb = skb; a.skh = skh; a.sks = sks;
@@ -522,5 +454,5 @@ extern "C" int repro_flash_attention_bwd(
   a.scale = (float)(1.0 / sqrt((double)D));
   cudaStream_t st = (cudaStream_t)stream;
   const int n_bh = B * Hkv;
-  return is_bf16 ? dispatch<__nv_bfloat16>(a, D, n_bh, st) : dispatch<float>(a, D, n_bh, st);
+  return dispatch(a, D, n_bh, st);
 }

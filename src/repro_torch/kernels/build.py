@@ -3,9 +3,9 @@
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a`` into an object file; the objects link into ONE shared library
 with a plain C interface, loaded with ``ctypes``.  The library lands in
-``src/repro_torch/_build/`` under a name that hashes the sources and flags,
-so an edited source rebuilds and an unchanged one loads at once.  Nothing
-here runs at import time.
+``src/repro_torch/_build/`` under a name that hashes every file under
+``csrc/`` and the flags, so an edited source or header rebuilds and an
+unchanged tree loads at once.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu",
            "segment_scan.cu", "swa_attention.cu", "swa_prefill.cu",
-           "swa_decode.cu", "swa_backward.cu", "hash_partition.cu")
+           "swa_decode.cu", "swa_backward.cu", "swa_backward_bf16.cu",
+           "hash_partition.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,10 +53,12 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """Hash of the flags and of every file under ``csrc/`` (the sources and
+    the headers they include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC_DIR / name).read_bytes())
+    for path in sorted(p for p in CSRC_DIR.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(CSRC_DIR)).encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -133,9 +136,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                                          _P, _P, _P, _I32, _P]
     lib.repro_segmented_scan.restype = _I32
     # q, k, v, o; 12 strides; B, Hq, Hkv, Sq, Skv, D, causal, window;
-    # q_offset; kv_len, is_bf16; stream
+    # q_offset; kv_len, is_bf16; lse; stream
     lib.repro_flash_attention.argtypes = ([_P] * 4 + [_I64] * 12 + [_I32] * 8
-                                          + [_I64, _I32, _I32, _P])
+                                          + [_I64, _I32, _I32, _P, _P])
     lib.repro_flash_attention.restype = _I32
     # q, k, v, o; 12 strides; B, Hq, Hkv, Sq, D, causal, window; q_offset;
     # kv_len, start, chunk, splits, key_end; part; vec16, is_bf16; stream
@@ -144,11 +147,13 @@ def _declare(lib: ctypes.CDLL) -> None:
                                        + [_I32] * 2 + [_P])
     lib.repro_flash_decode.restype = _I32
     # q, k, v, o, dout, dq, dk, dv, lse, delta; 24 strides; B, Hq, Hkv, Sq,
-    # Skv, D, causal, window; q_offset; kv_len, is_bf16; stream
-    lib.repro_flash_attention_bwd.argtypes = ([_P] * 10 + [_I64] * 24
-                                              + [_I32] * 8 + [_I64, _I32, _I32,
-                                                              _P])
-    lib.repro_flash_attention_bwd.restype = _I32
+    # Skv, D, causal, window; q_offset; kv_len; stream (fp32 and bf16)
+    for fn in (lib.repro_flash_attention_bwd,
+               lib.repro_flash_attention_bwd_bf16):
+        fn.argtypes = [_P] * 10 + [_I64] * 24 + [_I32] * 8 + [_I64, _I32, _P]
+        fn.restype = _I32
+    lib.repro_flash_attention_bwd_bf16_tiles.argtypes = [_I32, _P]
+    lib.repro_flash_attention_bwd_bf16_tiles.restype = _I32
 
 
 def _load(info: dict) -> ctypes.CDLL:

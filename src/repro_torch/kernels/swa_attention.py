@@ -32,11 +32,18 @@ tiles) and ``csrc/swa_attention.cu`` in fp32.  Both routes take head dims
 are multiples of 8 elements (TMA's rule), else the call raises.
 
 The gradient: ``FlashAttention`` (a ``torch.autograd.Function``) runs the
-forward above and, in its backward, ``flash_swa_attention_backward``
-(``csrc/swa_backward.cu``: dQ, dK and dV in two launches, fp32 on the CUDA
-cores, no atomics) on CUDA tensors, or ``flash_swa_attention_backward_plain``
-on CPU tensors.  The forward keeps no log-sum-exp: the backward recomputes
-each row's from q and k.
+forward above with an ``lse`` buffer, in which the forward writes each row's
+log-sum-exp (LSE) of the scaled scores: ``(B, Hq, Sq)`` fp32, natural log, 0
+for a row with no visible key (such a call takes the prefill kernels at
+every size: the decode route keeps no LSE, and serving never asks for one).
+Its backward, ``flash_swa_attention_backward``, reads that LSE and launches
+two kernels on CUDA tensors (dQ, then dK and dV; no atomics): bf16 runs
+``csrc/swa_backward_bf16.cu`` on the tensor cores (TMA, ``wgmma``;
+``backward_dq_tiles`` and ``backward_dkdv_tiles`` repeat its walks, and
+``backward_kernel_tiles`` reads its tile plan from the library), fp32
+``csrc/swa_backward.cu`` on the CUDA cores.  On CPU tensors both directions
+run their plain versions (``flash_swa_attention_plain(...,
+return_lse=True)``, ``flash_swa_attention_backward_plain(..., lse=)``).
 """
 from __future__ import annotations
 
@@ -53,7 +60,10 @@ __all__ = ["HEAD_DIMS", "DECODE_ROWS", "DECODE_KEYS", "PREFILL_ROWS",
            "flash_swa_attention_backward_plain", "FlashAttention",
            "decode_key_range", "plan_decode_splits", "partials_plain",
            "combine_partials_plain", "prefill_keys_per_tile",
-           "prefill_tile_class", "prefill_tiles"]
+           "prefill_tile_class", "prefill_tiles", "BWD_DQ_ROWS",
+           "backward_dq_keys", "backward_dkdv_keys", "backward_dkdv_rows",
+           "backward_dq_tiles", "backward_dkdv_class", "backward_dkdv_tiles",
+           "backward_kernel_tiles"]
 
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 240, 256)  # every route's instantiations
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -63,6 +73,7 @@ DECODE_ROWS = 16          # group * Sq rows per KV head on the decode route
 DECODE_KEYS = 64          # split chunks are multiples of this many keys
 PREFILL_ROWS = 128        # query rows (of one head) a bf16 prefill block takes
 SKIP, FULL, EDGE = 0, 1, 2  # classes of a (query tile, key tile) pair
+BWD_DQ_ROWS = 128         # query rows a block of the bf16 backward's dq launch
 BLOCKS_PER_SM = 2         # the split plan fills the card this many times
 _LOG2E = 1.4426950408889634
 
@@ -95,9 +106,13 @@ def _check_args(q, k, v, window, q_offset, kv_len) -> Tuple[int, int]:
 def flash_swa_attention_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: int = 0, q_offset: Optional[int] = None,
-                              kv_len: Optional[int] = None) -> torch.Tensor:
+                              kv_len: Optional[int] = None,
+                              return_lse: bool = False):
     """Dense masked fp32 softmax attention, a block of query rows at a time
-    (so that the scores of one step stay under ``_PLAIN_CHUNK`` elements)."""
+    (so that the scores of one step stay under ``_PLAIN_CHUNK`` elements).
+    With ``return_lse``, returns ``(out, lse)``: each row's log-sum-exp of
+    its scaled visible scores, ``(B, Hq, Sq)`` fp32, 0 for a row with no
+    visible key (the kernels' convention)."""
     q_offset, kv_len = _check_args(q, k, v, window, q_offset, kv_len)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -107,6 +122,7 @@ def flash_swa_attention_plain(q: torch.Tensor, k: torch.Tensor,
     kf, vf = k.float(), v.float()
     scale = 1.0 / D ** 0.5
     out = torch.empty((B, Hkv, g, Sq, D), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, Hkv, g, Sq), dtype=torch.float32, device=dev)
     kpos = torch.arange(Skv, device=dev)
     step = max(1, _PLAIN_CHUNK // max(1, B * Hq * Skv))
     for lo in range(0, Sq, step):
@@ -126,7 +142,10 @@ def flash_swa_attention_plain(q: torch.Tensor, k: torch.Tensor,
         o = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
         out[:, :, :, lo:hi] = torch.where(den > 0, o / den,
                                           torch.zeros_like(o))
-    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+        lse[:, :, :, lo:hi] = torch.where(
+            den > 0, m + torch.log(den), torch.zeros_like(den))[..., 0]
+    out = out.reshape(B, Hq, Sq, D).to(q.dtype)
+    return (out, lse.reshape(B, Hq, Sq)) if return_lse else out
 
 
 def decode_key_range(Sq: int, causal: bool, window: int, q_offset: int,
@@ -187,8 +206,30 @@ def prefill_tiles(q0: int, Sq: int, D: int, causal: bool, window: int,
     """``[(key tile, class), ...]`` that the bf16 prefill block of the
     query tile starting at row ``q0`` walks: the tiles of
     ``decode_key_range``'s keys for its rows, in order."""
-    bn = prefill_keys_per_tile(D)
-    rows = min(q0 + PREFILL_ROWS, Sq) - q0
+    return _key_tiles(q0, PREFILL_ROWS, prefill_keys_per_tile(D), Sq, causal,
+                      window, q_offset, kv_len)
+
+
+def backward_dq_keys(D: int) -> int:
+    """Keys a tile of the bf16 backward's dq launch: 64, or 32 above
+    D = 128 (where dQ alone takes 120-128 registers a thread).  A twin of
+    ``BwdCfg::BN`` in ``csrc/swa_backward_bf16.cu``, held to it on the card
+    through ``backward_kernel_tiles``."""
+    return 32 if D > 128 else 64
+
+
+def backward_dq_tiles(q0: int, Sq: int, D: int, causal: bool, window: int,
+                      q_offset: int, kv_len: int):
+    """``[(key tile, class), ...]`` that the bf16 backward's dq block of
+    the ``BWD_DQ_ROWS`` query rows from ``q0`` walks (tiles of
+    ``backward_dq_keys(D)`` keys; ``csrc/swa_backward_bf16.cu:
+    bwd_dq_wgmma``): it masks the ``EDGE`` ones."""
+    return _key_tiles(q0, BWD_DQ_ROWS, backward_dq_keys(D), Sq, causal,
+                      window, q_offset, kv_len)
+
+
+def _key_tiles(q0, block_rows, bn, Sq, causal, window, q_offset, kv_len):
+    rows = min(q0 + block_rows, Sq) - q0
     qlo = q_offset + q0
     begin, end = decode_key_range(rows, causal, window, qlo, kv_len)
     if end <= begin:
@@ -196,6 +237,78 @@ def prefill_tiles(q0: int, Sq: int, D: int, causal: bool, window: int,
     return [(t, prefill_tile_class(qlo, qlo + rows - 1, t * bn, bn, causal,
                                    window, kv_len))
             for t in range(begin // bn, -(-end // bn))]
+
+
+def backward_dkdv_keys(D: int) -> int:
+    """Keys a block of the bf16 backward's dkdv launch: 128, 64 to each
+    consumer warpgroup, or 64 above D = 128, where both warpgroups take the
+    same keys and split d (dK and dV of 64 keys would take 240-256
+    registers a thread).  A twin of ``BwdCfg::KEYS``, held to it on the card
+    through ``backward_kernel_tiles``."""
+    return 64 if D > 128 else 128
+
+
+def backward_dkdv_rows(D: int) -> int:
+    """Query rows a tile of the bf16 backward's dkdv launch: 64, or 32 from
+    D = 128 on (where dK and dV alone take 128 registers a thread).  A twin
+    of ``BwdCfg::BM``, held to it on the card through
+    ``backward_kernel_tiles``."""
+    return 32 if D > 96 else 64
+
+
+def backward_dkdv_class(p0: int, rows: int, k0: int, keys: int, Sq: int,
+                        causal: bool, window: int, q_offset: int,
+                        kv_len: int) -> int:
+    """The class of the pair (query rows ``[p0, p0 + rows)`` of a head,
+    keys ``[k0, k0 + keys)``) in the dkdv launch: ``prefill_tile_class`` of
+    the rows below ``Sq``, and ``EDGE`` for a ``FULL`` tile that runs past
+    ``Sq`` (its missing rows are masked).  The kernel masks every pair that
+    is not ``FULL``."""
+    last = min(p0 + rows, Sq) - 1
+    if last < p0:
+        return SKIP
+    cls = prefill_tile_class(q_offset + p0, q_offset + last, k0, keys, causal,
+                             window, kv_len)
+    return EDGE if cls == FULL and p0 + rows > Sq else cls
+
+
+def backward_dkdv_tiles(k0: int, Sq: int, D: int, causal: bool, window: int,
+                        q_offset: int, kv_len: int):
+    """``[(row tile, (class of consumer 0's 64 keys, class of consumer
+    1's)), ...]`` that the bf16 backward's dkdv block of the
+    ``backward_dkdv_keys(D)`` keys from ``k0`` walks for each head of the
+    group (``csrc/swa_backward_bf16.cu:bwd_dkdv_wgmma``): the row tiles from
+    the first position that can see one of its keys to the last.  Consumer
+    c's keys start at ``k0 + 64 c`` (``k0`` for both above D = 128)."""
+    bm, keys = backward_dkdv_rows(D), backward_dkdv_keys(D)
+    k_last = min(k0 + keys, kv_len) - 1
+    if k_last < k0:
+        return []
+    p_lo = max(0, k0 - q_offset) if causal else 0
+    p_hi = min(Sq - 1, k_last + window - 1 - q_offset) if window > 0 \
+        else Sq - 1
+    if p_hi < p_lo:
+        return []
+    starts = (k0, k0 + 64) if keys == 128 else (k0, k0)
+    return [(t, tuple(backward_dkdv_class(t * bm, bm, s, 64, Sq, causal,
+                                          window, q_offset, kv_len)
+                      for s in starts))
+            for t in range(p_lo // bm, p_hi // bm + 1)]
+
+
+def backward_kernel_tiles(D: int) -> Tuple[int, int, int, int]:
+    """The bf16 backward kernel's own tile plan at head dim ``D``, read from
+    the built library (``repro_flash_attention_bwd_bf16_tiles``, from
+    ``BwdCfg``): (query rows of a dq block, keys of a dq tile, keys of a
+    dkdv block, query rows of a dkdv tile).  The Python twins must give
+    ``(BWD_DQ_ROWS, backward_dq_keys(D), backward_dkdv_keys(D),
+    backward_dkdv_rows(D))``; needs the CUDA toolchain."""
+    from repro_torch.kernels.build import check, library
+
+    tiles = (ctypes.c_int * 4)()
+    check(library().repro_flash_attention_bwd_bf16_tiles(D, tiles),
+          "flash_attention backward tiles")
+    return tuple(tiles)
 
 
 def _rows(x: torch.Tensor, Hkv: int) -> torch.Tensor:
@@ -302,12 +415,24 @@ def _flash_decode(lib, q, k, v, out, causal, window, q_offset, kv_len,
     check(status, "flash_attention decode")
 
 
+def _check_lse(lse: torch.Tensor, q: torch.Tensor, what: str) -> None:
+    B, Hq, Sq = q.shape[:3]
+    if not (isinstance(lse, torch.Tensor) and lse.shape == (B, Hq, Sq)
+            and lse.dtype == torch.float32 and lse.is_contiguous()
+            and lse.device == q.device):
+        raise ValueError(f"{what}: lse must be a contiguous float32 tensor "
+                         f"of shape {(B, Hq, Sq)} on {q.device}")
+
+
 def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         q_offset: Optional[int] = None,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
+                        kv_len: Optional[int] = None,
+                        lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch B6 on CUDA tensors (the decode route when ``group * Sq <=
-    DECODE_ROWS``); returns ``(B, Hq, Sq, D)`` in q's dtype."""
+    DECODE_ROWS`` and no ``lse`` is asked for); returns ``(B, Hq, Sq, D)``
+    in q's dtype.  ``lse``, a ``(B, Hq, Sq)`` fp32 buffer, receives each
+    row's log-sum-exp (``flash_swa_attention_plain``'s convention)."""
     from repro_torch.kernels.build import check, library
 
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -324,24 +449,23 @@ def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * Hkv > _MAX_BH:
         raise ValueError(f"flash_attention kernel: B * Hkv = {B * Hkv} > "
                          f"{_MAX_BH}")
+    if lse is not None:
+        _check_lse(lse, q, "flash_attention")
     out = torch.empty_like(q)        # q's strides where q is dense
     if out.stride(-1) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    # bf16 tiles move by TMA (16-byte aligned bases, strides multiples of 16
-    # bytes) or in 16-byte vectors, fp32 ones element by element
     bf16 = q.dtype == torch.bfloat16
-    elems, nbytes = (8, 16) if bf16 else (1, 4)
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out")):
-        if t.stride(-1) != 1 or t.data_ptr() % nbytes or any(
-                st % elems for st, n in zip(t.stride()[:3], t.shape) if n > 1):
+        if not _loadable(t):
             raise ValueError(
                 f"flash_attention kernel: {name} needs unit stride on d and "
-                f"{nbytes}-byte aligned rows, got strides {t.stride()}")
+                f"{16 if bf16 else 4}-byte aligned rows, got strides "
+                f"{t.stride()}")
     if B == 0 or Sq == 0:
         return out
     lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if (Hq // Hkv) * Sq <= DECODE_ROWS:
+    if lse is None and (Hq // Hkv) * Sq <= DECODE_ROWS:
         launch_counts["flash_attention"] += 1
         _flash_decode(lib, q, k, v, out, causal, window, q_offset, kv_len,
                       stream)
@@ -351,7 +475,7 @@ def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *st,
         B, Hq, Hkv, Sq, Skv, D, int(bool(causal)), int(window),
         ctypes.c_longlong(q_offset), kv_len,
-        int(bf16), stream)
+        int(bf16), None if lse is None else lse.data_ptr(), stream)
     launch_counts["flash_attention"] += 1
     check(status, "flash_attention")
     return out
@@ -373,7 +497,8 @@ def _check_grad_args(q, o, do) -> None:
 def flash_swa_attention_backward_plain(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
         do: torch.Tensor, *, causal: bool = True, window: int = 0,
-        q_offset: Optional[int] = None, kv_len: Optional[int] = None
+        q_offset: Optional[int] = None, kv_len: Optional[int] = None,
+        lse: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of ``flash_swa_attention_plain`` at ``(q, k, v)``
     for the output gradient ``do``, given the forward's output ``o``: the
@@ -381,9 +506,14 @@ def flash_swa_attention_backward_plain(
     masked softmax and ``Delta = sum_d do * o`` per row, ``dS = P (do v^T -
     Delta)``, ``dq = dS k / sqrt(D)``, ``dk = dS^T q / sqrt(D)`` and ``dv =
     P^T do``, dk and dv summed over each KV head's group; a row with no
-    visible key gets 0.  Gradients in the inputs' dtype."""
+    visible key gets 0.  Given the forward's ``lse`` (``(B, Hq, Sq)``, as
+    ``flash_swa_attention_plain(..., return_lse=True)`` returns it), P is
+    ``exp(s - lse)`` over the visible keys, as the kernels compute it;
+    else the softmax of the scores.  Gradients in the inputs' dtype."""
     q_offset, kv_len = _check_args(q, k, v, window, q_offset, kv_len)
     _check_grad_args(q, o, do)
+    if lse is not None:
+        _check_lse(lse, q, "flash_attention backward")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -409,11 +539,15 @@ def flash_swa_attention_backward_plain(
         qc, gc = qf[:, :, :, lo:hi], gf[:, :, :, lo:hi]
         s = torch.einsum("bhgqd,bhkd->bhgqk", qc, kf) * scale
         s = s.masked_fill(~mask, float("-inf"))
-        m = s.amax(dim=-1, keepdim=True)
-        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
-        p = torch.exp(s - m)
-        den = p.sum(dim=-1, keepdim=True)
-        p = torch.where(den > 0, p / den, torch.zeros_like(p))
+        if lse is None:
+            m = s.amax(dim=-1, keepdim=True)
+            m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+            p = torch.exp(s - m)
+            den = p.sum(dim=-1, keepdim=True)
+            p = torch.where(den > 0, p / den, torch.zeros_like(p))
+        else:        # a row with no visible key: every score is -inf, p 0
+            p = torch.exp(s - lse.reshape(B, Hkv, g, Sq)[:, :, :, lo:hi,
+                                                         None])
         dp = torch.einsum("bhgqd,bhkd->bhgqk", gc, vf)
         delta = (gc * of[:, :, :, lo:hi]).sum(dim=-1, keepdim=True)
         ds = p * (dp - delta)
@@ -433,15 +567,29 @@ def _grad_like(t: torch.Tensor) -> torch.Tensor:
         t.shape, dtype=t.dtype, device=t.device)
 
 
+def _loadable(t: torch.Tensor) -> bool:
+    """Whether the kernels can load t as it lies: unit stride on d, and for
+    bf16 a 16-byte aligned base and strides that are multiples of 8
+    elements on axes longer than 1 (bf16 tiles move by TMA or in 16-byte
+    vectors, fp32 ones element by element)."""
+    elems, nbytes = (8, 16) if t.dtype == torch.bfloat16 else (1, 4)
+    return t.stride(-1) == 1 and t.data_ptr() % nbytes == 0 and not any(
+        st % elems for st, n in zip(t.stride()[:3], t.shape) if n > 1)
+
+
 def flash_swa_attention_backward(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-        do: torch.Tensor, *, causal: bool = True, window: int = 0,
-        q_offset: Optional[int] = None, kv_len: Optional[int] = None
+        do: torch.Tensor, *, lse: Optional[torch.Tensor] = None,
+        causal: bool = True, window: int = 0, q_offset: Optional[int] = None,
+        kv_len: Optional[int] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch B6's backward (``csrc/swa_backward.cu``) on CUDA tensors;
-    returns ``(dq, dk, dv)`` in the inputs' dtype.  The kernel reads every
-    operand element by element through its strides: an operand without unit
-    stride on d is copied first (autograd's ``do`` may be any view)."""
+    """Launch B6's backward on CUDA tensors, given the forward's output
+    ``o`` and log-sum-exp ``lse`` (``flash_swa_attention(..., lse=)``; the
+    call raises without it); returns ``(dq, dk, dv)`` in the inputs' dtype.
+    bf16 runs ``csrc/swa_backward_bf16.cu`` (tensor cores; operands that
+    TMA cannot load are copied first), fp32 ``csrc/swa_backward.cu`` (CUDA
+    cores; an operand without unit stride on d is copied first).  A launch
+    error raises."""
     from repro_torch.kernels.build import check, library
 
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (o, "o"), (do, "dout")):
@@ -457,54 +605,64 @@ def flash_swa_attention_backward(
     if len({t.device for t in (q, k, v, o, do)}) != 1:
         raise ValueError("flash_attention backward: operands must share a "
                          "device")
+    _check_lse(lse, q, "flash_attention backward")
     if B * Hkv > _MAX_BH:
         raise ValueError(f"flash_attention backward kernel: B * Hkv = "
                          f"{B * Hkv} > {_MAX_BH}")
-    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
+    # autograd's dout may be any view
+    q, k, v, o, do = (t if _loadable(t) else t.contiguous()
                       for t in (q, k, v, o, do))
     dq, dk, dv = _grad_like(q), _grad_like(k), _grad_like(v)
-    if B == 0:
-        return dq, dk, dv
-    rows = (Hq // Hkv) * Sq
-    # each row's log-sum-exp and Delta, written by the first launch
-    ws = torch.empty((2, max(1, B * Hkv * rows)), dtype=torch.float32,
-                     device=q.device)
+    if B == 0 or Sq == 0 or Skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # each row's Delta = sum_d dout o, written by the first launch
+    delta = torch.empty((B * Hq * Sq,), dtype=torch.float32,
+                        device=q.device)
     st = [ctypes.c_longlong(s) for t in (q, k, v, o, do, dq, dk, dv)
           for s in t.stride()[:3]]
-    status = library().repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        ws[0].data_ptr(), ws[1].data_ptr(), *st, B, Hq, Hkv, Sq, Skv, D,
-        int(bool(causal)), int(window), ctypes.c_longlong(q_offset), kv_len,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, lse, delta)]
+    tail = [B, Hq, Hkv, Sq, Skv, D, int(bool(causal)), int(window),
+            ctypes.c_longlong(q_offset), kv_len]
+    lib = library()
+    launch = (lib.repro_flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
+              else lib.repro_flash_attention_bwd)
+    status = launch(*ptrs, *st, *tail,
+                    torch.cuda.current_stream(q.device).cuda_stream)
     launch_counts["flash_attention_bwd"] += 1
     check(status, "flash_attention backward")
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """B6 under autograd: the forward launches ``flash_swa_attention`` (its
-    plain version on CPU tensors) and saves q, k, v and the output; the
+    """B6 under autograd: the forward launches ``flash_swa_attention`` with
+    an ``lse`` buffer (its plain version, ``return_lse=True``, on CPU
+    tensors) and saves q, k, v, the output and the LSE (4 bytes a query row
+    and head: 2 MiB a layer of h2o-danube-1.8b at 2 x 8,192 tokens; under
+    remat the checkpoint's rerun of the forward writes it again); the
     backward launches ``flash_swa_attention_backward`` on CUDA tensors and
-    runs ``flash_swa_attention_backward_plain`` on CPU tensors.
-    ``FlashAttention.apply(q, k, v, causal, window, q_offset, kv_len)``."""
+    runs ``flash_swa_attention_backward_plain`` on CPU tensors, both with
+    that LSE.  ``FlashAttention.apply(q, k, v, causal, window, q_offset,
+    kv_len)``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
         kw = dict(causal=causal, window=window, q_offset=q_offset,
                   kv_len=kv_len)
-        fwd = flash_swa_attention if q.device.type == "cuda" \
-            else flash_swa_attention_plain
-        out = fwd(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, out)
+        if q.device.type == "cuda":
+            lse = torch.empty(q.shape[:3], dtype=torch.float32,
+                              device=q.device)
+            out = flash_swa_attention(q, k, v, lse=lse, **kw)
+        else:
+            out, lse = flash_swa_attention_plain(q, k, v, return_lse=True,
+                                                 **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         bwd = flash_swa_attention_backward if do.device.type == "cuda" \
             else flash_swa_attention_backward_plain
-        dq, dk, dv = bwd(q, k, v, out, do.to(q.dtype), **ctx.kw)
+        dq, dk, dv = bwd(q, k, v, out, do.to(q.dtype), lse=lse, **ctx.kw)
         return dq, dk, dv, None, None, None, None

@@ -832,12 +832,7 @@ BWD_CASES = [(2, 4, 2, 130, 130, 64, True, 0, None, None),
              (3, 8, 8, 5, 33, 16, True, 0, -2, None)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", BWD_CASES)
-def test_flash_attention_backward_kernel_matches_plain(device, case, dtype):
-    """dq, dk, dv of the kernel against the plain backward: within 2e-5
-    (fp32) / 2e-2 (bf16) of each gradient's largest |value|, rows that see
-    no key exactly 0, one launch counted, gradients in q's layout."""
+def _bwd_case(case, dtype, device):
     B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
     g = torch.Generator(device=device).manual_seed(Sq + Skv)
     q, k, v, do = (torch.randn(s, generator=g, device=device).to(dtype)
@@ -846,18 +841,112 @@ def test_flash_attention_backward_kernel_matches_plain(device, case, dtype):
     q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2)
                for x in (q, k, v))
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
-    o = swa.flash_swa_attention(q, k, v, **kw)
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_backward_kernel_matches_plain(device, case, dtype):
+    """dq, dk, dv of the kernel, fed the forward kernel's log-sum-exp,
+    against the plain backward: within 2e-5 (fp32) / 2e-2 (bf16) of each
+    gradient's largest |value|, rows that see no key and keys that no row
+    sees exactly 0, one launch counted, gradients in q's layout.  Every row
+    that is exactly 0 in the plain gradient is exactly 0 in fp32 (the
+    CUDA-core kernel) and within 1e-5 of the largest |value| in bf16: the
+    bf16 kernel sums dP on the tensor cores and Delta on the CUDA cores, in
+    other orders, so a row whose terms cancel exactly in the plain gradient
+    (one that sees a single key: dS = dP - Delta) keeps their rounding
+    noise (chip_smoke.py's BWD_ZERO_ROW_TOL)."""
+    q, k, v, do, kw = _bwd_case(case, dtype, device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
+    o = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
     before = launch_counts["flash_attention_bwd"]
-    got = swa.flash_swa_attention_backward(q, k, v, o, do, **kw)
+    got = swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse, **kw)
     assert launch_counts["flash_attention_bwd"] == before + 1
     assert got[0].stride() == q.stride()
     want = swa.flash_swa_attention_backward_plain(q, k, v, o, do, **kw)
-    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    tol, zero_tol = (2e-5, 0.0) if dtype == torch.float32 else (2e-2, 1e-5)
     for a, b in zip(got, want):
         assert a.dtype == dtype
         top = float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= tol * top
-        assert torch.count_nonzero(a[(b == 0).all(dim=-1)]) == 0
+        zero = a[(b == 0).all(dim=-1)].float().abs()
+        assert zero.numel() == 0 or float(zero.max()) <= zero_tol * top
+    rows, keys = _unseen(case)
+    assert torch.count_nonzero(got[0][:, :, rows.to(device)]) == 0
+    for g in got[1:]:
+        assert torch.count_nonzero(g[:, :, keys.to(device)]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv", [(5, 0), (0, 5)])
+def test_flash_attention_backward_empty_is_zero(device, Sq, Skv, dtype):
+    """No keys, or no query rows: every gradient is exactly 0 (dq is
+    written, not left as the buffer's old contents)."""
+    q = torch.randn(1, 2, Sq, 16, device=device).to(dtype)
+    k, v = (torch.randn(1, 1, Skv, 16, device=device).to(dtype)
+            for _ in range(2))
+    o, do = torch.zeros_like(q), torch.randn_like(q)
+    lse = torch.zeros(q.shape[:3], device=device)
+    got = swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse)
+    for g, t in zip(got, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dtype
+        assert torch.count_nonzero(g) == 0
+
+
+@pytest.mark.parametrize("D", swa.HEAD_DIMS)
+def test_backward_tile_twins_match_the_kernel(device, D):
+    """The Python twins of the bf16 backward's tile plan, which the CPU
+    tests hold against the mask, equal the kernel's own (``BwdCfg``)."""
+    assert swa.backward_kernel_tiles(D) == (
+        swa.BWD_DQ_ROWS, swa.backward_dq_keys(D), swa.backward_dkdv_keys(D),
+        swa.backward_dkdv_rows(D))
+
+
+def _unseen(case):
+    """(query rows that see no key, keys that no row sees), bool masks."""
+    B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
+    kv = Skv if kv_len is None else kv_len
+    off = kv - Sq if q_offset is None else q_offset
+    qpos = off + torch.arange(Sq)[:, None]
+    kpos = torch.arange(Skv)[None, :]
+    vis = (kpos < kv).expand(Sq, Skv)
+    if causal:
+        vis = vis & (kpos <= qpos)
+    if window > 0:
+        vis = vis & (kpos > qpos - window)
+    return ~vis.any(dim=1), ~vis.any(dim=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES + [(2, 8, 2, 4, 300, 80, True, 100,
+                                               None, None)])
+def test_flash_attention_forward_lse_matches_plain(device, case, dtype):
+    """Asked for an lse, the forward takes the prefill kernels at every size
+    (the last case is a decode-route size) and writes each row's
+    log-sum-exp: within 1e-5 of the plain one (relative, over max(|lse|,
+    1)), 0 for a row that sees no key; the output is the forward's."""
+    q, k, v, _, kw = _bwd_case(case, dtype, device)
+    lse = torch.full(q.shape[:3], float("nan"), device=device)
+    before = dict(launch_counts)
+    got = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
+    assert launch_counts["flash_decode"] == before["flash_decode"]
+    want, plse = swa.flash_swa_attention_plain(q, k, v, return_lse=True, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    err = ((lse - plse).abs() / plse.abs().clamp_min(1.0)).max()
+    assert float(err) <= 1e-5
+    assert not lse[plse == 0].any()
+
+
+def test_flash_attention_backward_bf16_is_deterministic(device):
+    """No atomics: two runs of the bf16 backward give the same bits."""
+    q, k, v, do, kw = _bwd_case(BWD_CASES[1], torch.bfloat16, device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
+    o = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
+    a = swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse, **kw)
+    b = swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_training_runs_b6_backward_per_layer(device):
