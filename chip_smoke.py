@@ -227,14 +227,43 @@ nothing falls back to the CPU):
      test on the card (reduced xlstm-125m: 6 steps against 3 + save +
      restore + 3, bit for bit); and B6's backward timed at danube's
      training shape beside its plain version, the backward of SDPA with a
-     boolean mask and its bound (10 D flops a visible pair and head).
+     boolean mask and its bound (10 D flops a visible pair and head), in
+     bf16 and, since PR 25, in fp32 (``csrc/swa_backward.cu``, the CUDA
+     cores, 5 reps a median).
+  17. sharded models: one ``spawn`` of 4 gloo ranks on the card, three
+     parts in turn (no fallback: a failing rank fails the run).
+     (a) deepseek-moe-16b at full width and depth (28 layers, 64 routed
+     experts top-6 + 2 shared), bf16, on a (1, 4) mesh: each rank's blocks
+     (16 experts, 4 of 16 heads, a quarter of the vocab) drawn leaf by leaf
+     from phase 15's seed, never the whole model on a rank; a 1 x 4,096
+     prefill of phase 15's tokens: B6's prefill kernel 28 times on every
+     rank, logits finite; at phase 15's 4-layer twin the last-token logits
+     within phase 15's bf16 gate for deepseek of both its one-rank cuda
+     engine and its fp32 model (at 28 layers the one-rank distance is
+     printed, not gated: routing flips); the model cut to 2 layers in fp32
+     against one rank within 1e-3.  (b) h2o-danube-1.8b at full width and
+     depth (16/4 heads of 80 a rank), bf16, remat, on a (2, 2) mesh with
+     ZeRO-1, phase 16's seed and claims stream, 3 steps of 2 x 8,192
+     tokens (a sequence a data rank): finite losses, B6's forward 48 and
+     bf16 backward 24 times a step on every rank, step 1's loss within a
+     bf16 gate of phase 16's (``bf16_gate`` of the fp32 model's loss and
+     the bf16 torch engine's, built on the card before the ranks start);
+     cut to 2 layers in fp32, the loss within 1e-5 and every gathered
+     gradient within 1e-3 of its leaf's largest against one rank.  (c)
+     ``pipeline_transformer`` over a 4-rank "pipe" mesh, one danube layer
+     (fp32, B6) a stage, 4 microbatches of 1 x 2,048: output and gradients
+     against the sequential run within 1e-4.  Per part and rank: the wall,
+     peak memory, staged bytes, the staging's share of the wall and the
+     collectives by kind; the warm step's tokens/s for (b)
+     (``tools/shard_probe.py`` runs this phase alone).
 
 Each kernel's launches are counted over the two studies' first runs, the
 first chunked run (with prefetch), the spec corpus, the timed pipelined
 service serve, the serving path (prefill and batcher), gemma3-12b's
 prefill, the sharded run's first cuda run, the sharded service's timed
 pipelined serve (both summed over ranks) and each family's prefill and
-batcher (phase 15) and the full-width training run (phase 16), with the
+batcher (phase 15), the full-width training run (phase 16) and phase 17's
+prefill, training steps and pipeline (summed over ranks), with the
 counts set to 0 just before each.  B6's ``flash_attention`` count takes one
 per call on either route; its record's launches are those calls less the
 decode route's (``flash_decode``), which has a record of its own; its
@@ -3018,6 +3047,13 @@ def family_run(arch: str, layers, twin_layers, seq: int, batcher,
     torch.cuda.empty_cache()
     gate = out.get("cut", out)
     bound = bf16_gate(gate["bf16_torch_vs_fp32"], gate["max_logit32"])
+    if arch == SHARD_MOE:
+        # phase 17 holds the sharded prefill of the same weights and tokens
+        # against these
+        FAMILY_REF.update(full_cuda=b16["cuda"].cpu().numpy(),
+                          cut_cuda=cut["cuda"].cpu().numpy(),
+                          cut_fp32=c32["torch"].cpu().numpy(), bound=bound,
+                          twin=twin_layers)
     log(f"families: {arch} at full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
         f"{cfg.head_dim_}, pattern {cfg.pattern}), {out['params']} bf16 "
@@ -4449,6 +4485,13 @@ def training_phase(reps: int, rate: float):
                              torch.device("cuda"), 3, True)
     timing = time_attention_backward("danube training", q, k, v,
                                      _attn_kwargs(BWD_DANUBE), reps, rate)
+    # the fp32 backward (csrc/swa_backward.cu, CUDA cores) at the same
+    # shape: what the fp32 gates of phases 16 and 17 run
+    q, k, v, _ = _bwd_inputs(BWD_DANUBE, torch.float32, torch.device("cuda"),
+                             3, True)
+    fp32 = time_attention_backward("danube training, fp32", q, k, v,
+                                   _attn_kwargs(BWD_DANUBE),
+                                   BWD_LIBRARY_REPS, rate)
     q, k, v, _ = _bwd_inputs(BWD_WIDE, torch.bfloat16, torch.device("cuda"),
                              4, True)
     wide = time_attention_backward("recurrentgemma, head dim 256", q, k, v,
@@ -4456,7 +4499,428 @@ def training_phase(reps: int, rate: float):
     del q, k, v
     torch.cuda.empty_cache()
     return launches, timing, dict(run=info, engines=engines, card_vs_cpu=cpu,
-                                  battery=worst, backward_d256=wide)
+                                  battery=worst, backward_d256=wide,
+                                  backward_fp32=fp32)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: sharded models (A9-shard)
+# ---------------------------------------------------------------------------
+SHARD_MOE = "deepseek-moe-16b"
+SHARD_PREFILL = 4096         # phase 15's prefill: 1 x 4,096, its tokens
+SHARD_FP32_LAYERS = 2        # the fp32 gates' depth, at full width
+SHARD_PREFILL_GATE = 1e-3    # fp32 logits, sharded vs one rank
+SHARD_TRAIN_STEPS = 3
+SHARD_TRAIN_GATE = {"loss": 1e-5, "grad": 1e-3}    # fp32, vs one rank
+PIPE_MICRO, PIPE_SEQ = 4, 2048
+PIPE_GATE = 1e-4             # pipelined vs sequential, fp32
+SHARD_MODELS_TIMEOUT = 900.0
+FAMILY_REF = {}              # phase 15's deepseek logits and bf16 gate
+
+
+def _part_stats(t0: float, launches=None) -> dict:
+    """A part's wall from ``t0``, this rank's peak device memory (GiB) and
+    the collectives and staging since ``comm.reset_stats``."""
+    import torch
+
+    from repro_torch.distributed import comm
+
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30, comm=dict(comm.stats),
+               staging_share=comm.stats["staging_s"] / wall)
+    if launches is not None:
+        out["launches"] = launches
+    return out
+
+
+def _part_start() -> float:
+    import torch
+
+    from repro_torch.distributed import comm
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_stats()
+    return time.perf_counter()
+
+
+def _grad_err(got, want) -> float:
+    """The worst gradient leaf's max |difference| over its largest |value|
+    (``want``'s)."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    err = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        top = max(float(b.abs().max()), 1e-30)
+        err = max(err, float((a.float() - b.float()).abs().max()) / top)
+    return err
+
+
+def shard_prefill(group, device, twin_layers: int) -> dict:
+    """Part (a): deepseek-moe-16b at full width and depth, bf16, on a
+    (1, 4) mesh, each rank's blocks drawn leaf by leaf from phase 15's
+    seed: the 1 x 4,096 prefill of phase 15's tokens (B6 once a layer on
+    every rank), the same at phase 15's twin depth, then the model cut to
+    ``SHARD_FP32_LAYERS`` in fp32 (rank 0 also runs it on one rank)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import hints, launch as dl
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train.optimizer import tree_leaves
+
+    rank = dist.get_rank(group)
+    mesh = dl.make_mesh(group, (1, 4))
+    cfg = get_bundle(SHARD_MOE).cfg
+    bundle = ModelBundle(cfg)
+    batch = family_batch(cfg, 1, SHARD_PREFILL, np.random.default_rng(11),
+                         device)
+    t0 = _part_start()
+    params = bundle.init(0, device, mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = sum(t.numel() for t in tree_leaves(params))
+    with hints.use_mesh(mesh), torch.no_grad():
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        logits = bundle.prefill(params, batch, engine="cuda")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        launches = dict(launch_counts)
+        out = _part_stats(t0, launches)
+        twin = ModelBundle(dataclasses.replace(cfg, n_layers=twin_layers))
+        cut = twin.prefill(dict(params, layers=params["layers"][
+            :twin.cfg.n_layers]), batch, engine="cuda")
+    del params
+    torch.cuda.empty_cache()
+    b32 = ModelBundle(dataclasses.replace(cfg, n_layers=SHARD_FP32_LAYERS,
+                                          dtype="float32"))
+    p32 = b32.init(0, device, mesh)
+    with hints.use_mesh(mesh), torch.no_grad():
+        l32 = b32.prefill(p32, batch, engine="cuda")
+    del p32
+    out.update(init_s=init_s, prefill_s=prefill_s, params_held=held)
+    if rank == 0:
+        single = b32.init(0, device)
+        with torch.no_grad():
+            ref = b32.prefill(single, batch, engine="cuda")
+        del single
+        out.update(logits=logits.float().cpu().numpy(),
+                   cut=cut.float().cpu().numpy(),
+                   fp32_err=float((l32 - ref).abs().max()),
+                   fp32_max_logit=float(ref.abs().max()),
+                   finite=bool(torch.isfinite(logits).all()))
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_train(group, device) -> dict:
+    """Part (b): h2o-danube-1.8b at full width and depth, bf16, remat, on a
+    (2, 2) mesh with ZeRO-1, phase 16's seed and claims stream (2 x 8,192
+    tokens, a sequence a data rank), ``SHARD_TRAIN_STEPS`` steps; then cut
+    to ``SHARD_FP32_LAYERS`` in fp32, the loss and gathered gradients
+    (rank 0 also on one rank, as phase 16's engines check)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import hints, launch as dl, sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import claims_token_stream
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.train_step import loss_and_grads
+
+    rank = dist.get_rank(group)
+    mesh = dl.make_mesh(group, (2, 2))
+    bundle = get_bundle(DANUBE)
+    cfg = bundle.cfg
+    specs = sharding.batch_shardings(cfg, mesh, {"tokens": (TRAIN_BATCH,
+                                                            TRAIN_SEQ)})
+
+    def mine(b):
+        return {k: sharding.own_block(v, specs["tokens"], mesh)
+                for k, v in b.items()}
+
+    t0 = _part_start()
+    stream = claims_token_stream(TRAIN_SEQ, TRAIN_BATCH, cfg.vocab_size, 0,
+                                 device=device)
+    state = init_train_state(bundle, 0, device, mesh)
+    step = make_train_step(bundle, AdamWConfig(
+        total_steps=SHARD_TRAIN_STEPS + 2, **TRAIN_OPT))
+    setup_s = time.perf_counter() - t0
+    losses, walls, per_step, first = [], [], [], None
+    with hints.use_mesh(mesh):
+        for _ in range(SHARD_TRAIN_STEPS):
+            batch = next(stream)
+            first = batch if first is None else first
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, mine(batch))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            per_step.append({k: launch_counts[k] for k in (
+                "flash_attention", "flash_attention_bwd", "flash_decode")})
+    out = _part_stats(t0, {k: sum(s[k] for s in per_step)
+                           for k in per_step[0]})
+    out.update(losses=losses, step_s=walls, per_step=per_step,
+               setup_s=setup_s, grad_norm=float(m["grad_norm"]),
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / walls[-1])
+    del state, stream
+    torch.cuda.empty_cache()
+    b32 = ModelBundle(dataclasses.replace(cfg, n_layers=SHARD_FP32_LAYERS,
+                                          dtype="float32"))
+    p32 = b32.init(2, device, mesh)
+    with hints.use_mesh(mesh):
+        loss, grads = loss_and_grads(b32, p32, mine(first), "cuda")
+        grads = sharding.gather_tree(grads, sharding.param_shardings(
+            b32.cfg, mesh, b32.abstract_params()), mesh)
+    del p32
+    if rank == 0:
+        single = b32.init(2, device)
+        l1, g1 = loss_and_grads(b32, single, first, "cuda")
+        out.update(fp32_loss_rel=abs(float(loss) - float(l1)) / abs(
+            float(l1)), fp32_grad_rel=_grad_err(grads, g1))
+        del single, g1
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_pipe(group, device) -> dict:
+    """Part (c): ``pipeline_transformer`` over a 4-rank "pipe" mesh, one
+    danube decoder layer (fp32, B6) a stage, ``PIPE_MICRO`` microbatches
+    of 1 x ``PIPE_SEQ``: the output and the gradient of its sum with
+    respect to this stage's layer, against the sequential run of the 4
+    layers on this rank."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import launch as dl
+    from repro_torch.distributed.pipeline import pipeline_transformer
+    from repro_torch.interop import tree_map
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import lm
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+
+    n = dist.get_world_size(group)
+    mesh = dl.make_mesh(group, (n,), ("pipe",))
+    stage = mesh.coords["pipe"]
+    cfg = dataclasses.replace(get_config(DANUBE), n_layers=n,
+                              dtype="float32", remat=False)
+    layers = ModelBundle(cfg).init(5, device)["layers"]
+    gen = torch.Generator(device=device).manual_seed(13)
+    mbs = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), generator=gen,
+                      device=device)
+    pos = torch.arange(PIPE_SEQ, dtype=torch.int32, device=device)[None]
+
+    def layer(lp, x):
+        return lm._layer_apply(lp, x, cfg.pattern[0], "dense", cfg, pos,
+                               None, None, "cuda")[0]
+
+    own = [t.detach().requires_grad_(True) for t in tree_leaves(
+        layers[stage])]
+    stacked = tree_map(lambda a: a[None, None],
+                       tree_unflatten(layers[stage], own))
+    t0 = _part_start()
+    reset_launch_counts()
+    out = pipeline_transformer(layer, mesh, n)(stacked, mbs)
+    grads = torch.autograd.grad(out.sum(), own)
+    rec = _part_stats(t0, {k: launch_counts[k] for k in (
+        "flash_attention", "flash_attention_bwd", "flash_decode")})
+    # the sequential run: the 4 layers in order over the 4 microbatches
+    ref_own = [t.detach().requires_grad_(True) for t in own]
+    x = mbs[:, 0]
+    for s in range(n):
+        lp = tree_unflatten(layers[s], ref_own) if s == stage else layers[s]
+        x = layer(lp, x)
+    ref_grads = torch.autograd.grad(x.sum(), ref_own)
+    rec.update(fwd_err=float((out[:, 0] - x).detach().abs().max()),
+               grad_err=_grad_err(grads, ref_grads))
+    return rec
+
+
+def sharded_models_rank(group, device, twin_layers: int) -> dict:
+    """One rank of phase 17 (run by ``distributed.launch.spawn``): the
+    three parts in turn."""
+    out = {"prefill": shard_prefill(group, device, twin_layers)}
+    out["train"] = shard_train(group, device)
+    out["pipe"] = shard_pipe(group, device)
+    return out
+
+
+def danube_loss_gate(batch) -> dict:
+    """The bf16 gate of a full-depth danube step-1 loss, built as
+    ``bf16_gate`` is: the seeded weights' loss on ``batch`` in fp32 and
+    the bf16 torch engine's distance from it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.interop import tree_map
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+
+    b16 = get_bundle(DANUBE)
+    p = b16.init(0, device="cuda")
+    with torch.no_grad():
+        l16 = float(b16.train_loss(p, batch, engine="torch"))
+        p32 = tree_map(lambda t: t.float(), p)
+        del p
+        b32 = ModelBundle(dataclasses.replace(b16.cfg, dtype="float32"))
+        l32 = float(b32.train_loss(p32, batch, engine="torch"))
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss_fp32=l32, loss_bf16_torch=l16,
+                gate=bf16_gate(abs(l16 - l32), abs(l32)))
+
+
+def sharded_models_phase(step1_loss: float):
+    """Phase 17: the sharded models on ``SHARDS`` gloo ranks of the one
+    card (``sharded_models_rank``), after the bf16 gate of part (b)'s
+    step-1 loss is built on the card alone.  Returns the B6 launches of
+    the three parts' main runs, summed over ranks, and a summary."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import launch as dl
+    from repro_torch.launch.train import claims_token_stream
+    from repro_torch.models import get_bundle
+
+    stream = claims_token_stream(TRAIN_SEQ, TRAIN_BATCH,
+                                 get_bundle(DANUBE).cfg.vocab_size, 0,
+                                 device="cuda")
+    loss_gate = danube_loss_gate(next(stream))
+    del stream
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = FAMILY_REF
+    t0 = time.perf_counter()
+    ranks = dl.spawn(sharded_models_rank, SHARDS, (ref["twin"],),
+                     device="cuda", timeout=SHARD_MODELS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    n_moe = get_bundle(SHARD_MOE).cfg.n_layers
+    n_dan = get_bundle(DANUBE).cfg.n_layers
+
+    def show(r):
+        c = r["comm"]
+        return (f"rank wall {r['wall_s']:.3f} s, peak {r['peak_gib']:.2f} "
+                f"GiB, staged {c['staged_bytes'] / 2 ** 30:.3f} GiB in "
+                f"{c['staging_s']:.3f} s ({100 * r['staging_share']:.1f} % "
+                f"of the wall), collectives " + json.dumps(
+                    {k: v for k, v in c.items()
+                     if k not in ("staged_bytes", "staging_s")}))
+
+    # (a) deepseek prefill
+    a0 = ranks[0]["prefill"]
+    for i, r in enumerate(ranks):
+        got = r["prefill"]["launches"]
+        if got["flash_attention"] != n_moe or got["flash_decode"]:
+            fail(f"sharded prefill, rank {i}: B6 {got['flash_attention']} "
+                 f"calls (want {n_moe}), decode route {got['flash_decode']}")
+        log(f"sharded models (a) {SHARD_MOE} prefill, rank {i}: "
+            f"{r['prefill']['params_held']} parameters held, drawn in "
+            f"{r['prefill']['init_s']:.3f} s, prefill "
+            f"{r['prefill']['prefill_s']:.3f} s; " + show(r["prefill"]))
+    full = float(np.abs(a0["logits"] - ref["full_cuda"]).max())
+    cut_cuda = float(np.abs(a0["cut"] - ref["cut_cuda"]).max())
+    cut_fp32 = float(np.abs(a0["cut"] - ref["cut_fp32"]).max())
+    pre = dict(full_vs_one_rank=full, cut_vs_one_rank=cut_cuda,
+               cut_vs_fp32=cut_fp32, bf16_gate=ref["bound"],
+               fp32_err=a0["fp32_err"], fp32_max_logit=a0["fp32_max_logit"],
+               walls=[r["prefill"]["wall_s"] for r in ranks],
+               prefill_s=[r["prefill"]["prefill_s"] for r in ranks],
+               peaks=[r["prefill"]["peak_gib"] for r in ranks])
+    log(f"sharded models (a): {SHARD_MOE} at full width and depth, bf16, "
+        f"(1, 4) mesh, 1 x {SHARD_PREFILL} tokens: last-token logits "
+        f"finite {a0['finite']}, max |sharded - one rank (phase 15's cuda "
+        f"engine)| {full} at {n_moe} layers (not gated: bf16 routing flips "
+        f"spread through the whole model, phase 15); at phase 15's "
+        f"{ref['twin']}-layer twin {cut_cuda} from the one-rank cuda engine "
+        f"and {cut_fp32} from the fp32 model (gate {ref['bound']} on both, "
+        f"phase 15's bf16_gate for {SHARD_MOE}); cut to {SHARD_FP32_LAYERS} "
+        f"layers in fp32 max |sharded - one rank| {a0['fp32_err']} (gate "
+        f"{SHARD_PREFILL_GATE}); B6 {n_moe} prefill launches on every rank")
+    if not (a0["finite"] and cut_cuda <= ref["bound"]
+            and cut_fp32 <= ref["bound"]
+            and a0["fp32_err"] <= SHARD_PREFILL_GATE):
+        fail(f"sharded prefill gates: {json.dumps(pre)}")
+
+    # (b) danube training
+    b0 = ranks[0]["train"]
+    want = {"flash_attention": 2 * n_dan, "flash_attention_bwd": n_dan,
+            "flash_decode": 0}
+    for i, r in enumerate(ranks):
+        for j, got in enumerate(r["train"]["per_step"]):
+            if got != want:
+                fail(f"sharded training, rank {i}, step {j + 1}: B6 {got}, "
+                     f"want {want}")
+        log(f"sharded models (b) {DANUBE} training, rank {i}: losses "
+            f"{r['train']['losses']}, step walls {r['train']['step_s']} s, "
+            f"set-up {r['train']['setup_s']:.3f} s; " + show(r["train"]))
+    losses = b0["losses"]
+    d_one = abs(losses[0] - step1_loss)
+    tr = dict(losses=losses, step1_vs_one_rank=d_one,
+              step1_vs_fp32=abs(losses[0] - loss_gate["loss_fp32"]),
+              loss_gate=loss_gate, fp32_loss_rel=b0["fp32_loss_rel"],
+              fp32_grad_rel=b0["fp32_grad_rel"],
+              warm_step_s=b0["step_s"][-1], tokens_per_s=b0["tokens_per_s"],
+              walls=[r["train"]["wall_s"] for r in ranks],
+              peaks=[r["train"]["peak_gib"] for r in ranks])
+    log(f"sharded models (b): {DANUBE} at full width and depth, bf16, remat, "
+        f"(2, 2) mesh, ZeRO-1, {SHARD_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} claims tokens: step-1 loss {losses[0]} against phase "
+        f"16's one-rank {step1_loss}: {d_one} (gate {loss_gate['gate']}, "
+        f"bf16_gate of the fp32 loss {loss_gate['loss_fp32']} and the bf16 "
+        f"torch engine's {loss_gate['loss_bf16_torch']}); warm step "
+        f"{b0['step_s'][-1]:.3f} s = {b0['tokens_per_s']:.1f} tokens/s; "
+        f"cut to {SHARD_FP32_LAYERS} layers in fp32: loss relative "
+        f"{b0['fp32_loss_rel']}, worst gathered gradient leaf "
+        f"{b0['fp32_grad_rel']} of its largest (gates "
+        f"{json.dumps(SHARD_TRAIN_GATE)}); B6 {want} a step on every rank")
+    if not (all(np.isfinite(losses)) and d_one <= loss_gate["gate"]
+            and b0["fp32_loss_rel"] <= SHARD_TRAIN_GATE["loss"]
+            and b0["fp32_grad_rel"] <= SHARD_TRAIN_GATE["grad"]):
+        fail(f"sharded training gates: {json.dumps(tr)}")
+
+    # (c) GPipe
+    for i, r in enumerate(ranks):
+        c = r["pipe"]
+        log(f"sharded models (c) pipeline, stage {i}: forward max |pipelined "
+            f"- sequential| {c['fwd_err']}, gradient {c['grad_err']} of its "
+            f"largest (gate {PIPE_GATE}); B6 {c['launches']}; "
+            + show(c))
+        if not (c["fwd_err"] <= PIPE_GATE and c["grad_err"] <= PIPE_GATE):
+            fail(f"pipeline stage {i}: forward {c['fwd_err']}, gradients "
+                 f"{c['grad_err']} (gate {PIPE_GATE})")
+    pipe = dict(fwd_err=max(r["pipe"]["fwd_err"] for r in ranks),
+                grad_err=max(r["pipe"]["grad_err"] for r in ranks),
+                walls=[r["pipe"]["wall_s"] for r in ranks],
+                peaks=[r["pipe"]["peak_gib"] for r in ranks])
+    launches = {k: sum(r[part]["launches"].get(k, 0) for r in ranks
+                       for part in ("prefill", "train", "pipe"))
+                for k in KERNELS}
+    log(f"sharded models: {SHARDS} ranks in {wall:.3f} s; B6 launches "
+        f"summed over ranks {json.dumps(launches)}")
+    return launches, dict(prefill=pre, train=tr, pipe=pipe, wall_s=wall)
 
 
 KERNELS = {
@@ -4652,6 +5116,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_launches, b_timing, training = timed("training", training_phase, REPS,
                                            rate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p_launches, shard_models = timed("sharded_models", sharded_models_phase,
+                                     training["run"]["losses"][0])
     # B1-B3 are timed at the quickstart's (larger) shapes, B4 at the cohort
     # study's, B6's prefill kernel at the prefill's and its decode route at
     # the batcher's full-ring shape (L2 cleared); launches are summed over
@@ -4678,6 +5146,7 @@ def main() -> int:
     log(f"training: B6 backward at danube's training shape "
         f"{json.dumps(b_timing)}")
     log(f"training: {json.dumps(training)}")
+    log(f"sharded models: {json.dumps(shard_models)}")
     log(f"serving: gates prefill {prefill_err}, teacher-forced "
         f"{json.dumps(tf)}, card vs CPU {cpu_err}; gemma3 prefill "
         f"{json.dumps(gemma_err)}, ring decode {json.dumps(ring_err)}")
@@ -4687,7 +5156,8 @@ def main() -> int:
     launches = {k: q_launches[k] + k_launches[k] + f_launches[k]
                 + v_launches[k] + c_launches[k] + s_launches[k]
                 + g_launches[k] + h_launches[k] + sv_launches[k]
-                + m_launches[k] + t_launches[k] for k in KERNELS}
+                + m_launches[k] + t_launches[k] + p_launches[k]
+                for k in KERNELS}
     # the flash_attention count takes one per call on both of B6's routes:
     # its prefill kernel launched on the calls the decode route did not take
     launches["flash_attention"] -= launches["flash_decode"]

@@ -18,6 +18,17 @@ functions of the sharded study path, and ``service_rank`` that of the
 sharded query service: they take numpy tables, run one entry point sharded
 over the group, gather its table outputs (``ShardedTable.gather``) and
 return numpy results; ``tasks_rank`` runs several of them in one job.
+
+The sharded models' rank functions build a ``launch.mesh.Mesh`` of the
+given shape over the group (every rank builds every mesh, in one order),
+take their blocks of the reference's numpy parameters, train state or
+inputs (``interop``, ``distributed.sharding``), run under ``hints.
+use_mesh`` and return the logical results (``gather_tree``) as numpy on
+the mesh's first rank (None elsewhere): ``moe_rank`` (the MoE layer),
+``loss_grads_rank`` (``train_loss``, its gradients and ``prefill``),
+``train_step_rank`` (ZeRO-1 AdamW steps), ``checkpoint_rank`` (an elastic
+save and restores onto other meshes), ``gpipe_rank``
+(``pipeline_transformer``) and ``shard_gather_rank``.
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ import time
 import traceback
 from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -36,7 +48,9 @@ import torch.multiprocessing as mp
 from repro_torch.core.columnar import resolve_device
 
 __all__ = ["spawn", "tasks_rank", "study_rank", "service_rank",
-           "flatten_rank", "exposures_rank", "result_to_numpy", "blocks"]
+           "flatten_rank", "exposures_rank", "result_to_numpy", "blocks",
+           "make_mesh", "moe_rank", "loss_grads_rank", "train_step_rank",
+           "checkpoint_rank", "gpipe_rank", "shard_gather_rank"]
 
 
 def _rank_main(rank: int, n: int, store_path: str, device: str,
@@ -280,3 +294,199 @@ def exposures_rank(group, device, table: Mapping, n_patients: int,
     t = tables_from_numpy({"t": table}, device=device)["t"]
     out = exposures_sharded(t, n_patients, group, **dict(kwargs))
     return tables_to_numpy({"t": out.gather()})["t"]
+
+
+# ---------------------------------------------------------------------------
+# sharded models
+# ---------------------------------------------------------------------------
+def make_mesh(group, shape: Sequence[int], names=("data", "model")):
+    """A ``launch.mesh.Mesh`` of ``shape`` over ``names`` and ``group``."""
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(shape, names, group)
+
+
+def _first(mesh) -> bool:
+    return dist.get_rank(mesh.group) == 0
+
+
+def _numpy_tree(tree):
+    from repro_torch.interop import tree_map
+
+    def host(t):
+        t = t.detach().cpu()
+        return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+    return tree_map(host, tree)
+
+
+def _batch_block(cfg, mesh, batch: Mapping, device) -> Dict[str, Any]:
+    from repro_torch.distributed import sharding
+
+    specs = sharding.batch_shardings(cfg, mesh, batch)
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        sharding.block(np.asarray(v), specs[k], mesh))).to(device)
+        for k, v in batch.items()}
+
+
+def _gather_data(x, mesh):
+    """A batch-sharded output whole again (over the data axes)."""
+    from repro_torch.distributed import comm, sharding
+
+    dp = sharding.data_axes(mesh)
+    n = 1
+    for a in dp:
+        n *= mesh.shape[a]
+    return x if n == 1 else comm.all_gather_dim(x.contiguous(),
+                                                mesh.group_of(*dp), 0)
+
+
+def moe_rank(group, device, cfg, shape, params: Mapping, x) -> Any:
+    """``models.layers.moe_ffn`` of one MoE layer's numpy ``params`` on a
+    (data, model) mesh of ``shape``, ``x`` (B, S, d) split over "data";
+    the whole output on the first rank."""
+    from repro_torch.distributed import hints, sharding
+    from repro_torch.interop import _leaf_to_tensor, tree_map
+    from repro_torch.models import layers as L
+
+    mesh = make_mesh(group, shape)
+    specs = sharding.param_shardings(cfg, mesh, params)
+    p = tree_map(lambda a: _leaf_to_tensor(a, device),
+                 sharding.shard_tree(dict(params), specs, mesh))
+    xb = _batch_block(cfg, mesh, {"x": x}, device)["x"]
+    with torch.no_grad(), hints.use_mesh(mesh):
+        y = _gather_data(L.moe_ffn(p, xb, cfg), mesh)
+    return y.cpu().numpy() if _first(mesh) else None
+
+
+def loss_grads_rank(group, device, cfg, shape, params: Mapping,
+                    batch: Mapping, engine: str = "torch") -> Any:
+    """``train_step.loss_and_grads`` and ``bundle.prefill`` of the
+    reference's numpy ``params`` and ``batch`` on a (data, model) mesh of
+    ``shape``;
+    on the first rank ``{"loss", "grads" (logical, numpy), "prefill" (the
+    whole batch's last-token logits)}``."""
+    from repro_torch.distributed import hints, sharding
+    from repro_torch.interop import lm_params_from_numpy
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train.train_step import loss_and_grads
+
+    mesh = make_mesh(group, shape)
+    bundle = ModelBundle(cfg)
+    p = lm_params_from_numpy(params, cfg, device, mesh)
+    b = _batch_block(cfg, mesh, batch, device)
+    with hints.use_mesh(mesh):
+        loss, grads = loss_and_grads(bundle, p, b, engine)
+        grads = sharding.gather_tree(grads, sharding.param_shardings(
+            cfg, mesh, bundle.abstract_params()), mesh)
+        with torch.no_grad():
+            logits = _gather_data(bundle.prefill(p, b, engine), mesh)
+    if not _first(mesh):
+        return None
+    return {"loss": float(loss), "grads": _numpy_tree(grads),
+            "prefill": logits.float().cpu().numpy()}
+
+
+def train_step_rank(group, device, cfg, shape, state: Mapping,
+                    batches: Sequence[Mapping], opt: Mapping,
+                    param_dtype: str = "float32", engine: str = "torch",
+                    microbatches: int = 1) -> Any:
+    """``make_train_step`` (ZeRO-1) over ``batches`` from the reference's
+    numpy train ``state`` on a (data, model) mesh of ``shape``; on the
+    first rank each step's metrics and the logical state after the last
+    step (numpy)."""
+    from repro_torch.distributed import hints, sharding
+    from repro_torch.interop import train_state_from_numpy
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train import AdamWConfig
+    from repro_torch.train.train_step import make_train_step, state_shardings
+
+    mesh = make_mesh(group, shape)
+    bundle = ModelBundle(cfg)
+    st = train_state_from_numpy(state, cfg, device, mesh)
+    step = make_train_step(bundle, AdamWConfig(**dict(opt)), microbatches,
+                           engine=engine,
+                           param_dtype=getattr(torch, param_dtype))
+    metrics = []
+    with hints.use_mesh(mesh):
+        for batch in batches:
+            st, m = step(st, _batch_block(cfg, mesh, batch, device))
+            metrics.append({k: float(v) for k, v in m.items()})
+        whole = sharding.gather_tree(st, state_shardings(bundle, mesh), mesh)
+    return {"metrics": metrics, "state": _numpy_tree(whole)} \
+        if _first(mesh) else None
+
+
+def checkpoint_rank(group, device, cfg, save_shape, restore_shapes,
+                    seed: int, ckpt_dir: str) -> Any:
+    """A train state drawn from ``seed`` on a (data, model) mesh of
+    ``save_shape`` (each rank its blocks), saved under ``ckpt_dir`` as step
+    1, then restored onto each mesh of ``restore_shapes``; on the first
+    rank the logical state saved and each one restored, gathered (numpy,
+    bf16 as uint16 bits)."""
+    from repro_torch.distributed import hints, sharding
+    from repro_torch.interop import tree_map
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train.checkpointing import (_to_numpy,
+                                                 restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.train.train_step import (abstract_train_state,
+                                              init_train_state,
+                                              state_shardings)
+
+    bundle = ModelBundle(cfg)
+    mesh = make_mesh(group, save_shape)
+    with hints.use_mesh(mesh):
+        st = init_train_state(bundle, seed, device, mesh)
+        specs = state_shardings(bundle, mesh)
+        save_checkpoint(ckpt_dir, 1, st, meta={"arch": cfg.name},
+                        shardings=specs)
+        saved = sharding.gather_tree(st, specs, mesh)
+    out = {"saved": tree_map(_to_numpy, saved), "restored": []}
+    for shp in restore_shapes:
+        m2 = make_mesh(group, shp)
+        with hints.use_mesh(m2):
+            specs2 = state_shardings(bundle, m2)
+            st2, _ = restore_checkpoint(ckpt_dir, 1,
+                                        abstract_train_state(bundle),
+                                        device=device, shardings=specs2)
+            out["restored"].append(tree_map(
+                _to_numpy, sharding.gather_tree(st2, specs2, m2)))
+    return out if _first(mesh) else None
+
+
+def gpipe_rank(group, device, weights, mbs) -> Any:
+    """``pipeline_transformer`` of the layer ``tanh(x @ W)`` over a "pipe"
+    mesh of the group's ranks: ``weights`` (P, layers a stage, D, D),
+    ``mbs`` (M, mb, D); on the first rank the output and the gradient of
+    its sum with respect to ``weights`` (numpy)."""
+    from repro_torch.distributed import comm, sharding
+    from repro_torch.distributed.pipeline import pipeline_transformer
+
+    n = dist.get_world_size(group)
+    mesh = make_mesh(group, (n,), ("pipe",))
+    W = torch.from_numpy(np.asarray(weights)).to(device)
+    w = sharding.block(W, ("pipe", None, None, None), mesh).detach() \
+        .clone().requires_grad_(True)
+    run = pipeline_transformer(lambda p, x: torch.tanh(x @ p), mesh, n)
+    out = run(w, torch.from_numpy(np.asarray(mbs)).to(device))
+    g, = torch.autograd.grad(out.sum(), [w])
+    g = comm.all_gather_dim(g, mesh.group_of("pipe"), 0)
+    return {"out": out.detach().cpu().numpy(),
+            "grads": g.cpu().numpy()} if _first(mesh) else None
+
+
+def shard_gather_rank(group, device, arrays: Mapping, specs: Mapping,
+                      shape) -> Any:
+    """``gather_tree(shard_tree(arrays))`` on a (data, model) mesh of
+    ``shape``: the logical arrays gathered back from the rank's blocks
+    (numpy; first rank)."""
+    from repro_torch.distributed import sharding
+
+    mesh = make_mesh(group, shape)
+    tree = {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in arrays.items()}
+    blocks_ = sharding.shard_tree(tree, dict(specs), mesh)
+    back = sharding.gather_tree(blocks_, dict(specs), mesh)
+    return {k: v.cpu().numpy() for k, v in back.items()} \
+        if _first(mesh) else None

@@ -8,8 +8,20 @@ mesh axis, each rank takes its contiguous row block of every source
 (``shard_rows``); ``psum`` becomes ``comm.all_reduce_sum``, and a
 ``P(axis)`` table output becomes a ``ShardedTable``: each rank keeps its own
 block, and ``gather()`` concatenates the blocks where a caller needs the
-whole table.  The pipeline-parallel model stack (``gpipe``,
-``pipeline_transformer``) is not ported yet (ROADMAP A9).
+whole table.
+
+Part 2, the pipeline-parallel model stack: ``gpipe`` and
+``pipeline_transformer`` over a mesh axis ("pipe"), each rank one stage
+holding a contiguous block of layers.  The schedule is the reference's
+GPipe fill-drain: ``M + P - 1`` ticks for M microbatches over P stages
+(bubble ``(P - 1) / (M + P - 1)``); at tick t stage s runs microbatch
+``t - s``, and every stage runs every tick, on zeros or a spent
+microbatch in the bubble, as the reference's does; activations hop s -> s
++ 1 through ``comm.ppermute`` between ticks; the last stage's outputs are
+summed to every rank.  Gradients flow back through the hops: every
+hop's backward is a collective, so each rank anchors the hops whose
+outputs it does not use (stage 0 never reads one) to its result, and
+every rank runs all of them, in the same order.
 """
 from __future__ import annotations
 
@@ -24,7 +36,8 @@ from repro_torch.core.columnar import ColumnarTable
 from repro_torch.distributed import comm
 
 __all__ = ["execute_plan_sharded", "run_shard", "pad_tables_for_mesh",
-           "shard_rows", "gather_table", "ShardedTable"]
+           "shard_rows", "gather_table", "ShardedTable", "gpipe",
+           "pipeline_transformer"]
 
 _M32 = 1 << 32
 
@@ -217,3 +230,77 @@ def execute_plan_sharded(plan, tables, n_patients: int, mesh,
     vals = {i: ShardedTable(t, mesh, counts[i]) for i, t in t_out.items()}
     vals.update(b_out)
     return vals, counts, s_out
+
+
+# ---------------------------------------------------------------------------
+# GPipe
+# ---------------------------------------------------------------------------
+class _Anchor(torch.autograd.Function):
+    """``out`` unchanged, with ``extras`` made its inputs: the backward
+    reaches them (with zero gradients) without touching the numbers."""
+
+    @staticmethod
+    def forward(ctx, out, *extras):
+        ctx.shapes = [(e.shape, e.dtype, e.device) for e in extras]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=v)
+                     for s, d, v in ctx.shapes))
+
+
+def gpipe(stage_fn, mesh, n_stages: int, axis_name: str = "pipe"):
+    """A pipelined apply ``run(stage_params, mbs) -> outs``.
+
+    ``stage_fn(params_one_stage, x_mb) -> y_mb`` (same shape as x_mb);
+    ``stage_params``: this rank's block of the params stacked on a leading
+    stage axis (extent 1, as ``shard_map`` hands it; ``sharding.block``
+    with spec ``(axis_name, ...)``); ``mbs``: ``(M, mb, ...)``
+    microbatches, the same on every rank.  ``outs`` (M, mb, ...) is whole
+    on every rank."""
+    group = mesh.group_of(axis_name)
+    stage = mesh.coords[axis_name]
+    pairs = [(i, (i + 1) % n_stages) for i in range(n_stages)]
+
+    def run(stage_params, mbs):
+        from repro_torch.interop import tree_map
+
+        params = tree_map(lambda a: a[0], stage_params)
+        M = mbs.shape[0]
+        buf = torch.zeros_like(mbs[0])
+        outs = [torch.zeros_like(mbs[0])] * M
+        spare = []                            # hops this stage never reads
+        for t in range(M + n_stages - 1):
+            # stage 0 takes microbatch t; the others the hop's buffer
+            x_in = mbs[min(t, M - 1)] if stage == 0 else buf
+            if stage == 0 and t:
+                spare.append(buf)
+            y = stage_fn(params, x_in)
+            if stage == n_stages - 1 and 0 <= t - stage < M:
+                outs[t - stage] = y
+            buf = comm.ppermute(y, group, pairs)
+        spare.append(buf)
+        out = torch.stack(outs) if stage == n_stages - 1 \
+            else torch.zeros_like(mbs)
+        out = comm.reduce_from(out, group)
+        spare = [b for b in spare if b.requires_grad]
+        return _Anchor.apply(out, *spare) if spare else out
+
+    return run
+
+
+def pipeline_transformer(layer_fn, mesh, n_stages: int,
+                         axis_name: str = "pipe"):
+    """A pipelined stack of identical layers: params stacked (n_stages,
+    layers_per_stage, ...); each stage runs its layers in order
+    (``layer_fn(layer_params, x)``)."""
+    from repro_torch.interop import tree_map
+    from repro_torch.train.optimizer import tree_leaves
+
+    def stage_fn(stage_params, x):
+        for i in range(tree_leaves(stage_params)[0].shape[0]):
+            x = layer_fn(tree_map(lambda a: a[i], stage_params), x)
+        return x
+
+    return gpipe(stage_fn, mesh, n_stages, axis_name)

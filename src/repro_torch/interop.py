@@ -14,6 +14,12 @@ dtype (fp32 routers and gates inside bf16 models).  bf16 leaves are
 their ``uint16`` bits, recognised by the dtype's name.  A train state
 (``{"params", "opt": {"master", "m", "v", "step"}}``) crosses tree by tree
 (``train_state_from_numpy``), so both packages can start from one step.
+Given a ``mesh`` (``launch.mesh.Mesh``), each goes to this rank's blocks
+under ``distributed.sharding``'s rules (the optimizer's trees under the
+ZeRO-1 ones), cut from the numpy arrays before they reach the device.
+``init_shards`` draws a seeded ``init`` one leaf at a time, keeping only
+the rank's block of each: the values are ``bundle.init``'s on the same
+device, and no rank ever holds the whole model.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.columnar import ColumnarTable, as_tensor, resolve_device
 
 __all__ = ["tables_from_numpy", "tables_to_numpy", "lm_params_from_numpy",
-           "train_state_from_numpy", "tree_map"]
+           "train_state_from_numpy", "init_shards", "tree_map"]
 
 
 def tables_from_numpy(star: Mapping[str, Mapping], device=None
@@ -70,17 +76,17 @@ def _leaf_to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _top_level(params: Mapping[str, Any], layer_keys, dev, name: str
+def _top_level(params: Mapping[str, Any], layer_keys, name: str
                ) -> Dict[str, Any]:
-    """Every top-level array leaf of the pytree as a tensor; raises on a
-    container that is not one of ``layer_keys`` (a leaf nothing places)."""
+    """Every top-level array leaf of the pytree; raises on a container
+    that is not one of ``layer_keys`` (a leaf nothing places)."""
     out = {}
     for k, v in params.items():
         if k in layer_keys:
             continue
         if isinstance(v, (dict, list, tuple)):
             raise ValueError(f"{name}: no place for the pytree's {k!r}")
-        out[k] = _leaf_to_tensor(v, dev)
+        out[k] = np.asarray(v)
     return out
 
 
@@ -90,18 +96,33 @@ def _unstack(tree, n: int):
 
 
 def lm_params_from_numpy(params: Mapping[str, Any], cfg: ModelConfig,
-                         device=None) -> Dict[str, Any]:
+                         device=None, mesh=None, opt: bool = False
+                         ) -> Dict[str, Any]:
     """The reference's LM parameter pytree (numpy leaves) -> the port's
     parameters on ``device`` (None = CUDA): periods unstacked into one list
     of layers, head layers, then each period's ``slot0..slotN``, then tail
     layers; every top-level leaf (``embed``, ``final_norm``, ``lm_head``,
-    ``img_proj``) as it is.  An encoder-decoder's pytree goes to
-    ``_encdec_params_from_numpy``."""
+    ``img_proj``) as it is.  An encoder-decoder's pytree: ``enc_layers``
+    and ``dec_layers`` unstacked.  With a ``mesh``, this rank's blocks
+    (the ZeRO-1 ones for an optimizer tree, ``opt``)."""
+    from repro_torch.distributed import sharding
+
+    dev = resolve_device(device)
+    tree = _port_tree(params, cfg)
+    if mesh is not None:
+        rules = sharding.opt_state_shardings if opt \
+            else sharding.param_shardings
+        tree = sharding.shard_tree(tree, rules(cfg, mesh, tree), mesh)
+    return tree_map(lambda a: _leaf_to_tensor(a, dev), tree)
+
+
+def _port_tree(params: Mapping[str, Any], cfg: ModelConfig
+               ) -> Dict[str, Any]:
+    """The reference's pytree in the port's shape, numpy leaves."""
     from repro_torch.models.lm import _layer_plan
 
     if cfg.is_encdec:
-        return _encdec_params_from_numpy(params, cfg, device)
-    dev = resolve_device(device)
+        return _encdec_tree(params, cfg)
     head, pattern, npd, tail = _layer_plan(cfg)
     layers = list(params["head_layers"])
     periods = _unstack(params["periods"], npd) if npd else []
@@ -111,38 +132,71 @@ def lm_params_from_numpy(params: Mapping[str, Any], cfg: ModelConfig,
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(layers)} layers in the pytree, "
                          f"the config has {cfg.n_layers}")
-    out = _top_level(params, ("head_layers", "periods", "tail_layers"), dev,
+    out = _top_level(params, ("head_layers", "periods", "tail_layers"),
                      cfg.name)
-    out["layers"] = [tree_map(lambda a: _leaf_to_tensor(a, dev), lp)
-                     for lp in layers]
+    out["layers"] = [tree_map(np.asarray, lp) for lp in layers]
     return out
 
 
-def _encdec_params_from_numpy(params: Mapping[str, Any], cfg: ModelConfig,
-                             device=None) -> Dict[str, Any]:
-    """The reference's encoder-decoder pytree -> the port's: the stacked
-    ``enc_layers``/``dec_layers`` unstacked into lists, every top-level
-    leaf (``frontend_proj``, ``embed``, ``enc_norm``, ``final_norm``,
-    ``lm_head``) as it is."""
-    dev = resolve_device(device)
-    out = _top_level(params, ("enc_layers", "dec_layers"), dev, cfg.name)
+def _encdec_tree(params: Mapping[str, Any], cfg: ModelConfig
+                 ) -> Dict[str, Any]:
+    """The reference's encoder-decoder pytree in the port's shape: the
+    stacked ``enc_layers``/``dec_layers`` unstacked into lists, every
+    top-level leaf (``frontend_proj``, ``embed``, ``enc_norm``,
+    ``final_norm``, ``lm_head``) as it is."""
+    out = _top_level(params, ("enc_layers", "dec_layers"), cfg.name)
     for key, n in (("enc_layers", cfg.n_encoder_layers),
                    ("dec_layers", cfg.n_layers)):
-        out[key] = [tree_map(lambda a: _leaf_to_tensor(a, dev), lp)
-                    for lp in _unstack(params[key], n)]
+        out[key] = _unstack(params[key], n)
     return out
 
 
 def train_state_from_numpy(state: Mapping[str, Any], cfg: ModelConfig,
-                           device=None) -> Dict[str, Any]:
+                           device=None, mesh=None) -> Dict[str, Any]:
     """The reference's train state (numpy leaves) -> the port's on
     ``device`` (None = CUDA): ``params``, and the optimizer's ``master``,
     ``m`` and ``v`` (each shaped as the parameters) through
-    ``lm_params_from_numpy``, ``step`` as an int32 scalar."""
+    ``lm_params_from_numpy``, ``step`` as an int32 scalar; with a
+    ``mesh``, this rank's blocks (ZeRO-1 for the optimizer's trees)."""
     dev = resolve_device(device)
     opt = state["opt"]
-    return {"params": lm_params_from_numpy(state["params"], cfg, dev),
-            "opt": {**{k: lm_params_from_numpy(opt[k], cfg, dev)
+    return {"params": lm_params_from_numpy(state["params"], cfg, dev, mesh),
+            "opt": {**{k: lm_params_from_numpy(opt[k], cfg, dev, mesh,
+                                               opt=True)
                        for k in ("master", "m", "v")},
                     "step": torch.tensor(int(np.asarray(opt["step"])),
                                          dtype=torch.int32, device=dev)}}
+
+
+def init_shards(bundle, gen, mesh) -> Dict[str, Any]:
+    """This rank's blocks of ``bundle.init_from(gen)``: every drawn leaf is
+    drawn whole from ``gen``, one at a time, in ``init``'s order (so the
+    values are ``init``'s), and only the rank's block of it is kept.  The
+    leaves ``init`` does not draw (zero norms and biases, RG-LRU's
+    ``lam``) are vectors, which the rules never shard."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models.layers import Drawer, dense_init
+    from repro_torch.train.optimizer import tree_leaves
+
+    class Recorder(Drawer):
+        def __init__(self):
+            self.drawn = []
+
+        def draw(self, shape, dtype, scale):
+            self.drawn.append(super().draw(shape, dtype, scale))
+            return self.drawn[-1]
+
+    class Blocks(Drawer):
+        def __init__(self, specs):
+            self.device, self.specs = gen.device, specs
+
+        def draw(self, shape, dtype, scale):
+            return sharding.own_block(dense_init(gen, shape, dtype, scale),
+                                      next(self.specs), mesh)
+
+    rec = Recorder()
+    abstract = bundle.init_from(rec)
+    specs = sharding.param_shardings(bundle.cfg, mesh, abstract)
+    of = {id(leaf): spec for leaf, spec in zip(
+        tree_leaves(abstract), sharding.spec_leaves(abstract, specs))}
+    return bundle.init_from(Blocks(iter([of[id(t)] for t in rec.drawn])))

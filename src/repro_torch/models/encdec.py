@@ -80,9 +80,16 @@ def _positions(B: int, S: int, start: int, device) -> torch.Tensor:
             ).expand(B, S)
 
 
+def _unsharded(cfg: ModelConfig) -> None:
+    if L.tp_size() > 1:
+        raise NotImplementedError(f"{cfg.name} on a model axis above 1: "
+                                  f"{L.SHARDED_FAMILIES_TODO}")
+
+
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
            engine: str = "auto") -> torch.Tensor:
     """frames: (B, S_src, frontend_dim) -> memory (B, S_src, d)."""
+    _unsharded(cfg)
     x = L.mm(frames.to(_dtype(cfg)), params["frontend_proj"])
     B, S, _ = x.shape
     positions = _positions(B, S, 0, x.device)
@@ -150,6 +157,7 @@ def decode_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     a decode step (cache given, the cross K/V read from it, the
     self-attention K/V written in place at ``cache_pos``).  Returns
     (logits, cache or None)."""
+    _unsharded(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = _positions(B, S, 0 if cache_pos is None else int(cache_pos),

@@ -1,8 +1,7 @@
 """Transformer layers: norms, RoPE, GQA attention (full, sliding-window,
 bidirectional or cross), the GLU FFN and the top-k MoE FFN with capacity
 dispatch, and the MoE load-balance loss (the port of
-``repro/models/layers.py``; its expert-parallel MoE path waits for ROADMAP
-A9-shard).
+``repro/models/layers.py``).
 
 Conventions, the reference's: params are plain dicts of tensors (``wq``
 ``(d, Hq*D)``, ``wi`` ``(d, 2*d_ff)`` with gate || up, ...), activations
@@ -17,6 +16,24 @@ D)``.
 * ``"cuda"`` runs kernel B6 through ``kernels.ops.flash_attention`` (its
   plain version on CPU tensors);
 * ``"auto"`` means ``"cuda"`` on CUDA tensors and ``"torch"`` elsewhere.
+
+Under an ambient mesh (``distributed.hints.use_mesh``) with a "model" axis
+the layers run sharded on the blocks ``distributed.sharding`` gives each
+rank; activations are whole within the model group.  Attention: each rank
+takes a contiguous block of query heads and the KV heads they read; where
+a rank's column block of ``wq``/``wk``/``wv`` is not those whole heads
+(a block that splits a head, or KV heads that do not divide), the
+projection's output is gathered over "model" and the heads cut from it;
+``wo``, column-sharded by the rules (ROADMAP C17), is regrouped by one
+all-to-all into the rank's heads' rows, and the partial products are
+summed over "model".  The GLU FFN's fused ``wi`` is column-sharded as one
+block, so a rank's block holds gate or up columns, not pairs: one
+all-to-all hands each rank the gate and up columns of its ``f``-range,
+the range of its row block of ``wo_f`` (the backward sends the gradient
+back to the contiguous block).  Where heads or ``f`` do not divide, the
+layer gathers its weights and runs whole on every rank.  The MoE layer
+runs expert-parallel (``_moe_ffn_ep``) on any model axis, size 1
+included, as the reference's does.
 """
 from __future__ import annotations
 
@@ -26,6 +43,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm, hints
 from repro_torch.kernels import ops
 
 __all__ = ["ATTENTION_ENGINES", "resolve_attention_engine", "mm", "dense_init",
@@ -72,12 +90,26 @@ def bmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None
                ) -> torch.Tensor:
     """Normal(0, 1) * ``scale`` (default ``fan_in ** -0.5``), drawn in fp32 on
-    the generator's device, then cast."""
+    the generator's device, then cast.  ``gen`` may also be a ``Drawer``,
+    which takes the draw over."""
+    if not isinstance(gen, torch.Generator):
+        return gen.draw(shape, dtype, scale)
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     s = scale if scale is not None else fan_in ** -0.5
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (x * s).to(dtype)
+
+
+class Drawer:
+    """Stands in for a ``torch.Generator`` in the init functions (which
+    read its ``device`` for their zero leaves): ``dense_init`` hands it
+    every leaf to draw, in order.  This one draws nothing: each leaf is an
+    empty meta tensor (torch has no meta generator)."""
+    device = torch.device("meta")
+
+    def draw(self, shape, dtype, scale):
+        return torch.empty(shape, dtype=dtype, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +300,172 @@ def _write_cache(kc, vc, k, v, pos: int) -> None:
     vc[:, start:start + S] = v
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the ambient mesh's "model" axis
+# ---------------------------------------------------------------------------
+SHARDED_FAMILIES_TODO = ("ROADMAP A9-tp-families: tensor-parallel layouts "
+                         "for the RG-LRU, xLSTM, encoder-decoder and vision "
+                         "frontends")
+
+
+def model_axis():
+    """``(tp, rank on "model", model group)`` of the ambient mesh, or None
+    without a mesh or a "model" axis."""
+    mesh = hints.current_mesh()
+    if mesh is None or hints.axis("model") is None:
+        return None
+    return mesh.shape["model"], mesh.coords["model"], mesh.group_of("model")
+
+
+def tp_size() -> int:
+    """The size of the ambient "model" axis (1 without one)."""
+    m = model_axis()
+    return 1 if m is None else m[0]
+
+
+def _whole(w: torch.Tensor, width: int) -> torch.Tensor:
+    """The logical ``(rows, width)`` weight from this rank's block, which
+    the rules shard on its columns where ``width`` divides the model
+    axis, for work every rank does alike."""
+    tp, _, group = model_axis()
+    return w if width % tp else comm.gather(w, group, 1, partial=False)
+
+
+def _paired_columns(w: torch.Tensor, f: int) -> torch.Tensor:
+    """The gate and up columns of this rank's ``f``-range from the
+    contiguous column blocks of a fused gate || up ``(d, 2f)`` weight.
+    Global pieces of ``f / tp`` columns: rank ``r`` holds pieces ``2r`` and
+    ``2r + 1`` and needs ``r`` (gate) and ``tp + r`` (up); piece ``j`` goes
+    to rank ``j % tp``.  One all-to-all; its backward sends the gradient
+    back."""
+    tp, r, group = model_axis()
+    if tp == 1:
+        return w
+    d, wp = w.shape[0], f // tp
+    pieces = w.T.reshape(2, wp, d)
+    dest = [(2 * r) % tp, (2 * r + 1) % tp]
+    order = sorted(range(2), key=lambda i: dest[i])
+    send = torch.cat([pieces[i] for i in order])
+    src = [r // 2, (tp + r) // 2]            # gate's owner first
+    recv = comm.exchange(
+        send, group, [wp * dest.count(t) for t in range(tp)],
+        [wp * src.count(t) for t in range(tp)])
+    return recv.reshape(2 * wp, d).T
+
+
+def _head_rows(w: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """This rank's ``n_rows`` rows (its heads' block) of every column of a
+    weight column-sharded over "model": one all-to-all regroups the column
+    blocks into row blocks; its backward regroups the gradient back."""
+    tp, _, group = model_axis()
+    if tp == 1:
+        return w
+    recv = comm.exchange(w.contiguous(), group, [n_rows] * tp,
+                         [n_rows] * tp)
+    c = w.shape[1]
+    return recv.reshape(tp, n_rows, c).permute(1, 0, 2).reshape(
+        n_rows, tp * c)
+
+
+def _partial_sum(x: torch.Tensor, w: torch.Tensor, group,
+                 extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w`` summed over the model group, for partial products (a
+    rank's heads, or its ``f``-range): half types multiply into fp32 and
+    are rounded once, after the sum, as one whole product's fp32
+    accumulation is; ``extra``, a partial of its own, joins the sum."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    if dt in (torch.bfloat16, torch.float16):
+        y = x.float() @ w.float()
+        if extra is not None:
+            y = y + extra.float()
+        return comm.reduce_from(y, group).to(dt)
+    y = mm(x, w)
+    return comm.reduce_from(y if extra is None else y + extra, group)
+
+
+def _glu_ffn_tp(wi: torch.Tensor, wo_f: torch.Tensor, f: int,
+                x: torch.Tensor) -> torch.Tensor:
+    """The GLU FFN on this rank's blocks of ``wi`` (d, 2f) and ``wo_f``
+    (f, d); its output is whole on every rank."""
+    tp, _, group = model_axis()
+    if f % tp == 0:
+        xc = comm.copy_to(x, group)
+        return _partial_sum(_glu(mm(xc, _paired_columns(wi, f))), wo_f,
+                            group)
+    return mm(_glu(mm(x, _whole(wi, 2 * f))), wo_f)
+
+
+def _attention_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                  window: int, positions: torch.Tensor, causal: bool,
+                  engine: str) -> torch.Tensor:
+    """Self-attention (train, prefill) on this rank's blocks; the output is
+    whole on every rank."""
+    tp, r, group = model_axis()
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    n, g = Hq // tp, Hq // Hkv
+    B, S, _ = x.shape
+    if Hq % tp or (n % g and g % n):
+        # heads that do not divide: every rank runs the whole layer
+        cols = {"wq": Hq * hd, "wk": Hkv * hd, "wv": Hkv * hd,
+                "wo": cfg.d_model}
+        pw = {k: _whole(v, cols[k]) if k in cols else v
+              for k, v in p.items()}
+        return _self_attention(pw, x, cfg, window=window, positions=positions,
+                               causal=causal, engine=engine)
+    xc = comm.copy_to(x, group)
+    q_lo, n_kv = r * n, max(n // g, 1)
+    kv_lo = q_lo // g
+
+    def proj(name, bias, heads, lo, cnt):
+        cut = slice(lo * hd, (lo + cnt) * hd)
+        if heads * hd % tp == 0:
+            y = mm(xc, p[name])
+            if not (heads % tp == 0 and lo == r * (heads // tp)
+                    and cnt == heads // tp):
+                # the rank's columns are not the heads it needs (a split
+                # head, KV heads that do not divide): gather, then cut
+                y = comm.gather(y, group, -1)[..., cut]
+        else:
+            y = mm(xc, comm.copy_to(p[name], group)[:, cut])
+        if bias in p:
+            y = y + comm.copy_to(p[bias], group)[cut]
+        return y.reshape(B, S, cnt, hd).contiguous()
+
+    q = rope(proj("wq", "bq", Hq, q_lo, n), positions, cfg.rope_theta)
+    k = rope(proj("wk", "bk", Hkv, kv_lo, n_kv), positions, cfg.rope_theta)
+    v = proj("wv", "bv", Hkv, kv_lo, n_kv)
+    out = _attend(q, k, v, causal=causal, window=window, positions=positions,
+                  engine=engine)
+    if cfg.d_model % tp == 0:                 # wo column-sharded (C17)
+        wo = _head_rows(p["wo"], n * hd)
+    else:
+        wo = comm.copy_to(p["wo"], group)[q_lo * hd:(q_lo + n) * hd]
+    return _partial_sum(out, wo, group)
+
+
+def _attend(q, k, v, *, causal, window, positions, engine):
+    """Prefill attention of (B, S, H, D) queries over their own keys."""
+    if engine == "torch":
+        return sdpa(q, k, v, causal=causal, window=window,
+                    q_positions=positions)
+    # queries at offset 0: the default kv_len - Sq is negative where a
+    # cross-attention's Sq exceeds its Skv
+    return _flash(q, k, v, causal=causal, window=window, q_offset=0,
+                  kv_len=k.shape[1])
+
+
+def _self_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                    window: int, positions: torch.Tensor, causal: bool,
+                    engine: str, kv_input=None) -> torch.Tensor:
+    q, k, v = _proj_qkv(p, x, cfg, kv_input)
+    if kv_input is None:              # RoPE for self-attention only
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    out = _attend(q, k, v, causal=causal, window=window, positions=positions,
+                  engine=engine)
+    return mm(out, p["wo"])
+
+
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
               positions: torch.Tensor,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -285,20 +483,21 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     the cache is a ring buffer and writes wrap.  Returns (out, cache)."""
     engine = resolve_attention_engine(engine, x.device)
     window = cfg.window if kind == "swa" else 0
+    if tp_size() > 1:
+        if cache is not None or kv_input is not None:
+            raise NotImplementedError(
+                "tensor-parallel decode and cross-attention wait for "
+                "ROADMAP A9-sp (sharded KV caches)")
+        return _attention_tp(p, x, cfg, window=window, positions=positions,
+                             causal=causal, engine=engine), None
+    if cache is None:
+        return _self_attention(p, x, cfg, window=window, positions=positions,
+                               causal=causal, engine=engine,
+                               kv_input=kv_input), None
     q, k, v = _proj_qkv(p, x, cfg, kv_input)
     if kv_input is None:              # RoPE for self-attention only
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    if cache is None:
-        if engine == "torch":
-            out = sdpa(q, k, v, causal=causal, window=window,
-                       q_positions=positions)
-        else:
-            # queries at offset 0: the default kv_len - Sq is negative
-            # where a cross-attention's Sq exceeds its Skv
-            out = _flash(q, k, v, causal=causal, window=window, q_offset=0,
-                         kv_len=k.shape[1])
-        return mm(out, p["wo"]), None
 
     kc, vc = cache
     S_cache = kc.shape[1]
@@ -376,7 +575,14 @@ def ffn_params(gen: torch.Generator, d: int, f: int, dtype) -> Params:
             "wo_f": dense_init(gen, (f, d), dtype)}
 
 
-def ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
+def ffn(p: Params, x: torch.Tensor, d_ff: Optional[int] = None
+        ) -> torch.Tensor:
+    """The GLU FFN.  Under a model axis above 1 it runs on this rank's
+    blocks and needs the logical width ``d_ff``."""
+    if tp_size() > 1:
+        if d_ff is None:
+            raise ValueError("a tensor-parallel FFN needs its d_ff")
+        return _glu_ffn_tp(p["wi"], p["wo_f"], d_ff, x)
     # jax.nn.silu is x * logistic(x), and XLA lowers logistic to
     # 1 / (1 + exp(-x)) with every step rounded to x's type.  F.silu rounds
     # once, which moves 2 in 5 bf16 outputs by an ulp.
@@ -421,14 +627,17 @@ def moe_route(p: Params, xt: torch.Tensor, cfg: ModelConfig):
 
 
 def moe_dispatch(xt: torch.Tensor, experts: torch.Tensor, cfg: ModelConfig,
-                 capacity: int):
+                 capacity: int, e_lo: int = 0, n_local: Optional[int] = None):
     """Each (token, choice) pair's rank among the earlier pairs (flat
     ``T * k`` order) that chose the same expert; pairs ranked past
-    ``capacity`` are dropped; the kept ones are copied into their expert's
-    buffer row.  Returns ``(buf (E, C, d), slot (T*k,), keep (T*k,),
-    rank (T*k,))``: ``slot`` is ``expert * C + rank`` where kept, ``E * C``
-    where dropped.  Nothing here waits for the device."""
+    ``capacity`` are dropped; the kept ones of experts ``[e_lo, e_lo +
+    n_local)`` (default: all) are copied into their expert's buffer row.
+    Returns ``(buf (n_local, C, d), slot (T*k,), keep (T*k,), rank
+    (T*k,))``: ``slot`` is ``(expert - e_lo) * C + rank`` where kept and
+    local, ``n_local * C`` elsewhere.  Nothing here waits for the
+    device."""
     e_pad, k = cfg.padded_experts, cfg.top_k
+    n_local = e_pad if n_local is None else n_local
     T, d = xt.shape
     flat_e = experts.reshape(-1)
     onehot = (torch.arange(e_pad, device=xt.device)[:, None] == flat_e[None, :]
@@ -437,15 +646,16 @@ def moe_dispatch(xt: torch.Tensor, experts: torch.Tensor, cfg: ModelConfig,
     # expert's row
     excl = torch.cumsum(onehot, dim=1, dtype=torch.int64) - onehot
     rank = excl.gather(0, flat_e[None, :])[0]
-    keep = rank < capacity
-    slot = torch.where(keep, flat_e * capacity + rank, e_pad * capacity)
+    keep = (rank < capacity) & (flat_e >= e_lo) & (flat_e < e_lo + n_local)
+    slot = torch.where(keep, (flat_e - e_lo) * capacity + rank,
+                       n_local * capacity)
     token_idx = torch.arange(T, device=xt.device).repeat_interleave(k)
-    # kept slots are distinct; every dropped pair lands on the spare last
+    # kept slots are distinct; every other pair lands on the spare last
     # row, which is cut off
-    buf = torch.zeros((e_pad * capacity + 1, d), dtype=xt.dtype,
+    buf = torch.zeros((n_local * capacity + 1, d), dtype=xt.dtype,
                       device=xt.device)
     buf.index_copy_(0, slot, xt[token_idx])
-    return buf[:-1].reshape(e_pad, capacity, d), slot, keep, rank
+    return buf[:-1].reshape(n_local, capacity, d), slot, keep, rank
 
 
 def moe_experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
@@ -474,18 +684,68 @@ def moe_combine(out_e: torch.Tensor, gates: torch.Tensor, slot: torch.Tensor,
 
 
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Top-k MoE with capacity dispatch: the reference's dense-buffer path
+    """Top-k MoE with capacity dispatch.  Under an ambient mesh with a
+    "model" axis (of any size, as in the reference) the expert-parallel
+    path ``_moe_ffn_ep``; else the reference's dense-buffer path
     (``_moe_ffn_dense``, one global capacity over the call's tokens), then
     the shared experts added after the routed sum.  x: (B, S, d)."""
+    if hints.axis("model"):
+        return _moe_ffn_ep(p, x, cfg)
     B, S, d = x.shape
     xt = x.reshape(B * S, d)
     gates, experts = moe_route(p, xt, cfg)
     buf, slot, keep, _ = moe_dispatch(xt, experts, cfg,
                                       moe_capacity(cfg, B * S))
-    yt = moe_combine(moe_experts(p, buf), gates, slot, keep)
+    buf = hints.constrain(buf, "model", None, None)
+    out_e = hints.constrain(moe_experts(p, buf), "model", None, None)
+    yt = hints.constrain(moe_combine(out_e, gates, slot, keep),
+                         hints.dp_axes(), None)
     if "shared_i" in p:
         yt = yt + ffn({"wi": p["shared_i"], "wo_f": p["shared_o"]}, xt)
     return yt.reshape(B, S, d)
+
+
+def _moe_ffn_ep(p: Params, x: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """The reference's explicit expert-parallel MoE (``_moe_ffn_ep``) on
+    this rank: its block of ``padded_experts / tp`` experts, the tokens of
+    its data shard (activations whole over "model"), the per-group
+    capacity ``int(cf * k * T_loc / E) + 1`` of those ``T_loc`` tokens
+    (GShard's group: one data shard's tokens; the whole batch where the
+    data axes do not divide it, since the batch then is whole on every
+    rank), routing on every rank alike, the slot-indexed dispatch of the
+    rank's own experts, and one sum over "model".  Its combine adds a
+    token's kept choices in choice order (``moe_combine``), where the
+    reference's scatter adds them in slot order: the same sum, rounded
+    apart in the last place.  The shared experts are the dense path's,
+    gate column ``j`` paired with up column ``j + fs`` (ROADMAP C18,
+    departed: the reference's EP pairs each rank's contiguous block half
+    with half, a different model on every mesh).  The reference gathers
+    and scatters sequence-sharded residuals around the layer; the port's
+    residuals are whole over "model", so it has nothing to move there."""
+    tp, r, group = model_axis()
+    e_pad = cfg.padded_experts
+    if e_pad % tp:
+        raise ValueError(f"{e_pad} experts do not divide a model axis of {tp}")
+    B, S, d = x.shape
+    n_local = e_pad // tp
+    xt = comm.copy_to(x, group).reshape(B * S, d)
+    gates, experts = moe_route({"router": comm.copy_to(p["router"], group)},
+                               xt, cfg)
+    buf, slot, keep, _ = moe_dispatch(xt, experts, cfg,
+                                      moe_capacity(cfg, B * S),
+                                      e_lo=r * n_local, n_local=n_local)
+    yt = moe_combine(moe_experts(p, buf), gates, slot, keep)
+    fs = cfg.d_ff * cfg.n_shared_experts
+    if "shared_i" in p and fs % tp == 0:     # rides the routed experts' sum
+        h = _glu(mm(xt, _paired_columns(p["shared_i"], fs)))
+        return _partial_sum(h, p["shared_o"], group, extra=yt).reshape(
+            B, S, d)
+    y = comm.reduce_from(yt, group)
+    if "shared_i" in p:
+        y = y + _glu_ffn_tp(p["shared_i"], p["shared_o"], fs,
+                            x.reshape(B * S, d))
+    return y.reshape(B, S, d)
 
 
 def moe_load_balance_loss(p: Params, x: torch.Tensor, cfg: ModelConfig
@@ -504,4 +764,14 @@ def moe_load_balance_loss(p: Params, x: torch.Tensor, cfg: ModelConfig
     top = torch.sort(logits, dim=-1, descending=True, stable=True)[1]
     onehot = torch.nn.functional.one_hot(
         top[:, :cfg.top_k], cfg.padded_experts).to(torch.float32).sum(1)
-    return cfg.n_experts * torch.sum(onehot.mean(0) * probs.mean(0))
+    mesh, dp = hints.current_mesh(), hints.dp_axes()
+    if dp is None:
+        return cfg.n_experts * torch.sum(onehot.mean(0) * probs.mean(0))
+    # means over the global batch: the counts summed over the data axes,
+    # the probabilities too, with each rank's gradient its own tokens'
+    group = mesh.group_of(*dp)
+    n = comm.all_reduce_sum(torch.tensor([float(xt.shape[0])],
+                                         device=x.device), group)
+    frac_tokens = comm.all_reduce_sum(onehot.sum(0), group) / n
+    frac_probs = comm.reduce_from(probs.sum(0), group) / n
+    return cfg.n_experts * torch.sum(frac_tokens * frac_probs)

@@ -20,6 +20,21 @@ embeddings.  With ``cfg.remat`` each period layer (not the head or tail
 layers, as in the reference) runs under ``torch.utils.checkpoint`` while
 autograd records, so its activations are recomputed in the backward.
 
+Sharded (under ``distributed.hints.use_mesh``): the params are this
+rank's blocks (``distributed.sharding.param_shardings``) and the batch its
+block over the data axes (``batch_shardings``).  The embedding is
+vocab-parallel (a masked lookup of the rank's rows, summed over "model"),
+the logits stay vocab-sharded (``lm_head``, or gemma3's tied ``embed``),
+and ``cross_entropy`` reduces over the sharded vocab: a max over "model"
+(no gradient), a sum of exps, the target's logit from the rank that owns
+it.  The loss is the global masked mean: numerator and mask count are
+summed over the data axes before the division, so unequal counts on the
+data shards weigh as one batch.  ``train_loss`` returns it on every rank;
+its gradient on a rank is that rank's share, which the train step sums
+over the data axes.  Families with recurrent mixers or the vision frontend
+run sharded on a model axis of size 1 only (``layers.
+SHARDED_FAMILIES_TODO``).
+
 Serving: ``init_cache`` builds each layer's own state: a ``(k, v)`` pair
 (a full KV cache for ``"attn"``, a ring buffer of ``window`` slots for
 ``"swa"`` when ``kv_len >= window``), or a recurrent state tuple;
@@ -34,6 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm, hints
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
@@ -163,6 +179,8 @@ _RECURRENT = {"rglru": R.rglru, "mlstm": R.mlstm, "slstm": R.slstm}
 
 def _layer_apply(lp: Params, x, kind: str, ffn_type: str, cfg: ModelConfig,
                  positions, cache, cache_pos, engine: str):
+    if cache is None:
+        x = hints.constrain(x, hints.dp_axes(), "model", None)
     mixer_in = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     if kind in ATTENTION_KINDS:
         out, new_cache = L.attention(lp["mixer"], mixer_in, cfg, kind=kind,
@@ -175,7 +193,8 @@ def _layer_apply(lp: Params, x, kind: str, ffn_type: str, cfg: ModelConfig,
     if ffn_type != "none":
         h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
         x = x + (L.moe_ffn(lp["ffn"], h, cfg) if ffn_type == "moe"
-                 else L.ffn(lp["ffn"], h))
+                 else L.ffn(lp["ffn"], h, cfg.dense_d_ff or cfg.d_ff
+                            if ffn_type == "dense_first" else cfg.d_ff))
     return x, new_cache
 
 
@@ -198,7 +217,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     frontend: projected by ``img_proj`` into positions [0, n_img)."""
     kinds = layer_kinds(cfg)
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    if L.tp_size() > 1 and (cfg.frontend != "none" or any(
+            k not in ATTENTION_KINDS for k, _ in kinds)):
+        raise NotImplementedError(f"{cfg.name} on a model axis above 1: "
+                                  f"{L.SHARDED_FAMILIES_TODO}")
+    x = embed(params, cfg, tokens)
     if cfg.frontend == "vision_patches" and image_embeds is not None:
         img = L.mm(image_embeds.to(x.dtype), params["img_proj"])
         x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
@@ -224,29 +247,83 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:, :]
-    if cfg.tie_embeddings:
-        logits = L.mm(x, params["embed"].T)
-    else:
-        logits = L.mm(x, params["lm_head"])
+    logits = hints.constrain(vocab_logits(params, cfg, x), hints.dp_axes(),
+                             None, "model")
+    if logits_slice is not None and vocab_sharded(cfg):
+        logits = comm.gather(logits, L.model_axis()[2], -1, partial=False)
     return logits, (new_cache if (return_cache or cache is not None) else None)
+
+
+# ---------------------------------------------------------------------------
+# vocab-parallel embedding and logits
+# ---------------------------------------------------------------------------
+def vocab_sharded(cfg: ModelConfig) -> bool:
+    """Whether this rank holds a vocab block of the unembedding (a model
+    axis above 1 that divides the padded vocab)."""
+    tp = L.tp_size()
+    return tp > 1 and cfg.padded_vocab % tp == 0
+
+
+def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
+          ) -> torch.Tensor:
+    """Token embeddings; where ``vocab_sharded``, a lookup of this rank's
+    block of rows (other tokens zero) summed over "model"."""
+    table = params["embed"]
+    if not vocab_sharded(cfg):
+        return table[tokens]
+    _, r, group = L.model_axis()
+    lo = r * table.shape[0]
+    mine = (tokens >= lo) & (tokens < lo + table.shape[0])
+    local = table[torch.where(mine, tokens - lo, 0)]
+    local = torch.where(mine[..., None], local,
+                        torch.zeros((), dtype=local.dtype, device=local.device))
+    return comm.reduce_from(local, group)
+
+
+def vocab_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """Logits over the padded vocab (this rank's block of it where
+    ``vocab_sharded``)."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if vocab_sharded(cfg):
+        x = comm.copy_to(x, L.model_axis()[2])
+    return L.mm(x, w)
 
 
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor, vocab_size: int) -> torch.Tensor:
+                  mask: torch.Tensor, vocab_size: int,
+                  vocab_lo: Optional[int] = None) -> torch.Tensor:
     """Masked mean next-token NLL over (possibly padded) logits: the padded
-    vocab at -1e30, the logsumexp in fp32."""
+    vocab at -1e30, the logsumexp in fp32.  ``vocab_lo``: the logits are
+    this rank's vocab block starting there, reduced over "model".  Under
+    an ambient mesh with data axes the mean is the global one, returned on
+    every rank (see the module's docstring)."""
     x = logits.float()
     V = x.shape[-1]
-    if V != vocab_size:
-        vidx = torch.arange(V, device=x.device)
+    lo = 0 if vocab_lo is None else vocab_lo
+    vidx = lo + torch.arange(V, device=x.device)
+    if lo + V > vocab_size:
         x = torch.where(vidx < vocab_size, x, -1e30)
-    lse = torch.logsumexp(x, dim=-1)
-    gold = x.gather(-1, labels.long()[..., None])[..., 0]
-    nll = (lse - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    if vocab_lo is None:
+        lse = torch.logsumexp(x, dim=-1)
+        gold = x.gather(-1, labels.long()[..., None])[..., 0]
+    else:
+        group = L.model_axis()[2]
+        top = comm.all_reduce_max(x.detach().amax(dim=-1), group)
+        total = comm.reduce_from(torch.exp(x - top[..., None]).sum(-1), group)
+        lse = top + torch.log(total)
+        gold = comm.reduce_from(torch.where(
+            vidx == labels.long()[..., None], x, 0.0).sum(-1), group)
+    nll = ((lse - gold) * mask).sum()
+    dp = hints.dp_axes()
+    if dp is None:
+        return nll / torch.clamp(mask.sum(), min=1.0)
+    group = hints.current_mesh().group_of(*dp)
+    count = comm.all_reduce_sum(mask.sum().reshape(1), group)[0]
+    return comm.reduce_from(nll / torch.clamp(count, min=1.0), group)
 
 
 def train_loss(params: Params, cfg: ModelConfig,
@@ -269,14 +346,16 @@ def train_loss(params: Params, cfg: ModelConfig,
         is_img = torch.arange(tokens.shape[1], device=tokens.device) \
             < cfg.n_frontend_tokens
         mask = mask * (~is_img)[None, :].to(torch.float32)
-    loss = cross_entropy(logits, labels, mask, cfg.vocab_size)
+    loss = cross_entropy(logits, labels, mask, cfg.vocab_size,
+                         vocab_lo=L.model_axis()[1] * logits.shape[-1]
+                         if vocab_sharded(cfg) else None)
     head, _, npd, _ = _layer_plan(cfg)
     if cfg.n_experts and npd:
         # the reference's cheap proxy: the first period's slot0 router (not
         # "the first MoE layer") on the token embeddings
         first = params["layers"][len(head)]
         if "router" in first.get("ffn", {}):
-            h = params["embed"][tokens]
+            h = embed(params, cfg, tokens)
             loss = loss + 0.01 * L.moe_load_balance_loss(first["ffn"], h,
                                                          cfg)
     return loss

@@ -15,6 +15,14 @@ encoder-decoder through ``models.encdec`` (``batch["frames"]``, encoder
 frames; its caches hold ``src_len(kv_len)`` cross slots).
 ``bundle.train_loss(params, batch, engine)`` is the training loss of
 either (``repro_torch.train`` differentiates it).
+
+Under an ambient mesh (``distributed.hints.use_mesh``) ``train_loss`` and
+``prefill`` run sharded on this rank's blocks of the params and of the
+batch (``distributed.sharding``; ``bundle.init(seed, device, mesh)`` draws
+the blocks): ``train_loss`` is the global loss on every rank (its gradient
+on a rank is that rank's share, summed over the data axes by the train
+step), ``prefill`` the last-token logits of the rank's batch block, whole
+over the vocab.  Decode is not sharded.
 """
 from __future__ import annotations
 
@@ -46,14 +54,31 @@ class ModelBundle:
         if not self.cfg.is_encdec:
             LM.layer_kinds(self.cfg)
 
-    def init(self, seed: int = 0, device=None) -> Any:
+    def init(self, seed: int = 0, device=None, mesh=None) -> Any:
         """Random weights from a ``torch.Generator`` seeded with ``seed`` on
-        ``device`` (None = CUDA)."""
+        ``device`` (None = CUDA); with a ``mesh``, this rank's blocks of the
+        same weights, drawn one leaf at a time (``interop.init_shards``)."""
         gen = torch.Generator(device=resolve_device(device))
         gen.manual_seed(int(seed))
+        if mesh is not None:
+            from repro_torch.interop import init_shards
+
+            return init_shards(self, gen, mesh)
+        return self.init_from(gen)
+
+    def init_from(self, gen) -> Any:
+        """The params drawn from ``gen`` (a generator or a
+        ``layers.Drawer``)."""
         if self.cfg.is_encdec:
             return ED.init_params(self.cfg, gen)
         return LM.init_params(self.cfg, gen)
+
+    def abstract_params(self) -> Any:
+        """The params' logical shapes and dtypes as meta tensors (nothing
+        allocated, nothing drawn)."""
+        from repro_torch.models.layers import Drawer
+
+        return self.init_from(Drawer())
 
     def train_loss(self, params, batch, engine: str = "auto"
                    ) -> torch.Tensor:
@@ -80,6 +105,12 @@ class ModelBundle:
     def decode(self, params, cache, batch, engine: str = "auto"):
         """One decode step at ``batch["pos"]`` against the cache (KV caches
         are updated in place, recurrent states returned anew)."""
+        from repro_torch.distributed import hints
+
+        if hints.current_mesh() is not None:
+            raise NotImplementedError("sharded decode waits for ROADMAP "
+                                      "A9-sp (sequence parallelism, "
+                                      "sharded KV caches)")
         if self.cfg.is_encdec:
             return ED.decode_forward(params, self.cfg, batch["tokens"],
                                      cache=cache, cache_pos=batch["pos"],

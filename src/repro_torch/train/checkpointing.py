@@ -10,8 +10,14 @@ ml_dtypes leaves.  Writes go to ``<dir>.tmp`` and are renamed into place,
 so a reader never sees half a checkpoint.  ``AsyncCheckpointer`` copies the
 state to the host before it returns (the caller goes on updating the
 state in place) and writes on a background thread, one write in flight,
-keeping the newest ``keep``.  The reference's ``shardings`` argument (an
-elastic restore onto another mesh) waits for ROADMAP A9-shard.
+keeping the newest ``keep``.
+
+Elastic: given ``shardings`` (a spec tree shaped as the state,
+``train_step.state_shardings``) under an ambient mesh, a save gathers the
+logical arrays (a collective) and the mesh's first rank writes them in the
+same format; a restore reads the logical arrays, whatever mesh saved them,
+and keeps this rank's block of each (the template then holds the logical
+shapes: meta tensors will do).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.columnar import resolve_device
+from repro_torch.distributed import hints, sharding
 from repro_torch.train.optimizer import tree_leaves, tree_unflatten
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "AsyncCheckpointer",
@@ -82,10 +89,24 @@ def _write(ckpt_dir: str, step: int, names, arrays, dtypes,
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Any,
-                    meta: Optional[Dict] = None) -> str:
-    """Atomic checkpoint write; returns the final path."""
-    arrays, dtypes = _host_state(state)
-    return _write(ckpt_dir, step, _names(state), arrays, dtypes, meta)
+                    meta: Optional[Dict] = None, shardings: Any = None
+                    ) -> str:
+    """Atomic checkpoint write; returns the final path.  With
+    ``shardings``, every rank of the ambient mesh calls it and the logical
+    state is written once."""
+    if shardings is None:
+        arrays, dtypes = _host_state(state)
+        return _write(ckpt_dir, step, _names(state), arrays, dtypes, meta)
+    import torch.distributed as dist
+
+    mesh = hints.current_mesh()
+    whole = sharding.gather_tree(state, shardings, mesh)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if dist.get_rank(mesh.group) == 0:
+        arrays, dtypes = _host_state(whole)
+        _write(ckpt_dir, step, _names(whole), arrays, dtypes, meta)
+    dist.barrier(group=mesh.group)
+    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -97,11 +118,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, state_template: Any,
-                       device=None) -> Tuple[Any, Dict]:
+                       device=None, shardings: Any = None
+                       ) -> Tuple[Any, Dict]:
     """``(state, manifest)``: the checkpoint's leaves shaped as
     ``state_template``'s, in the template's dtypes, on ``device`` (None =
-    CUDA).  Raises on a step or shape that disagrees."""
+    CUDA); with ``shardings``, this rank's block of each on the ambient
+    mesh.  Raises on a step or shape that disagrees."""
     dev = resolve_device(device)
+    mesh = hints.current_mesh()
+    specs = [None] * len(tree_leaves(state_template)) if shardings is None \
+        else sharding.spec_leaves(state_template, shardings)
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -109,12 +135,14 @@ def restore_checkpoint(ckpt_dir: str, step: int, state_template: Any,
         raise ValueError(f"manifest step {manifest['step']} != {step}")
     out = []
     with np.load(os.path.join(path, "state.npz")) as data:
-        for n, template in zip(_names(state_template),
-                               tree_leaves(state_template)):
+        for n, template, spec in zip(_names(state_template),
+                                     tree_leaves(state_template), specs):
             arr = data[n]
             if tuple(arr.shape) != tuple(template.shape):
                 raise ValueError(f"{n}: checkpoint shape {arr.shape} != "
                                  f"{tuple(template.shape)}")
+            if spec is not None:
+                arr = sharding.block(arr, spec, mesh)
             if manifest["leaves"][n]["dtype"] == "bfloat16":
                 # undo the npz-safe uint16 view
                 t = torch.from_numpy(np.array(arr.view(np.int16), copy=True)

@@ -14,6 +14,15 @@ state (16 bytes a parameter) fit on one card.  The new parameters are the
 master cast to ``param_dtype``, bf16 by default as in the reference, which
 never passes another: an fp32 model, and the fp32 routers of a bf16 MoE
 model, train in bf16 from the second step on (ROADMAP C16, matched).
+
+ZeRO-1 (``mesh`` and ``specs``, the ``distributed.sharding.
+opt_state_shardings`` tree): the parameters are this rank's TP blocks;
+master, m and v hold the further blocks over "data" of those specs; each
+data rank updates its block from its block of the (data-summed) gradient,
+and the new parameters, cast to ``param_dtype``, are all-gathered over
+"data".  The clipping norm is the logical gradient's: each leaf's squares
+are summed over the axes its block is sharded on, so a replicated leaf
+counts once.
 """
 from __future__ import annotations
 
@@ -23,6 +32,8 @@ from typing import Any, Dict, List
 
 import torch
 
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import axes_of, block, spec_leaves
 from repro_torch.interop import tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
@@ -78,9 +89,17 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos).to(torch.float32)
 
 
-def adamw_init(params: Any) -> Dict[str, Any]:
+def _data_only(spec):
+    return tuple(e if e == "data" else None for e in spec)
+
+
+def adamw_init(params: Any, mesh=None, specs: Any = None) -> Dict[str, Any]:
     """fp32 copies of the parameters (never aliases, even for fp32 ones)
-    and zero moments."""
+    and zero moments; with ZeRO-1 ``specs``, of this rank's data blocks."""
+    if specs is not None:
+        params = tree_unflatten(params, [
+            block(p, _data_only(s), mesh) for p, s in
+            zip(tree_leaves(params), spec_leaves(params, specs))])
     return {
         "master": tree_map(lambda p: p.detach().to(torch.float32, copy=True),
                            params),
@@ -93,23 +112,46 @@ def adamw_init(params: Any) -> Dict[str, Any]:
     }
 
 
-def _global_norm(grads: Any) -> torch.Tensor:
-    """The fp32 L2 norm over every gradient leaf."""
+def _global_norm(grads: Any, mesh=None, specs: List = None
+                 ) -> torch.Tensor:
+    """The fp32 L2 norm of the logical gradient over every leaf of the
+    tree ``grads``; with ``specs`` (each leaf's, in ``tree_leaves``'
+    order), the squares of sharded blocks summed over the axes they are
+    sharded on."""
     sq = [torch.sum(g.to(torch.float32) ** 2) for g in tree_leaves(grads)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+    if specs is None:
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    parts = {}
+    for x, spec in zip(sq, specs):
+        axes = tuple(a for a in mesh.axis_names
+                     if any(a in axes_of(e) for e in spec))
+        parts.setdefault(axes, []).append(x)
+    total = []
+    for axes, xs in sorted(parts.items()):
+        x = torch.sum(torch.stack(xs)).reshape(1)
+        total.append(comm.all_reduce_sum(x, mesh.group_of(*axes))
+                     if axes else x)
+    return torch.sqrt(torch.sum(torch.cat(total)))
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Any, opt_state: Dict[str, Any],
-                 param_dtype=torch.bfloat16, params: Any = None):
+                 param_dtype=torch.bfloat16, params: Any = None,
+                 mesh=None, specs: Any = None):
     """One AdamW step.  Returns ``(new_params, opt_state, {"lr",
     "grad_norm"})``; ``opt_state`` is updated in place (its master, m and v
     tensors, and ``step``) and returned.  ``params``, where given, is the
     current parameter tree: a leaf already of ``param_dtype`` takes the new
-    value in place, any other is replaced by a new tensor."""
+    value in place, any other is replaced by a new tensor.  ``mesh`` and
+    ``specs``: ZeRO-1 (see the module's docstring)."""
     step = opt_state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = _global_norm(grads)
+    leaf_specs = spec_leaves(grads, specs) if specs is not None else None
+    if specs is not None:
+        grads = tree_unflatten(grads, [
+            block(g, _data_only(s), mesh)
+            for g, s in zip(tree_leaves(grads), leaf_specs)])
+    gnorm = _global_norm(grads, mesh, leaf_specs)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2
@@ -127,11 +169,15 @@ def adamw_update(cfg: AdamWConfig, grads: Any, opt_state: Dict[str, Any],
         vh = v / bc2
         master.sub_(lr * (mh / (torch.sqrt(vh) + cfg.eps)
                           + cfg.weight_decay * master))
+        new = master.to(param_dtype)
+        if leaf_specs is not None and "data" in leaf_specs[i]:
+            new = comm.all_gather_dim(new, mesh.group_of("data"),
+                                      leaf_specs[i].index("data"))
         p = old[i] if old is not None else None
         if p is not None and p.dtype == param_dtype:
-            new_leaves.append(p.copy_(master))
+            new_leaves.append(p.copy_(new))
         else:
-            new_leaves.append(master.to(param_dtype))
+            new_leaves.append(new)
     opt_state["step"] = step
     new_params = tree_unflatten(opt_state["master"], new_leaves)
     return new_params, opt_state, {"lr": lr, "grad_norm": gnorm}

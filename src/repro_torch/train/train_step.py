@@ -9,6 +9,16 @@ never require grad and take their update in place), then updates the state
 in place (``optimizer.adamw_update``; the reference donates its state).
 Profiler ranges ``train_step.forward``, ``.backward`` and ``.optimizer``
 mark the three parts in a trace (no cost without a profiler).
+
+Under an ambient mesh (``distributed.hints.use_mesh``) the state holds
+this rank's blocks (``init_train_state(..., mesh=)``, ``state_shardings``)
+and the batch its block over the data axes: the loss is the global masked
+mean (``models.lm.cross_entropy``), the gradients are summed over the data
+axes (one all-reduce a dtype, after the microbatches), and AdamW runs
+ZeRO-1 (``train.optimizer``).  Microbatch ``i`` is every data rank's
+``i``-th part of its rows, normalized as one batch: the reference's
+microbatch ``i`` of the global batch whose rows come in that order.  The "pod" axis is not sharded yet (ROADMAP
+A9-pod, with cross-pod compression).
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.profiler import record_function
 
+from repro_torch.distributed import comm, hints, sharding
 from repro_torch.interop import tree_map
 from repro_torch.models.registry import ModelBundle
 from repro_torch.train.grad_compression import compress_grads_crosspod
@@ -25,23 +36,76 @@ from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
                                          tree_unflatten)
 
 __all__ = ["TrainState", "make_train_step", "init_train_state",
-           "loss_and_grads"]
+           "abstract_train_state", "loss_and_grads", "state_shardings",
+           "reduce_grads"]
 
 TrainState = Dict[str, Any]  # {"params": ..., "opt": adamw state}
 
 
-def init_train_state(bundle: ModelBundle, seed: int = 0, device=None
-                     ) -> TrainState:
+def abstract_train_state(bundle: ModelBundle) -> TrainState:
+    """A train state's logical shapes and dtypes as meta tensors."""
+    params = bundle.abstract_params()
+
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return {"params": params,
+            "opt": {"master": tree_map(f32, params),
+                    "m": tree_map(f32, params), "v": tree_map(f32, params),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}}
+
+
+def state_shardings(bundle: ModelBundle, mesh) -> Dict[str, Any]:
+    """The spec tree of a train state on ``mesh``: TP specs for the
+    params, ZeRO-1 specs for master, m and v, the step whole."""
+    abstract = bundle.abstract_params()
+    opt = sharding.opt_state_shardings(bundle.cfg, mesh, abstract)
+    return {"params": sharding.param_shardings(bundle.cfg, mesh, abstract),
+            "opt": {"master": opt, "m": opt, "v": opt, "step": ()}}
+
+
+def init_train_state(bundle: ModelBundle, seed: int = 0, device=None,
+                     mesh=None) -> TrainState:
     """Random weights from ``seed`` on ``device`` (None = CUDA) and a fresh
-    AdamW state."""
-    params = bundle.init(seed, device=device)
-    return {"params": params, "opt": adamw_init(params)}
+    AdamW state; with a ``mesh``, this rank's blocks of both."""
+    params = bundle.init(seed, device=device, mesh=mesh)
+    if mesh is None:
+        return {"params": params, "opt": adamw_init(params)}
+    specs = state_shardings(bundle, mesh)["opt"]["master"]
+    return {"params": params, "opt": adamw_init(params, mesh, specs)}
+
+
+def reduce_grads(grads, mesh):
+    """The gradients summed over the mesh's data axes (one all-reduce of
+    the concatenated leaves of each dtype)."""
+    dp = sharding.data_axes(mesh)
+    if not dp:
+        return grads
+    group = mesh.group_of(*dp)
+    leaves = tree_leaves(grads)
+    out = list(leaves)
+    for dt in sorted({g.dtype for g in leaves}, key=str):
+        idx = [i for i, g in enumerate(leaves) if g.dtype == dt]
+        flat = comm.all_reduce_sum(
+            torch.cat([leaves[i].reshape(-1) for i in idx]), group)
+        for i, part in zip(idx, flat.split([leaves[i].numel()
+                                            for i in idx])):
+            out[i] = part.view(leaves[i].shape)
+    return tree_unflatten(grads, out)
 
 
 def loss_and_grads(bundle: ModelBundle, params, batch, engine: str = "auto"):
     """``(loss, grads)`` of ``bundle.train_loss`` at ``params``: the loss
     detached, the gradients a tree shaped as ``params`` in each leaf's dtype
-    (zeros for a leaf the loss does not reach, as ``jax.grad`` gives)."""
+    (zeros for a leaf the loss does not reach, as ``jax.grad`` gives);
+    under an ambient mesh, summed over its data axes."""
+    loss, grads = _local_loss_and_grads(bundle, params, batch, engine)
+    mesh = hints.current_mesh()
+    return loss, grads if mesh is None else reduce_grads(grads, mesh)
+
+
+def _local_loss_and_grads(bundle: ModelBundle, params, batch, engine):
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with record_function("train_step.forward"):
         loss = bundle.train_loss(tree_unflatten(params, leaves), batch,
@@ -69,11 +133,17 @@ def make_train_step(bundle: ModelBundle, opt_cfg: Optional[AdamWConfig] = None,
     parameters take after a step: bf16, the reference's (it never passes
     another, ROADMAP C16), or fp32 for a run that stays fp32 end to end."""
     opt_cfg = opt_cfg or AdamWConfig()
+    zero = {}                   # the last mesh's ZeRO-1 specs
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state["params"]
+        mesh = hints.current_mesh()
+        if mesh is not None and "pod" in mesh.shape:
+            raise NotImplementedError("a sharded step over a 'pod' axis "
+                                      "waits for ROADMAP A9-pod")
         if microbatches == 1:
-            loss, grads = loss_and_grads(bundle, params, batch, engine)
+            loss, grads = _local_loss_and_grads(bundle, params, batch,
+                                                engine)
         else:
             parts = {k: v.reshape(microbatches, v.shape[0] // microbatches,
                                   *v.shape[1:]) for k, v in batch.items()}
@@ -81,7 +151,7 @@ def make_train_step(bundle: ModelBundle, opt_cfg: Optional[AdamWConfig] = None,
                 p.shape, dtype=torch.float32, device=p.device), params)
             loss = 0.0
             for i in range(microbatches):
-                l_i, g_i = loss_and_grads(
+                l_i, g_i = _local_loss_and_grads(
                     bundle, params, {k: v[i] for k, v in parts.items()},
                     engine)
                 for acc, g in zip(tree_leaves(grads), tree_leaves(g_i)):
@@ -89,12 +159,19 @@ def make_train_step(bundle: ModelBundle, opt_cfg: Optional[AdamWConfig] = None,
                 loss = loss + l_i
             grads = tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches
+        specs = None
+        if mesh is not None:
+            grads = reduce_grads(grads, mesh)
+            if zero.get("mesh") is not mesh:
+                zero.update(mesh=mesh, specs=state_shardings(
+                    bundle, mesh)["opt"]["m"])
+            specs = zero["specs"]
         if compress_crosspod and pod_axis is not None:
             grads = compress_grads_crosspod(grads, pod_axis)
         with record_function("train_step.optimizer"):
             new_params, new_opt, metrics = adamw_update(
                 opt_cfg, grads, state["opt"], param_dtype=param_dtype,
-                params=params)
+                params=params, mesh=mesh, specs=specs)
         metrics["loss"] = loss
         return {"params": new_params, "opt": new_opt}, metrics
 

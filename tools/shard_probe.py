@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py``'s sharded-models phase (phase 17) alone on the card.
+
+    python3 tools/shard_probe.py [--no-fp32-backward]
+
+Builds the port's kernels; runs phase 15's deepseek-moe-16b record (the
+one-rank references phase 17 holds its sharded prefill against: full-depth
+and twin logits, the bf16 gate) and danube's step-1 loss on the claims
+stream's first batch (the forward of phase 16's first step); times B6's
+fp32 backward at danube's training shape (phase 16's call); then phase 17's
+three parts on 4 gloo ranks of the card.  Exits nonzero when a check
+fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--no-fp32-backward", action="store_true")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("shard_probe: CUDA is not available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import claims_token_stream
+    from repro_torch.models import get_bundle
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    cs.LOG["file"] = open(ROOT / "chiprun_out" / "shard_probe.log", "w")
+    name = torch.cuda.get_device_name(0)
+    rate = cs.mem_rate(name)
+    cs.log(cs.nvidia_smi_line())
+    build.library()
+    t0 = time.perf_counter()
+    arch, layers, twin, seq, batcher = next(f for f in cs.FAMILIES
+                                            if f[0] == cs.SHARD_MOE)
+    cs.family_run(arch, layers, twin, seq, batcher, cs.REPS, rate)
+    cs.log(f"shard_probe: phase 15's {arch} record in "
+           f"{time.perf_counter() - t0:.3f} s")
+    bundle = get_bundle(cs.DANUBE)
+    batch = next(claims_token_stream(cs.TRAIN_SEQ, cs.TRAIN_BATCH,
+                                     bundle.cfg.vocab_size, 0,
+                                     device="cuda"))
+    with torch.no_grad():
+        step1 = float(bundle.train_loss(bundle.init(0, device="cuda"),
+                                        batch))
+    del batch
+    torch.cuda.empty_cache()
+    if not args.no_fp32_backward:
+        q, k, v, _ = cs._bwd_inputs(cs.BWD_DANUBE, torch.float32,
+                                    torch.device("cuda"), 3, True)
+        rec = cs.time_attention_backward(
+            "danube training, fp32", q, k, v, cs._attn_kwargs(cs.BWD_DANUBE),
+            cs.BWD_LIBRARY_REPS, rate)
+        cs.log(f"shard_probe: B6 fp32 backward {json.dumps(rec)}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, summary = cs.sharded_models_phase(step1)
+    cs.log(f"shard_probe: phase 17 in {time.perf_counter() - t0:.3f} s; "
+           f"launches {json.dumps(launches)}")
+    cs.log(f"shard_probe: {json.dumps(summary)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
