@@ -252,10 +252,38 @@ nothing falls back to the CPU):
      gradient within 1e-3 of its leaf's largest against one rank.  (c)
      ``pipeline_transformer`` over a 4-rank "pipe" mesh, one danube layer
      (fp32, B6) a stage, 4 microbatches of 1 x 2,048: output and gradients
-     against the sequential run within 1e-4.  Per part and rank: the wall,
-     peak memory, staged bytes, the staging's share of the wall and the
-     collectives by kind; the warm step's tokens/s for (b)
-     (``tools/shard_probe.py`` runs this phase alone).
+     against the sequential run within 1e-4.  (d) recurrentgemma-2b,
+     xlstm-125m, seamless-m4t-medium and phi-3-vision-4.2b at full width
+     and depth, bf16, on a (1, 4) mesh (recurrentgemma also on (2, 2),
+     where its 10 heads split 5 a rank; at (1, 4) its attention runs whole
+     on every rank), each rank's blocks drawn leaf by leaf from phase 15's
+     seed: the prefill of phase 15's tokens, frames and images (1 x 4,096,
+     xlstm 1 x 1,024), B6 once an attention call on every rank, logits
+     finite and within phase 15's bf16 gate for the family of both its
+     one-rank cuda engine and its fp32 model (xlstm has no attention, so
+     its torch engine is its cuda engine bit for bit: its bound takes the
+     larger distance from the fp32 model of that and of the cuda engine on
+     a batch of the sequence twice), and cut to a period of its layer
+     kinds in fp32 against one rank within 1e-3, the check that decides
+     where bf16's own spread hides an error.  (e) recurrentgemma-2b at
+     full width cut to 8 of 26 layers (two periods and the tail), as (b):
+     3 steps of 2 x 4,096 claims tokens, B6 4 + 2 a step, step 1's loss
+     within the bf16 gate of the fp32 model's; its fp32 cut is one period
+     (3 layers, B6 at head dim 256 with MQA) on 2 x 1,024 tokens.  (f)
+     A9-pod: danube cut to 2 layers in fp32 on a (pod, data, model) = (2,
+     1, 2) mesh, one step with ``compress_crosspod=True`` against the
+     one-rank compressed step, read from what each step produced (from
+     zero moments, a first step's m is a fixed multiple of its compressed
+     gradient): loss within 1e-5; every logical tensor's m on the int8
+     grid of one scale within 1e-3 of a bin; the compressed gradients
+     where the bins agree and each leaf's scale within 1e-3 of their
+     largest, at most one bin apart in at most 1e-2 of the elements; the
+     master within 1e-5 where the bins agree and lr + 1e-5 where they do
+     not.
+     Per part and rank: the wall, peak memory, staged bytes, the staging's
+     share of the wall and the collectives by kind; the warm step's
+     tokens/s for (b) and (e) (``tools/shard_probe.py`` runs this phase
+     alone).
 
 Each kernel's launches are counted over the two studies' first runs, the
 first chunked run (with prefetch), the spec corpus, the timed pipelined
@@ -263,7 +291,8 @@ service serve, the serving path (prefill and batcher), gemma3-12b's
 prefill, the sharded run's first cuda run, the sharded service's timed
 pipelined serve (both summed over ranks) and each family's prefill and
 batcher (phase 15), the full-width training run (phase 16) and phase 17's
-prefill, training steps and pipeline (summed over ranks), with the
+prefills, training steps, pipeline and pod step (summed over ranks), with
+the
 counts set to 0 just before each.  B6's ``flash_attention`` count takes one
 per call on either route; its record's launches are those calls less the
 decode route's (``flash_decode``), which has a record of its own; its
@@ -2979,6 +3008,14 @@ def family_run(arch: str, layers, twin_layers, seq: int, batcher,
             1, 1, cfg.padded_vocab):
         fail(f"{arch} prefill logits {tuple(got.shape)} not finite")
     b16 = {"cuda": got.float(), "torch": want.float()}
+    if arch in SHARD_FAMILIES and not n_attn:
+        # without attention the torch engine is the cuda engine bit for bit:
+        # phase 17's bound takes a second sound computation, the cuda engine
+        # on a batch of the sequence twice (other GEMM shapes), row 0
+        twice = {k: torch.cat([v, v]) for k, v in batch.items()}
+        b16["batch2"] = bundle.prefill(params, twice,
+                                       engine="cuda")[:1].float()
+        del twice
     out = dict(params=sum(sizes), seq=seq, init_s=init_s, prefill_s=wall,
                prefill_warm_s=warm, prefill_torch_s=twall,
                bf16=float((b16["cuda"] - b16["torch"]).abs().max()),
@@ -3042,18 +3079,28 @@ def family_run(arch: str, layers, twin_layers, seq: int, batcher,
     out["max_logit32"] = float(l32["torch"].abs().max())
     for e, x in b16.items():
         out[f"bf16_{e}_vs_fp32"] = float((x - l32["torch"]).abs().max())
+    ref32 = l32["torch"].cpu().numpy()
     del params, l32
     gc.collect()
     torch.cuda.empty_cache()
     gate = out.get("cut", out)
     bound = bf16_gate(gate["bf16_torch_vs_fp32"], gate["max_logit32"])
+    # phase 17 holds the sharded prefill of the same weights and tokens
+    # against these
     if arch == SHARD_MOE:
-        # phase 17 holds the sharded prefill of the same weights and tokens
-        # against these
-        FAMILY_REF.update(full_cuda=b16["cuda"].cpu().numpy(),
-                          cut_cuda=cut["cuda"].cpu().numpy(),
-                          cut_fp32=c32["torch"].cpu().numpy(), bound=bound,
-                          twin=twin_layers)
+        FAMILY_REF[arch] = dict(full_cuda=b16["cuda"].cpu().numpy(),
+                                cut_cuda=cut["cuda"].cpu().numpy(),
+                                cut_fp32=c32["torch"].cpu().numpy(),
+                                bound=bound, twin=twin_layers)
+    elif arch in SHARD_FAMILIES:
+        # phase 15's bf16_gate; without attention (xlstm), bf16_gate of the
+        # larger distance from the fp32 model of its engine and of the batch
+        # of two
+        FAMILY_REF[arch] = dict(
+            full_cuda=b16["cuda"].cpu().numpy(), fp32=ref32,
+            bound=bf16_gate(max(out["bf16_torch_vs_fp32"],
+                                out.get("bf16_batch2_vs_fp32", 0.0)),
+                            out["max_logit32"]))
     log(f"families: {arch} at full width ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
         f"{cfg.head_dim_}, pattern {cfg.pattern}), {out['params']} bf16 "
@@ -3064,6 +3111,7 @@ def family_run(arch: str, layers, twin_layers, seq: int, batcher,
         f"{out['max_logit']}; the same weights in fp32 max |cuda - torch| "
         f"{out['fp32']} (gate {SERVE_GATE['float32']}), bf16 against them: "
         f"cuda {out['bf16_cuda_vs_fp32']}, torch {out['bf16_torch_vs_fp32']}"
+        f"{'' if 'bf16_batch2_vs_fp32' not in out else ', cuda on a batch of two ' + str(out['bf16_batch2_vs_fp32']) + ' (phase 17 bound ' + str(FAMILY_REF[arch]['bound']) + ')'}"
         f"{'' if 'cut' not in out else '; cut to its first ' + str(twin_layers) + ' layers: ' + json.dumps(out['cut'])}"
         f" (gate: cuda <= {bound}); batcher "
         f"{bat['tokens']} tokens in {bat['wall']:.3f} s "
@@ -4515,7 +4563,29 @@ SHARD_TRAIN_GATE = {"loss": 1e-5, "grad": 1e-3}    # fp32, vs one rank
 PIPE_MICRO, PIPE_SEQ = 4, 2048
 PIPE_GATE = 1e-4             # pipelined vs sequential, fp32
 SHARD_MODELS_TIMEOUT = 900.0
-FAMILY_REF = {}              # phase 15's deepseek logits and bf16 gate
+FAMILY_REF = {}              # phase 15's logits and bf16 gates, by arch
+# part (d): the families whose TP layouts came last, each on these meshes;
+# at (1, 4) recurrentgemma's 10 heads do not divide and its attention runs
+# whole on every rank, at (2, 2) they split 5 a rank
+SHARD_FAMILIES = {"recurrentgemma-2b": ((1, 4), (2, 2)),
+                  "xlstm-125m": ((1, 4),),
+                  "seamless-m4t-medium": ((1, 4),),
+                  "phi-3-vision-4.2b": ((1, 4),)}
+# the depth of each family's fp32 check in part (d): a period of every
+# layer kind (recurrentgemma's attention is its third layer; the
+# encoder-decoder keeps as many encoder layers)
+SHARD_FAMILY_FP32 = {"recurrentgemma-2b": 3, "xlstm-125m": 2,
+                     "seamless-m4t-medium": 2, "phi-3-vision-4.2b": 2}
+# part (e): recurrentgemma-2b cut to two periods and the tail (8 of 26
+# layers), 2 x 4,096 claims tokens a step; its fp32 check at one period (3
+# layers: two RG-LRU and the attention) on 2 x 1,024 of them
+SHARD_RG = "recurrentgemma-2b"
+SHARD_RG_LAYERS, SHARD_RG_SEQ = 8, 4096
+SHARD_RG_FP32 = (3, 1024)
+POD_MESH = (2, 1, 2)         # part (f): (pod, data, model)
+POD_FLIP_SHARE = 1e-2        # elements whose int8 bin may differ
+POD_GRID = 1e-3              # of a bin: a step's gradient on its int8 grid
+PARTS = ("prefill", "train", "pipe", "families", "rg_train", "pod")
 
 
 def _part_stats(t0: float, launches=None) -> dict:
@@ -4622,21 +4692,24 @@ def shard_prefill(group, device, twin_layers: int) -> dict:
     return out
 
 
-def shard_train(group, device) -> dict:
-    """Part (b): h2o-danube-1.8b at full width and depth, bf16, remat, on a
-    (2, 2) mesh with ZeRO-1, phase 16's seed and claims stream (2 x 8,192
-    tokens, a sequence a data rank), ``SHARD_TRAIN_STEPS`` steps; then cut
-    to ``SHARD_FP32_LAYERS`` in fp32, the loss and gathered gradients
+def shard_train(group, device, arch: str = DANUBE, layers=None,
+                seq: int = TRAIN_SEQ,
+                fp32=(SHARD_FP32_LAYERS, None)) -> dict:
+    """Parts (b) and (e): ``arch`` at full width (depth cut to ``layers``
+    where given), bf16, remat, on a (2, 2) mesh with ZeRO-1, phase 16's
+    seed and claims stream (2 x ``seq`` tokens, a sequence a data rank),
+    ``SHARD_TRAIN_STEPS`` steps; then cut to ``fp32`` = (layers, tokens a
+    sequence or None for all) in fp32, the loss and gathered gradients
     (rank 0 also on one rank, as phase 16's engines check)."""
     import dataclasses
 
     import torch
     import torch.distributed as dist
 
+    from repro_torch.configs import get_config
     from repro_torch.distributed import hints, launch as dl, sharding
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.train import claims_token_stream
-    from repro_torch.models import get_bundle
     from repro_torch.models.registry import ModelBundle
     from repro_torch.train import AdamWConfig, init_train_state, \
         make_train_step
@@ -4644,17 +4717,19 @@ def shard_train(group, device) -> dict:
 
     rank = dist.get_rank(group)
     mesh = dl.make_mesh(group, (2, 2))
-    bundle = get_bundle(DANUBE)
-    cfg = bundle.cfg
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    bundle = ModelBundle(cfg)
     specs = sharding.batch_shardings(cfg, mesh, {"tokens": (TRAIN_BATCH,
-                                                            TRAIN_SEQ)})
+                                                            seq)})
 
     def mine(b):
         return {k: sharding.own_block(v, specs["tokens"], mesh)
                 for k, v in b.items()}
 
     t0 = _part_start()
-    stream = claims_token_stream(TRAIN_SEQ, TRAIN_BATCH, cfg.vocab_size, 0,
+    stream = claims_token_stream(seq, TRAIN_BATCH, cfg.vocab_size, 0,
                                  device=device)
     state = init_train_state(bundle, 0, device, mesh)
     step = make_train_step(bundle, AdamWConfig(
@@ -4678,11 +4753,13 @@ def shard_train(group, device) -> dict:
                            for k in per_step[0]})
     out.update(losses=losses, step_s=walls, per_step=per_step,
                setup_s=setup_s, grad_norm=float(m["grad_norm"]),
-               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / walls[-1])
+               tokens_per_s=TRAIN_BATCH * seq / walls[-1])
     del state, stream
     torch.cuda.empty_cache()
-    b32 = ModelBundle(dataclasses.replace(cfg, n_layers=SHARD_FP32_LAYERS,
+    n32, s32 = fp32
+    b32 = ModelBundle(dataclasses.replace(cfg, n_layers=n32,
                                           dtype="float32"))
+    first = {k: v[:, :s32] for k, v in first.items()}
     p32 = b32.init(2, device, mesh)
     with hints.use_mesh(mesh):
         loss, grads = loss_and_grads(b32, p32, mine(first), "cuda")
@@ -4698,6 +4775,199 @@ def shard_train(group, device) -> dict:
     del grads
     torch.cuda.empty_cache()
     return out
+
+
+def shard_families(group, device) -> dict:
+    """Part (d): each family of ``SHARD_FAMILIES`` at full width and depth,
+    bf16, on each of its meshes, each rank's blocks drawn leaf by leaf from
+    phase 15's seed: the prefill of phase 15's tokens, frames and images
+    (1 x 4,096; xlstm 1 x 1,024) under the cuda engine; then the model cut
+    to ``SHARD_FAMILY_FP32`` layers in fp32 (rank 0 also on one rank)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import hints, launch as dl
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train.optimizer import tree_leaves
+
+    rank = dist.get_rank(group)
+    runs, total = {}, {}
+    for arch, meshes in SHARD_FAMILIES.items():
+        bundle = get_bundle(arch)
+        seq = next(f[3] for f in FAMILIES if f[0] == arch)
+        batch = family_batch(bundle.cfg, 1, seq, np.random.default_rng(11),
+                             device)
+        for shape in meshes:
+            mesh = dl.make_mesh(group, shape)
+            t0 = _part_start()
+            params = bundle.init(0, device, mesh)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            held = sum(t.numel() for t in tree_leaves(params))
+            with hints.use_mesh(mesh), torch.no_grad():
+                reset_launch_counts()
+                t1 = time.perf_counter()
+                logits = bundle.prefill(params, batch, engine="cuda")
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t1
+                rec = _part_stats(t0, dict(launch_counts))
+            rec.update(init_s=init_s, prefill_s=prefill_s, params_held=held,
+                       seq=seq)
+            if rank == 0:
+                rec.update(logits=logits.float().cpu().numpy(),
+                           finite=bool(torch.isfinite(logits).all()))
+            del params, logits
+            torch.cuda.empty_cache()
+            # the model cut to a few layers in fp32, against one rank
+            n32 = SHARD_FAMILY_FP32[arch]
+            cut = {"n_layers": n32}
+            if bundle.cfg.is_encdec:
+                cut["n_encoder_layers"] = n32
+            b32 = ModelBundle(dataclasses.replace(bundle.cfg, dtype="float32",
+                                                  **cut))
+            batch32 = {k: v if k == "tokens" else v.float()
+                       for k, v in batch.items()}
+            p32 = b32.init(2, device, mesh)
+            with hints.use_mesh(mesh), torch.no_grad():
+                l32 = b32.prefill(p32, batch32, engine="cuda")
+            del p32
+            if rank == 0:
+                single = b32.init(2, device)
+                with torch.no_grad():
+                    one = b32.prefill(single, batch32, engine="cuda")
+                rec.update(fp32_err=float((l32 - one).abs().max()),
+                           fp32_max_logit=float(one.abs().max()))
+                del single
+            torch.cuda.empty_cache()
+            runs[arch, shape] = rec
+            for k, n in rec["launches"].items():
+                total[k] = total.get(k, 0) + n
+    return {"runs": runs, "launches": total}
+
+
+def shard_pod(group, device) -> dict:
+    """Part (f), A9-pod: h2o-danube-1.8b at full width cut to
+    ``SHARD_FP32_LAYERS`` in fp32 on a (pod, data, model) = ``POD_MESH``
+    mesh, one step with ``compress_crosspod=True`` on phase 16's first
+    batch (a sequence a (pod, data) rank); rank 0 also runs it on one rank
+    and compares the two (``pod_compare``) through what each step produced:
+    its loss, its clipping norm and its optimizer state."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import hints, launch as dl, sharding
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import claims_token_stream
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.train import AdamWConfig, init_train_state, \
+        make_train_step
+    from repro_torch.train.train_step import state_shardings
+
+    rank = dist.get_rank(group)
+    mesh = dl.make_mesh(group, POD_MESH)
+    cfg = dataclasses.replace(get_config(DANUBE), n_layers=SHARD_FP32_LAYERS,
+                              dtype="float32")
+    bundle = ModelBundle(cfg)
+    batch = next(claims_token_stream(TRAIN_SEQ, TRAIN_BATCH, cfg.vocab_size,
+                                     0, device=device))
+    bspec = sharding.batch_shardings(cfg, mesh, batch)["tokens"]
+    mine = {k: sharding.own_block(v, bspec, mesh) for k, v in batch.items()}
+    opt = AdamWConfig(total_steps=SHARD_TRAIN_STEPS + 2, **TRAIN_OPT)
+
+    def make():
+        return make_train_step(bundle, opt, compress_crosspod=True,
+                               pod_axis="pod", engine="cuda",
+                               param_dtype=torch.float32)
+
+    specs = state_shardings(bundle, mesh)["opt"]
+    t0 = _part_start()
+    state = init_train_state(bundle, 2, device, mesh)
+    with hints.use_mesh(mesh):
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        state, m = make()(state, mine)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        launches = {k: launch_counts[k] for k in (
+            "flash_attention", "flash_attention_bwd", "flash_decode")}
+        out = _part_stats(t0, launches)
+        got = {k: sharding.gather_tree(state["opt"][k], specs[k], mesh)
+               for k in ("master", "m")}
+    out.update(step_s=step_s, loss=float(m["loss"]),
+               grad_norm=float(m["grad_norm"]))
+    del state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        single = init_train_state(bundle, 2, device)
+        single, m1 = make()(single, batch)
+        out.update(pod_compare(got, m, single["opt"], m1, opt))
+        del single
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_compare(got, met, want, met1, opt) -> dict:
+    """Part (f)'s readings: a compressed step (``got``: its gathered
+    ``master`` and ``m``; ``met``: its metrics) against the one-rank
+    compressed step.  From zero moments a first step's m is (1 - b1) x the
+    clipping factor x the compressed gradient, so over a logical tensor
+    m x 127 / max |m| is the tensor's int8 bins: ``grid`` says how far that
+    lies from integers (it does only where the whole tensor was quantized
+    with its one scale), ``flip_share`` and ``bin_err`` how the bins of the
+    two steps differ.  ``grad_rel``: the compressed gradients where the bins
+    agree, ``scale_rel`` the scales (each tensor's largest |value|), both
+    over the one-rank tensor's largest; the masters where the bins agree
+    and where they do not."""
+    import torch
+
+    from repro_torch.train.optimizer import tree_leaves
+
+    def factor(m):              # (1 - b1) x the clipping factor
+        return (1.0 - opt.b1) * min(1.0, opt.grad_clip / max(
+            float(m["grad_norm"]), 1e-12))
+
+    c, c1 = factor(met), factor(met1)
+    flips = n = 0
+    grid = bin_err = grad_rel = scale_rel = master_same = master_flip = 0.0
+    for ma, mb, wa, wb in zip(tree_leaves(got["m"]), tree_leaves(want["m"]),
+                              tree_leaves(got["master"]),
+                              tree_leaves(want["master"])):
+        ta, tb = float(ma.abs().max()), float(mb.abs().max())
+        xa = ma.double() * 127.0 / max(ta, 1e-30)
+        xb = mb.double() * 127.0 / max(tb, 1e-30)
+        ba, bb = torch.round(xa), torch.round(xb)
+        grid = max(grid, float((xa - ba).abs().max()),
+                   float((xb - bb).abs().max()))
+        flip = ba != bb
+        flips += int(flip.sum())
+        n += flip.numel()
+        bin_err = max(bin_err, float((ba - bb).abs().max()))
+        top = max(tb / c1, 1e-30)
+        scale_rel = max(scale_rel, abs(ta / c - tb / c1) / top)
+        dm = (wa - wb).abs()
+        if bool((~flip).any()):
+            grad_rel = max(grad_rel, float(
+                (ma.double() / c - mb.double() / c1).abs()[~flip].max())
+                / top)
+            master_same = max(master_same, float(dm[~flip].max()))
+        if bool(flip.any()):
+            master_flip = max(master_flip, float(dm[flip].max()))
+    loss1, norm1 = float(met1["loss"]), float(met1["grad_norm"])
+    return dict(loss_rel=abs(float(met["loss"]) - loss1) / abs(loss1),
+                grad_norm_rel=abs(float(met["grad_norm"]) - norm1) / norm1,
+                grad_rel=grad_rel, scale_rel=scale_rel, grid=grid,
+                flip_share=flips / n, bin_err=bin_err,
+                master_same=master_same, master_flip=master_flip,
+                lr=float(met1["lr"]))
 
 
 def shard_pipe(group, device) -> dict:
@@ -4757,34 +5027,39 @@ def shard_pipe(group, device) -> dict:
     return rec
 
 
-def sharded_models_rank(group, device, twin_layers: int) -> dict:
+def sharded_models_rank(group, device, twin_layers: int,
+                        parts=PARTS) -> dict:
     """One rank of phase 17 (run by ``distributed.launch.spawn``): the
-    three parts in turn."""
-    out = {"prefill": shard_prefill(group, device, twin_layers)}
-    out["train"] = shard_train(group, device)
-    out["pipe"] = shard_pipe(group, device)
-    return out
+    parts in turn (``parts``: all of ``PARTS`` unless a probe asks for
+    fewer)."""
+    run = {"prefill": lambda: shard_prefill(group, device, twin_layers),
+           "train": lambda: shard_train(group, device),
+           "pipe": lambda: shard_pipe(group, device),
+           "families": lambda: shard_families(group, device),
+           "rg_train": lambda: shard_train(
+               group, device, SHARD_RG, SHARD_RG_LAYERS, SHARD_RG_SEQ,
+               SHARD_RG_FP32),
+           "pod": lambda: shard_pod(group, device)}
+    return {part: run[part]() for part in parts}
 
 
-def danube_loss_gate(batch) -> dict:
-    """The bf16 gate of a full-depth danube step-1 loss, built as
-    ``bf16_gate`` is: the seeded weights' loss on ``batch`` in fp32 and
-    the bf16 torch engine's distance from it."""
+def loss_gate(bundle, batch) -> dict:
+    """The bf16 gate of a step-1 loss, built as ``bf16_gate`` is: the
+    seeded weights' (``bundle.init(0)``) loss on ``batch`` in fp32 and the
+    bf16 torch engine's distance from it."""
     import dataclasses
 
     import torch
 
     from repro_torch.interop import tree_map
-    from repro_torch.models import get_bundle
     from repro_torch.models.registry import ModelBundle
 
-    b16 = get_bundle(DANUBE)
-    p = b16.init(0, device="cuda")
+    p = bundle.init(0, device="cuda")
     with torch.no_grad():
-        l16 = float(b16.train_loss(p, batch, engine="torch"))
+        l16 = float(bundle.train_loss(p, batch, engine="torch"))
         p32 = tree_map(lambda t: t.float(), p)
         del p
-        b32 = ModelBundle(dataclasses.replace(b16.cfg, dtype="float32"))
+        b32 = ModelBundle(dataclasses.replace(bundle.cfg, dtype="float32"))
         l32 = float(b32.train_loss(p32, batch, engine="torch"))
     del p32
     gc.collect()
@@ -4793,32 +5068,44 @@ def danube_loss_gate(batch) -> dict:
                 gate=bf16_gate(abs(l16 - l32), abs(l32)))
 
 
-def sharded_models_phase(step1_loss: float):
+def sharded_models_phase(step1_loss: float, parts=PARTS):
     """Phase 17: the sharded models on ``SHARDS`` gloo ranks of the one
-    card (``sharded_models_rank``), after the bf16 gate of part (b)'s
-    step-1 loss is built on the card alone.  Returns the B6 launches of
-    the three parts' main runs, summed over ranks, and a summary."""
+    card (``sharded_models_rank``), after the bf16 gates of the step-1
+    losses of parts (b) and (e) are built on the card alone.  Returns the
+    B6 launches of the parts' main runs, summed over ranks, and a
+    summary."""
+    import dataclasses
+
     import numpy as np
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.distributed import launch as dl
     from repro_torch.launch.train import claims_token_stream
     from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
 
-    stream = claims_token_stream(TRAIN_SEQ, TRAIN_BATCH,
-                                 get_bundle(DANUBE).cfg.vocab_size, 0,
-                                 device="cuda")
-    loss_gate = danube_loss_gate(next(stream))
-    del stream
-    gc.collect()
-    torch.cuda.empty_cache()
+    gates = {}
+    rg = ModelBundle(dataclasses.replace(get_config(SHARD_RG),
+                                         n_layers=SHARD_RG_LAYERS))
+    for part, bundle, seq in (("train", get_bundle(DANUBE), TRAIN_SEQ),
+                              ("rg_train", rg, SHARD_RG_SEQ)):
+        if part in parts:
+            stream = claims_token_stream(seq, TRAIN_BATCH,
+                                         bundle.cfg.vocab_size, 0,
+                                         device="cuda")
+            gates[part] = loss_gate(bundle, next(stream))
+            del stream
+            gc.collect()
+            torch.cuda.empty_cache()
     ref = FAMILY_REF
+    bad = []                     # every part's failed gates, reported at once
     t0 = time.perf_counter()
-    ranks = dl.spawn(sharded_models_rank, SHARDS, (ref["twin"],),
+    ranks = dl.spawn(sharded_models_rank, SHARDS,
+                     (ref.get(SHARD_MOE, {}).get("twin"), parts),
                      device="cuda", timeout=SHARD_MODELS_TIMEOUT)
     wall = time.perf_counter() - t0
-    n_moe = get_bundle(SHARD_MOE).cfg.n_layers
-    n_dan = get_bundle(DANUBE).cfg.n_layers
+    summary = {"wall_s": wall}
 
     def show(r):
         c = r["comm"]
@@ -4829,98 +5116,236 @@ def sharded_models_phase(step1_loss: float):
                     {k: v for k, v in c.items()
                      if k not in ("staged_bytes", "staging_s")}))
 
-    # (a) deepseek prefill
-    a0 = ranks[0]["prefill"]
-    for i, r in enumerate(ranks):
-        got = r["prefill"]["launches"]
-        if got["flash_attention"] != n_moe or got["flash_decode"]:
-            fail(f"sharded prefill, rank {i}: B6 {got['flash_attention']} "
-                 f"calls (want {n_moe}), decode route {got['flash_decode']}")
-        log(f"sharded models (a) {SHARD_MOE} prefill, rank {i}: "
-            f"{r['prefill']['params_held']} parameters held, drawn in "
-            f"{r['prefill']['init_s']:.3f} s, prefill "
-            f"{r['prefill']['prefill_s']:.3f} s; " + show(r["prefill"]))
-    full = float(np.abs(a0["logits"] - ref["full_cuda"]).max())
-    cut_cuda = float(np.abs(a0["cut"] - ref["cut_cuda"]).max())
-    cut_fp32 = float(np.abs(a0["cut"] - ref["cut_fp32"]).max())
-    pre = dict(full_vs_one_rank=full, cut_vs_one_rank=cut_cuda,
-               cut_vs_fp32=cut_fp32, bf16_gate=ref["bound"],
-               fp32_err=a0["fp32_err"], fp32_max_logit=a0["fp32_max_logit"],
-               walls=[r["prefill"]["wall_s"] for r in ranks],
-               prefill_s=[r["prefill"]["prefill_s"] for r in ranks],
-               peaks=[r["prefill"]["peak_gib"] for r in ranks])
-    log(f"sharded models (a): {SHARD_MOE} at full width and depth, bf16, "
-        f"(1, 4) mesh, 1 x {SHARD_PREFILL} tokens: last-token logits "
-        f"finite {a0['finite']}, max |sharded - one rank (phase 15's cuda "
-        f"engine)| {full} at {n_moe} layers (not gated: bf16 routing flips "
-        f"spread through the whole model, phase 15); at phase 15's "
-        f"{ref['twin']}-layer twin {cut_cuda} from the one-rank cuda engine "
-        f"and {cut_fp32} from the fp32 model (gate {ref['bound']} on both, "
-        f"phase 15's bf16_gate for {SHARD_MOE}); cut to {SHARD_FP32_LAYERS} "
-        f"layers in fp32 max |sharded - one rank| {a0['fp32_err']} (gate "
-        f"{SHARD_PREFILL_GATE}); B6 {n_moe} prefill launches on every rank")
-    if not (a0["finite"] and cut_cuda <= ref["bound"]
-            and cut_fp32 <= ref["bound"]
-            and a0["fp32_err"] <= SHARD_PREFILL_GATE):
-        fail(f"sharded prefill gates: {json.dumps(pre)}")
+    def train_gates(part, what, loss_ref, gate):
+        """Parts (b) and (e): B6 a step on every rank, step 1's loss
+        within ``gate`` of ``loss_ref``, the fp32 cut against one rank."""
+        r0 = ranks[0][part]
+        n_attn = attention_calls(what, decode=False)
+        want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+                "flash_decode": 0}
+        for i, r in enumerate(ranks):
+            for j, got in enumerate(r[part]["per_step"]):
+                if got != want:
+                    bad.append(f"sharded training ({part}), rank {i}, step "
+                               f"{j + 1}: B6 {got}, want {want}")
+            log(f"sharded models ({part}) {what.name} training, rank {i}: "
+                f"losses {r[part]['losses']}, step walls "
+                f"{r[part]['step_s']} s, set-up {r[part]['setup_s']:.3f} s; "
+                + show(r[part]))
+        losses = r0["losses"]
+        d = abs(losses[0] - loss_ref)
+        rec = dict(losses=losses, step1_vs_ref=d,
+                   step1_vs_fp32=abs(losses[0] - gate["loss_fp32"]),
+                   loss_gate=gate,
+                   fp32_loss_rel=r0["fp32_loss_rel"],
+                   fp32_grad_rel=r0["fp32_grad_rel"],
+                   warm_step_s=r0["step_s"][-1],
+                   tokens_per_s=r0["tokens_per_s"],
+                   walls=[r[part]["wall_s"] for r in ranks],
+                   peaks=[r[part]["peak_gib"] for r in ranks])
+        ok = (all(np.isfinite(losses)) and d <= gate["gate"]
+              and r0["fp32_loss_rel"] <= SHARD_TRAIN_GATE["loss"]
+              and r0["fp32_grad_rel"] <= SHARD_TRAIN_GATE["grad"])
+        return rec, want, ok
 
-    # (b) danube training
-    b0 = ranks[0]["train"]
-    want = {"flash_attention": 2 * n_dan, "flash_attention_bwd": n_dan,
-            "flash_decode": 0}
-    for i, r in enumerate(ranks):
-        for j, got in enumerate(r["train"]["per_step"]):
-            if got != want:
-                fail(f"sharded training, rank {i}, step {j + 1}: B6 {got}, "
-                     f"want {want}")
-        log(f"sharded models (b) {DANUBE} training, rank {i}: losses "
-            f"{r['train']['losses']}, step walls {r['train']['step_s']} s, "
-            f"set-up {r['train']['setup_s']:.3f} s; " + show(r["train"]))
-    losses = b0["losses"]
-    d_one = abs(losses[0] - step1_loss)
-    tr = dict(losses=losses, step1_vs_one_rank=d_one,
-              step1_vs_fp32=abs(losses[0] - loss_gate["loss_fp32"]),
-              loss_gate=loss_gate, fp32_loss_rel=b0["fp32_loss_rel"],
-              fp32_grad_rel=b0["fp32_grad_rel"],
-              warm_step_s=b0["step_s"][-1], tokens_per_s=b0["tokens_per_s"],
-              walls=[r["train"]["wall_s"] for r in ranks],
-              peaks=[r["train"]["peak_gib"] for r in ranks])
-    log(f"sharded models (b): {DANUBE} at full width and depth, bf16, remat, "
-        f"(2, 2) mesh, ZeRO-1, {SHARD_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} claims tokens: step-1 loss {losses[0]} against phase "
-        f"16's one-rank {step1_loss}: {d_one} (gate {loss_gate['gate']}, "
-        f"bf16_gate of the fp32 loss {loss_gate['loss_fp32']} and the bf16 "
-        f"torch engine's {loss_gate['loss_bf16_torch']}); warm step "
-        f"{b0['step_s'][-1]:.3f} s = {b0['tokens_per_s']:.1f} tokens/s; "
-        f"cut to {SHARD_FP32_LAYERS} layers in fp32: loss relative "
-        f"{b0['fp32_loss_rel']}, worst gathered gradient leaf "
-        f"{b0['fp32_grad_rel']} of its largest (gates "
-        f"{json.dumps(SHARD_TRAIN_GATE)}); B6 {want} a step on every rank")
-    if not (all(np.isfinite(losses)) and d_one <= loss_gate["gate"]
-            and b0["fp32_loss_rel"] <= SHARD_TRAIN_GATE["loss"]
-            and b0["fp32_grad_rel"] <= SHARD_TRAIN_GATE["grad"]):
-        fail(f"sharded training gates: {json.dumps(tr)}")
+    if "prefill" in parts:       # (a) deepseek prefill
+        dref = ref[SHARD_MOE]
+        a0 = ranks[0]["prefill"]
+        n_moe = get_bundle(SHARD_MOE).cfg.n_layers
+        for i, r in enumerate(ranks):
+            got = r["prefill"]["launches"]
+            if got["flash_attention"] != n_moe or got["flash_decode"]:
+                bad.append(f"sharded prefill, rank {i}: B6 "
+                           f"{got['flash_attention']} calls (want {n_moe}), "
+                           f"decode route {got['flash_decode']}")
+            log(f"sharded models (a) {SHARD_MOE} prefill, rank {i}: "
+                f"{r['prefill']['params_held']} parameters held, drawn in "
+                f"{r['prefill']['init_s']:.3f} s, prefill "
+                f"{r['prefill']['prefill_s']:.3f} s; " + show(r["prefill"]))
+        full = float(np.abs(a0["logits"] - dref["full_cuda"]).max())
+        cut_cuda = float(np.abs(a0["cut"] - dref["cut_cuda"]).max())
+        cut_fp32 = float(np.abs(a0["cut"] - dref["cut_fp32"]).max())
+        summary["prefill"] = pre = dict(
+            full_vs_one_rank=full, cut_vs_one_rank=cut_cuda,
+            cut_vs_fp32=cut_fp32, bf16_gate=dref["bound"],
+            fp32_err=a0["fp32_err"], fp32_max_logit=a0["fp32_max_logit"],
+            walls=[r["prefill"]["wall_s"] for r in ranks],
+            prefill_s=[r["prefill"]["prefill_s"] for r in ranks],
+            peaks=[r["prefill"]["peak_gib"] for r in ranks])
+        log(f"sharded models (a): {SHARD_MOE} at full width and depth, "
+            f"bf16, (1, 4) mesh, 1 x {SHARD_PREFILL} tokens: last-token "
+            f"logits finite {a0['finite']}, max |sharded - one rank (phase "
+            f"15's cuda engine)| {full} at {n_moe} layers (not gated: bf16 "
+            f"routing flips spread through the whole model, phase 15); at "
+            f"phase 15's {dref['twin']}-layer twin {cut_cuda} from the "
+            f"one-rank cuda engine and {cut_fp32} from the fp32 model (gate "
+            f"{dref['bound']} on both, phase 15's bf16_gate for "
+            f"{SHARD_MOE}); cut to {SHARD_FP32_LAYERS} layers in fp32 max "
+            f"|sharded - one rank| {a0['fp32_err']} (gate "
+            f"{SHARD_PREFILL_GATE}); B6 {n_moe} prefill launches on every "
+            f"rank")
+        if not (a0["finite"] and cut_cuda <= dref["bound"]
+                and cut_fp32 <= dref["bound"]
+                and a0["fp32_err"] <= SHARD_PREFILL_GATE):
+            bad.append(f"sharded prefill gates: {json.dumps(pre)}")
 
-    # (c) GPipe
-    for i, r in enumerate(ranks):
-        c = r["pipe"]
-        log(f"sharded models (c) pipeline, stage {i}: forward max |pipelined "
-            f"- sequential| {c['fwd_err']}, gradient {c['grad_err']} of its "
-            f"largest (gate {PIPE_GATE}); B6 {c['launches']}; "
-            + show(c))
-        if not (c["fwd_err"] <= PIPE_GATE and c["grad_err"] <= PIPE_GATE):
-            fail(f"pipeline stage {i}: forward {c['fwd_err']}, gradients "
-                 f"{c['grad_err']} (gate {PIPE_GATE})")
-    pipe = dict(fwd_err=max(r["pipe"]["fwd_err"] for r in ranks),
-                grad_err=max(r["pipe"]["grad_err"] for r in ranks),
-                walls=[r["pipe"]["wall_s"] for r in ranks],
-                peaks=[r["pipe"]["peak_gib"] for r in ranks])
+    if "train" in parts:         # (b) danube training
+        gate = gates["train"]
+        summary["train"], want, ok = train_gates(
+            "train", get_bundle(DANUBE).cfg, step1_loss, gate)
+        tr = summary["train"]
+        log(f"sharded models (b): {DANUBE} at full width and depth, bf16, "
+            f"remat, (2, 2) mesh, ZeRO-1, {SHARD_TRAIN_STEPS} steps of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} claims tokens: step-1 loss "
+            f"{tr['losses'][0]} against phase 16's one-rank {step1_loss}: "
+            f"{tr['step1_vs_ref']} (gate {gate['gate']}, bf16_gate of the "
+            f"fp32 loss {gate['loss_fp32']} and the bf16 torch engine's "
+            f"{gate['loss_bf16_torch']}); warm step {tr['warm_step_s']:.3f} "
+            f"s = {tr['tokens_per_s']:.1f} tokens/s; cut to "
+            f"{SHARD_FP32_LAYERS} layers in fp32: loss relative "
+            f"{tr['fp32_loss_rel']}, worst gathered gradient leaf "
+            f"{tr['fp32_grad_rel']} of its largest (gates "
+            f"{json.dumps(SHARD_TRAIN_GATE)}); B6 {want} a step on every "
+            f"rank")
+        if not ok:
+            bad.append(f"sharded training gates: {json.dumps(tr)}")
+
+    if "pipe" in parts:          # (c) GPipe
+        for i, r in enumerate(ranks):
+            c = r["pipe"]
+            log(f"sharded models (c) pipeline, stage {i}: forward max "
+                f"|pipelined - sequential| {c['fwd_err']}, gradient "
+                f"{c['grad_err']} of its largest (gate {PIPE_GATE}); B6 "
+                f"{c['launches']}; " + show(c))
+            if not (c["fwd_err"] <= PIPE_GATE
+                    and c["grad_err"] <= PIPE_GATE):
+                bad.append(f"pipeline stage {i}: forward {c['fwd_err']}, "
+                           f"gradients {c['grad_err']} (gate {PIPE_GATE})")
+        summary["pipe"] = dict(
+            fwd_err=max(r["pipe"]["fwd_err"] for r in ranks),
+            grad_err=max(r["pipe"]["grad_err"] for r in ranks),
+            walls=[r["pipe"]["wall_s"] for r in ranks],
+            peaks=[r["pipe"]["peak_gib"] for r in ranks])
+
+    if "families" in parts:      # (d) the families' prefill
+        fam = summary["families"] = {}
+        for (arch, shape), r0 in ranks[0]["families"]["runs"].items():
+            fref = ref[arch]
+            cfg = get_bundle(arch).cfg
+            n_attn = attention_calls(cfg, decode=False)
+            tag = f"{arch} on ({shape[0]}, {shape[1]})"
+            for i, r in enumerate(ranks):
+                rec = r["families"]["runs"][arch, shape]
+                got = rec["launches"]
+                if got["flash_attention"] != n_attn or got["flash_decode"]:
+                    bad.append(f"sharded prefill of {tag}, rank {i}: B6 "
+                               f"{got['flash_attention']} calls (want "
+                               f"{n_attn}), decode route "
+                               f"{got['flash_decode']}")
+                log(f"sharded models (d) {tag}, rank {i}: "
+                    f"{rec['params_held']} parameters held, drawn in "
+                    f"{rec['init_s']:.3f} s, prefill 1 x {rec['seq']} "
+                    f"{rec['prefill_s']:.3f} s; " + show(rec))
+            one = float(np.abs(r0["logits"] - fref["full_cuda"]).max())
+            f32 = float(np.abs(r0["logits"] - fref["fp32"]).max())
+            fam[f"{arch} {shape[0]}x{shape[1]}"] = d = dict(
+                vs_one_rank=one, vs_fp32=f32, bf16_gate=fref["bound"],
+                finite=r0["finite"], b6_a_rank=n_attn,
+                fp32_err=r0["fp32_err"],
+                fp32_max_logit=r0["fp32_max_logit"],
+                prefill_s=[r["families"]["runs"][arch, shape]["prefill_s"]
+                           for r in ranks],
+                peaks=[r["families"]["runs"][arch, shape]["peak_gib"]
+                       for r in ranks])
+            log(f"sharded models (d): {tag}, full width and depth, bf16: "
+                f"last-token logits finite {r0['finite']}, max |sharded - "
+                f"one rank (phase 15's cuda engine)| {one}, max |sharded - "
+                f"fp32 model| {f32} (gate {fref['bound']} on both: "
+                f"phase 15's bf16_gate for {arch}); "
+                f"cut to "
+                f"{SHARD_FAMILY_FP32[arch]} layers in fp32 max |sharded - "
+                f"one rank| {r0['fp32_err']} (gate {SHARD_PREFILL_GATE}); "
+                f"B6 {n_attn} prefill launches on every rank")
+            if not (r0["finite"] and one <= fref["bound"]
+                    and f32 <= fref["bound"]
+                    and r0["fp32_err"] <= SHARD_PREFILL_GATE):
+                bad.append(f"sharded prefill gates of {tag}: "
+                           f"{json.dumps(d)}")
+
+    if "rg_train" in parts:      # (e) recurrentgemma training
+        gate = gates["rg_train"]
+        summary["rg_train"], want, ok = train_gates(
+            "rg_train", rg.cfg, gate["loss_fp32"], gate)
+        tr = summary["rg_train"]
+        log(f"sharded models (e): {SHARD_RG} at full width cut to "
+            f"{SHARD_RG_LAYERS} of {get_config(SHARD_RG).n_layers} layers "
+            f"(two periods and the tail), bf16, remat, (2, 2) mesh (5 of 10 "
+            f"heads of 256 a rank, MQA), ZeRO-1, {SHARD_TRAIN_STEPS} steps "
+            f"of {TRAIN_BATCH} x {SHARD_RG_SEQ} claims tokens: step-1 loss "
+            f"{tr['losses'][0]} against the fp32 model's "
+            f"{gate['loss_fp32']}: {tr['step1_vs_ref']} (gate "
+            f"{gate['gate']}, bf16_gate of it and the bf16 torch engine's "
+            f"{gate['loss_bf16_torch']}; from that: "
+            f"{abs(tr['losses'][0] - gate['loss_bf16_torch'])}); warm step "
+            f"{tr['warm_step_s']:.3f} s = {tr['tokens_per_s']:.1f} "
+            f"tokens/s; cut to {SHARD_RG_FP32[0]} layers in fp32 on "
+            f"{TRAIN_BATCH} x {SHARD_RG_FP32[1]} tokens: loss relative "
+            f"{tr['fp32_loss_rel']}, worst gathered gradient leaf "
+            f"{tr['fp32_grad_rel']} of its largest (gates "
+            f"{json.dumps(SHARD_TRAIN_GATE)}); B6 {want} a step on every "
+            f"rank")
+        if not ok:
+            bad.append(f"sharded recurrentgemma training gates: "
+                       f"{json.dumps(tr)}")
+
+    if "pod" in parts:           # (f) A9-pod
+        f0 = ranks[0]["pod"]
+        for i, r in enumerate(ranks):
+            log(f"sharded models (f) pod step, rank {i}: step "
+                f"{r['pod']['step_s']:.3f} s, B6 {r['pod']['launches']}; "
+                + show(r["pod"]))
+        keys = ("loss_rel", "grad_norm_rel", "grad_rel", "scale_rel",
+                "grid", "flip_share", "bin_err", "master_same",
+                "master_flip", "lr")
+        summary["pod"] = pod = {k: f0[k] for k in keys}
+        pod.update(walls=[r["pod"]["wall_s"] for r in ranks],
+                   peaks=[r["pod"]["peak_gib"] for r in ranks])
+        log(f"sharded models (f): {DANUBE} cut to {SHARD_FP32_LAYERS} "
+            f"layers in fp32 on a (pod, data, model) = {POD_MESH} mesh, one "
+            f"step with compress_crosspod on {TRAIN_BATCH} x {TRAIN_SEQ} "
+            f"claims tokens against the one-rank compressed step, read "
+            f"from each step's first moment and master: loss relative "
+            f"{f0['loss_rel']}, compressed gradient where the bins agree "
+            f"{f0['grad_rel']} and each leaf's int8 scale "
+            f"{f0['scale_rel']} of their largest (gates "
+            f"{json.dumps(SHARD_TRAIN_GATE)}); every logical tensor on "
+            f"the int8 grid of its one scale within {f0['grid']} of a bin "
+            f"(gate {POD_GRID}); compressed gradients at most "
+            f"{f0['bin_err']} int8 bins apart (gate 1), "
+            f"{f0['flip_share']} of the elements in another bin (gate "
+            f"{POD_FLIP_SHARE}); clipping norm relative "
+            f"{f0['grad_norm_rel']}; master after the step within "
+            f"{f0['master_same']} where the bins agree (gate 1e-5) and "
+            f"{f0['master_flip']} where they do not (gate lr "
+            f"{f0['lr']} + 1e-5)")
+        if not (f0["loss_rel"] <= SHARD_TRAIN_GATE["loss"]
+                and f0["grad_rel"] <= SHARD_TRAIN_GATE["grad"]
+                and f0["scale_rel"] <= SHARD_TRAIN_GATE["grad"]
+                and f0["grid"] <= POD_GRID
+                and f0["bin_err"] <= 1.0
+                and f0["flip_share"] <= POD_FLIP_SHARE
+                and f0["master_same"] <= 1e-5
+                and f0["master_flip"] <= f0["lr"] + 1e-5):
+            bad.append(f"pod step gates: {json.dumps(pod)}")
+
     launches = {k: sum(r[part]["launches"].get(k, 0) for r in ranks
-                       for part in ("prefill", "train", "pipe"))
+                       for part in parts)
                 for k in KERNELS}
     log(f"sharded models: {SHARDS} ranks in {wall:.3f} s; B6 launches "
         f"summed over ranks {json.dumps(launches)}")
-    return launches, dict(prefill=pre, train=tr, pipe=pipe, wall_s=wall)
+    if bad:
+        fail(" | ".join(bad))
+    return launches, summary
 
 
 KERNELS = {

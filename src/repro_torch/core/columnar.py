@@ -317,3 +317,24 @@ class ColumnarTable:
         for i in range(m):
             lines.append("| " + " | ".join(str(data[c][i]) for c in names) + " |")
         return "\n".join(lines)
+
+    # -- monitoring (paper §3.3: statistics proving no information loss) -----
+    def monitoring_stats(self, key: str) -> Dict[str, torch.Tensor]:
+        """Row count and order-independent checksums of the ``key`` column
+        over the valid rows, as the reference's: ``rows`` (int32),
+        ``key_sum`` (the uint32 modular sum of the keys' 32-bit patterns)
+        and ``key_xor`` (their xor).  The checksums are 0-d int64 tensors
+        holding the uint32 value (torch has no uint32 arithmetic)."""
+        from repro_torch.core.flattening import key_checksum
+
+        valid = self.valid_bool()
+        words = torch.where(valid, self.columns[key].to(torch.int64)
+                            & 0xFFFFFFFF, 0)
+        # torch has no xor reduction: fold the halves until one word is left
+        while words.numel() > 1:
+            half = words.numel() // 2
+            folded = words[:half] ^ words[half:2 * half]
+            words = torch.cat([folded, words[2 * half:]])
+        return {"rows": self.count.to(torch.int32),
+                "key_sum": key_checksum(self.columns[key], valid),
+                "key_xor": words.sum()}

@@ -299,10 +299,14 @@ def exposures_rank(group, device, table: Mapping, n_patients: int,
 # ---------------------------------------------------------------------------
 # sharded models
 # ---------------------------------------------------------------------------
-def make_mesh(group, shape: Sequence[int], names=("data", "model")):
-    """A ``launch.mesh.Mesh`` of ``shape`` over ``names`` and ``group``."""
+def make_mesh(group, shape: Sequence[int], names=None):
+    """A ``launch.mesh.Mesh`` of ``shape`` over ``names`` and ``group``;
+    ``names`` defaults to ("data", "model"), or ("pod", "data", "model")
+    for a shape of three."""
     from repro_torch.launch.mesh import Mesh
 
+    if names is None:
+        names = ("pod", "data", "model")[-len(shape):]
     return Mesh(shape, names, group)
 
 
@@ -362,8 +366,8 @@ def moe_rank(group, device, cfg, shape, params: Mapping, x) -> Any:
 def loss_grads_rank(group, device, cfg, shape, params: Mapping,
                     batch: Mapping, engine: str = "torch") -> Any:
     """``train_step.loss_and_grads`` and ``bundle.prefill`` of the
-    reference's numpy ``params`` and ``batch`` on a (data, model) mesh of
-    ``shape``;
+    reference's numpy ``params`` and ``batch`` on a mesh of ``shape``
+    (``make_mesh``);
     on the first rank ``{"loss", "grads" (logical, numpy), "prefill" (the
     whole batch's last-token logits)}``."""
     from repro_torch.distributed import hints, sharding
@@ -390,11 +394,13 @@ def loss_grads_rank(group, device, cfg, shape, params: Mapping,
 def train_step_rank(group, device, cfg, shape, state: Mapping,
                     batches: Sequence[Mapping], opt: Mapping,
                     param_dtype: str = "float32", engine: str = "torch",
-                    microbatches: int = 1) -> Any:
+                    microbatches: int = 1,
+                    compress_crosspod: bool = False) -> Any:
     """``make_train_step`` (ZeRO-1) over ``batches`` from the reference's
-    numpy train ``state`` on a (data, model) mesh of ``shape``; on the
-    first rank each step's metrics and the logical state after the last
-    step (numpy)."""
+    numpy train ``state`` on a (data, model) or (pod, data, model) mesh of
+    ``shape`` (``compress_crosspod``: the step's over the "pod" axis); on
+    the first rank each step's metrics and the logical state after the
+    last step (numpy)."""
     from repro_torch.distributed import hints, sharding
     from repro_torch.interop import train_state_from_numpy
     from repro_torch.models.registry import ModelBundle
@@ -405,6 +411,8 @@ def train_step_rank(group, device, cfg, shape, state: Mapping,
     bundle = ModelBundle(cfg)
     st = train_state_from_numpy(state, cfg, device, mesh)
     step = make_train_step(bundle, AdamWConfig(**dict(opt)), microbatches,
+                           compress_crosspod=compress_crosspod,
+                           pod_axis="pod" if compress_crosspod else None,
                            engine=engine,
                            param_dtype=getattr(torch, param_dtype))
     metrics = []

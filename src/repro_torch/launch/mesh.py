@@ -11,7 +11,8 @@ data coordinate 0.
 ``jax.sharding.AbstractMesh``): the sharding rules of
 ``distributed.sharding`` work on it without a single rank.  ``Mesh`` adds
 the process group, this rank's coordinates and one ``torch.distributed``
-subgroup for each axis and for the data-parallel axes together.  Every
+subgroup for each proper subset of its axes (each axis, the data-parallel
+axes together, any pair of a three-axis mesh).  Every
 subgroup is made with ``dist.new_group`` on every rank in one order, the
 groups a rank is not in included, as ``new_group`` requires; so every rank
 of the default group builds the mesh, even where ``group`` is a part of it.
@@ -56,10 +57,6 @@ class AbstractMesh:
         return f"{type(self).__name__}({self.shape})"
 
 
-def _dp(names: Sequence[str]) -> Tuple[str, ...]:
-    return tuple(a for a in ("pod", "data") if a in names)
-
-
 class Mesh(AbstractMesh):
     """A mesh over the ranks of ``group`` (default: the default group),
     which must hold ``prod(axis_sizes)`` ranks.  ``coords`` maps each axis
@@ -83,10 +80,10 @@ class Mesh(AbstractMesh):
             self.axis_names, grid[ranks.index(me)] if me in ranks
             else (None,) * len(sizes)))
         self._groups: Dict[Tuple[str, ...], object] = {}
-        wanted = [(a,) for a in self.axis_names]
-        dp = _dp(self.axis_names)
-        if len(dp) > 1:
-            wanted.append(dp)
+        # every proper subset of the axes, in the mesh's order: the data
+        # axes together, and any set a leaf's spec shards a block on
+        wanted = [axes for n in range(1, len(self.axis_names))
+                  for axes in itertools.combinations(self.axis_names, n)]
         for axes in wanted:
             pos = [self.axis_names.index(a) for a in axes]
             others = [i for i in range(len(sizes)) if i not in pos]
@@ -99,11 +96,10 @@ class Mesh(AbstractMesh):
                     self._groups[axes] = g
 
     def group_of(self, *axes: str):
-        """The subgroup over ``axes`` (one axis, or the data-parallel axes
-        together) holding this rank."""
-        axes = tuple(axes)
-        if len(axes) == len(self.axis_names) and set(axes) == set(
-                self.axis_names):
+        """The subgroup over ``axes`` (any of the mesh's axes, in any
+        order) holding this rank."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if len(axes) == len(self.axis_names):
             return self.group
         return self._groups[axes]
 

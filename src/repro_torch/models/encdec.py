@@ -21,6 +21,16 @@ tokens and takes ``lm.cross_entropy`` of the next token (every position but
 the last).  With ``cfg.remat`` each encoder layer and each decoder layer
 runs under ``torch.utils.checkpoint`` while autograd records, as the
 reference's scan bodies run under ``jax.checkpoint``.
+
+Sharded (under ``distributed.hints.use_mesh``), as ``models.lm``: a full
+pass runs on this rank's blocks.  ``frontend_proj`` is a column block of
+``d``, gathered over "model" after the projection; the encoder's
+bidirectional attention, the decoder's causal self-attention and its
+cross-attention over the memory (whole on every rank) run on the rank's
+heads (``layers.attention``); the embedding, ``lm_head`` and the loss are
+vocab-parallel (``lm.embed``, ``lm.output_logits``,
+``lm.sharded_cross_entropy``: the global masked mean over the data axes).
+A decode step under a model axis raises (ROADMAP A9-sp).
 """
 from __future__ import annotations
 
@@ -30,7 +40,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
 from repro_torch.models import layers as L
+from repro_torch.models import lm as LM
 
 __all__ = ["init_params", "encode", "init_cache", "prefill_cross",
            "decode_forward", "train_loss"]
@@ -80,17 +92,12 @@ def _positions(B: int, S: int, start: int, device) -> torch.Tensor:
             ).expand(B, S)
 
 
-def _unsharded(cfg: ModelConfig) -> None:
-    if L.tp_size() > 1:
-        raise NotImplementedError(f"{cfg.name} on a model axis above 1: "
-                                  f"{L.SHARDED_FAMILIES_TODO}")
-
-
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
            engine: str = "auto") -> torch.Tensor:
     """frames: (B, S_src, frontend_dim) -> memory (B, S_src, d)."""
-    _unsharded(cfg)
     x = L.mm(frames.to(_dtype(cfg)), params["frontend_proj"])
+    if x.shape[-1] != cfg.d_model:           # the rank's column block
+        x = comm.gather(x, L.model_axis()[2], -1, partial=False)
     B, S, _ = x.shape
     positions = _positions(B, S, 0, x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -106,7 +113,8 @@ def _enc_layer(lp, x, cfg, positions, engine):
     out, _ = L.attention(lp["attn"], h, cfg, kind="attn",
                          positions=positions, causal=False, engine=engine)
     x = x + out
-    return x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    return x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps),
+                     cfg.d_ff)
 
 
 def _dec_layer(lp, x, memory, cfg, positions, engine):
@@ -120,7 +128,8 @@ def _dec_layer(lp, x, memory, cfg, positions, engine):
                          positions=positions, kv_input=memory, causal=False,
                          engine=engine)
     x = x + out
-    return x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+    return x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps),
+                     cfg.d_ff)
 
 
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, src_len: int,
@@ -157,9 +166,8 @@ def decode_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     a decode step (cache given, the cross K/V read from it, the
     self-attention K/V written in place at ``cache_pos``).  Returns
     (logits, cache or None)."""
-    _unsharded(cfg)
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = LM.embed(params, cfg, tokens)
     positions = _positions(B, S, 0 if cache_pos is None else int(cache_pos),
                            x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -179,11 +187,12 @@ def decode_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x = x + L.cross_attention(lp["cross_attn"], h, cache["cross_k"][i],
                                   cache["cross_v"][i], cfg,
                                   positions=positions, engine=engine)
-        x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps))
+        x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps),
+                      cfg.d_ff)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:, :]
-    return L.mm(x, params["lm_head"]), cache
+    return LM.output_logits(params, cfg, x, logits_slice is not None), cache
 
 
 def train_loss(params: Params, cfg: ModelConfig,
@@ -192,8 +201,6 @@ def train_loss(params: Params, cfg: ModelConfig,
     """The reference's loss: encode ``batch["frames"]``, decode
     ``batch["tokens"]`` over the memory, next-token cross entropy with the
     last position masked; an fp32 scalar."""
-    from repro_torch.models.lm import cross_entropy
-
     memory = encode(params, cfg, batch["frames"], engine=engine)
     tokens = batch["tokens"]
     logits, _ = decode_forward(params, cfg, tokens, memory=memory,
@@ -202,4 +209,4 @@ def train_loss(params: Params, cfg: ModelConfig,
                        dim=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
-    return cross_entropy(logits, labels, mask, cfg.vocab_size)
+    return LM.sharded_cross_entropy(logits, labels, mask, cfg)

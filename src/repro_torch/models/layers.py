@@ -33,7 +33,12 @@ the range of its row block of ``wo_f`` (the backward sends the gradient
 back to the contiguous block).  Where heads or ``f`` do not divide, the
 layer gathers its weights and runs whole on every rank.  The MoE layer
 runs expert-parallel (``_moe_ffn_ep``) on any model axis, size 1
-included, as the reference's does.
+included, as the reference's does.  Cross-attention (keys and values from
+an encoder's memory) shards as self-attention does; a decode step (a
+cache) under a model axis waits for ROADMAP A9-sp.  The recurrent mixers
+(``models.recurrent``) use the same helpers: ``_whole``/``_whole_rows``
+for a layer that runs whole on every rank, ``_partial_sum`` for a
+row-sharded output projection.
 """
 from __future__ import annotations
 
@@ -303,9 +308,8 @@ def _write_cache(kc, vc, k, v, pos: int) -> None:
 # ---------------------------------------------------------------------------
 # tensor parallelism: the ambient mesh's "model" axis
 # ---------------------------------------------------------------------------
-SHARDED_FAMILIES_TODO = ("ROADMAP A9-tp-families: tensor-parallel layouts "
-                         "for the RG-LRU, xLSTM, encoder-decoder and vision "
-                         "frontends")
+SHARDED_DECODE_TODO = ("tensor-parallel decode waits for ROADMAP A9-sp "
+                       "(sharded KV caches and recurrent states)")
 
 
 def model_axis():
@@ -329,6 +333,15 @@ def _whole(w: torch.Tensor, width: int) -> torch.Tensor:
     axis, for work every rank does alike."""
     tp, _, group = model_axis()
     return w if width % tp else comm.gather(w, group, 1, partial=False)
+
+
+def _whole_rows(w: torch.Tensor, height: int) -> torch.Tensor:
+    """The logical weight of ``height`` rows from this rank's block, which
+    the rules shard on its first dim where ``height`` divides the model
+    axis (a row-parallel projection, per-head tensors), for work every rank
+    does alike."""
+    tp, _, group = model_axis()
+    return w if height % tp else comm.gather(w, group, 0, partial=False)
 
 
 def _paired_columns(w: torch.Tensor, f: int) -> torch.Tensor:
@@ -397,9 +410,11 @@ def _glu_ffn_tp(wi: torch.Tensor, wo_f: torch.Tensor, f: int,
 
 def _attention_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   window: int, positions: torch.Tensor, causal: bool,
-                  engine: str) -> torch.Tensor:
-    """Self-attention (train, prefill) on this rank's blocks; the output is
-    whole on every rank."""
+                  engine: str, kv_input: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Self-attention, or cross-attention over ``kv_input`` (keys and
+    values from it, no RoPE), of a full pass (train, prefill) on this
+    rank's blocks; the output is whole on every rank."""
     tp, r, group = model_axis()
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     n, g = Hq // tp, Hq // Hkv
@@ -411,29 +426,34 @@ def _attention_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         pw = {k: _whole(v, cols[k]) if k in cols else v
               for k, v in p.items()}
         return _self_attention(pw, x, cfg, window=window, positions=positions,
-                               causal=causal, engine=engine)
+                               causal=causal, engine=engine,
+                               kv_input=kv_input)
     xc = comm.copy_to(x, group)
+    src = xc if kv_input is None else comm.copy_to(kv_input, group)
     q_lo, n_kv = r * n, max(n // g, 1)
     kv_lo = q_lo // g
 
-    def proj(name, bias, heads, lo, cnt):
+    def proj(name, bias, heads, lo, cnt, inp):
         cut = slice(lo * hd, (lo + cnt) * hd)
         if heads * hd % tp == 0:
-            y = mm(xc, p[name])
+            y = mm(inp, p[name])
             if not (heads % tp == 0 and lo == r * (heads // tp)
                     and cnt == heads // tp):
                 # the rank's columns are not the heads it needs (a split
                 # head, KV heads that do not divide): gather, then cut
                 y = comm.gather(y, group, -1)[..., cut]
         else:
-            y = mm(xc, comm.copy_to(p[name], group)[:, cut])
+            y = mm(inp, comm.copy_to(p[name], group)[:, cut])
         if bias in p:
             y = y + comm.copy_to(p[bias], group)[cut]
-        return y.reshape(B, S, cnt, hd).contiguous()
+        return y.reshape(B, inp.shape[1], cnt, hd).contiguous()
 
-    q = rope(proj("wq", "bq", Hq, q_lo, n), positions, cfg.rope_theta)
-    k = rope(proj("wk", "bk", Hkv, kv_lo, n_kv), positions, cfg.rope_theta)
-    v = proj("wv", "bv", Hkv, kv_lo, n_kv)
+    q = proj("wq", "bq", Hq, q_lo, n, xc)
+    k = proj("wk", "bk", Hkv, kv_lo, n_kv, src)
+    v = proj("wv", "bv", Hkv, kv_lo, n_kv, src)
+    if kv_input is None:              # RoPE for self-attention only
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     out = _attend(q, k, v, causal=causal, window=window, positions=positions,
                   engine=engine)
     if cfg.d_model % tp == 0:                 # wo column-sharded (C17)
@@ -484,12 +504,11 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     engine = resolve_attention_engine(engine, x.device)
     window = cfg.window if kind == "swa" else 0
     if tp_size() > 1:
-        if cache is not None or kv_input is not None:
-            raise NotImplementedError(
-                "tensor-parallel decode and cross-attention wait for "
-                "ROADMAP A9-sp (sharded KV caches)")
+        if cache is not None:
+            raise NotImplementedError(SHARDED_DECODE_TODO)
         return _attention_tp(p, x, cfg, window=window, positions=positions,
-                             causal=causal, engine=engine), None
+                             causal=causal, engine=engine,
+                             kv_input=kv_input), None
     if cache is None:
         return _self_attention(p, x, cfg, window=window, positions=positions,
                                causal=causal, engine=engine,
@@ -544,6 +563,8 @@ def cross_attention(p: Params, x: torch.Tensor, ck: torch.Tensor,
     projected once (``ck``/``cv``, (B, S_src, Hkv, D)): the reference's
     ``sdpa(q, ck, cv, causal=False)`` on ``x @ wq``, then ``wo``."""
     engine = resolve_attention_engine(engine, x.device)
+    if tp_size() > 1:
+        raise NotImplementedError(SHARDED_DECODE_TODO)
     B, S, _ = x.shape
     q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim_)
     if engine == "torch":

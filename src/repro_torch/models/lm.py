@@ -31,9 +31,10 @@ it.  The loss is the global masked mean: numerator and mask count are
 summed over the data axes before the division, so unequal counts on the
 data shards weigh as one batch.  ``train_loss`` returns it on every rank;
 its gradient on a rank is that rank's share, which the train step sums
-over the data axes.  Families with recurrent mixers or the vision frontend
-run sharded on a model axis of size 1 only (``layers.
-SHARDED_FAMILIES_TODO``).
+over the data axes.  The recurrent mixers shard as ``models.recurrent``
+says; the vision frontend's ``img_proj`` is a column block of ``d``, so
+the projected image block is gathered over "model" before it replaces the
+first positions.  A decode step under a model axis raises (ROADMAP A9-sp).
 
 Serving: ``init_cache`` builds each layer's own state: a ``(k, v)`` pair
 (a full KV cache for ``"attn"``, a ring buffer of ``window`` slots for
@@ -54,7 +55,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
 __all__ = ["LAYER_KINDS", "ATTENTION_KINDS", "layer_kinds", "init_params",
-           "init_cache", "forward", "cross_entropy", "train_loss"]
+           "init_cache", "forward", "cross_entropy", "sharded_cross_entropy",
+           "train_loss"]
 
 Params = Dict[str, Any]
 ATTENTION_KINDS = ("attn", "swa")
@@ -217,13 +219,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     frontend: projected by ``img_proj`` into positions [0, n_img)."""
     kinds = layer_kinds(cfg)
     B, S = tokens.shape
-    if L.tp_size() > 1 and (cfg.frontend != "none" or any(
-            k not in ATTENTION_KINDS for k, _ in kinds)):
-        raise NotImplementedError(f"{cfg.name} on a model axis above 1: "
-                                  f"{L.SHARDED_FAMILIES_TODO}")
     x = embed(params, cfg, tokens)
     if cfg.frontend == "vision_patches" and image_embeds is not None:
         img = L.mm(image_embeds.to(x.dtype), params["img_proj"])
+        if img.shape[-1] != cfg.d_model:     # the rank's column block
+            img = comm.gather(img, L.model_axis()[2], -1, partial=False)
         x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
     start = 0 if cache_pos is None else int(cache_pos)
     positions = (start + torch.arange(S, dtype=torch.int32,
@@ -247,10 +247,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:, :]
-    logits = hints.constrain(vocab_logits(params, cfg, x), hints.dp_axes(),
-                             None, "model")
-    if logits_slice is not None and vocab_sharded(cfg):
-        logits = comm.gather(logits, L.model_axis()[2], -1, partial=False)
+    logits = output_logits(params, cfg, x, logits_slice is not None)
     return logits, (new_cache if (return_cache or cache is not None) else None)
 
 
@@ -278,6 +275,17 @@ def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor
     local = torch.where(mine[..., None], local,
                         torch.zeros((), dtype=local.dtype, device=local.device))
     return comm.reduce_from(local, group)
+
+
+def output_logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                  whole: bool) -> torch.Tensor:
+    """``vocab_logits``, gathered over "model" where ``whole`` (a prefill's
+    sliced logits) and ``vocab_sharded``."""
+    logits = hints.constrain(vocab_logits(params, cfg, x), hints.dp_axes(),
+                             None, "model")
+    if whole and vocab_sharded(cfg):
+        logits = comm.gather(logits, L.model_axis()[2], -1, partial=False)
+    return logits
 
 
 def vocab_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
@@ -326,6 +334,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return comm.reduce_from(nll / torch.clamp(count, min=1.0), group)
 
 
+def sharded_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor, cfg: ModelConfig
+                          ) -> torch.Tensor:
+    """``cross_entropy`` of logits from ``vocab_logits``: this rank's vocab
+    block where ``vocab_sharded``."""
+    return cross_entropy(logits, labels, mask, cfg.vocab_size,
+                         vocab_lo=L.model_axis()[1] * logits.shape[-1]
+                         if vocab_sharded(cfg) else None)
+
+
 def train_loss(params: Params, cfg: ModelConfig,
                batch: Dict[str, torch.Tensor], engine: str = "auto"
                ) -> torch.Tensor:
@@ -346,9 +364,7 @@ def train_loss(params: Params, cfg: ModelConfig,
         is_img = torch.arange(tokens.shape[1], device=tokens.device) \
             < cfg.n_frontend_tokens
         mask = mask * (~is_img)[None, :].to(torch.float32)
-    loss = cross_entropy(logits, labels, mask, cfg.vocab_size,
-                         vocab_lo=L.model_axis()[1] * logits.shape[-1]
-                         if vocab_sharded(cfg) else None)
+    loss = sharded_cross_entropy(logits, labels, mask, cfg)
     head, _, npd, _ = _layer_plan(cfg)
     if cfg.n_experts and npd:
         # the reference's cheap proxy: the first period's slot0 router (not

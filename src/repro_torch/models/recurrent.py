@@ -12,6 +12,22 @@ conv (B, cw-1, R))``; mLSTM ``(C (B, H, hd, hd), n (B, H, hd), m (B, H))``
 in fp32; sLSTM ``(c, n, h, m)`` each (B, H, hd) fp32; ``m`` starts at
 -1e30.  The xLSTM blocks use ``hd = d_model // n_heads``, not the
 config's ``head_dim``.
+
+Under an ambient mesh with a "model" axis above 1 (a full pass; a state,
+i.e. decode, raises, ROADMAP A9-sp) each mixer runs on the blocks
+``distributed.sharding`` gives this rank, and its output is whole on every
+rank.  RG-LRU: ``wx``, ``wgate`` and ``conv`` are column blocks of the
+``d_rnn`` channels, so the input branch, the conv, the recurrence and the
+gelu gate run on the rank's channels; ``wi`` and ``wr`` (``(R, R)``,
+column blocks) need the whole conv output, which one gather over "model"
+gives; ``lam`` is replicated and cut; ``wo_r`` is row-sharded, so the
+rank's products are summed (``layers._partial_sum``).  mLSTM and sLSTM: a
+column block of ``wq``/``wk``/``wv``/``wog``, of ``wi``/``wf`` (``(d,
+H)``) and of ``in_*``, and a block of ``r_*`` (``(H, hd, hd)``), are the
+rank's heads where they divide the axis, and each head's recurrence is its
+own; ``wo_m``/``wo_s`` are row-sharded.  Where the channels or heads do not
+divide, the rules leave the layer's leaves whole or split, and the layer
+runs whole on every rank from its gathered weights.
 """
 from __future__ import annotations
 
@@ -21,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
+from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init, logistic, mm
 
 __all__ = ["rglru_params", "rglru", "rglru_init_state", "mlstm_params",
@@ -84,20 +102,52 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _model_group(state):
+    """The ambient "model" group where the axis is above 1 (a full pass
+    only: a sharded state waits for ROADMAP A9-sp), else None."""
+    m = L.model_axis()
+    if m is None or m[0] == 1:
+        return None
+    if state is not None:
+        raise NotImplementedError(L.SHARDED_DECODE_TODO)
+    return m
+
+
+def _whole_layer(p: Params, cols: Dict[str, int], rows: Dict[str, int]
+                 ) -> Params:
+    """The layer's logical weights from this rank's blocks: ``cols`` (name
+    -> width) are column-sharded where the width divides the model axis,
+    ``rows`` (name -> height) row- or head-sharded likewise."""
+    return {k: L._whole(v, cols[k]) if k in cols
+            else L._whole_rows(v, rows[k]) if k in rows else v
+            for k, v in p.items()}
+
+
 def rglru(p: Params, x: torch.Tensor, cfg: ModelConfig,
           state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """RG-LRU mixer.  x: (B, S, d); state = (h (B, R), conv (B, cw-1, R)) for
-    decode.  Returns (out (B, S, d), new_state)."""
+    decode.  Returns (out (B, S, d), new_state); on a model axis, the new
+    state is the rank's channels'."""
     B, S, _ = x.shape
-    u = mm(x, p["wx"])
+    m = _model_group(state)
+    if m is not None and cfg.d_rnn_ % m[0]:
+        m = None             # the rules leave every leaf whole
+    xin, lam = x, p["lam"]
+    if m is not None:
+        tp, rank, group = m
+        width = cfg.d_rnn_ // tp
+        xin = comm.copy_to(x, group)
+        lam = comm.copy_to(lam, group)[rank * width:(rank + 1) * width]
+    u = mm(xin, p["wx"])
     u, new_conv = _causal_conv1d(u, p["conv"],
                                  state[1] if state is not None else None)
     uf = u.float()
-    i_gate = logistic(uf @ p["wi"].float())
-    r_gate = logistic(uf @ p["wr"].float())
+    # the gate products take every channel: the rank's are gathered
+    uw = uf if m is None else comm.gather(u, group, -1).float()
+    i_gate = logistic(uw @ p["wi"].float())
+    r_gate = logistic(uw @ p["wr"].float())
     # jax.nn.softplus is logaddexp(x, 0)
-    log_a = -_C_RGLRU * torch.logaddexp(p["lam"], torch.zeros_like(p["lam"])) \
-        * r_gate
+    log_a = -_C_RGLRU * torch.logaddexp(lam, torch.zeros_like(lam)) * r_gate
     a = torch.exp(log_a)
     gated_x = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
         * (i_gate * uf)
@@ -113,8 +163,10 @@ def rglru(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h = torch.stack(hs, dim=1)
         new_h = h_t
     # jax.nn.gelu defaults to the tanh approximation
-    gate = F.gelu(mm(x, p["wgate"]).float(), approximate="tanh")
-    out = mm((h * gate).to(x.dtype), p["wo_r"])
+    gate = F.gelu(mm(xin, p["wgate"]).float(), approximate="tanh")
+    y = (h * gate).to(x.dtype)
+    out = mm(y, p["wo_r"]) if m is None \
+        else L._partial_sum(y, p["wo_r"], group)
     return out, (new_h.to(x.dtype), new_conv)
 
 
@@ -141,18 +193,37 @@ def mlstm_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     }
 
 
+def _heads(p: Params, cfg: ModelConfig, state, cols: Dict[str, int],
+           rows: Dict[str, int]):
+    """``(params, model group or None)`` of an xLSTM mixer: on a model
+    axis above 1 that divides the heads, the rank's blocks (its heads) and
+    the group; where the heads do not divide, the whole layer's weights
+    (gathered) and None; else as given."""
+    m = _model_group(state)
+    if m is None:
+        return p, None
+    if cfg.n_heads % m[0]:
+        return _whole_layer(p, cols, rows), None
+    return p, m[2]
+
+
 def mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
           state: Optional[Tuple] = None):
     """mLSTM mixer: the stabilized parallel form (prefill, which builds
     (B, S, S, H) fp32 tensors) or the recurrent form (decode, ``state`` =
-    (C, n, m)).  Returns (out, new_state)."""
+    (C, n, m)).  Returns (out, new_state); on a model axis, the new state
+    is the rank's heads'."""
     B, S, d = x.shape
-    H = cfg.n_heads
-    hd = d // H
-    q = mm(x, p["wq"]).reshape(B, S, H, hd)
-    k = mm(x, p["wk"]).reshape(B, S, H, hd) / (hd ** 0.5)
-    v = mm(x, p["wv"]).reshape(B, S, H, hd)
-    xf = x.float()
+    hd = d // cfg.n_heads
+    p, group = _heads(p, cfg, state,
+                      {**dict.fromkeys(("wq", "wk", "wv", "wog"), d),
+                       "wi": cfg.n_heads, "wf": cfg.n_heads}, {"wo_m": d})
+    xin = x if group is None else comm.copy_to(x, group)
+    H = p["wi"].shape[1]                     # the heads these blocks hold
+    q = mm(xin, p["wq"]).reshape(B, S, H, hd)
+    k = mm(xin, p["wk"]).reshape(B, S, H, hd) / (hd ** 0.5)
+    v = mm(xin, p["wv"]).reshape(B, S, H, hd)
+    xf = xin.float()
     log_i = mm(xf, p["wi"])                                # (B, S, H)
     log_f = F.logsigmoid(mm(xf, p["wf"]))                  # (B, S, H) <= 0
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -195,8 +266,10 @@ def mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h = torch.stack(hs, dim=1)
         new_state = (C, n, m_prev)
 
-    og = logistic(mm(x, p["wog"]))
-    out = mm(og * h.reshape(B, S, d).to(x.dtype), p["wo_m"])
+    og = logistic(mm(xin, p["wog"]))
+    y = og * h.reshape(B, S, H * hd).to(x.dtype)
+    out = mm(y, p["wo_m"]) if group is None \
+        else L._partial_sum(y, p["wo_m"], group)
     return out, new_state
 
 
@@ -231,14 +304,20 @@ def slstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
           state: Optional[Tuple] = None):
     """sLSTM mixer: a loop over the sequence (hidden-to-gate recurrence) in
     fp32, one batched product of the four recurrent matrices a step.
-    state = (c, n, h, m), each (B, H, hd).  Returns (out, new_state)."""
+    state = (c, n, h, m), each (B, H, hd).  Returns (out, new_state); on a
+    model axis, the new state is the rank's heads'."""
     B, S, d = x.shape
-    H = cfg.n_heads
-    hd = d // H
-    xf = x.float()
+    hd = d // cfg.n_heads
+    p, group = _heads(p, cfg, state,
+                      {f"in_{g}": d for g in _SLSTM_GATES},
+                      {"wo_s": d, **{f"r_{g}": cfg.n_heads
+                                     for g in _SLSTM_GATES}})
+    xin = x if group is None else comm.copy_to(x, group)
+    H = p["r_i"].shape[0]                    # the heads these blocks hold
+    xf = xin.float()
     z = [mm(xf, p[f"in_{g}"]).reshape(B, S, H, hd) for g in _SLSTM_GATES]
     if state is None:
-        state = slstm_init_state(cfg, B, x.device)
+        state = _slstm_zeros(B, H, hd, x.device)
     c, n, h, m = state
     # (H, hd, 4 hd): each gate's recurrent product is its own columns
     r = torch.cat([p[f"r_{g}"] for g in _SLSTM_GATES], dim=-1).float()
@@ -258,13 +337,18 @@ def slstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h = go * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    out = mm(torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype), p["wo_s"])
+    y = torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
+    out = mm(y, p["wo_s"]) if group is None \
+        else L._partial_sum(y, p["wo_s"], group)
     return out, (c, n, h, m)
 
 
-def slstm_init_state(cfg: ModelConfig, batch: int, device):
-    H = cfg.n_heads
-    hd = cfg.d_model // H
+def _slstm_zeros(batch: int, H: int, hd: int, device):
     f32 = dict(dtype=torch.float32, device=device)
     zero = torch.zeros((batch, H, hd), **f32)
     return (zero, zero, zero, torch.full((batch, H, hd), -1e30, **f32))
+
+
+def slstm_init_state(cfg: ModelConfig, batch: int, device):
+    return _slstm_zeros(batch, cfg.n_heads, cfg.d_model // cfg.n_heads,
+                        device)

@@ -17,8 +17,14 @@ mean (``models.lm.cross_entropy``), the gradients are summed over the data
 axes (one all-reduce a dtype, after the microbatches), and AdamW runs
 ZeRO-1 (``train.optimizer``).  Microbatch ``i`` is every data rank's
 ``i``-th part of its rows, normalized as one batch: the reference's
-microbatch ``i`` of the global batch whose rows come in that order.  The "pod" axis is not sharded yet (ROADMAP
-A9-pod, with cross-pod compression).
+microbatch ``i`` of the global batch whose rows come in that order.  On a
+mesh with a "pod" axis, DP runs over ("pod", "data") (``hints.dp_axes``):
+the batch is split and the gradients summed over both, while ZeRO-1 shards
+the optimizer's state over "data" only, as the reference's rules do.
+Cross-pod compression quantizes the summed, logical gradient, as the
+reference's step does after its full DP reduction: a TP-sharded leaf's
+int8 scale is the largest |value| over all its blocks
+(``grad_compression.compress_grads_crosspod`` with the params' specs).
 """
 from __future__ import annotations
 
@@ -127,20 +133,21 @@ def make_train_step(bundle: ModelBundle, opt_cfg: Optional[AdamWConfig] = None,
     ``microbatches > 1``: the batch is split on axis 0 and the gradients of
     the parts accumulate in fp32 from zeros and are divided by the count
     (the reference's ``lax.scan``), as is the loss.  ``compress_crosspod``
-    with a ``pod_axis`` (a ``torch.distributed`` group): the gradients are
-    quantized to int8 and back (``grad_compression``).  ``engine`` is the
-    attention engine of ``models.layers``.  ``param_dtype`` is the type the
-    parameters take after a step: bf16, the reference's (it never passes
-    another, ROADMAP C16), or fp32 for a run that stays fp32 end to end."""
+    with a ``pod_axis``: the gradients are quantized to int8 and back
+    (``grad_compression``), each logical tensor with one scale.
+    ``pod_axis`` is kept for the reference's signature, where the
+    compression runs only when both are given; the port reads nothing else
+    of it (the reduction over "pod" is ``reduce_grads``'s).  ``engine`` is
+    the attention engine of ``models.layers``.  ``param_dtype`` is the type
+    the parameters take after a step: bf16, the reference's (it never
+    passes another, ROADMAP C16), or fp32 for a run that stays fp32 end to
+    end."""
     opt_cfg = opt_cfg or AdamWConfig()
-    zero = {}                   # the last mesh's ZeRO-1 specs
+    zero = {}                   # the last mesh's TP and ZeRO-1 specs
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         params = state["params"]
         mesh = hints.current_mesh()
-        if mesh is not None and "pod" in mesh.shape:
-            raise NotImplementedError("a sharded step over a 'pod' axis "
-                                      "waits for ROADMAP A9-pod")
         if microbatches == 1:
             loss, grads = _local_loss_and_grads(bundle, params, batch,
                                                 engine)
@@ -159,15 +166,16 @@ def make_train_step(bundle: ModelBundle, opt_cfg: Optional[AdamWConfig] = None,
                 loss = loss + l_i
             grads = tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches
-        specs = None
+        specs = tp = None
         if mesh is not None:
             grads = reduce_grads(grads, mesh)
             if zero.get("mesh") is not mesh:
-                zero.update(mesh=mesh, specs=state_shardings(
-                    bundle, mesh)["opt"]["m"])
-            specs = zero["specs"]
+                both = state_shardings(bundle, mesh)
+                zero.update(mesh=mesh, specs=both["opt"]["m"],
+                            tp=both["params"])
+            specs, tp = zero["specs"], zero["tp"]
         if compress_crosspod and pod_axis is not None:
-            grads = compress_grads_crosspod(grads, pod_axis)
+            grads = compress_grads_crosspod(grads, mesh, tp)
         with record_function("train_step.optimizer"):
             new_params, new_opt, metrics = adamw_update(
                 opt_cfg, grads, state["opt"], param_dtype=param_dtype,

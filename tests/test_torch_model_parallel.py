@@ -47,10 +47,9 @@ from repro.models import layers as RL
 from repro.models import lm as RLM
 from repro.train.checkpointing import restore_checkpoint as ref_restore
 from repro_torch.configs.archs import reduced_config
-from repro_torch.distributed import hints, launch
+from repro_torch.distributed import launch
 from repro_torch.interop import (lm_params_from_numpy, train_state_from_numpy,
                                  tree_map)
-from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import layers as L
 from repro_torch.models.registry import ModelBundle
 from repro_torch.train import AdamWConfig, make_train_step, restore_checkpoint
@@ -322,23 +321,6 @@ def test_the_loss_is_the_global_masked_mean(runs):
     loss = _unsharded(params, batch, pcfg)[0]
     assert abs(np.mean(per) - loss) > 1e-3
     assert abs(runs["tp", "qwen2-1.5b", (2, 2)]["loss"] - loss) <= 1e-5
-
-
-def test_recurrent_families_refuse_a_model_axis():
-    """No collective runs before the refusal: a rank's stand-in will do."""
-    class Rank(AbstractMesh):
-        coords = {"data": 0, "model": 0}
-
-        def group_of(self, *axes):
-            return None
-
-    _, pcfg = _cfgs("recurrentgemma-2b")
-    b = ModelBundle(pcfg)
-    with hints.use_mesh(Rank((1, 2), ("data", "model"))), \
-            pytest.raises(NotImplementedError,
-                                             match="A9-tp-families"):
-        b.train_loss(b.init(0, "cpu"), {"tokens": torch.zeros(
-            (1, 8), dtype=torch.int32)})
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])

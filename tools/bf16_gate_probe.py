@@ -25,6 +25,12 @@ and each fp32 cuda engine's difference from the fp32 torch engine against
 Exits nonzero when either gate fails the sound cuda engine or the fp32 gate
 passes a wrong one (the bf16 gate passes some wrong ones: their error
 hides under bf16's own rounding).
+
+``--sound ARCH`` (repeatable; any family, xlstm-125m too) reads instead how
+far sound bf16 computations of one model spread: the cuda engine as
+phase 15 runs it, with cuBLAS's reduced-precision bf16 reductions off,
+and on a batch of the sequence twice (other GEMM shapes, row 0 read); each
+one's distance from the fp32 model and from the first.
 """
 from __future__ import annotations
 
@@ -101,6 +107,51 @@ def readings(cs, arch: str, layers) -> dict:
     return out
 
 
+def sound_readings(cs, arch: str) -> dict:
+    """Sound bf16 computations of ``arch`` at phase 15's depth and prefill
+    length: their distances from the fp32 model and from phase 15's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import get_bundle
+    from repro_torch.models.registry import ModelBundle
+
+    _, layers, twin, seq, _ = next(f for f in cs.FAMILIES if f[0] == arch)
+    cfg = get_bundle(arch).cfg
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    bundle = ModelBundle(cfg)
+    params = bundle.init(0, device="cuda")
+    batch = cs.family_batch(cfg, 1, seq, np.random.default_rng(11), "cuda")
+    twice = {k: torch.cat([v, v]) for k, v in batch.items()}
+    mm = torch.backends.cuda.matmul
+    with torch.no_grad():
+        got = {"phase 15": bundle.prefill(params, batch, engine="cuda")}
+        mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            got["no reduced-precision reductions"] = bundle.prefill(
+                params, batch, engine="cuda")
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = True
+        got["batch of two, row 0"] = bundle.prefill(params, twice,
+                                                    engine="cuda")[:1]
+        cs.to_fp32_in_place(params)
+        b32 = ModelBundle(dataclasses.replace(cfg, dtype="float32"))
+        ref = b32.prefill(params, {k: v if k == "tokens" else v.float()
+                                   for k, v in batch.items()},
+                          engine="torch").float()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = got["phase 15"].float()
+    return {"seq": seq, "layers": cfg.n_layers,
+            "max_logit32": float(ref.abs().max()),
+            "from_fp32": {k: float((v.float() - ref).abs().max())
+                          for k, v in got.items()},
+            "from_phase_15": {k: float((v.float() - first).abs().max())
+                              for k, v in got.items()}}
+
+
 def main() -> int:
     sys.path.insert(0, str(REPO / "src"))
     sys.path.insert(0, str(REPO))
@@ -112,6 +163,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", action="append",
                     help="a model of the default list (repeatable)")
+    ap.add_argument("--sound", action="append",
+                    help="read the spread of sound bf16 computations of "
+                         "this family instead (repeatable)")
     args = ap.parse_args()
     runs = [r for r in default if not args.arch or r[0] in args.arch]
     import torch
@@ -129,6 +183,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.library()
+    if args.sound:
+        res = {arch: sound_readings(cs, arch) for arch in args.sound}
+        for arch, r in res.items():
+            cs.log(f"sound bf16: {arch} ({r['layers']} layers, 1 x "
+                   f"{r['seq']}): {json.dumps(r)}")
+        (out / "bf16_sound_probe.json").write_text(json.dumps(res, indent=1))
+        return 0
     res, bad = {}, []
     gate32 = cs.SERVE_GATE["float32"]
     for arch, layers in runs:

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s sharded-models phase (phase 17) alone on the card.
 
-    python3 tools/shard_probe.py [--no-fp32-backward]
+    python3 tools/shard_probe.py [--no-fp32-backward] [--parts a,b,...]
 
-Builds the port's kernels; runs phase 15's deepseek-moe-16b record (the
-one-rank references phase 17 holds its sharded prefill against: full-depth
-and twin logits, the bf16 gate) and danube's step-1 loss on the claims
-stream's first batch (the forward of phase 16's first step); times B6's
-fp32 backward at danube's training shape (phase 16's call); then phase 17's
-three parts on 4 gloo ranks of the card.  Exits nonzero when a check
-fails.
+Builds the port's kernels; runs phase 15's record of each family phase 17
+holds a sharded prefill against (deepseek-moe-16b for part (a), the four
+families of part (d): full-depth and twin logits, the fp32 model's, the
+bf16 gate) and danube's step-1 loss on the claims stream's first batch
+(the forward of phase 16's first step, for part (b)); times B6's fp32
+backward at danube's training shape (phase 16's call); then phase 17's
+parts on 4 gloo ranks of the card: all of them, or those of ``--parts``
+(letters a-f).  Exits nonzero when a check fails.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ sys.path.insert(0, str(ROOT / "src"))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-fp32-backward", action="store_true")
+    ap.add_argument("--parts", default="abcdef")
     args = ap.parse_args()
     import torch
 
@@ -45,22 +47,28 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     rate = cs.mem_rate(name)
     cs.log(cs.nvidia_smi_line())
+    parts = tuple(cs.PARTS[ord(c) - ord("a")] for c in args.parts
+                  if c != ",")
     build.library()
-    t0 = time.perf_counter()
-    arch, layers, twin, seq, batcher = next(f for f in cs.FAMILIES
-                                            if f[0] == cs.SHARD_MOE)
-    cs.family_run(arch, layers, twin, seq, batcher, cs.REPS, rate)
-    cs.log(f"shard_probe: phase 15's {arch} record in "
-           f"{time.perf_counter() - t0:.3f} s")
-    bundle = get_bundle(cs.DANUBE)
-    batch = next(claims_token_stream(cs.TRAIN_SEQ, cs.TRAIN_BATCH,
-                                     bundle.cfg.vocab_size, 0,
-                                     device="cuda"))
-    with torch.no_grad():
-        step1 = float(bundle.train_loss(bundle.init(0, device="cuda"),
-                                        batch))
-    del batch
-    torch.cuda.empty_cache()
+    archs = ([cs.SHARD_MOE] if "prefill" in parts else []) + (
+        list(cs.SHARD_FAMILIES) if "families" in parts else [])
+    for arch, layers, twin, seq, batcher in cs.FAMILIES:
+        if arch in archs:
+            t0 = time.perf_counter()
+            cs.family_run(arch, layers, twin, seq, batcher, cs.REPS, rate)
+            cs.log(f"shard_probe: phase 15's {arch} record in "
+                   f"{time.perf_counter() - t0:.3f} s")
+    step1 = None
+    if "train" in parts:
+        bundle = get_bundle(cs.DANUBE)
+        batch = next(claims_token_stream(cs.TRAIN_SEQ, cs.TRAIN_BATCH,
+                                         bundle.cfg.vocab_size, 0,
+                                         device="cuda"))
+        with torch.no_grad():
+            step1 = float(bundle.train_loss(bundle.init(0, device="cuda"),
+                                            batch))
+        del batch
+        torch.cuda.empty_cache()
     if not args.no_fp32_backward:
         q, k, v, _ = cs._bwd_inputs(cs.BWD_DANUBE, torch.float32,
                                     torch.device("cuda"), 3, True)
@@ -71,7 +79,7 @@ def main() -> int:
         del q, k, v
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    launches, summary = cs.sharded_models_phase(step1)
+    launches, summary = cs.sharded_models_phase(step1, parts)
     cs.log(f"shard_probe: phase 17 in {time.perf_counter() - t0:.3f} s; "
            f"launches {json.dumps(launches)}")
     cs.log(f"shard_probe: {json.dumps(summary)}")
