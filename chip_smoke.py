@@ -230,7 +230,7 @@ nothing falls back to the CPU):
      boolean mask and its bound (10 D flops a visible pair and head), in
      bf16 and, since PR 25, in fp32 (``csrc/swa_backward.cu``, the CUDA
      cores, 5 reps a median).
-  17. sharded models: one ``spawn`` of 4 gloo ranks on the card, three
+  17. sharded models: one ``spawn`` of 4 gloo ranks on the card, the
      parts in turn (no fallback: a failing rank fails the run).
      (a) deepseek-moe-16b at full width and depth (28 layers, 64 routed
      experts top-6 + 2 shared), bf16, on a (1, 4) mesh: each rank's blocks
@@ -279,11 +279,33 @@ nothing falls back to the CPU):
      where the bins agree and each leaf's scale within 1e-3 of their
      largest, at most one bin apart in at most 1e-2 of the elements; the
      master within 1e-5 where the bins agree and lr + 1e-5 where they do
-     not.
+     not.  (g) A9-sp, the sharded decode (``make_serve_step`` on the
+     rank's blocks of a cache under ``cache_shardings``, a token a step):
+     (g1) gemma3-12b's long_500k cell, batch 1, kv_len 524,288, the
+     sequence over every axis of (2, 2), full width cut to 12 layers (10
+     rings of 1,024 slots, 2 global caches of 4.03 GB, 1.01 GB a rank), at
+     positions 1,000, 131,071 and 131,072 (ranks past the first blocks see
+     no key of a global cache) and 524,280-524,287; (g2) recurrentgemma-2b
+     at decode_32k's batch 128, (1, 4), full depth, its 2,048-slot MQA ring
+     512 slots a rank, 8 tokens past the wrap; (g3) deepseek-moe-16b on (1,
+     4), part (a)'s rank weights, batch 4, kv_len 4,096, KV heads a rank,
+     EP MoE.  Caches drawn in fixed chunks of 4,096 slots, each from its
+     own seed, a rank only its blocks' chunks, the one-rank twin the same.
+     Gates: every rank's B6 decode launches a step as its blocks predict
+     (the route with the LSE where the sequence is split, none where the
+     rank holds no key the query sees) and its blocks outside the written
+     slots equal to their draw; the bf16 run (g3: at phase 15's twin
+     depth; its full depth printed) within ``bf16_gate`` of one rank's
+     cuda engine and of the fp32 model (logits, the written cache slots,
+     the recurrent states); a full-width fp32 cut (one period of g1 and
+     g2, part (a)'s 2 layers for g3) within 1e-3 of one rank, greedy
+     tokens equal.  Phase 9 also holds B6's decode route with the LSE
+     against its plain version at those blocks' shapes, an empty block
+     included, and times it (``flash_decode_lse``).
      Per part and rank: the wall, peak memory, staged bytes, the staging's
      share of the wall and the collectives by kind; the warm step's
-     tokens/s for (b) and (e) (``tools/shard_probe.py`` runs this phase
-     alone).
+     tokens/s for (b) and (e), the wall a token for (g) beside one rank's
+     (``tools/shard_probe.py`` runs this phase alone).
 
 Each kernel's launches are counted over the two studies' first runs, the
 first chunked run (with prefetch), the spec corpus, the timed pipelined
@@ -291,12 +313,14 @@ service serve, the serving path (prefill and batcher), gemma3-12b's
 prefill, the sharded run's first cuda run, the sharded service's timed
 pipelined serve (both summed over ranks) and each family's prefill and
 batcher (phase 15), the full-width training run (phase 16) and phase 17's
-prefills, training steps, pipeline and pod step (summed over ranks), with
-the
-counts set to 0 just before each.  B6's ``flash_attention`` count takes one
-per call on either route; its record's launches are those calls less the
-decode route's (``flash_decode``), which has a record of its own; its
-backward (``flash_attention_bwd``) launches only in training.  B2b runs on none of these paths (no caller
+prefills, training steps, pipeline, pod step and the main bf16 run of
+each sharded decode (summed over ranks), with the counts set to 0 just
+before each.  B6's ``flash_attention`` count takes one per call on either
+route; its record's launches are those calls less the decode route's
+(``flash_decode``), which has a record of its own; ``flash_decode_lse``
+counts the decode-route launches that also write the LSE (phase 17's (g),
+in ``flash_decode`` too); its backward (``flash_attention_bwd``) launches
+only in training.  B2b runs on none of these paths (no caller
 compacts by a bool mask): its count is 0.  The last lines of standard output
 are the card's name and power limit, one JSON line with the kernel records,
 and ``{"ok": true, "device": {...}}``.
@@ -2215,21 +2239,32 @@ def spread_ms(fn, reps: int, cold: bool = False):
     return m[len(m) // 2], m[0], m[-1]
 
 
-def time_attention(label, q, k, v, kw, reps, rate, cold=False) -> dict:
+def time_attention(label, q, k, v, kw, reps, rate, cold=False,
+                   lse: bool = False) -> dict:
     """B6 at one shape: kernel, plain version, and torch's
     scaled_dot_product_attention with an explicit boolean mask (on
     contiguous copies, K/V repeated over the group; a yardstick only), each
     the middle of ``TIMING_CALLS`` medians of ``reps`` reps, with their
     min-max; ``cold``: the L2 cache is cleared before every rep of all
-    three."""
+    three.  ``lse``: the kernel writes each row's log-sum-exp too (the
+    plain version returns it; SDPA has none), and its 4 bytes a row join
+    the bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import swa_attention as swa
 
-    kern = lambda: swa.flash_swa_attention(q, k, v, **kw)  # noqa: E731
-    plain = lambda: swa.flash_swa_attention_plain(q, k, v, **kw)  # noqa: E731
-    err, row = check_attention(kern(), plain(), label)
+    buf = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) \
+        if lse else None
+    kern = lambda: swa.flash_swa_attention(q, k, v, lse=buf,  # noqa: E731
+                                           **kw)
+    plain = lambda: swa.flash_swa_attention_plain(  # noqa: E731
+        q, k, v, return_lse=lse, **kw)
+    got, want = kern(), plain()
+    if lse:
+        want, want_lse = want
+        lse_err = check_lse(buf, want_lse, label)
+    err, row = check_attention(got, want, label)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     kv_len = Skv if kw["kv_len"] is None else kw["kv_len"]
@@ -2246,11 +2281,15 @@ def time_attention(label, q, k, v, kw, reps, rate, cold=False) -> dict:
     vr = v.repeat_interleave(Hq // Hkv, dim=1).contiguous()
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qc, kr, vr, attn_mask=mask, scale=D ** -0.5)
-    lib_err = float((lib().float() - plain().float()).abs().max())
+    lib_err = float((lib().float() - want.float()).abs().max())
     bound_ms, bound_by, pairs = attention_bound(q, k, kw, rate)
+    if lse and bound_by == "bytes":
+        bound_ms += 4 * B * Hq * Sq / rate * 1e3
     out = dict(shape=(B, Hq, Hkv, Sq, Skv, D), kv_len=kv_len, pairs=pairs,
                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                row_err=row, l2_cleared=cold)
+    if lse:
+        out["lse_err"] = lse_err
     for key, fn in (("ms", kern), ("plain_ms", plain), ("library_ms", lib)):
         out[key], lo, hi = spread_ms(fn, reps, cold)
         out[key + "_range"] = (lo, hi)
@@ -2266,7 +2305,92 @@ def time_attention(label, q, k, v, kw, reps, rate, cold=False) -> dict:
         f"{out['library_ms_range'][1]:.4f}] (its max abs error {lib_err}), "
         f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / out['ms']:.1f}"
         f" % reached), kernel-vs-plain max abs error {err}, worst row error "
-        f"{row}")
+        f"{row}" + (f", LSE relative error {lse_err} (its rows' 4 bytes in "
+                    f"the bound)" if lse else ""))
+    return out
+
+
+# B6's decode route with the log-sum-exp (a sequence-sharded decode's
+# blocks, phase 17's part (g)) against its plain version in fp32 and bf16:
+# gemma3's 131,072-key block (D 240, group 2, every key of the block
+# visible), recurrentgemma's 512-slot ring block (D 256, group 10,
+# decode_32k's 128 sequences), an empty block (kv_len 0, a negative
+# q_offset: output and LSE exactly 0) and danube's D 80 over 4,096 keys
+LSE_DECODE_CASES = {
+    "gemma3 block": (1, 16, 8, 1, 131_072, 240, True, 0, 131_071, 131_072),
+    "recurrentgemma block": (128, 10, 1, 1, 512, 256, False, 0, 5_000, 512),
+    "empty block": (1, 16, 8, 1, 131_072, 240, True, 0, -7, 0),
+    "danube": (4, 32, 8, 1, 4_096, 80, True, 4_096, 4_095, 4_096),
+}
+# and timed in bf16 with the LSE, L2 cleared: those blocks, and gemma3's
+# whole 524,288-key global cache on one rank
+LSE_TIMED = ("gemma3 block", "gemma3 whole cache", "recurrentgemma block")
+GEMMA3_WHOLE = (1, 16, 8, 1, 524_288, 240, True, 0, 524_287, 524_288)
+
+
+def decode_lse_battery(device, reps: int, rate: float) -> dict:
+    """``LSE_DECODE_CASES`` on the card: the decode route taken (one
+    ``flash_decode`` and one ``flash_decode_lse`` launch, never the
+    prefill kernels), the output within the attention battery's gates and
+    the LSE within ``LSE_TOL`` of the plain version's, the empty block
+    exactly 0; then ``LSE_TIMED`` timed.  Returns the timings by label."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import swa_attention as swa
+
+    def inputs(case, dt, seed):
+        B, Hq, Hkv, Sq, Skv, D = case[:6]
+        g = torch.Generator(device=device).manual_seed(seed)
+        return [torch.randn(sh, generator=g, device=device).to(dt)
+                for sh in ((B, Hq, Sq, D), (B, Hkv, Skv, D),
+                           (B, Hkv, Skv, D))]
+
+    worst = {}
+    for i, (label, case) in enumerate(LSE_DECODE_CASES.items()):
+        for dname in ATTN_TOL:
+            q, k, v = inputs(case, getattr(torch, dname), 700 + i)
+            kw = _attn_kwargs(case)
+            lse = torch.full(q.shape[:3], float("nan"), device=device)
+            before = dict(launch_counts)
+            got = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
+            moved = {n: launch_counts[n] - before[n] for n in DECODE_KINDS}
+            if moved != {n: 1 for n in DECODE_KINDS}:
+                fail(f"flash_attention with the lse, {label} {case}: "
+                     f"launches {moved}, not one decode-route launch")
+            want, want_lse = swa.flash_swa_attention_plain(
+                q, k, v, return_lse=True, **kw)
+            err = check_attention(got, want, f"{label} with the lse")
+            lerr = check_lse(lse, want_lse, f"{dname} {label}")
+            if case[9] == 0 and (torch.count_nonzero(got)
+                                 or torch.count_nonzero(lse)):
+                fail(f"flash_attention with the lse, {label}: an empty "
+                     f"block's output or LSE is not 0")
+            w = worst.get(dname, (0.0, 0.0, 0.0))
+            worst[dname] = (max(w[0], err[0]), max(w[1], err[1]),
+                            max(w[2], lerr))
+            del q, k, v, got, want, want_lse, lse
+    log(f"attention (decode route with the LSE): {2 * len(LSE_DECODE_CASES)}"
+        f" kernel-vs-plain checks ({', '.join(LSE_DECODE_CASES)}), each one "
+        f"decode-route launch; max abs / worst row / LSE relative error "
+        f"{json.dumps(worst)} (gates {ATTN_TOL} / {ATTN_ROW_TOL} / "
+        f"{LSE_TOL}); the empty block 0")
+    out = {}
+    for label in LSE_TIMED:
+        case = GEMMA3_WHOLE if label == "gemma3 whole cache" \
+            else LSE_DECODE_CASES[label]
+        q, k, v = inputs(case, torch.bfloat16, 800)
+        kw = _attn_kwargs(case)
+        out[label] = rec = time_attention(
+            f"decode route with the LSE, {label}", q, k, v, kw, reps, rate,
+            cold=True, lse=True)
+        # what writing the LSE costs: the same call without it
+        rec["ms_without_lse"] = spread_ms(
+            lambda: swa.flash_swa_attention(q, k, v, **kw), reps, True)[0]
+        log(f"timing: {label} without the LSE {rec['ms_without_lse']:.4f} "
+            f"ms, with it {rec['ms']:.4f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4015,11 +4139,12 @@ def backward_battery(device) -> dict:
     """B6's backward kernel against its plain backward on the card over
     ``BWD_CASES`` in fp32 and bf16 (odd cases through transposed views, as
     the model passes them), each fed the forward kernel's output and
-    log-sum-exp (the forward is asked for one, so it takes the prefill
-    kernels at every size: its output is checked against the plain
-    forward's with the forward's gates, and its LSE against the plain
-    LSE); the bf16 backward twice at one shape, bit for bit; then
-    ``torch.autograd.grad`` through ``FlashAttention`` against autograd
+    log-sum-exp (the forward is asked for one: a call of at most
+    ``DECODE_ROWS`` rows a KV head takes the decode route, whose combine
+    kernel writes the LSE, every other the prefill kernels; its output is
+    checked against the plain forward's with the forward's gates, and its
+    LSE against the plain LSE); the bf16 backward twice at one shape, bit
+    for bit; then ``torch.autograd.grad`` through ``FlashAttention`` against autograd
     through the plain forward (fp32, the cases where every row sees a key:
     there autograd's 0/0 gives NaN)."""
     import torch
@@ -4032,10 +4157,11 @@ def backward_battery(device) -> dict:
     dims = set()
     lse_worst = {}
     zero_worst = {}
-    forced = 0                   # prefill-kernel calls at decode-route sizes
+    decode_sized = 0             # cases the decode route takes, with the LSE
     for i, case in enumerate(BWD_CASES):
         errs = []
-        forced += int(case[1] // case[2] * case[3] <= swa.DECODE_ROWS)
+        decode = case[1] // case[2] * case[3] <= swa.DECODE_ROWS
+        decode_sized += int(decode)
         for dname in ATTN_TOL:
             dt = getattr(torch, dname)
             q, k, v, do = _bwd_inputs(case, dt, device, 1000 + i, i % 2 == 1)
@@ -4043,9 +4169,10 @@ def backward_battery(device) -> dict:
             lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
             before = dict(launch_counts)
             o = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
-            if launch_counts["flash_decode"] != before["flash_decode"]:
-                fail(f"flash_attention {case}: asked for an lse, it took the "
-                     f"decode route")
+            if launch_counts["flash_decode"] != before["flash_decode"] \
+                    + int(decode):
+                fail(f"flash_attention {case}: asked for an lse, it took "
+                     f"the {'prefill kernels' if decode else 'decode route'}")
             po, plse = swa.flash_swa_attention_plain(q, k, v, return_lse=True,
                                                      **kw)
             check_attention(o, po, f"{case} with lse")
@@ -4071,9 +4198,9 @@ def backward_battery(device) -> dict:
     if dims != set(swa.HEAD_DIMS):
         fail(f"attention backward: head dims {sorted(dims)} checked, not "
              f"every one")
-    if not forced:
-        fail("attention backward: no case forced the prefill kernels at a "
-             "decode-route size")
+    if not decode_sized:
+        fail("attention backward: no case took the decode route with the "
+             "LSE")
     # no atomics: a rerun gives the same bits
     q, k, v, do = _bwd_inputs(BWD_CASES[-1], torch.bfloat16, device, 5, True)
     kw = _attn_kwargs(BWD_CASES[-1])
@@ -4113,8 +4240,8 @@ def backward_battery(device) -> dict:
         f"{worst['bfloat16'][0]} / {worst['bfloat16'][1]} (gates "
         f"{ATTN_TOL['bfloat16']} / {ATTN_ROW_TOL['bfloat16']}); the "
         f"forward's lse against the plain lse, worst relative error "
-        f"{json.dumps(lse_worst)} (gate {LSE_TOL}; {forced} of "
-        f"{len(BWD_CASES)} cases at decode-route sizes); rows 0 in the "
+        f"{json.dumps(lse_worst)} (gate {LSE_TOL}; {decode_sized} of "
+        f"{len(BWD_CASES)} cases on the decode route); rows 0 in the "
         f"plain backward, largest |value| over the tensor's "
         f"{json.dumps(zero_worst)} (gate {BWD_ZERO_ROW_TOL}); "
         f"the bf16 tile plan's Python twins equal the kernel's; the bf16 "
@@ -4585,7 +4712,8 @@ SHARD_RG_FP32 = (3, 1024)
 POD_MESH = (2, 1, 2)         # part (f): (pod, data, model)
 POD_FLIP_SHARE = 1e-2        # elements whose int8 bin may differ
 POD_GRID = 1e-3              # of a bin: a step's gradient on its int8 grid
-PARTS = ("prefill", "train", "pipe", "families", "rg_train", "pod")
+PARTS = ("prefill", "train", "pipe", "families", "rg_train", "pod",
+         "decode")
 
 
 def _part_stats(t0: float, launches=None) -> dict:
@@ -5027,6 +5155,408 @@ def shard_pipe(group, device) -> dict:
     return rec
 
 
+# part (g), A9-sp: the sharded decode of three cells at full width, seeded
+# weights (phase 15's seed 0) and a seeded cache: the arch, the mesh, the
+# batch, kv_len, the positions (a token a step), the main bf16 run's depth
+# (None: the config's), the depth whose bf16 run is gated (None: the main
+# run's) and the fp32 cut's depth
+#   g1: gemma3-12b's long_500k cell, batch 1, the sequence over every axis
+#       of (2, 2); 12 layers (two periods: 10 rings of 1,024 slots and 2
+#       global caches of 4.03 GB, 1.01 GB a rank) for memory, four ranks
+#       sharing the card; first positions where the ranks past the first
+#       block see no key of a global cache, then the cache's last 8
+#   g2: recurrentgemma-2b at decode_32k's batch on (1, 4), its 26 layers:
+#       the MQA ring of 2,048 slots 512 a rank on "model", the RG-LRU
+#       states whole; past the window, so that the ring wraps
+#   g3: deepseek-moe-16b on (1, 4) with part (a)'s rank weights: KV heads
+#       a rank, EP MoE at decode; its full depth reported and not gated
+#       (bf16 routing flips spread through the whole model, as in part
+#       (a)), phase 15's twin depth gated
+DECODE_PARTS = {
+    "g1": dict(arch="gemma3-12b", shape=(2, 2), batch=1, kv_len=524_288,
+               positions=(1_000, 131_071, 131_072)
+               + tuple(range(524_280, 524_288)),
+               layers=12, gated=None, fp32_layers=6),
+    "g2": dict(arch="recurrentgemma-2b", shape=(1, 4), batch=128,
+               kv_len=32_768, positions=tuple(range(5_000, 5_008)),
+               layers=None, gated=None, fp32_layers=3),
+    "g3": dict(arch="deepseek-moe-16b", shape=(1, 4), batch=4, kv_len=4_096,
+               positions=tuple(range(2_000, 2_008)), layers=None,
+               gated=TWIN_LAYERS, fp32_layers=SHARD_FP32_LAYERS),
+}
+DECODE_CHUNK = 4096          # slots of a seeded chunk of a decode cache
+DECODE_SEED = 5              # the caches' draws
+DECODE_GATE = 1e-3           # fp32 cut against one rank: logits, slots, states
+DECODE_KINDS = ("flash_attention", "flash_decode", "flash_decode_lse")
+
+
+def _decode_leaves(cache, specs=None) -> list:
+    """``(leaf, spec, layer index, index in the layer)`` of a decoder LM's
+    cache, in order (``specs`` None: the whole cache)."""
+    return [(t, None if specs is None else specs[i][k], i, k)
+            for i, layer in enumerate(cache) for k, t in enumerate(layer)]
+
+
+def _ranges(t, spec, mesh):
+    """A block's logical shape and the rank's ``[lo, hi)`` on each dim
+    (``spec`` None: the whole leaf)."""
+    from repro_torch.distributed import sharding
+
+    if spec is None:
+        return tuple(t.shape), [(0, n) for n in t.shape]
+    shape = tuple(n * sharding.n_blocks(e, mesh)
+                  for n, e in zip(t.shape, spec))
+    return shape, [sharding.block_range(n, e, mesh)
+                   for n, e in zip(shape, spec)]
+
+
+def seeded_leaf(t, spec, mesh, j: int, round_to=None):
+    """Leaf ``j`` of a seeded decode cache as a new tensor like ``t``: the
+    logical values drawn in fp32 in fixed chunks of ``DECODE_CHUNK`` slots
+    (dim 1; a leaf of fewer dims than a KV cache's four is one chunk),
+    chunk ``c`` from its own seed, this rank drawing only the chunks its
+    block meets and keeping its block, rounded through ``round_to`` and
+    stored in t's type.  The one-rank twin draws the same chunks."""
+    import torch
+
+    shape, ranges = _ranges(t, spec, mesh)
+    out = torch.empty_like(t)
+    step = min(DECODE_CHUNK, shape[1]) if t.dim() == 4 else shape[1]
+    lo, hi = ranges[1]
+    for c0 in range(0, shape[1], step):
+        a, b = max(c0, lo), min(c0 + step, hi)
+        if a >= b:
+            continue
+        g = torch.Generator(device=t.device).manual_seed(
+            DECODE_SEED * 1_000_003 + j * 4_099 + c0 // step)
+        full = torch.randn((shape[0], step) + shape[2:], generator=g,
+                           device=t.device)
+        idx = [slice(r0, r1) for r0, r1 in ranges]
+        idx[1] = slice(a - c0, b - c0)
+        blk = full[tuple(idx)]
+        out[:, a - lo:b - lo] = blk if round_to is None \
+            else blk.to(round_to)
+        del full, blk
+    return out
+
+
+def fill_decode_cache(cache, specs, mesh, round_to=None) -> None:
+    """Every leaf of a decoder LM's cache (the rank's blocks under
+    ``specs``; ``specs`` None: the whole cache) in place from
+    ``seeded_leaf``."""
+    for j, (t, spec, _, _) in enumerate(_decode_leaves(cache, specs)):
+        t.copy_(seeded_leaf(t, spec, mesh, j, round_to))
+
+
+def _kv_slots(cfg, cache, specs, mesh, positions) -> dict:
+    """``{leaf index: logical slots the steps wrote}`` of every KV leaf: the
+    position in a full cache, ``pos % window`` in a ring."""
+    from repro_torch.models.lm import ATTENTION_KINDS, layer_kinds
+
+    kinds = layer_kinds(cfg)
+    out = {}
+    for j, (t, spec, i, _) in enumerate(_decode_leaves(cache, specs)):
+        kind = kinds[i][0]
+        if kind in ATTENTION_KINDS:
+            S = _ranges(t, spec, mesh)[0][1]
+            ring = kind == "swa" and cfg.window > 0 and S == cfg.window
+            out[j] = sorted({p % S if ring else p for p in positions})
+    return out
+
+
+def logical_slots(t, spec, mesh, slots):
+    """The logical values ``[:, slots]`` of a KV leaf (fp32, every head and
+    batch row), on every rank from the ranks' blocks (one sum over the
+    mesh, each value divided by the number of ranks that hold it)."""
+    import torch
+
+    from repro_torch.distributed import comm
+
+    if spec is None:
+        return t[:, slots].float()
+    shape, ranges = _ranges(t, spec, mesh)
+    out = torch.zeros((shape[0], len(slots)) + shape[2:], device=t.device)
+    lo, hi = ranges[1]
+    held = [n for n, s in enumerate(slots) if lo <= s < hi]
+    if held:
+        idx = [slice(r0, r1) for r0, r1 in ranges]
+        idx[1] = torch.tensor(held, device=t.device)
+        out[tuple(idx)] = t[:, [slots[n] - lo for n in held]].float()
+    split = 1
+    for n, m in zip(shape, t.shape):
+        split *= n // m
+    return comm.all_reduce_sum(out, mesh.group) / (mesh.size // split)
+
+
+def seeded_err(cache, specs, mesh, slots: dict) -> float:
+    """The largest difference between a KV leaf's block and its seeded
+    draw outside the slots the steps wrote (0: nothing else moved)."""
+    import torch
+
+    err = 0.0
+    for j, (t, spec, _, _) in enumerate(_decode_leaves(cache, specs)):
+        if j not in slots:
+            continue
+        d = (t.float() - seeded_leaf(t, spec, mesh, j).float()).abs()
+        lo, hi = _ranges(t, spec, mesh)[1][1]
+        mine = [s - lo for s in slots[j] if lo <= s < hi]
+        if mine:
+            d[:, torch.tensor(mine, device=t.device)] = 0
+        err = max(err, float(d.max()))
+        del d
+    return err
+
+
+def predicted_decode(cfg, cache, specs, mesh, pos: int) -> dict:
+    """B6's launches a decode step at ``pos`` makes on this rank, from its
+    blocks alone: one a layer whose KV cache is whole on the sequence
+    (heads a rank, or every head), the decode route with the LSE where the
+    sequence is split and the rank's block holds a key the query sees
+    (none where it holds none)."""
+    from repro_torch.models.lm import ATTENTION_KINDS, layer_kinds
+
+    kinds = layer_kinds(cfg)
+    n = lse = 0
+    for t, spec, i, k in _decode_leaves(cache, specs):
+        kind = kinds[i][0]
+        if k or kind not in ATTENTION_KINDS:
+            continue
+        if spec is None or spec[1] is None:
+            n += 1
+            continue
+        S = _ranges(t, spec, mesh)[0][1]
+        lo, hi = _ranges(t, spec, mesh)[1][1]
+        window = cfg.window if kind == "swa" else 0
+        if window and S == window:                 # a ring
+            seen = lo < min(pos + 1, S)
+        else:
+            seen = lo <= pos and (not window or hi - 1 > pos - window)
+        n += seen
+        lse += seen
+    return {"flash_attention": n, "flash_decode": n, "flash_decode_lse": lse}
+
+
+def decode_steps(bundle, params, cache, toks, positions, mesh, device,
+                 engine: str = "cuda", keep: bool = True):
+    """``make_serve_step`` at each position (``toks``: the whole batch's
+    tokens a step, cut to the rank's rows under ``mesh``); the whole batch's
+    logits a step (fp32, on the device; none unless ``keep``), the host
+    wall a step (to ``synchronize``), B6's launches a step, the cache."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.distributed import hints, launch as dl
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.serve_step import make_serve_step
+
+    step = make_serve_step(bundle, engine=engine)
+    outs, walls, launches = [], [], []
+    ctx = hints.use_mesh(mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    with torch.no_grad(), ctx:
+        for tok, pos in zip(toks, positions):
+            b = dl._batch_block(bundle.cfg, mesh, {"tokens": tok}, device) \
+                if mesh is not None else {"tokens": torch.from_numpy(
+                    tok).to(device)}
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = step(params, cache, dict(b, pos=int(pos)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            launches.append({k: launch_counts[k] for k in DECODE_KINDS})
+            if mesh is not None:
+                logits = dl._rows_whole(logits, bundle.cfg, mesh, len(tok))
+            if keep:
+                outs.append(logits.float())
+    return outs, walls, launches, cache
+
+
+def _state_leaves(cfg, cache, specs, mesh) -> list:
+    """The logical recurrent states (fp32), gathered from the ranks'
+    blocks."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models.lm import ATTENTION_KINDS, layer_kinds
+
+    kinds = layer_kinds(cfg)
+    out = []
+    for t, spec, i, _ in _decode_leaves(cache, specs):
+        if kinds[i][0] in ATTENTION_KINDS:
+            continue
+        if spec is not None:
+            t = sharding.gather_tree(t, spec, mesh)
+        out.append(t.float())
+    return out
+
+
+def _max_diff(a, b) -> float:
+    return max([float((x - y).abs().max()) for x, y in zip(a, b)] + [0.0])
+
+
+def _decode_run(group, device, cfg, cell, toks, mesh, keep: bool) -> dict:
+    """One sharded run of a part (g) cell: blocks drawn, cache seeded, the
+    steps; its stats, launches against the prediction, the rank's seeded
+    error and (``keep``) the logits, written slots and states."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models.registry import ModelBundle
+
+    t0 = _part_start()
+    bundle = ModelBundle(cfg)
+    params = bundle.init(0, device, mesh)
+    cache = bundle.init_cache(cell["batch"], cell["kv_len"], device, mesh)
+    specs = sharding.specs_of(cache)
+    fill_decode_cache(cache, specs, mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    want = [predicted_decode(cfg, cache, specs, mesh, p)
+            for p in cell["positions"]]
+    logits, walls, launches, cache = decode_steps(
+        bundle, params, cache, toks, cell["positions"], mesh, device,
+        keep=keep)
+    rec = _part_stats(t0, launches)
+    slots = _kv_slots(cfg, cache, specs, mesh, cell["positions"])
+    kv = {j: logical_slots(t, spec, mesh, slots[j]) for j, (t, spec, _, _)
+          in enumerate(_decode_leaves(cache, specs)) if j in slots}
+    states = _state_leaves(cfg, cache, specs, mesh)
+    rec.update(layers=cfg.n_layers, setup_s=setup_s, step_s=walls,
+               predicted=want,
+               seeded_err=seeded_err(cache, specs, mesh, slots),
+               cache_held=sum(t.numel() * t.element_size()
+                              for t, _, _, _ in _decode_leaves(cache)))
+    del params, cache
+    torch.cuda.empty_cache()
+    return rec, (logits, kv, states) if keep else None
+
+
+def _one_rank(cfg, cell, toks, device, engine="cuda", params=None,
+              fp32: bool = False):
+    """The part (g) cell on one rank: the whole model (``params``, else
+    drawn from the same seed) and cache (the same draws).  ``fp32``: the
+    bf16 ``params`` converted in place and run in fp32 on the cache's bf16
+    values (the fp32 model of those weights)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.registry import ModelBundle
+
+    if fp32:
+        to_fp32_in_place(params)
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    bundle = ModelBundle(cfg)
+    params = bundle.init(0, device) if params is None else params
+    cache = bundle.init_cache(cell["batch"], cell["kv_len"], device)
+    fill_decode_cache(cache, None, None, torch.bfloat16 if fp32 else None)
+    logits, walls, launches, cache = decode_steps(
+        bundle, params, cache, toks, cell["positions"], None, device,
+        engine=engine)
+    slots = _kv_slots(cfg, cache, None, None, cell["positions"])
+    kv = {j: t[:, slots[j]].float() for j, (t, _, _, _)
+          in enumerate(_decode_leaves(cache)) if j in slots}
+    states = _state_leaves(cfg, cache, None, None)
+    del cache
+    torch.cuda.empty_cache()
+    return dict(logits=logits, walls=walls, launches=launches, kv=kv,
+                states=states, params=params)
+
+
+def decode_part(group, device, name: str) -> dict:
+    """One cell of part (g) on every rank: the main bf16 run (and, for g3,
+    the gated depth's), then the fp32 cut, each sharded; then rank 0 runs
+    the gated depth on one rank under the cuda and torch engines and as
+    the fp32 model of its bf16 weights, and the fp32 cut, and compares."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import launch as dl
+
+    cell = DECODE_PARTS[name]
+    rank = dist.get_rank(group)
+    mesh = dl.make_mesh(group, cell["shape"])
+    base = get_config(cell["arch"])
+    main = dataclasses.replace(base, n_layers=cell["layers"] or base.n_layers)
+    gated_n = cell["gated"] or main.n_layers
+    gated = dataclasses.replace(base, n_layers=gated_n)
+    cut = dataclasses.replace(base, n_layers=cell["fp32_layers"],
+                              dtype="float32")
+    rng = np.random.default_rng(13)
+    toks = [rng.integers(3, base.vocab_size, (cell["batch"], 1)).astype(
+        np.int32) for _ in cell["positions"]]
+    runs = [("bf16", main)] + ([("bf16_gated", gated)] if cell["gated"]
+                               else []) + [("fp32", cut)]
+    rec, kept = {}, {}
+    for tag, cfg in runs:
+        rec[tag], kept[tag] = _decode_run(group, device, cfg, cell, toks,
+                                          mesh, keep=rank == 0)
+    rec["launches"] = {k: sum(s[k] for s in rec["bf16"]["launches"])
+                       for k in DECODE_KINDS}
+    if rank:
+        return rec
+    sh16 = kept["bf16_gated" if cell["gated"] else "bf16"]
+    if cell["gated"]:
+        rec["bf16"]["finite"] = bool(all(torch.isfinite(x).all()
+                                         for x in kept["bf16"][0]))
+    del kept["bf16"]
+    one = _one_rank(gated, cell, toks, device)
+    torch_eng = _one_rank(gated, cell, toks, device, engine="torch",
+                          params=one["params"])
+    del torch_eng["params"]
+    f32 = _one_rank(gated, cell, toks, device, params=one.pop("params"),
+                    fp32=True)
+    del f32["params"]
+    logits16, kv16, states16 = sh16
+    rec["gate"] = dict(depth=gated_n, finite=bool(all(
+        torch.isfinite(x).all() for x in logits16)),
+        one_rank_step_s=one["walls"], one_rank_launches=one["launches"])
+    # each of the logits, the written cache slots and the recurrent states
+    # against one rank's cuda engine and the fp32 model, within bf16_gate
+    # of the torch engine's distance from the fp32 model (built alike)
+    for what, got in (("logits", logits16), ("kv", list(kv16.values())),
+                      ("states", states16)):
+        def of(r):
+            return r[what] if what != "kv" else list(r["kv"].values())
+
+        top = max([float(x.abs().max()) for x in of(f32)] + [0.0])
+        rec["gate"][what] = dict(
+            vs_one_rank=_max_diff(got, of(one)),
+            vs_fp32=_max_diff(got, of(f32)),
+            torch_vs_fp32=_max_diff(of(torch_eng), of(f32)), largest=top,
+            bound=bf16_gate(_max_diff(of(torch_eng), of(f32)), top)
+            if top > 0 else 0.0)
+    del one, torch_eng, f32
+    torch.cuda.empty_cache()
+    c32 = _one_rank(cut, cell, toks, device)
+    del c32["params"]
+    lg, kv, states = kept["fp32"]
+    rec["fp32_cut"] = dict(
+        depth=cut.n_layers, vs_one_rank=_max_diff(lg, c32["logits"]),
+        max_logit=max(float(x.abs().max()) for x in c32["logits"]),
+        cache_vs_one_rank=_max_diff(list(kv.values()),
+                                    list(c32["kv"].values())),
+        states_vs_one_rank=_max_diff(states, c32["states"]),
+        greedy_equal=all(torch.equal(a.argmax(-1), b.argmax(-1))
+                         for a, b in zip(lg, c32["logits"])))
+    del c32, kept
+    torch.cuda.empty_cache()
+    return rec
+
+
+def shard_decode(group, device) -> dict:
+    """Part (g), A9-sp: each cell of ``DECODE_PARTS`` in turn; the part's
+    launches are its main bf16 runs'."""
+    out = {name: decode_part(group, device, name) for name in DECODE_PARTS}
+    out["launches"] = {k: sum(out[n]["launches"][k] for n in DECODE_PARTS)
+                       for k in DECODE_KINDS}
+    return out
+
+
 def sharded_models_rank(group, device, twin_layers: int,
                         parts=PARTS) -> dict:
     """One rank of phase 17 (run by ``distributed.launch.spawn``): the
@@ -5039,7 +5569,8 @@ def sharded_models_rank(group, device, twin_layers: int,
            "rg_train": lambda: shard_train(
                group, device, SHARD_RG, SHARD_RG_LAYERS, SHARD_RG_SEQ,
                SHARD_RG_FP32),
-           "pod": lambda: shard_pod(group, device)}
+           "pod": lambda: shard_pod(group, device),
+           "decode": lambda: shard_decode(group, device)}
     return {part: run[part]() for part in parts}
 
 
@@ -5338,6 +5869,9 @@ def sharded_models_phase(step1_loss: float, parts=PARTS):
                 and f0["master_flip"] <= f0["lr"] + 1e-5):
             bad.append(f"pod step gates: {json.dumps(pod)}")
 
+    if "decode" in parts:        # (g) A9-sp
+        summary["decode"] = decode_gates(ranks, bad, show)
+
     launches = {k: sum(r[part]["launches"].get(k, 0) for r in ranks
                        for part in parts)
                 for k in KERNELS}
@@ -5346,6 +5880,79 @@ def sharded_models_phase(step1_loss: float, parts=PARTS):
     if bad:
         fail(" | ".join(bad))
     return launches, summary
+
+
+def decode_gates(ranks, bad: list, show) -> dict:
+    """Part (g)'s gates and log lines: on every rank, each run's B6
+    launches a step as ``predicted_decode`` says (none where the rank's
+    block holds no key the query sees) and its KV blocks, outside the
+    written slots, equal to their seeded draw; rank 0's comparisons with
+    one rank: the gated bf16 run within ``bf16_gate`` of the one-rank cuda
+    engine and of the fp32 model (logits, the written cache slots and the
+    recurrent states), the fp32 cut within ``DECODE_GATE`` and its greedy
+    tokens equal."""
+    out = {}
+    for name, cell in DECODE_PARTS.items():
+        r0 = ranks[0]["decode"][name]
+        tags = [t for t in ("bf16", "bf16_gated", "fp32") if t in r0]
+        for i, r in enumerate(ranks):
+            for tag in tags:
+                run = r["decode"][name][tag]
+                if run["launches"] != run["predicted"]:
+                    bad.append(f"sharded decode {name} {tag}, rank {i}: B6 "
+                               f"{run['launches']}, predicted "
+                               f"{run['predicted']}")
+                if run["seeded_err"] != 0.0:
+                    bad.append(f"sharded decode {name} {tag}, rank {i}: a "
+                               f"cache slot the steps did not write moved "
+                               f"by {run['seeded_err']}")
+                log(f"sharded models (g) {name} {cell['arch']} {tag} on "
+                    f"{cell['shape']}, rank {i}: set-up "
+                    f"{run['setup_s']:.3f} s, wall a token "
+                    f"{json.dumps([round(x, 4) for x in run['step_s']])} s, "
+                    f"cache held {run['cache_held'] / 2 ** 30:.3f} GiB, "
+                    f"B6 a step {json.dumps(run['launches'])}; " + show(run))
+        g, c = r0["gate"], r0["fp32_cut"]
+        main = r0["bf16"]
+        ok = (g["finite"] and main.get("finite", True)
+              and all(max(g[w]["vs_one_rank"], g[w]["vs_fp32"])
+                      <= g[w]["bound"] for w in ("logits", "kv", "states"))
+              and max(c["vs_one_rank"], c["cache_vs_one_rank"],
+                      c["states_vs_one_rank"]) <= DECODE_GATE
+              and c["greedy_equal"])
+        out[name] = rec = dict(
+            arch=cell["arch"], shape=cell["shape"], batch=cell["batch"],
+            kv_len=cell["kv_len"], gate=g, fp32_cut=c,
+            token_s=sum(main["step_s"]) / len(main["step_s"]),
+            one_rank_token_s=sum(g["one_rank_step_s"])
+            / len(g["one_rank_step_s"]),
+            peaks=[r["decode"][name]["bf16"]["peak_gib"] for r in ranks],
+            launches=[r["decode"][name]["launches"] for r in ranks])
+        del g["one_rank_step_s"], g["one_rank_launches"]
+        log(f"sharded models (g) {name}: {cell['arch']} at full width "
+            f"({main['layers']} layers), batch {cell['batch']}, kv_len "
+            f"{cell['kv_len']}, {cell['shape']} mesh, "
+            f"{len(cell['positions'])} tokens at {cell['positions'][0]}.."
+            f"{cell['positions'][-1]}: bf16 at {g['depth']} layers max "
+            f"|sharded - one rank (cuda)| / |sharded - fp32 model| (bound: "
+            f"bf16_gate of the one-rank torch engine's distance from the "
+            f"fp32 model) of the logits {g['logits']['vs_one_rank']} / "
+            f"{g['logits']['vs_fp32']} ({g['logits']['bound']}), the "
+            f"written cache slots {g['kv']['vs_one_rank']} / "
+            f"{g['kv']['vs_fp32']} ({g['kv']['bound']}), the recurrent "
+            f"states {g['states']['vs_one_rank']} / "
+            f"{g['states']['vs_fp32']} ({g['states']['bound']}); fp32 cut to "
+            f"{c['depth']} layers: logits {c['vs_one_rank']} (largest "
+            f"{c['max_logit']}), cache slots {c['cache_vs_one_rank']}, "
+            f"states {c['states_vs_one_rank']} (gate {DECODE_GATE}), greedy "
+            f"tokens equal {c['greedy_equal']}; wall a token "
+            f"{rec['token_s']:.4f} s sharded, {rec['one_rank_token_s']:.4f} "
+            f"s on one rank; B6 launches of the main run, by rank "
+            f"{json.dumps(rec['launches'])}")
+        if not ok:
+            bad.append(f"sharded decode gates of {name}: "
+                       f"{json.dumps(rec)}")
+    return out
 
 
 KERNELS = {
@@ -5361,6 +5968,10 @@ KERNELS = {
                         "src/repro/kernels/swa_attention.py:98"),
     "flash_decode": ("src/repro_torch/csrc/swa_decode.cu",
                      "src/repro/kernels/swa_attention.py:98"),
+    # the decode route's launches that also write each row's log-sum-exp
+    # (a sequence-sharded decode's blocks; counted in flash_decode too)
+    "flash_decode_lse": ("src/repro_torch/csrc/swa_decode.cu",
+                         "src/repro/kernels/swa_attention.py:98"),
     "hash_partition_plan": ("src/repro_torch/csrc/hash_partition.cu",
                             "src/repro/kernels/hash_partition.py:44"),
     "filter_compact_mask": ("src/repro_torch/csrc/filter_compact.cu",
@@ -5522,6 +6133,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("cpu", cpu_phase, CPU_PATIENTS)
     timed("attention", attention_battery, torch.device("cuda"))
+    lse_timing = timed("attention_lse", decode_lse_battery,
+                       torch.device("cuda"), REPS, rate)
     s_launches, s_timing, decode, tf, prefill_err, cpu_err = timed(
         "serving", serving_phase, REPS, rate)
     torch.cuda.empty_cache()
@@ -5554,7 +6167,8 @@ def main() -> int:
                    "flash_attention": s_timing, "flash_decode": decode,
                    "hash_partition_plan": h_timing,
                    "filter_compact_mask": mask_timing,
-                   "flash_attention_bwd": b_timing})
+                   "flash_attention_bwd": b_timing,
+                   "flash_decode_lse": lse_timing["gemma3 block"]})
     log(f"launches: quickstart {q_launches}, chunked {k_launches}, spec "
         f"corpus {f_launches}, service {v_launches}, cohort study "
         f"{c_launches}, serving {s_launches}, gemma3 prefill "
@@ -5568,6 +6182,9 @@ def main() -> int:
     for label, t in f_timing.items():
         log(f"families: B6 at {label}'s shape {json.dumps(t)}")
     log(f"families: {json.dumps(families)}")
+    for label, t in lse_timing.items():
+        log(f"sharded decode: B6's decode route with the LSE at {label}'s "
+            f"shape {json.dumps(t)}")
     log(f"training: B6 backward at danube's training shape "
         f"{json.dumps(b_timing)}")
     log(f"training: {json.dumps(training)}")
@@ -5578,11 +6195,10 @@ def main() -> int:
     log(f"phases: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
         f", total {time.perf_counter() - t_all:.3f} s")
 
-    launches = {k: q_launches[k] + k_launches[k] + f_launches[k]
-                + v_launches[k] + c_launches[k] + s_launches[k]
-                + g_launches[k] + h_launches[k] + sv_launches[k]
-                + m_launches[k] + t_launches[k] + p_launches[k]
-                for k in KERNELS}
+    launches = {k: sum(ph.get(k, 0) for ph in (
+        q_launches, k_launches, f_launches, v_launches, c_launches,
+        s_launches, g_launches, h_launches, sv_launches, m_launches,
+        t_launches, p_launches)) for k in KERNELS}
     # the flash_attention count takes one per call on both of B6's routes:
     # its prefill kernel launched on the calls the decode route did not take
     launches["flash_attention"] -= launches["flash_decode"]

@@ -48,7 +48,13 @@
 //      each split's partial by exp2(m_s - max m), sums, divides by the
 //      rescaled sum and writes q's type.  A split with m = -inf adds
 //      nothing; a row whose sums are all 0 (or an empty plan, splits = 0,
-//      where no split kernel runs) comes out exactly 0.
+//      where no split kernel runs) comes out exactly 0.  Given an lse
+//      buffer ((B, Hq, Sq) fp32), it also writes the row's natural
+//      log-sum-exp, (max m + log2 sum) * ln 2, which it already holds, and 0
+//      for a row with no visible key (the prefill kernel's convention): a
+//      sequence-sharded decode combines the ranks' partial rows with it,
+//      and asks for the output in fp32 (out_f32), so that the ranks'
+//      merge rounds once, as one rank's combine does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,6 +68,7 @@ constexpr int kThreads = 128;      // 4 warps
 constexpr int kWarps = 4;
 constexpr int kRows = 16;          // query rows per KV head on this route
 constexpr int kStages = 3;         // depth of the cp.async ring
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct DecodeArgs {
   const void* q;
@@ -563,8 +570,9 @@ __global__ void __launch_bounds__(kThreads) decode_f32(const DecodeArgs a) {
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    decode_combine(const float* __restrict__ part, T* __restrict__ o, long long sob,
-                   long long soh, long long sos, int B, int Hq, int Hkv, int Sq, int splits) {
+    decode_combine(const float* __restrict__ part, T* __restrict__ o, float* __restrict__ lse,
+                   long long sob, long long soh, long long sos, int B, int Hq, int Hkv, int Sq,
+                   int splits) {
   constexpr int DV = (D + 31) / 32;
   const int lane = threadIdx.x & 31;
   const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -612,6 +620,8 @@ __global__ void __launch_bounds__(kThreads)
     M = mn;
   }
   T* orow = o + b * sob + h * soh + qi * sos;
+  // w is the row's index in (B, Hq, Sq)
+  if (lse != nullptr && lane == 0) lse[w] = den > 0.f ? (M + log2f(den)) * kLn2 : 0.f;
 #pragma unroll
   for (int c = 0; c < DV; ++c) {
     const int d = lane + 32 * c;
@@ -633,8 +643,9 @@ int set_smem(K kernel, size_t bytes) {
 }
 
 template <int D>
-int launch(const DecodeArgs& a, int n_bh, int is_bf16, void* o, long long sob, long long soh,
-           long long sos, int B, int Hq, int Sq, cudaStream_t st) {
+int launch(const DecodeArgs& a, int n_bh, int is_bf16, int out_f32, void* o, float* lse,
+           long long sob, long long soh, long long sos, int B, int Hq, int Sq,
+           cudaStream_t st) {
   if (a.splits > 0) {
     const dim3 grid((unsigned)a.splits, (unsigned)n_bh);
     if (is_bf16) {
@@ -651,12 +662,12 @@ int launch(const DecodeArgs& a, int n_bh, int is_bf16, void* o, long long sob, l
   }
   const long long warps = (long long)B * Hq * Sq;
   const unsigned blocks = (unsigned)((warps + kWarps - 1) / kWarps);
-  if (is_bf16)
+  if (is_bf16 && !out_f32)
     decode_combine<__nv_bfloat16, D><<<blocks, kThreads, 0, st>>>(
-        a.part, static_cast<__nv_bfloat16*>(o), sob, soh, sos, B, Hq, a.Hkv, Sq, a.splits);
+        a.part, static_cast<__nv_bfloat16*>(o), lse, sob, soh, sos, B, Hq, a.Hkv, Sq, a.splits);
   else
     decode_combine<float, D><<<blocks, kThreads, 0, st>>>(
-        a.part, static_cast<float*>(o), sob, soh, sos, B, Hq, a.Hkv, Sq, a.splits);
+        a.part, static_cast<float*>(o), lse, sob, soh, sos, B, Hq, a.Hkv, Sq, a.splits);
   return (int)cudaGetLastError();
 }
 
@@ -665,16 +676,18 @@ int launch(const DecodeArgs& a, int n_bh, int is_bf16, void* o, long long sob, l
 // q, k, v, o: element strides (b, h, s) each, unit stride on d; bf16 rows
 // 16-byte aligned.  start, chunk, splits, key_end: the host's split plan
 // (splits = 0: no visible key, the output is zeroed).  part: fp32 workspace
-// of B * Hkv * splits * (Hq / Hkv) * Sq * (D + 2).  vec16: K/V rows are
-// 16-byte aligned.  Returns the first launch error (0 when both launched).
+// of B * Hkv * splits * (Hq / Hkv) * Sq * (D + 2).  lse: (B, Hq, Sq) fp32,
+// each row's natural log-sum-exp (0 where it sees no key), or null.  vec16:
+// K/V rows are 16-byte aligned.  out_f32: o is fp32 (else q's type).
+// Returns the first launch error (0 when both launched).
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, void* o,
                                   long long sqb, long long sqh, long long sqs, long long skb,
                                   long long skh, long long sks, long long svb, long long svh,
                                   long long svs, long long sob, long long soh, long long sos,
                                   int B, int Hq, int Hkv, int Sq, int D, int causal, int window,
                                   long long q_offset, int kv_len, int start, int chunk,
-                                  int splits, int key_end, void* part, int vec16, int is_bf16,
-                                  void* stream) {
+                                  int splits, int key_end, void* part, float* lse, int vec16,
+                                  int is_bf16, int out_f32, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * Sq > kRows || kv_len < 0 || window < 0 ||
       splits < 0 || (splits > 0 && (chunk <= 0 || chunk % 64 != 0)) ||
@@ -704,14 +717,14 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, v
   cudaStream_t st = (cudaStream_t)stream;
   const int n_bh = B * Hkv;
   switch (D) {
-    case 16: return launch<16>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
-    case 32: return launch<32>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
-    case 64: return launch<64>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
-    case 80: return launch<80>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
-    case 96: return launch<96>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
-    case 128: return launch<128>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
-    case 240: return launch<240>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
-    case 256: return launch<256>(a, n_bh, is_bf16, o, sob, soh, sos, B, Hq, Sq, st);
+    case 16: return launch<16>(a, n_bh, is_bf16, out_f32, o, lse, sob, soh, sos, B, Hq, Sq, st);
+    case 32: return launch<32>(a, n_bh, is_bf16, out_f32, o, lse, sob, soh, sos, B, Hq, Sq, st);
+    case 64: return launch<64>(a, n_bh, is_bf16, out_f32, o, lse, sob, soh, sos, B, Hq, Sq, st);
+    case 80: return launch<80>(a, n_bh, is_bf16, out_f32, o, lse, sob, soh, sos, B, Hq, Sq, st);
+    case 96: return launch<96>(a, n_bh, is_bf16, out_f32, o, lse, sob, soh, sos, B, Hq, Sq, st);
+    case 128: return launch<128>(a, n_bh, is_bf16, out_f32, o, lse, sob, soh, sos, B, Hq, Sq, st);
+    case 240: return launch<240>(a, n_bh, is_bf16, out_f32, o, lse, sob, soh, sos, B, Hq, Sq, st);
+    case 256: return launch<256>(a, n_bh, is_bf16, out_f32, o, lse, sob, soh, sos, B, Hq, Sq, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

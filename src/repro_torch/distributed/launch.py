@@ -28,7 +28,9 @@ the mesh's first rank (None elsewhere): ``moe_rank`` (the MoE layer),
 ``loss_grads_rank`` (``train_loss``, its gradients and ``prefill``),
 ``train_step_rank`` (ZeRO-1 AdamW steps), ``checkpoint_rank`` (an elastic
 save and restores onto other meshes), ``gpipe_rank``
-(``pipeline_transformer``) and ``shard_gather_rank``.
+(``pipeline_transformer``), ``shard_gather_rank`` and ``decode_rank`` (the
+sharded decode: ``make_serve_step`` steps on the rank's blocks of a
+cache).
 """
 from __future__ import annotations
 
@@ -50,7 +52,8 @@ from repro_torch.core.columnar import resolve_device
 __all__ = ["spawn", "tasks_rank", "study_rank", "service_rank",
            "flatten_rank", "exposures_rank", "result_to_numpy", "blocks",
            "make_mesh", "moe_rank", "loss_grads_rank", "train_step_rank",
-           "checkpoint_rank", "gpipe_rank", "shard_gather_rank"]
+           "checkpoint_rank", "gpipe_rank", "shard_gather_rank",
+           "decode_rank"]
 
 
 def _rank_main(rank: int, n: int, store_path: str, device: str,
@@ -498,3 +501,66 @@ def shard_gather_rank(group, device, arrays: Mapping, specs: Mapping,
     back = sharding.gather_tree(blocks_, dict(specs), mesh)
     return {k: v.cpu().numpy() for k, v in back.items()} \
         if _first(mesh) else None
+
+
+def _rows_whole(x, cfg, mesh, batch: int):
+    """A batch-sharded output whole again: gathered over the axes that
+    ``batch_shardings`` splits a batch of ``batch`` over (none: as it
+    is)."""
+    from repro_torch.distributed import comm, sharding
+
+    entry = sharding.batch_shardings(cfg, mesh, {"b": (batch,)})["b"][0]
+    axes = sharding.axes_of(entry)
+    return comm.all_gather_dim(x.contiguous(), mesh.group_of(*axes), 0) \
+        if axes else x
+
+
+def decode_rank(group, device, cfg, shape, params: Mapping, cache: Mapping,
+                steps: Sequence[Tuple[Any, int]], engine: str = "torch",
+                sample: bool = False) -> Any:
+    """``make_serve_step`` of the reference's numpy ``params`` and decode
+    ``cache`` (its tree, ``interop.cache_from_numpy``) on a mesh of
+    ``shape`` (``make_mesh``), one step for each ``(tokens (B, S), pos)``
+    of ``steps``, the tokens cut to the rank's rows.  On the first rank:
+    each step's logits (or greedy tokens, ``sample``) of the whole batch,
+    the logical cache after the last step (``gather_tree``, in the port's
+    layout, numpy), ``block_err``, the largest difference over the ranks
+    between a rank's blocks and ``shard_tree`` of that logical cache, and
+    the step's collectives (``comm.stats``)."""
+    from repro_torch.distributed import comm, hints, sharding
+    from repro_torch.interop import cache_from_numpy, lm_params_from_numpy
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.serving.serve_step import make_serve_step
+
+    mesh = make_mesh(group, shape)
+    p = lm_params_from_numpy(params, cfg, device, mesh)
+    blocks_ = cache_from_numpy(cache, cfg, device, mesh)
+    specs = sharding.specs_of(blocks_)
+    step = make_serve_step(ModelBundle(cfg), sample=sample, engine=engine)
+    outs = []
+    comm.reset_stats()
+    with torch.no_grad(), hints.use_mesh(mesh):
+        for tokens, pos in steps:
+            batch = _batch_block(cfg, mesh, {"tokens": tokens}, device)
+            out, blocks_ = step(p, blocks_, dict(batch, pos=int(pos)))
+            outs.append(_rows_whole(out, cfg, mesh, len(tokens)))
+        stats = dict(comm.stats)
+        whole = sharding.gather_tree(blocks_, specs, mesh)
+        again = sharding.shard_tree(whole, specs, mesh)
+        err = max([float((a.float() - b.float()).abs().max())
+                   for a, b in zip(_tensors(again), _tensors(blocks_))]
+                  + [0.0])
+        err = float(comm.all_reduce_max(torch.tensor([err]), mesh.group)[0])
+    if not _first(mesh):
+        return None
+    return {"out": [o.float().cpu().numpy() if not sample else
+                    o.cpu().numpy() for o in outs],
+            "cache": _numpy_tree(whole), "block_err": err, "comm": stats}
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tensors(v)]
+    return [tree]

@@ -15,8 +15,10 @@ The production mesh is (data, model) = (16, 16) per pod, with an outer
            (ROADMAP C17, matched: specs and checkpoints agree with the
            reference's).
   * EP   — MoE expert dim on "model".
-  * SP   — KV caches' sequence on the data axes where the batch is too
-           small (rules only: decode is not sharded yet).
+  * SP   — KV caches' sequence on "model" where the KV heads do not
+           divide it, and over every axis that divides it where the batch
+           is too small for the data axes; the decode step
+           (``models.layers``) combines the ranks' partial softmax rows.
   * ZeRO-1 — optimizer state also sharded over "data" on the largest dim
            that divides and is not sharded yet.
 
@@ -25,7 +27,13 @@ axis names.  The rules run over the port's trees (flat layer lists), so a
 leaf's spec is the reference's without its leading stacking entry; they
 take a ``launch.mesh.Mesh`` or ``AbstractMesh`` and trees of tensors,
 meta tensors or shapes.  ``shard_tree`` gives a rank's block of every
-leaf; ``gather_tree`` (a collective) gives back the logical arrays.
+leaf; ``gather_tree`` (a collective) gives back the logical arrays;
+``block_range`` is a rank's ``[lo, hi)`` on a dim its spec splits, and
+``regroup`` (a collective) moves a rank's block from one spec to another.
+A sharded decode's cache is a tree of blocks that carries its specs
+(``with_specs``, ``specs_of``): the rank's local shapes alone cannot tell
+the layouts apart (a batch of 1 over four ranks' sequence blocks looks
+like a batch of 2 over two ranks' each).
 """
 from __future__ import annotations
 
@@ -38,7 +46,8 @@ from repro_torch.configs.base import ModelConfig, ShapeCell
 __all__ = ["data_axes", "param_shardings", "batch_shardings",
            "cache_shardings", "opt_state_shardings", "map_with_path",
            "shard_tree", "gather_tree", "spec_leaves", "block", "own_block",
-           "axes_of", "Spec"]
+           "n_blocks", "block_range", "block_shape", "regroup", "with_specs",
+           "specs_of", "axes_of", "Spec"]
 
 Spec = Tuple[Any, ...]
 
@@ -255,20 +264,87 @@ def axes_of(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def _index(entry, mesh, coords=None) -> Tuple[int, int]:
+    """``(this rank's block index, block count)`` over the axes of a spec
+    entry, row-major over them as listed (``("data", "model")`` is
+    data-major), at ``coords`` (default: this rank's)."""
+    coords = mesh.coords if coords is None else coords
+    idx, n = 0, 1
+    for a in axes_of(entry):
+        idx = idx * mesh.shape[a] + coords[a]
+        n *= mesh.shape[a]
+    return idx, n
+
+
+def n_blocks(entry, mesh) -> int:
+    """The number of blocks a spec entry splits a dim into."""
+    return _index(entry, mesh, {a: 0 for a in axes_of(entry)})[1]
+
+
+def block_range(size: int, entry, mesh, coords=None) -> Tuple[int, int]:
+    """``[lo, hi)`` of the rank at ``coords`` (default: this one) on a
+    logical dim of ``size`` that a spec entry splits (one axis, a tuple of
+    axes, or None: the whole dim), in ``block``'s order."""
+    idx, n = _index(entry, mesh, coords)
+    b = size // n
+    return idx * b, (idx + 1) * b
+
+
+def block_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of a logical ``shape`` under ``spec``."""
+    return tuple(n // n_blocks(e, mesh) for n, e in
+                 zip(tuple(shape), tuple(spec) + (None,) * len(shape)))
+
+
 def block(x, spec: Spec, mesh):
     """This rank's block of the logical ``x`` (a tensor or numpy array)
     under ``spec`` (a view)."""
     for dim, entry in enumerate(spec):
-        axes = axes_of(entry)
-        if not axes:
-            continue
-        idx, n = 0, 1
-        for a in axes:                        # row-major over the axes
-            idx = idx * mesh.shape[a] + mesh.coords[a]
-            n *= mesh.shape[a]
-        size = x.shape[dim] // n
-        x = x[(slice(None),) * dim + (slice(idx * size, (idx + 1) * size),)]
+        if axes_of(entry):
+            lo, hi = block_range(x.shape[dim], entry, mesh)
+            x = x[(slice(None),) * dim + (slice(lo, hi),)]
     return x
+
+
+def regroup(x: torch.Tensor, src: Spec, dst: Spec, mesh) -> torch.Tensor:
+    """This rank's block under ``dst`` from its block ``x`` under ``src``
+    (a collective over the axes of each dim whose entry changes: every rank
+    of those groups calls it): each such dim is gathered over ``src``'s
+    axes, then cut to ``dst``'s block."""
+    from repro_torch.distributed import comm
+
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        if a != b and axes_of(a):
+            x = comm.all_gather_dim(x.contiguous(), mesh.group_of(*axes_of(a)),
+                                    dim)
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        if a != b and axes_of(b):
+            lo, hi = block_range(x.shape[dim], b, mesh)
+            x = x.narrow(dim, lo, hi - lo)
+    return x.contiguous()
+
+
+class BlockList(list):
+    """A list of a rank's blocks that knows their specs (``specs``)."""
+    specs = None
+
+
+class BlockDict(dict):
+    """A dict of a rank's blocks that knows their specs (``specs``)."""
+    specs = None
+
+
+def with_specs(tree, specs):
+    """``tree`` (a list or dict of blocks) as a ``BlockList`` or
+    ``BlockDict`` carrying ``specs``."""
+    out = BlockDict(tree) if isinstance(tree, dict) else BlockList(tree)
+    out.specs = specs
+    return out
+
+
+def specs_of(tree):
+    """The specs a tree of blocks carries (``with_specs``), or None."""
+    return getattr(tree, "specs", None)
 
 
 def own_block(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:

@@ -19,7 +19,12 @@ under ``distributed.sharding``'s rules (the optimizer's trees under the
 ZeRO-1 ones), cut from the numpy arrays before they reach the device.
 ``init_shards`` draws a seeded ``init`` one leaf at a time, keeping only
 the rank's block of each: the values are ``bundle.init``'s on the same
-device, and no rank ever holds the whole model.
+device, and no rank ever holds the whole model.  A decode cache travels as
+the reference's cache tree (``head_layers``, ``periods`` stacked, ``tail_
+layers``; the encoder-decoder's stacked dict as it is), and
+``cache_from_numpy`` carries it into the port's list of layer states, or
+with a ``mesh`` into the rank's blocks under ``cache_shardings``, which the
+sharded decode reads.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.columnar import ColumnarTable, as_tensor, resolve_device
 
 __all__ = ["tables_from_numpy", "tables_to_numpy", "lm_params_from_numpy",
-           "train_state_from_numpy", "init_shards", "tree_map"]
+           "train_state_from_numpy", "cache_from_numpy", "init_shards",
+           "tree_map"]
 
 
 def tables_from_numpy(star: Mapping[str, Mapping], device=None
@@ -149,6 +155,37 @@ def _encdec_tree(params: Mapping[str, Any], cfg: ModelConfig
                    ("dec_layers", cfg.n_layers)):
         out[key] = _unstack(params[key], n)
     return out
+
+
+def cache_from_numpy(cache: Mapping[str, Any], cfg: ModelConfig,
+                     device=None, mesh=None):
+    """The reference's decode cache (numpy leaves, bf16 as ``ml_dtypes``)
+    -> the port's on ``device`` (None = CUDA): for a decoder LM one state a
+    layer in the port's order (head layers, each period's
+    ``slot0..slotN`` unstacked, tail layers), for the encoder-decoder the
+    stacked dict as it is.  With a ``mesh``, this rank's blocks under
+    ``sharding.cache_shardings``, cut from the numpy arrays, as a tree that
+    carries its specs (``sharding.with_specs``)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models.lm import _layer_plan
+
+    dev = resolve_device(device)
+    if cfg.is_encdec:
+        tree = {k: np.asarray(v) for k, v in cache.items()}
+        batch = tree["self_k"].shape[1]
+    else:
+        head, pattern, npd, tail = _layer_plan(cfg)
+        tree = [tree_map(np.asarray, c) for c in cache["head_layers"]]
+        for per in (_unstack(cache["periods"], npd) if npd else []):
+            tree += [per[f"slot{j}"] for j in range(len(pattern))]
+        tree += [tree_map(np.asarray, c) for c in cache["tail_layers"]]
+        batch = tree[0][0].shape[0]
+    if mesh is None:
+        return tree_map(lambda a: _leaf_to_tensor(a, dev), tree)
+    specs = sharding.cache_shardings(cfg, mesh, tree, batch)
+    blocks = sharding.shard_tree(tree, specs, mesh)
+    return sharding.with_specs(
+        tree_map(lambda a: _leaf_to_tensor(a, dev), blocks), specs)
 
 
 def train_state_from_numpy(state: Mapping[str, Any], cfg: ModelConfig,

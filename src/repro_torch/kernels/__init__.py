@@ -24,7 +24,8 @@ PREDICATE_ENGINES = ("torch", "cuda", "auto")
 launch_counts = {"predicate_bitset": 0, "filter_compact": 0, "bitset_op": 0,
                  "segmented_scan": 0, "flash_attention": 0,
                  "filter_compact_mask": 0, "hash_partition_plan": 0,
-                 "flash_decode": 0, "flash_attention_bwd": 0}
+                 "flash_decode": 0, "flash_decode_lse": 0,
+                 "flash_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:

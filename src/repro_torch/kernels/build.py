@@ -141,10 +141,11 @@ def _declare(lib: ctypes.CDLL) -> None:
                                           + [_I64, _I32, _I32, _P, _P])
     lib.repro_flash_attention.restype = _I32
     # q, k, v, o; 12 strides; B, Hq, Hkv, Sq, D, causal, window; q_offset;
-    # kv_len, start, chunk, splits, key_end; part; vec16, is_bf16; stream
+    # kv_len, start, chunk, splits, key_end; part; lse; vec16, is_bf16,
+    # out_f32; stream
     lib.repro_flash_decode.argtypes = ([_P] * 4 + [_I64] * 12 + [_I32] * 7
-                                       + [_I64] + [_I32] * 5 + [_P]
-                                       + [_I32] * 2 + [_P])
+                                       + [_I64] + [_I32] * 5 + [_P, _P]
+                                       + [_I32] * 3 + [_P])
     lib.repro_flash_decode.restype = _I32
     # q, k, v, o, dout, dq, dk, dv, lse, delta; 24 strides; B, Hq, Hkv, Sq,
     # Skv, D, causal, window; q_offset; kv_len; stream (fp32 and bf16)

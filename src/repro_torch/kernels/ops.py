@@ -114,20 +114,34 @@ def segmented_scan(flags: torch.Tensor, vals: torch.Tensor, block: int = 512,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_offset: Optional[int] = None,
-                    kv_len: Optional[int] = None) -> torch.Tensor:
+                    kv_len: Optional[int] = None, return_lse: bool = False,
+                    out_dtype=None):
     """Flash attention (GQA, causal, sliding window) in the reference's
     ``(B, H, S, D)`` layout; ``q_offset`` defaults to ``kv_len - Sq`` and
     ``kv_len`` (keys at or past it are never attended) to ``Skv``.  Where
     autograd records (grad mode on, an input that requires grad) the call
     goes through ``swa_attention.FlashAttention``, whose backward is B6's
-    backward kernel on CUDA tensors (its plain version on CPU tensors)."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    backward kernel on CUDA tensors (its plain version on CPU tensors).
+    ``return_lse`` (not under autograd) returns ``(out, lse)``, each row's
+    log-sum-exp ``(B, Hq, Sq)`` fp32, 0 for a row that sees no key, from
+    either of B6's routes, the output in ``out_dtype`` (default q's;
+    ``torch.float32``: the decode route's sums unrounded)."""
+    records = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                           or v.requires_grad)
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    if return_lse:
+        if records:
+            raise ValueError("flash_attention(return_lse=True) is for calls "
+                             "autograd does not record")
+        if q.device.type != "cuda":
+            return _swa.flash_swa_attention_plain(q, k, v, return_lse=True,
+                                                  out_dtype=out_dtype, **kw)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        return _swa.flash_swa_attention(q, k, v, lse=lse, out_dtype=out_dtype,
+                                        **kw), lse
+    if records:
         return _swa.FlashAttention.apply(q, k, v, causal, window, q_offset,
                                          kv_len)
     if q.device.type == "cuda":
-        return _swa.flash_swa_attention(q, k, v, causal=causal, window=window,
-                                        q_offset=q_offset, kv_len=kv_len)
-    return _swa.flash_swa_attention_plain(q, k, v, causal=causal,
-                                          window=window, q_offset=q_offset,
-                                          kv_len=kv_len)
+        return _swa.flash_swa_attention(q, k, v, **kw)
+    return _swa.flash_swa_attention_plain(q, k, v, **kw)

@@ -22,7 +22,8 @@ decode step of the models) takes the decode route, split-KV
 flash-decoding (``csrc/swa_decode.cu``): ``plan_decode_splits`` cuts the
 visible key range into chunks of a multiple of ``DECODE_KEYS`` keys, one
 block per (split, batch, KV head) writes fp32 partials (running max, sum,
-unnormalised output), and a second launch combines them.
+unnormalised output), and a second launch combines them (and, given an
+``lse`` buffer, writes each row's log-sum-exp, below).
 ``partials_plain`` and ``combine_partials_plain`` repeat that arithmetic in
 PyTorch.  Larger calls (prefill) run ``csrc/swa_prefill.cu`` in bf16 (TMA
 loads, ``wgmma`` products, warp-specialised; ``prefill_tile_class`` repeats
@@ -31,12 +32,15 @@ tiles) and ``csrc/swa_attention.cu`` in fp32.  Both routes take head dims
 ``HEAD_DIMS``; bf16 operands need 16-byte aligned bases and strides that
 are multiples of 8 elements (TMA's rule), else the call raises.
 
+The log-sum-exp (LSE): given an ``lse`` buffer, ``(B, Hq, Sq)`` fp32, either
+route writes each row's natural log-sum-exp of its scaled visible scores, 0
+for a row with no visible key; the decode route's combine kernel writes it
+from the max and sum it already holds, so a decode call stays on the decode
+route.  A sequence-sharded decode (``models.layers``) combines the ranks'
+partial rows with it (``ops.flash_attention(..., return_lse=True)``).
+
 The gradient: ``FlashAttention`` (a ``torch.autograd.Function``) runs the
-forward above with an ``lse`` buffer, in which the forward writes each row's
-log-sum-exp (LSE) of the scaled scores: ``(B, Hq, Sq)`` fp32, natural log, 0
-for a row with no visible key (such a call takes the prefill kernels at
-every size: the decode route keeps no LSE, and serving never asks for one).
-Its backward, ``flash_swa_attention_backward``, reads that LSE and launches
+forward above with an ``lse`` buffer.  Its backward, ``flash_swa_attention_backward``, reads that LSE and launches
 two kernels on CUDA tensors (dQ, then dK and dV; no atomics): bf16 runs
 ``csrc/swa_backward_bf16.cu`` on the tensor cores (TMA, ``wgmma``;
 ``backward_dq_tiles`` and ``backward_dkdv_tiles`` repeat its walks, and
@@ -76,6 +80,7 @@ SKIP, FULL, EDGE = 0, 1, 2  # classes of a (query tile, key tile) pair
 BWD_DQ_ROWS = 128         # query rows a block of the bf16 backward's dq launch
 BLOCKS_PER_SM = 2         # the split plan fills the card this many times
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 
 def _check_args(q, k, v, window, q_offset, kv_len) -> Tuple[int, int]:
@@ -107,12 +112,13 @@ def flash_swa_attention_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               window: int = 0, q_offset: Optional[int] = None,
                               kv_len: Optional[int] = None,
-                              return_lse: bool = False):
+                              return_lse: bool = False, out_dtype=None):
     """Dense masked fp32 softmax attention, a block of query rows at a time
     (so that the scores of one step stay under ``_PLAIN_CHUNK`` elements).
     With ``return_lse``, returns ``(out, lse)``: each row's log-sum-exp of
     its scaled visible scores, ``(B, Hq, Sq)`` fp32, 0 for a row with no
-    visible key (the kernels' convention)."""
+    visible key (the kernels' convention).  The output is in ``out_dtype``
+    (default q's)."""
     q_offset, kv_len = _check_args(q, k, v, window, q_offset, kv_len)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -144,7 +150,7 @@ def flash_swa_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                           torch.zeros_like(o))
         lse[:, :, :, lo:hi] = torch.where(
             den > 0, m + torch.log(den), torch.zeros_like(den))[..., 0]
-    out = out.reshape(B, Hq, Sq, D).to(q.dtype)
+    out = out.reshape(B, Hq, Sq, D).to(out_dtype or q.dtype)
     return (out, lse.reshape(B, Hq, Sq)) if return_lse else out
 
 
@@ -367,32 +373,43 @@ def partials_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def combine_partials_plain(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
-                           Hq: int, Sq: int, dtype) -> torch.Tensor:
+                           Hq: int, Sq: int, dtype, return_lse: bool = False):
     """The decode route's combine kernel in PyTorch: rescale each split by
     ``exp2(m_s - max m)`` (a split with ``m = -inf`` adds nothing), sum,
     divide by the rescaled sum; a row whose sums are all 0 is 0.  Returns
-    ``(B, Hq, Sq, D)`` in ``dtype``."""
+    ``(B, Hq, Sq, D)`` in ``dtype``; with ``return_lse``, ``(out, lse)``:
+    each row's natural log-sum-exp ``(max m + log2 sum) * ln 2``, ``(B, Hq,
+    Sq)`` fp32, 0 for a row that sees no key (the kernel's convention)."""
     B, Hkv, splits, R, D = o.shape
     if splits:
         M = m.amax(dim=2, keepdim=True)
+        M = torch.where(torch.isinf(M), torch.zeros_like(M), M)
         wt = torch.where(torch.isinf(m), torch.zeros_like(m),
-                         torch.exp2(m - torch.where(torch.isinf(M),
-                                                    torch.zeros_like(M), M)))
+                         torch.exp2(m - M))
         den = (wt * l).sum(dim=2)
         num = (wt[..., None] * o).sum(dim=2)
         out = torch.where(den[..., None] > 0,
                           num / torch.where(den > 0, den, 1.0)[..., None],
                           torch.zeros_like(num))
+        lse = torch.where(den > 0, (M[:, :, 0] + torch.log2(
+            torch.where(den > 0, den, 1.0))) * _LN2, torch.zeros_like(den))
     else:
         out = torch.zeros((B, Hkv, R, D), device=o.device)
-    return (out.reshape(B, Hkv, Sq, Hq // Hkv, D).transpose(2, 3)
-            .reshape(B, Hq, Sq, D).to(dtype))
+        lse = torch.zeros((B, Hkv, R), device=o.device)
+    out = (out.reshape(B, Hkv, Sq, Hq // Hkv, D).transpose(2, 3)
+           .reshape(B, Hq, Sq, D).to(dtype))
+    if not return_lse:
+        return out
+    return out, (lse.reshape(B, Hkv, Sq, Hq // Hkv).transpose(2, 3)
+                 .reshape(B, Hq, Sq))
 
 
-def _flash_decode(lib, q, k, v, out, causal, window, q_offset, kv_len,
+def _flash_decode(lib, q, k, v, out, lse, causal, window, q_offset, kv_len,
                   stream) -> None:
     """Launch the decode route: the split kernel over
-    ``plan_decode_splits``'s plan and the combine kernel into ``out``."""
+    ``plan_decode_splits``'s plan and the combine kernel into ``out`` (q's
+    type or fp32; and each row's log-sum-exp into ``lse`` unless it is
+    None)."""
     from repro_torch.kernels.build import check
 
     B, Hq, Sq, D = q.shape
@@ -410,8 +427,12 @@ def _flash_decode(lib, q, k, v, out, causal, window, q_offset, kv_len,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *st,
         B, Hq, Hkv, Sq, D, int(bool(causal)), int(window),
         ctypes.c_longlong(q_offset), kv_len, start, chunk, splits, end,
-        part.data_ptr(), int(vec16), int(q.dtype == torch.bfloat16), stream)
+        part.data_ptr(), None if lse is None else lse.data_ptr(), int(vec16),
+        int(q.dtype == torch.bfloat16), int(out.dtype == torch.float32),
+        stream)
     launch_counts["flash_decode"] += 1
+    if lse is not None:
+        launch_counts["flash_decode_lse"] += 1
     check(status, "flash_attention decode")
 
 
@@ -428,11 +449,15 @@ def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         q_offset: Optional[int] = None,
                         kv_len: Optional[int] = None,
-                        lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        lse: Optional[torch.Tensor] = None,
+                        out_dtype=None) -> torch.Tensor:
     """Launch B6 on CUDA tensors (the decode route when ``group * Sq <=
-    DECODE_ROWS`` and no ``lse`` is asked for); returns ``(B, Hq, Sq, D)``
-    in q's dtype.  ``lse``, a ``(B, Hq, Sq)`` fp32 buffer, receives each
-    row's log-sum-exp (``flash_swa_attention_plain``'s convention)."""
+    DECODE_ROWS``, else the prefill kernels); returns ``(B, Hq, Sq, D)`` in
+    q's dtype.  ``lse``, a ``(B, Hq, Sq)`` fp32 buffer, receives each row's
+    log-sum-exp (``flash_swa_attention_plain``'s convention) on either
+    route.  ``out_dtype=torch.float32``: the output in fp32 (the decode
+    route writes its fp32 sums unrounded; the prefill kernels' output is
+    converted)."""
     from repro_torch.kernels.build import check, library
 
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -465,10 +490,15 @@ def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if lse is None and (Hq // Hkv) * Sq <= DECODE_ROWS:
+    if (Hq // Hkv) * Sq <= DECODE_ROWS:
+        if out_dtype is not None and out_dtype != q.dtype:
+            if out_dtype != torch.float32:
+                raise ValueError(f"flash_attention: out_dtype {out_dtype} "
+                                 f"is neither q's type nor float32")
+            out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
         launch_counts["flash_attention"] += 1
-        _flash_decode(lib, q, k, v, out, causal, window, q_offset, kv_len,
-                      stream)
+        _flash_decode(lib, q, k, v, out, lse, causal, window, q_offset,
+                      kv_len, stream)
         return out
     st = [ctypes.c_longlong(s) for t in (q, k, v, out) for s in t.stride()[:3]]
     status = lib.repro_flash_attention(
@@ -478,7 +508,7 @@ def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(bf16), None if lse is None else lse.data_ptr(), stream)
     launch_counts["flash_attention"] += 1
     check(status, "flash_attention")
-    return out
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

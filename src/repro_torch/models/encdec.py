@@ -30,7 +30,12 @@ cross-attention over the memory (whole on every rank) run on the rank's
 heads (``layers.attention``); the embedding, ``lm_head`` and the loss are
 vocab-parallel (``lm.embed``, ``lm.output_logits``,
 ``lm.sharded_cross_entropy``: the global masked mean over the data axes).
-A decode step under a model axis raises (ROADMAP A9-sp).
+A decode step under the mesh takes the rank's blocks of the stacked caches
+under ``sharding.cache_shardings`` (``init_cache(..., mesh=)``, a
+``sharding.BlockDict`` that carries the specs): each layer's self and
+cross caches, ``(B, S, H, D)`` slices of them, take the layouts of
+``models.layers`` (heads, sequence or whole; every cross key visible), and
+the logits are whole over the vocab, as ``lm.forward``'s.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import comm
+from repro_torch.distributed import comm, hints, sharding
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 
@@ -133,15 +138,25 @@ def _dec_layer(lp, x, memory, cfg, positions, engine):
 
 
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, src_len: int,
-               device) -> Params:
+               device, mesh=None) -> Params:
     """Zeroed self-attention K/V of ``kv_len`` and cross K/V of
-    ``src_len`` slots, stacked over the decoder layers."""
-    def kv(s):
-        return torch.zeros((cfg.n_layers, batch, s, cfg.n_kv_heads,
-                            cfg.head_dim_), dtype=_dtype(cfg), device=device)
+    ``src_len`` slots, stacked over the decoder layers; with a ``mesh``,
+    this rank's blocks of them (``lm.init_blocks``), never the logical
+    cache."""
+    def make(b, n, src, dev):
+        def kv(s):
+            return torch.zeros((cfg.n_layers, b, s, cfg.n_kv_heads,
+                                cfg.head_dim_), dtype=_dtype(cfg), device=dev)
 
-    return {"self_k": kv(kv_len), "self_v": kv(kv_len),
-            "cross_k": kv(src_len), "cross_v": kv(src_len)}
+        return {"self_k": kv(n), "self_v": kv(n), "cross_k": kv(src),
+                "cross_v": kv(src)}
+
+    if mesh is None:
+        return make(batch, kv_len, src_len, device)
+    logical = make(batch, kv_len, src_len, "meta")
+    return LM.init_blocks(logical, make(1, 1, 1, "cpu"),
+                          sharding.cache_shardings(cfg, mesh, logical, batch),
+                          mesh, device)
 
 
 def prefill_cross(params: Params, cfg: ModelConfig, memory: torch.Tensor
@@ -166,10 +181,18 @@ def decode_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     a decode step (cache given, the cross K/V read from it, the
     self-attention K/V written in place at ``cache_pos``).  Returns
     (logits, cache or None)."""
+    shard, gather_batch = LM.decode_shards(cache, 1)
+    if gather_batch is not None:
+        tokens = comm.all_gather_dim(tokens, hints.current_mesh().group_of(
+            *sharding.axes_of(gather_batch)), 0)
     B, S = tokens.shape
     x = LM.embed(params, cfg, tokens)
     positions = _positions(B, S, 0 if cache_pos is None else int(cache_pos),
                            x.device)
+    self_shard = cross_shard = None
+    if shard is not None:         # a layer's (B, S, H, D) slice of a leaf
+        self_shard = L.DecodeShard(shard.spec["self_k"][1:], shard.batch)
+        cross_shard = L.DecodeShard(shard.spec["cross_k"][1:], shard.batch)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, lp in enumerate(params["dec_layers"]):
         if cache is None:
@@ -181,18 +204,25 @@ def decode_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         out, _ = L.attention(lp["self_attn"], h, cfg, kind="attn",
                              positions=positions,
                              cache=(cache["self_k"][i], cache["self_v"][i]),
-                             cache_pos=cache_pos, engine=engine)
+                             cache_pos=cache_pos, engine=engine,
+                             shard=self_shard)
         x = x + out
         h = L.rmsnorm(lp["norm_x"], x, cfg.norm_eps)
         x = x + L.cross_attention(lp["cross_attn"], h, cache["cross_k"][i],
                                   cache["cross_v"][i], cfg,
-                                  positions=positions, engine=engine)
+                                  positions=positions, engine=engine,
+                                  shard=cross_shard)
         x = x + L.ffn(lp["ffn"], L.rmsnorm(lp["norm2"], x, cfg.norm_eps),
                       cfg.d_ff)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:, :]
-    return LM.output_logits(params, cfg, x, logits_slice is not None), cache
+    logits = LM.output_logits(params, cfg, x, logits_slice is not None
+                              or cache is not None)
+    if gather_batch is not None:             # the rank's rows again
+        logits = sharding.own_block(logits, (gather_batch,),
+                                    hints.current_mesh())
+    return logits, cache
 
 
 def train_loss(params: Params, cfg: ModelConfig,

@@ -34,26 +34,55 @@ back to the contiguous block).  Where heads or ``f`` do not divide, the
 layer gathers its weights and runs whole on every rank.  The MoE layer
 runs expert-parallel (``_moe_ffn_ep``) on any model axis, size 1
 included, as the reference's does.  Cross-attention (keys and values from
-an encoder's memory) shards as self-attention does; a decode step (a
-cache) under a model axis waits for ROADMAP A9-sp.  The recurrent mixers
+an encoder's memory) shards as self-attention does.  The recurrent mixers
 (``models.recurrent``) use the same helpers: ``_whole``/``_whole_rows``
 for a layer that runs whole on every rank, ``_partial_sum`` for a
 row-sharded output projection.
+
+A decode step under the mesh takes its cache leaf's spec
+(``DecodeShard``: the rules' ``cache_shardings``, which the cache carries,
+``sharding.specs_of``), and the rank holds exactly that block.  Three
+layouts of a ``(B, S, Hkv, D)`` KV cache, each for a full cache and a
+ring (``S == window``):
+
+* heads on "model": the rank's query heads and their KV heads, as a
+  prefill's ``_attention_tp``; it writes its heads at ``pos``, runs B6 on
+  its block, and ``wo`` is regrouped and summed as in prefill;
+* the sequence on "model", or over every axis (a batch too small for the
+  data axes): every rank needs every query head and the whole new K/V, so
+  the projections' column blocks are gathered over "model"; the new K/V
+  goes to the rank whose block holds its slot; each rank attends its
+  block with B6's decode route writing each row's log-sum-exp and its
+  output in fp32, skipping the launch where no row sees a key of it, and
+  ``combine_partials`` merges the ranks' rows (all-gathered over the
+  splitting axes) in fp32 and rounds once, a rank whose block a row
+  cannot see weighing 0 (its LSE is 0 by the kernel's convention, which
+  ``exp`` would count); ``wo`` then runs on whole heads, a column block a
+  rank, gathered over "model" (a column-parallel product, exact: no
+  partial sums);
+* whole (neither divides): every rank attends the whole cache, as one
+  rank does, and ``wo`` runs as in the sequence layout.
+
+On a batch-1 mesh with a data axis above 1 the ranks of the data axis
+compute the same activations and attend different sequence blocks: the
+combine is over every axis, the TP products stay on "model".
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import comm, hints
+from repro_torch.distributed import comm, hints, sharding
 from repro_torch.kernels import ops
 
 __all__ = ["ATTENTION_ENGINES", "resolve_attention_engine", "mm", "dense_init",
            "rmsnorm", "rope", "attn_params", "sdpa", "attention",
-           "cross_attention", "logistic", "ffn_params", "ffn", "moe_params",
+           "cross_attention", "DecodeShard", "combine_partials",
+           "decode_visible", "logistic", "ffn_params", "ffn", "moe_params",
            "moe_capacity", "moe_route", "moe_dispatch", "moe_experts",
            "moe_combine", "moe_ffn", "moe_load_balance_loss"]
 
@@ -294,22 +323,76 @@ def _flash(q, k, v, *, causal, window, q_offset, kv_len):
     return out.transpose(1, 2).reshape(B, Sq, Hq * D)
 
 
-def _write_cache(kc, vc, k, v, pos: int) -> None:
+def _write_cache(kc, vc, k, v, pos: int, lo: int = 0,
+                 size: Optional[int] = None) -> None:
     """Write k, v into the caches in place at ``pos`` on the sequence axis.
     The start is clamped so that the update fits, as JAX's
     ``dynamic_update_slice`` clamps it; the reference donates its caches, so
-    its update is in place too."""
+    its update is in place too.  ``kc``/``vc`` may be the block from ``lo``
+    of a logical cache of ``size`` slots: only the slots inside it are
+    written."""
     S = k.shape[1]
-    start = min(max(pos, 0), kc.shape[1] - S)
-    kc[:, start:start + S] = k
-    vc[:, start:start + S] = v
+    size = kc.shape[1] if size is None else size
+    start = min(max(pos, 0), size - S)
+    a, b = max(start, lo), min(start + S, lo + kc.shape[1])
+    if a < b:
+        kc[:, a - lo:b - lo] = k[:, a - start:b - start]
+        vc[:, a - lo:b - lo] = v[:, a - start:b - start]
+
+
+def _cache_attend(q, k, v, kc, vc, *, pos: int, window: int, causal: bool,
+                  positions, engine: str) -> torch.Tensor:
+    """Write the new K/V into a whole cache (the rank's KV heads of it, or
+    all of them) at ``pos`` and attend it: a ring buffer where ``window >
+    0`` and the cache holds ``window`` slots, else a full cache.  Returns
+    (B, Sq, Hq*D)."""
+    S_cache = kc.shape[1]
+    if window > 0 and S_cache == window:
+        # ring buffer: absolute position -> slot = pos % window
+        _write_cache(kc, vc, k, v, pos % window)
+        if engine == "torch":
+            # slot i holds the latest position p with p % window == i and
+            # p <= pos
+            idx = torch.arange(window, dtype=torch.int32, device=kc.device)
+            ring_pos = pos - ((pos - idx) % window)
+            return _ring_sdpa(q, kc, vc, ring_pos, pos, window)
+        # The reference masks every one of the S queries by cache_pos =
+        # pos alone: ring_pos[i] = pos - ((pos - i) % W) lies in
+        # (pos - W, pos] for every slot i <= pos and is i - W < 0 for
+        # i > pos, so its valid set (ring_pos >= 0 and inside the window)
+        # is exactly the first min(pos + 1, W) slots, the same for all S
+        # queries, with no causal order among them.  B6 attends those
+        # slots with no causal or window mask (softmax does not care
+        # about the slots' order), for any S: group * S <= 16 rows take
+        # the decode route, larger calls the prefill kernel.
+        return _flash(q, kc, vc, causal=False, window=0, q_offset=pos,
+                      kv_len=min(pos + 1, window))
+    # full cache: write at pos, attend with the causal (and window) mask,
+    # which hides the slots not yet written
+    _write_cache(kc, vc, k, v, pos)
+    if engine == "torch":
+        return sdpa(q, kc, vc, causal=causal, window=window,
+                    q_positions=positions)
+    return _flash(q, kc, vc, causal=causal, window=window, q_offset=pos,
+                  kv_len=S_cache)
 
 
 # ---------------------------------------------------------------------------
 # tensor parallelism: the ambient mesh's "model" axis
 # ---------------------------------------------------------------------------
-SHARDED_DECODE_TODO = ("tensor-parallel decode waits for ROADMAP A9-sp "
-                       "(sharded KV caches and recurrent states)")
+DECODE_NEEDS_SPECS = ("a decode step under a model axis needs its cache's "
+                      "specs: a cache from init_cache(..., mesh=) or "
+                      "interop.cache_from_numpy(..., mesh=)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeShard:
+    """Where a layer's decode state lies under the ambient mesh: ``spec``,
+    the spec of its cache leaf (a KV cache's keys, or a recurrent state's
+    tuple of specs), and ``batch``, the spec entry of the activations'
+    batch (the rank's rows of the batch)."""
+    spec: Any
+    batch: Any = None
 
 
 def model_axis():
@@ -418,7 +501,6 @@ def _attention_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     tp, r, group = model_axis()
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     n, g = Hq // tp, Hq // Hkv
-    B, S, _ = x.shape
     if Hq % tp or (n % g and g % n):
         # heads that do not divide: every rank runs the whole layer
         cols = {"wq": Hq * hd, "wk": Hkv * hd, "wv": Hkv * hd,
@@ -430,32 +512,54 @@ def _attention_tp(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                kv_input=kv_input)
     xc = comm.copy_to(x, group)
     src = xc if kv_input is None else comm.copy_to(kv_input, group)
-    q_lo, n_kv = r * n, max(n // g, 1)
-    kv_lo = q_lo // g
-
-    def proj(name, bias, heads, lo, cnt, inp):
-        cut = slice(lo * hd, (lo + cnt) * hd)
-        if heads * hd % tp == 0:
-            y = mm(inp, p[name])
-            if not (heads % tp == 0 and lo == r * (heads // tp)
-                    and cnt == heads // tp):
-                # the rank's columns are not the heads it needs (a split
-                # head, KV heads that do not divide): gather, then cut
-                y = comm.gather(y, group, -1)[..., cut]
-        else:
-            y = mm(inp, comm.copy_to(p[name], group)[:, cut])
-        if bias in p:
-            y = y + comm.copy_to(p[bias], group)[cut]
-        return y.reshape(B, inp.shape[1], cnt, hd).contiguous()
-
-    q = proj("wq", "bq", Hq, q_lo, n, xc)
-    k = proj("wk", "bk", Hkv, kv_lo, n_kv, src)
-    v = proj("wv", "bv", Hkv, kv_lo, n_kv, src)
+    q_lo, kv_lo, n_kv = _tp_heads(cfg)
+    q = _tp_proj(p, "wq", "bq", Hq, q_lo, n, xc, hd)
+    k = _tp_proj(p, "wk", "bk", Hkv, kv_lo, n_kv, src, hd)
+    v = _tp_proj(p, "wv", "bv", Hkv, kv_lo, n_kv, src, hd)
     if kv_input is None:              # RoPE for self-attention only
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     out = _attend(q, k, v, causal=causal, window=window, positions=positions,
                   engine=engine)
+    return _tp_out(p, out, cfg)
+
+
+def _tp_heads(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """``(first query head, first KV head, KV heads)`` of this rank's
+    contiguous block of ``n_heads / tp`` query heads and the KV heads they
+    read."""
+    tp, r, _ = model_axis()
+    n, g = cfg.n_heads // tp, cfg.n_heads // cfg.n_kv_heads
+    return r * n, r * n // g, max(n // g, 1)
+
+
+def _tp_proj(p: Params, name: str, bias: str, heads: int, lo: int, cnt: int,
+             inp: torch.Tensor, hd: int) -> torch.Tensor:
+    """Heads ``[lo, lo + cnt)`` of a projection, (B, S, cnt, hd), from this
+    rank's column block of ``p[name]`` (``heads`` heads in all)."""
+    tp, r, group = model_axis()
+    cut = slice(lo * hd, (lo + cnt) * hd)
+    if heads * hd % tp == 0:
+        y = mm(inp, p[name])
+        if not (heads % tp == 0 and lo == r * (heads // tp)
+                and cnt == heads // tp):
+            # the rank's columns are not the heads it needs (a split head,
+            # KV heads that do not divide): gather, then cut
+            y = comm.gather(y, group, -1)[..., cut]
+    else:
+        y = mm(inp, comm.copy_to(p[name], group)[:, cut])
+    if bias in p:
+        y = y + comm.copy_to(p[bias], group)[cut]
+    return y.reshape(inp.shape[0], inp.shape[1], cnt, hd).contiguous()
+
+
+def _tp_out(p: Params, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``wo`` on this rank's heads' output (B, S, n*hd), summed over
+    "model": the rows of its heads, regrouped from the column blocks
+    (C17)."""
+    tp, _, group = model_axis()
+    n, hd = cfg.n_heads // tp, cfg.head_dim_
+    q_lo = _tp_heads(cfg)[0]
     if cfg.d_model % tp == 0:                 # wo column-sharded (C17)
         wo = _head_rows(p["wo"], n * hd)
     else:
@@ -491,7 +595,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
               cache_pos: Optional[int] = None,
               kv_input: Optional[torch.Tensor] = None, causal: bool = True,
-              engine: str = "auto"):
+              engine: str = "auto", shard: Optional[DecodeShard] = None):
     """One attention mixer.  kind: 'attn' (full) or 'swa' (window).
 
     Prefill: cache is None, ``positions`` = [0, S); ``causal=False`` is the
@@ -500,12 +604,19 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     Decode: cache = (k_cache, v_cache) in layout (B, S_cache, Hkv, D),
     updated in place at the write position ``cache_pos`` (an int), with
     ``positions`` = cache_pos + [0, S); for 'swa' with ``S_cache == window``
-    the cache is a ring buffer and writes wrap.  Returns (out, cache)."""
+    the cache is a ring buffer and writes wrap.  Under the ambient mesh,
+    ``shard`` says which block of the logical cache this rank holds (see
+    the module's docstring).  Returns (out, cache)."""
     engine = resolve_attention_engine(engine, x.device)
     window = cfg.window if kind == "swa" else 0
+    if cache is not None and shard is not None \
+            and hints.current_mesh() is not None:
+        return _decode_sharded(p, x, cfg, cache, int(cache_pos), shard.spec,
+                               window=window, causal=causal,
+                               positions=positions, engine=engine)
     if tp_size() > 1:
         if cache is not None:
-            raise NotImplementedError(SHARDED_DECODE_TODO)
+            raise ValueError(DECODE_NEEDS_SPECS)
         return _attention_tp(p, x, cfg, window=window, positions=positions,
                              causal=causal, engine=engine,
                              kv_input=kv_input), None
@@ -517,62 +628,239 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *, kind: str,
     if kv_input is None:              # RoPE for self-attention only
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-
     kc, vc = cache
-    S_cache = kc.shape[1]
-    pos = int(cache_pos)
-    if window > 0 and S_cache == window:
-        # ring buffer: absolute position -> slot = pos % window
-        _write_cache(kc, vc, k, v, pos % window)
-        if engine == "torch":
-            # slot i holds the latest position p with p % window == i and
-            # p <= pos
-            idx = torch.arange(window, dtype=torch.int32, device=kc.device)
-            ring_pos = pos - ((pos - idx) % window)
-            out = _ring_sdpa(q, kc, vc, ring_pos, pos, window)
-        else:
-            # The reference masks every one of the S queries by cache_pos =
-            # pos alone: ring_pos[i] = pos - ((pos - i) % W) lies in
-            # (pos - W, pos] for every slot i <= pos and is i - W < 0 for
-            # i > pos, so its valid set (ring_pos >= 0 and inside the window)
-            # is exactly the first min(pos + 1, W) slots, the same for all S
-            # queries, with no causal order among them.  B6 attends those
-            # slots with no causal or window mask (softmax does not care
-            # about the slots' order), for any S: group * S <= 16 rows take
-            # the decode route, larger calls the prefill kernel.
-            out = _flash(q, kc, vc, causal=False, window=0, q_offset=pos,
-                         kv_len=min(pos + 1, window))
-        return mm(out, p["wo"]), (kc, vc)
-    # full cache: write at pos, attend with the causal (and window) mask,
-    # which hides the slots not yet written
-    _write_cache(kc, vc, k, v, pos)
-    if engine == "torch":
-        out = sdpa(q, kc, vc, causal=causal, window=window,
-                   q_positions=positions)
-    else:
-        out = _flash(q, kc, vc, causal=causal, window=window, q_offset=pos,
-                     kv_len=S_cache)
+    out = _cache_attend(q, k, v, kc, vc, pos=int(cache_pos), window=window,
+                        causal=causal, positions=positions, engine=engine)
     return mm(out, p["wo"]), (kc, vc)
 
 
 def cross_attention(p: Params, x: torch.Tensor, ck: torch.Tensor,
                     cv: torch.Tensor, cfg: ModelConfig, *,
-                    positions: torch.Tensor, engine: str = "auto"
-                    ) -> torch.Tensor:
+                    positions: torch.Tensor, engine: str = "auto",
+                    shard: Optional[DecodeShard] = None) -> torch.Tensor:
     """The decoder's cross-attention at decode time, over keys and values
     projected once (``ck``/``cv``, (B, S_src, Hkv, D)): the reference's
-    ``sdpa(q, ck, cv, causal=False)`` on ``x @ wq``, then ``wo``."""
+    ``sdpa(q, ck, cv, causal=False)`` on ``x @ wq``, then ``wo``.  Under
+    the ambient mesh ``shard`` gives the block of the cross cache this rank
+    holds (the layouts of self-attention's caches, every key visible)."""
     engine = resolve_attention_engine(engine, x.device)
-    if tp_size() > 1:
-        raise NotImplementedError(SHARDED_DECODE_TODO)
     B, S, _ = x.shape
+    if shard is not None and hints.current_mesh() is not None:
+        _, sspec, hspec, _ = shard.spec
+        if hspec is not None:
+            q_lo = _tp_heads(cfg)[0]
+            tp, _, group = model_axis()
+            q = _tp_proj(p, "wq", "bq", cfg.n_heads, q_lo, cfg.n_heads // tp,
+                         comm.copy_to(x, group), cfg.head_dim_)
+            return _tp_out(p, _cross_attend(q, ck, cv, positions, engine),
+                           cfg)
+        q = _whole_cols(x, p["wq"], cfg.n_heads * cfg.head_dim_).reshape(
+            B, S, cfg.n_heads, cfg.head_dim_)
+        if sspec is None:
+            out = _cross_attend(q, ck, cv, positions, engine)
+        else:
+            out = _sequence_attend(q, ck, cv, sspec, kv_len=None, pos=0,
+                                   causal=False, window=0, engine=engine)
+        return _whole_cols(out, p["wo"], cfg.d_model)
+    if tp_size() > 1:
+        raise ValueError(DECODE_NEEDS_SPECS)
     q = mm(x, p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim_)
+    return mm(_cross_attend(q, ck, cv, positions, engine), p["wo"])
+
+
+def _cross_attend(q, ck, cv, positions, engine):
     if engine == "torch":
-        out = sdpa(q, ck, cv, causal=False, window=0, q_positions=positions)
+        return sdpa(q, ck, cv, causal=False, window=0, q_positions=positions)
+    return _flash(q, ck, cv, causal=False, window=0, q_offset=0,
+                  kv_len=ck.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# sharded decode
+# ---------------------------------------------------------------------------
+def _whole_cols(x: torch.Tensor, w: torch.Tensor, width: int
+                ) -> torch.Tensor:
+    """``x @ w`` whole on every rank, for a weight of ``width`` columns
+    that the rules shard on its columns where ``width`` divides the model
+    axis: the rank's columns, gathered over "model" (a column-parallel
+    product: each column is the whole product's)."""
+    tp = tp_size()
+    y = mm(x, w)
+    if tp == 1 or width % tp:
+        return y
+    return comm.gather(y, model_axis()[2], -1, partial=False)
+
+
+def _whole_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Every head's q, k and v of ``x`` on every rank (``_proj_qkv`` of
+    the logical weights, from the rank's column blocks)."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    out = []
+    for name, bias, heads in (("wq", "bq", cfg.n_heads),
+                              ("wk", "bk", cfg.n_kv_heads),
+                              ("wv", "bv", cfg.n_kv_heads)):
+        y = _whole_cols(x, p[name], heads * hd)
+        if bias in p:
+            y = y + p[bias]
+        out.append(y.reshape(B, S, heads, hd))
+    return tuple(out)
+
+
+def decode_visible(Sq: int, pos: int, size: int, n_blocks: int, *,
+                   causal: bool, window: int, ring: bool,
+                   kv_len: Optional[int] = None) -> list:
+    """Which of the ``n_blocks`` equal sequence blocks of a ``size``-slot
+    cache each query row ``pos + i`` (``i < Sq``) sees a key of: a list of
+    ``n_blocks`` lists of ``Sq`` bools.  A ring (``size == window``) holds
+    its first ``min(pos + 1, window)`` slots for every row (as one rank's
+    decode reads them); a full cache the keys ``j < kv_len`` (default
+    ``size``) with ``j <= pos + i`` (``causal``) and ``j > pos + i -
+    window`` (``window > 0``)."""
+    b = size // n_blocks
+    out = []
+    for r in range(n_blocks):
+        lo, hi = r * b, (r + 1) * b - 1
+        row = []
+        for i in range(Sq):
+            if ring:
+                first, last = 0, min(pos + 1, size) - 1
+            else:
+                last = min(pos + i if causal else size - 1,
+                           (size if kv_len is None else kv_len) - 1)
+                first = max(0, pos + i - window + 1) if window > 0 else 0
+            row.append(max(first, lo) <= min(last, hi))
+        out.append(row)
+    return out
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor,
+                     visible: torch.Tensor) -> torch.Tensor:
+    """The softmax over the union of ``n`` key blocks from each block's
+    rows: ``outs`` (n, B, Sq, H, D), each block's normalised output;
+    ``lses`` (n, B, H, Sq), their log-sum-exps; ``visible`` (n, Sq) bool,
+    whether row ``i`` sees a key of block ``r``.  In fp32: the weights are
+    ``exp(lse_r - max lse)`` over the visible blocks and 0 elsewhere (an
+    empty block's LSE is 0 by the kernels' convention, not -inf); a row no
+    block shows a key is 0.  Returns (B, Sq, H, D) fp32."""
+    vis = visible.to(lses.device)[:, None, :, None]          # (n,1,Sq,1)
+    lse = torch.where(vis, lses.float().transpose(2, 3), -torch.inf)
+    top = lse.amax(dim=0)
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    w = torch.where(vis, torch.exp(lse - top), torch.zeros_like(lse))
+    den = w.sum(dim=0)
+    num = (w[..., None] * outs.float()).sum(dim=0)
+    return torch.where(den[..., None] > 0,
+                       num / torch.where(den > 0, den, 1.0)[..., None],
+                       torch.zeros_like(num))
+
+
+def _sdpa_lse(q, k, v, *, causal, window, q_offset, kv_len):
+    """The torch engine's partial softmax of (B, Sq, Hq, D) queries at
+    positions ``q_offset + i`` over a block of keys (B, bk, Hkv, D): the
+    fp32 output (B, Sq, Hq, D) and each row's log-sum-exp (B, Hq, Sq), the
+    einsum formulation of ``sdpa`` (keys at or past ``kv_len`` hidden)."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+    qpos = (q_offset + torch.arange(Sq, dtype=torch.int32, device=q.device)
+            ).expand(B, Sq)
+    valid = torch.full((B,), kv_len, dtype=torch.int32, device=q.device)
+    s = _masked_scores(qg, k, qpos, 0, causal, window, valid)
+    lse = torch.logsumexp(s, dim=-1)                          # (B,h,g,Sq)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", torch.exp(s - lse[..., None]),
+                       v.float())
+    return out.reshape(B, Sq, Hq, D), lse.reshape(B, Hq, Sq)
+
+
+def _sequence_attend(q, kc, vc, entry, *, kv_len: Optional[int], pos: int,
+                     causal: bool, window: int, engine: str,
+                     ring: bool = False) -> torch.Tensor:
+    """Attention of every head of q (B, Sq, Hq, D) over a cache whose
+    sequence is split over the axes of ``entry``, this rank holding block
+    ``kc``/``vc``: each rank's partial rows (B6's decode route with its
+    log-sum-exp; no launch where no row sees a key of the block), gathered
+    over those axes and merged by ``combine_partials``.  Returns (B, Sq,
+    Hq*D) in q's type, rounded once."""
+    mesh = hints.current_mesh()
+    B, Sq, Hq, D = q.shape
+    n, b = sharding.n_blocks(entry, mesh), kc.shape[1]
+    size = b * n
+    lo = sharding.block_range(size, entry, mesh)[0]
+    visible = decode_visible(Sq, pos, size, n, causal=causal, window=window,
+                             ring=ring, kv_len=kv_len)
+    if ring:
+        causal, local_len = False, max(0, min(min(pos + 1, size) - lo, b))
+    elif causal:
+        local_len = max(0, min(pos + Sq - lo, b))
     else:
-        out = _flash(q, ck, cv, causal=False, window=0, q_offset=0,
-                     kv_len=ck.shape[1])
-    return mm(out, p["wo"])
+        local_len = max(0, min((size if kv_len is None else kv_len) - lo, b))
+    mine = visible[lo // b]
+    if any(mine):
+        kw = dict(causal=causal, window=0 if ring else window,
+                  q_offset=pos - lo, kv_len=local_len)
+        if engine == "torch":
+            out, lse = _sdpa_lse(q, kc, vc, **kw)
+        else:
+            if not q.dtype == kc.dtype == vc.dtype:
+                dt = torch.promote_types(q.dtype, kc.dtype)
+                q, kc, vc = q.to(dt), kc.to(dt), vc.to(dt)
+            # the block's output unrounded (fp32): the merge rounds once
+            out, lse = ops.flash_attention(
+                q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+                return_lse=True, out_dtype=torch.float32, **kw)
+            out = out.transpose(1, 2)
+    else:                  # the block is hidden from every row: no launch
+        out = torch.zeros((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+        lse = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    flat = torch.cat([out.float().reshape(B, -1), lse.reshape(B, -1)], dim=1)
+    got = comm.all_gather_cat(flat[None], mesh.group_of(
+        *sharding.axes_of(entry)))                           # (n, B, ...)
+    outs = got[:, :, :Sq * Hq * D].reshape(n, B, Sq, Hq, D)
+    lses = got[:, :, Sq * Hq * D:].reshape(n, B, Hq, Sq)
+    merged = combine_partials(outs, lses, torch.tensor(visible))
+    return merged.to(q.dtype).reshape(B, Sq, Hq * D)
+
+
+def _decode_sharded(p: Params, x: torch.Tensor, cfg: ModelConfig, cache,
+                    pos: int, spec, *, window: int, causal: bool, positions,
+                    engine: str):
+    """A self-attention decode step on this rank's block of the logical
+    cache under ``spec`` (B, S, Hkv, D); the output is whole on every rank
+    of the model group."""
+    kc, vc = cache
+    _, sspec, hspec, _ = spec
+    if hspec is not None:                    # heads on "model"
+        tp, _, group = model_axis()
+        q_lo, kv_lo, n_kv = _tp_heads(cfg)
+        xc = comm.copy_to(x, group)
+        hd = cfg.head_dim_
+        q = _tp_proj(p, "wq", "bq", cfg.n_heads, q_lo, cfg.n_heads // tp, xc,
+                     hd)
+        k = _tp_proj(p, "wk", "bk", cfg.n_kv_heads, kv_lo, n_kv, xc, hd)
+        v = _tp_proj(p, "wv", "bv", cfg.n_kv_heads, kv_lo, n_kv, xc, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        out = _cache_attend(q, k, v, kc, vc, pos=pos, window=window,
+                            causal=causal, positions=positions, engine=engine)
+        return _tp_out(p, out, cfg), (kc, vc)
+    q, k, v = _whole_qkv(p, x, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if sspec is None:                        # the whole cache on every rank
+        out = _cache_attend(q, k, v, kc, vc, pos=pos, window=window,
+                            causal=causal, positions=positions, engine=engine)
+    else:
+        mesh = hints.current_mesh()
+        size = kc.shape[1] * sharding.n_blocks(sspec, mesh)
+        lo = sharding.block_range(size, sspec, mesh)[0]
+        ring = window > 0 and size == window
+        # the new K/V goes to the rank whose block holds its slot
+        _write_cache(kc, vc, k, v, pos % window if ring else pos, lo, size)
+        out = _sequence_attend(q, kc, vc, sspec, kv_len=None, pos=pos,
+                               causal=causal, window=window, engine=engine,
+                               ring=ring)
+    return _whole_cols(out, p["wo"], cfg.d_model), (kc, vc)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,21 @@ its gradient on a rank is that rank's share, which the train step sums
 over the data axes.  The recurrent mixers shard as ``models.recurrent``
 says; the vision frontend's ``img_proj`` is a column block of ``d``, so
 the projected image block is gathered over "model" before it replaces the
-first positions.  A decode step under a model axis raises (ROADMAP A9-sp).
+first positions.
+
+A decode step under the mesh takes a cache of the rank's blocks that
+carries its specs (``init_cache(..., mesh=)``, ``interop.
+cache_from_numpy(..., mesh=)``; ``sharding.cache_shardings``' blocks) and
+returns the cache in the same blocks; each layer reads its leaf's spec
+(``layers.DecodeShard``; ``models.layers`` and ``models.recurrent`` say
+what each layout does).  Decode logits are whole over the padded vocab on
+every rank (gathered over "model" where ``vocab_sharded``), for the rank's
+batch rows (``batch_shardings``'); where a KV cache's batch is whole while
+the tokens are split (a batch that divides "data" but not the data axes
+together), the tokens are gathered, the step runs on the whole batch and
+the logits are cut to the rank's rows.  An MoE layer runs
+``layers._moe_ffn_ep`` with the per-group capacity of the decode step's
+tokens.
 
 Serving: ``init_cache`` builds each layer's own state: a ``(k, v)`` pair
 (a full KV cache for ``"attn"``, a ring buffer of ``window`` slots for
@@ -50,7 +64,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import comm, hints
+from repro_torch.distributed import comm, hints, sharding
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
@@ -163,14 +177,43 @@ def _init_layer_cache(kind: str, cfg: ModelConfig, batch: int, kv_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int,
-               device: torch.device) -> List[Tuple[torch.Tensor, ...]]:
+               device: torch.device, mesh=None) -> List[Tuple[torch.Tensor, ...]]:
     """Each layer's zeroed state: a ``(k, v)`` pair of ``(batch, S_cache,
     Hkv, D)`` (``S_cache`` is ``kv_len`` for ``"attn"`` and ``min(window,
     kv_len)`` for ``"swa"``), or its recurrent state (``models.recurrent``:
     RG-LRU's in the model's type, mLSTM's and sLSTM's fp32 with ``m`` at
-    -1e30)."""
-    return [_init_layer_cache(kind, cfg, batch, kv_len, _dtype(cfg), device)
-            for kind, _ in layer_kinds(cfg)]
+    -1e30).  With a ``mesh``, this rank's blocks of it under
+    ``sharding.cache_shardings`` (a ``sharding.BlockList`` that carries
+    the specs); the logical cache is never allocated."""
+    def make(b, n, dev):
+        return [_init_layer_cache(kind, cfg, b, n, _dtype(cfg), dev)
+                for kind, _ in layer_kinds(cfg)]
+
+    if mesh is None:
+        return make(batch, kv_len, device)
+    logical = make(batch, kv_len, "meta")
+    return init_blocks(logical, make(1, 1, "cpu"), sharding.cache_shardings(
+        cfg, mesh, logical, batch), mesh, device)
+
+
+def init_blocks(logical, fills, specs, mesh, device):
+    """The rank's blocks of a cache whose leaves are constants: each
+    leaf of ``logical`` (meta tensors) under ``specs``, filled with the
+    value of the same leaf of ``fills`` (a small cache of the same tree),
+    carrying ``specs``."""
+    def leaf(t, f, spec):
+        return torch.full(sharding.block_shape(t.shape, spec, mesh),
+                          f.reshape(-1)[0].item(), dtype=t.dtype,
+                          device=device)
+
+    def walk(t, f, spec):
+        if isinstance(t, dict):
+            return {k: walk(t[k], f[k], spec[k]) for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(a, b, c) for a, b, c in zip(t, f, spec))
+        return leaf(t, f, spec)
+
+    return sharding.with_specs(walk(logical, fills, specs), specs)
 
 
 # ---------------------------------------------------------------------------
@@ -180,17 +223,20 @@ _RECURRENT = {"rglru": R.rglru, "mlstm": R.mlstm, "slstm": R.slstm}
 
 
 def _layer_apply(lp: Params, x, kind: str, ffn_type: str, cfg: ModelConfig,
-                 positions, cache, cache_pos, engine: str):
+                 positions, cache, cache_pos, engine: str, shard=None):
     if cache is None:
         x = hints.constrain(x, hints.dp_axes(), "model", None)
     mixer_in = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
     if kind in ATTENTION_KINDS:
+        if shard is not None:            # the keys' spec (the values' too)
+            shard = L.DecodeShard(shard.spec[0], shard.batch)
         out, new_cache = L.attention(lp["mixer"], mixer_in, cfg, kind=kind,
                                      positions=positions, cache=cache,
-                                     cache_pos=cache_pos, engine=engine)
+                                     cache_pos=cache_pos, engine=engine,
+                                     shard=shard)
     else:
         out, new_cache = _RECURRENT[kind](lp["mixer"], mixer_in, cfg,
-                                          state=cache)
+                                          state=cache, shard=shard)
     x = x + out
     if ffn_type != "none":
         h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
@@ -218,6 +264,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     list.  ``image_embeds`` (B, n_img, frontend_dim), for the vision
     frontend: projected by ``img_proj`` into positions [0, n_img)."""
     kinds = layer_kinds(cfg)
+    shards, gather_batch = decode_shards(cache, 0, [
+        kind in ATTENTION_KINDS for kind, _ in kinds])
+    if gather_batch is not None:
+        tokens = comm.all_gather_dim(tokens, hints.current_mesh().group_of(
+            *sharding.axes_of(gather_batch)), 0)
     B, S = tokens.shape
     x = embed(params, cfg, tokens)
     if cfg.frontend == "vision_patches" and image_embeds is not None:
@@ -242,13 +293,62 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             continue
         x, nc = _layer_apply(lp, x, kind, ft, cfg, positions,
                              cache[i] if cache is not None else None,
-                             cache_pos, engine)
+                             cache_pos, engine, shards and shards[i])
         new_cache.append(nc)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice is not None:
         x = x[:, -logits_slice:, :]
-    logits = output_logits(params, cfg, x, logits_slice is not None)
+    logits = output_logits(params, cfg, x,
+                           logits_slice is not None or cache is not None)
+    if shards:
+        new_cache = sharding.with_specs(new_cache, sharding.specs_of(cache))
+        if gather_batch is not None:         # the rank's rows again
+            logits = sharding.own_block(logits, (gather_batch,),
+                                        hints.current_mesh())
     return logits, (new_cache if (return_cache or cache is not None) else None)
+
+
+def decode_shards(cache, batch_dim: int, is_kv=None):
+    """A sharded decode's ``layers.DecodeShard``s: one a layer of a list
+    cache (``is_kv`` marks the layers whose state is a KV cache), one for
+    a dict cache (every leaf a KV cache) carrying its whole spec tree;
+    None without an ambient mesh or a cache that carries specs.  Also the
+    batch entry over which the tokens must be gathered, or None.  Each
+    leaf's batch is its dim ``batch_dim``; the activations' rows are
+    ``batch_shardings``' of the logical batch, which a leaf's block and
+    spec give.  Where a KV cache holds the batch otherwise (whole while
+    those rows are a part of it), the step runs on the whole batch."""
+    mesh = hints.current_mesh()
+    specs = sharding.specs_of(cache) if cache is not None else None
+    if mesh is None or specs is None:
+        return None, None
+    pairs = []                                    # (leaf, spec, a KV cache)
+
+    def walk(t, spec, kv):
+        if isinstance(t, torch.Tensor):
+            pairs.append((t, spec, kv))
+        elif isinstance(t, dict):
+            for k in t:
+                walk(t[k], spec[k], kv)
+        else:
+            for a, b in zip(t, spec):
+                walk(a, b, kv)
+
+    if isinstance(cache, dict):
+        walk(cache, specs, True)
+    else:
+        for c, spec, kv in zip(cache, specs, is_kv):
+            walk(c, spec, kv)
+    t, spec, _ = pairs[0]
+    batch = t.shape[batch_dim] * sharding.n_blocks(spec[batch_dim], mesh)
+    rows = sharding.batch_shardings(None, mesh, {"b": (batch,)})["b"][0]
+    gather = rows if rows is not None and any(
+        kv and spec[batch_dim] != rows for _, spec, kv in pairs) else None
+    if gather is not None:
+        rows = None
+    if isinstance(cache, dict):
+        return L.DecodeShard(specs, rows), gather
+    return [L.DecodeShard(spec, rows) for spec in specs], gather
 
 
 # ---------------------------------------------------------------------------

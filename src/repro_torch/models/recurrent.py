@@ -13,10 +13,9 @@ in fp32; sLSTM ``(c, n, h, m)`` each (B, H, hd) fp32; ``m`` starts at
 -1e30.  The xLSTM blocks use ``hd = d_model // n_heads``, not the
 config's ``head_dim``.
 
-Under an ambient mesh with a "model" axis above 1 (a full pass; a state,
-i.e. decode, raises, ROADMAP A9-sp) each mixer runs on the blocks
-``distributed.sharding`` gives this rank, and its output is whole on every
-rank.  RG-LRU: ``wx``, ``wgate`` and ``conv`` are column blocks of the
+Under an ambient mesh with a "model" axis above 1 each mixer runs on the
+blocks ``distributed.sharding`` gives this rank, and its output is whole on
+every rank.  RG-LRU: ``wx``, ``wgate`` and ``conv`` are column blocks of the
 ``d_rnn`` channels, so the input branch, the conv, the recurrence and the
 gelu gate run on the rank's channels; ``wi`` and ``wr`` (``(R, R)``,
 column blocks) need the whole conv output, which one gather over "model"
@@ -28,6 +27,17 @@ rank's heads where they divide the axis, and each head's recurrence is its
 own; ``wo_m``/``wo_s`` are row-sharded.  Where the channels or heads do not
 divide, the rules leave the layer's leaves whole or split, and the layer
 runs whole on every rank from its gathered weights.
+
+A decode step under the mesh takes its state as the rank's blocks under
+the cache's specs (``layers.DecodeShard``) and gives the new state back in
+the same blocks.  Those blocks are the rules', not the ones the mixer
+computes on, so each leaf is regrouped (``sharding.regroup``) to the
+compute layout (the activations' batch rows; the rank's channels or
+heads on "model" where the mixer runs tensor-parallel) and back: the
+RG-LRU's ``h`` and conv state, whole over "model" by the rules, are cut to
+the rank's channels and the new ones gathered; mLSTM's ``C``, which the
+rules split on its third dim (ROADMAP C20) or, for a batch of 1, on its
+heads over every axis, is gathered and cut to the rank's heads, and back.
 """
 from __future__ import annotations
 
@@ -37,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import comm
+from repro_torch.distributed import comm, hints, sharding
 from repro_torch.models import layers as L
 from repro_torch.models.layers import dense_init, logistic, mm
 
@@ -102,15 +112,23 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _model_group(state):
-    """The ambient "model" group where the axis is above 1 (a full pass
-    only: a sharded state waits for ROADMAP A9-sp), else None."""
+def _model_group(state, shard):
+    """The ambient "model" axis ``(tp, rank, group)`` where it is above 1,
+    else None; a state there needs its ``shard``."""
     m = L.model_axis()
     if m is None or m[0] == 1:
         return None
-    if state is not None:
-        raise NotImplementedError(L.SHARDED_DECODE_TODO)
+    if state is not None and shard is None:
+        raise ValueError(L.DECODE_NEEDS_SPECS)
     return m
+
+
+def _regroup(state, src, dst):
+    """Each leaf of a state from its blocks under ``src`` to ``dst`` (the
+    spec tuples of its leaves)."""
+    mesh = hints.current_mesh()
+    return tuple(sharding.regroup(t, a, b, mesh)
+                 for t, a, b in zip(state, src, dst))
 
 
 def _whole_layer(p: Params, cols: Dict[str, int], rows: Dict[str, int]
@@ -124,14 +142,20 @@ def _whole_layer(p: Params, cols: Dict[str, int], rows: Dict[str, int]
 
 
 def rglru(p: Params, x: torch.Tensor, cfg: ModelConfig,
-          state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+          state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+          shard: Optional[L.DecodeShard] = None):
     """RG-LRU mixer.  x: (B, S, d); state = (h (B, R), conv (B, cw-1, R)) for
-    decode.  Returns (out (B, S, d), new_state); on a model axis, the new
+    decode (``shard``: its blocks under the mesh).  Returns (out (B, S, d),
+    new_state); on a model axis without a ``shard`` (a full pass), the new
     state is the rank's channels'."""
     B, S, _ = x.shape
-    m = _model_group(state)
+    m = _model_group(state, shard)
     if m is not None and cfg.d_rnn_ % m[0]:
         m = None             # the rules leave every leaf whole
+    if shard is not None:
+        ch = "model" if m is not None else None
+        comp = ((shard.batch, ch), (shard.batch, None, ch))
+        state = _regroup(state, shard.spec, comp)
     xin, lam = x, p["lam"]
     if m is not None:
         tp, rank, group = m
@@ -167,7 +191,10 @@ def rglru(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = (h * gate).to(x.dtype)
     out = mm(y, p["wo_r"]) if m is None \
         else L._partial_sum(y, p["wo_r"], group)
-    return out, (new_h.to(x.dtype), new_conv)
+    new_state = (new_h.to(x.dtype), new_conv)
+    if shard is not None:
+        new_state = _regroup(new_state, comp, shard.spec)
+    return out, new_state
 
 
 def rglru_init_state(cfg: ModelConfig, batch: int, dtype, device):
@@ -193,13 +220,13 @@ def mlstm_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     }
 
 
-def _heads(p: Params, cfg: ModelConfig, state, cols: Dict[str, int],
+def _heads(p: Params, cfg: ModelConfig, state, shard, cols: Dict[str, int],
            rows: Dict[str, int]):
     """``(params, model group or None)`` of an xLSTM mixer: on a model
     axis above 1 that divides the heads, the rank's blocks (its heads) and
     the group; where the heads do not divide, the whole layer's weights
     (gathered) and None; else as given."""
-    m = _model_group(state)
+    m = _model_group(state, shard)
     if m is None:
         return p, None
     if cfg.n_heads % m[0]:
@@ -207,17 +234,30 @@ def _heads(p: Params, cfg: ModelConfig, state, cols: Dict[str, int],
     return p, m[2]
 
 
+def _head_specs(shard, group, dims):
+    """The compute layout of an xLSTM state whose leaves have ``dims``
+    dims: the activations' batch rows, the rank's heads (dim 1) where the
+    mixer runs on them."""
+    h = "model" if group is not None else None
+    return tuple((shard.batch, h) + (None,) * (n - 2) for n in dims)
+
+
 def mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
-          state: Optional[Tuple] = None):
+          state: Optional[Tuple] = None,
+          shard: Optional[L.DecodeShard] = None):
     """mLSTM mixer: the stabilized parallel form (prefill, which builds
     (B, S, S, H) fp32 tensors) or the recurrent form (decode, ``state`` =
-    (C, n, m)).  Returns (out, new_state); on a model axis, the new state
-    is the rank's heads'."""
+    (C, n, m); ``shard``: its blocks under the mesh).  Returns (out,
+    new_state); on a model axis without a ``shard``, the new state is the
+    rank's heads'."""
     B, S, d = x.shape
     hd = d // cfg.n_heads
-    p, group = _heads(p, cfg, state,
+    p, group = _heads(p, cfg, state, shard,
                       {**dict.fromkeys(("wq", "wk", "wv", "wog"), d),
                        "wi": cfg.n_heads, "wf": cfg.n_heads}, {"wo_m": d})
+    if shard is not None:
+        comp = _head_specs(shard, group, (4, 3, 2))
+        state = _regroup(state, shard.spec, comp)
     xin = x if group is None else comm.copy_to(x, group)
     H = p["wi"].shape[1]                     # the heads these blocks hold
     q = mm(xin, p["wq"]).reshape(B, S, H, hd)
@@ -270,6 +310,8 @@ def mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = og * h.reshape(B, S, H * hd).to(x.dtype)
     out = mm(y, p["wo_m"]) if group is None \
         else L._partial_sum(y, p["wo_m"], group)
+    if shard is not None:
+        new_state = _regroup(new_state, comp, shard.spec)
     return out, new_state
 
 
@@ -301,17 +343,22 @@ def slstm_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
 
 
 def slstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
-          state: Optional[Tuple] = None):
+          state: Optional[Tuple] = None,
+          shard: Optional[L.DecodeShard] = None):
     """sLSTM mixer: a loop over the sequence (hidden-to-gate recurrence) in
     fp32, one batched product of the four recurrent matrices a step.
-    state = (c, n, h, m), each (B, H, hd).  Returns (out, new_state); on a
-    model axis, the new state is the rank's heads'."""
+    state = (c, n, h, m), each (B, H, hd) (``shard``: their blocks under
+    the mesh).  Returns (out, new_state); on a model axis without a
+    ``shard``, the new state is the rank's heads'."""
     B, S, d = x.shape
     hd = d // cfg.n_heads
-    p, group = _heads(p, cfg, state,
+    p, group = _heads(p, cfg, state, shard,
                       {f"in_{g}": d for g in _SLSTM_GATES},
                       {"wo_s": d, **{f"r_{g}": cfg.n_heads
                                      for g in _SLSTM_GATES}})
+    if shard is not None:
+        comp = _head_specs(shard, group, (3, 3, 3, 3))
+        state = _regroup(state, shard.spec, comp)
     xin = x if group is None else comm.copy_to(x, group)
     H = p["r_i"].shape[0]                    # the heads these blocks hold
     xf = xin.float()
@@ -340,6 +387,8 @@ def slstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
     out = mm(y, p["wo_s"]) if group is None \
         else L._partial_sum(y, p["wo_s"], group)
+    if shard is not None:
+        return out, _regroup((c, n, h, m), comp, shard.spec)
     return out, (c, n, h, m)
 
 

@@ -922,21 +922,92 @@ def _unseen(case):
 @pytest.mark.parametrize("case", BWD_CASES + [(2, 8, 2, 4, 300, 80, True, 100,
                                                None, None)])
 def test_flash_attention_forward_lse_matches_plain(device, case, dtype):
-    """Asked for an lse, the forward takes the prefill kernels at every size
-    (the last case is a decode-route size) and writes each row's
-    log-sum-exp: within 1e-5 of the plain one (relative, over max(|lse|,
-    1)), 0 for a row that sees no key; the output is the forward's."""
+    """Asked for an lse, the forward keeps its route (the decode route at
+    ``group * Sq <= DECODE_ROWS``, its combine kernel writing the LSE; the
+    last case is such a size, as are some of ``BWD_CASES``; the prefill
+    kernels elsewhere) and writes each row's log-sum-exp: within 1e-5 of
+    the plain one (relative, over max(|lse|, 1)), 0 for a row that sees no
+    key; the output is the forward's."""
     q, k, v, _, kw = _bwd_case(case, dtype, device)
     lse = torch.full(q.shape[:3], float("nan"), device=device)
     before = dict(launch_counts)
     got = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
-    assert launch_counts["flash_decode"] == before["flash_decode"]
+    decode = case[1] // case[2] * case[3] <= swa.DECODE_ROWS
+    assert launch_counts["flash_decode"] == before["flash_decode"] + decode
+    assert (launch_counts["flash_decode_lse"]
+            == before["flash_decode_lse"] + decode)
     want, plse = swa.flash_swa_attention_plain(q, k, v, return_lse=True, **kw)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     err = ((lse - plse).abs() / plse.abs().clamp_min(1.0)).max()
     assert float(err) <= 1e-5
     assert not lse[plse == 0].any()
+
+
+# the sequence-sharded decode's blocks (chip_smoke.py's LSE_DECODE_CASES):
+# gemma3's 131,072-key block (D 240, group 2), recurrentgemma's 512-slot
+# ring block (D 256, group 10, 128 sequences), an empty block (kv_len 0, a
+# negative q_offset), danube's D 80 over 4,096 keys
+LSE_DECODE = [(1, 16, 8, 1, 131_072, 240, True, 0, 131_071, 131_072),
+              (128, 10, 1, 1, 512, 256, False, 0, 5_000, 512),
+              (1, 16, 8, 1, 131_072, 240, True, 0, -7, 0),
+              (4, 32, 8, 1, 4_096, 80, True, 4_096, 4_095, 4_096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LSE_DECODE, ids=str)
+def test_decode_route_writes_the_lse(device, case, dtype):
+    """B6's decode route with the LSE at the sharded decode's block shapes:
+    one decode-route launch (never the prefill kernels), the output within
+    2e-5 / 2e-2 and the LSE within 1e-5 (relative) of the plain version's,
+    an empty block exactly 0; asked for an fp32 output (the ranks' merge),
+    the same sums unrounded, through ``ops.flash_attention``."""
+    B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
+    g = torch.Generator(device=device).manual_seed(Skv + B)
+    q, k, v = (torch.randn(s, generator=g, device=device).to(dtype)
+               for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    lse = torch.full(q.shape[:3], float("nan"), device=device)
+    before = dict(launch_counts)
+    got = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
+    moved = {n: launch_counts[n] - before[n] for n in
+             ("flash_attention", "flash_decode", "flash_decode_lse")}
+    assert moved == {"flash_attention": 1, "flash_decode": 1,
+                     "flash_decode_lse": 1}
+    want, plse = swa.flash_swa_attention_plain(q, k, v, return_lse=True,
+                                               **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert float(((lse - plse).abs() / plse.abs().clamp_min(1.0)).max()) \
+        <= 1e-5
+    if kv_len == 0:
+        assert torch.count_nonzero(got) == 0 and torch.count_nonzero(lse) == 0
+    out32, lse32 = ops.flash_attention(q, k, v, return_lse=True,
+                                       out_dtype=torch.float32, **kw)
+    assert out32.dtype == torch.float32
+    want32 = swa.flash_swa_attention_plain(q, k, v, out_dtype=torch.float32,
+                                           **kw)
+    torch.testing.assert_close(out32, want32, rtol=tol, atol=tol)
+    torch.testing.assert_close(out32.to(dtype), got, rtol=0, atol=0)
+    torch.testing.assert_close(lse32, lse, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("group,Sq", [(16, 1), (8, 2), (4, 4), (2, 8),
+                                      (1, 16), (3, 5)])
+def test_decode_route_with_the_lse_never_takes_the_prefill_kernels(
+        device, group, Sq):
+    """Every call of at most ``DECODE_ROWS`` rows a KV head stays on the
+    decode route when asked for the LSE."""
+    q = torch.randn(2, 2 * group, Sq, 64, device=device,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn(2, 2, 700, 64, device=device, dtype=torch.bfloat16)
+            for _ in range(2))
+    lse = torch.empty(q.shape[:3], device=device)
+    before = dict(launch_counts)
+    swa.flash_swa_attention(q, k, v, lse=lse, q_offset=650, kv_len=690)
+    assert launch_counts["flash_decode"] == before["flash_decode"] + 1
+    assert launch_counts["flash_decode_lse"] \
+        == before["flash_decode_lse"] + 1
 
 
 def test_flash_attention_backward_bf16_is_deterministic(device):

@@ -381,8 +381,12 @@ def _decode_step(which):
 
 @pytest.mark.parametrize("which", ["attention", "cross", "rglru"])
 def test_decode_under_a_model_axis_waits_for_a9_sp(which):
+    """A decode step under a model axis reads its cache's specs
+    (``tests/test_torch_sharded_decode.py`` runs it): a bare state, whose
+    layout the rank's shapes cannot tell, is refused before any
+    collective."""
     from repro_torch.distributed import hints
 
-    with hints.use_mesh(_Rank()), pytest.raises(NotImplementedError,
-                                                match="A9-sp"):
+    with hints.use_mesh(_Rank()), pytest.raises(ValueError,
+                                                match="cache's specs"):
         _decode_step(which)

@@ -8,9 +8,10 @@ holds a sharded prefill against (deepseek-moe-16b for part (a), the four
 families of part (d): full-depth and twin logits, the fp32 model's, the
 bf16 gate) and danube's step-1 loss on the claims stream's first batch
 (the forward of phase 16's first step, for part (b)); times B6's fp32
-backward at danube's training shape (phase 16's call); then phase 17's
-parts on 4 gloo ranks of the card: all of them, or those of ``--parts``
-(letters a-f).  Exits nonzero when a check fails.
+backward at danube's training shape (phase 16's call); with part (g),
+runs phase 9's battery and timings of B6's decode route with the LSE; then
+phase 17's parts on 4 gloo ranks of the card: all of them, or those of
+``--parts`` (letters a-g).  Exits nonzero when a check fails.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ sys.path.insert(0, str(ROOT / "src"))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-fp32-backward", action="store_true")
-    ap.add_argument("--parts", default="abcdef")
+    ap.add_argument("--parts", default="abcdefg")
     args = ap.parse_args()
     import torch
 
@@ -77,6 +78,12 @@ def main() -> int:
             cs.BWD_LIBRARY_REPS, rate)
         cs.log(f"shard_probe: B6 fp32 backward {json.dumps(rec)}")
         del q, k, v
+        torch.cuda.empty_cache()
+    if "decode" in parts:
+        t0 = time.perf_counter()
+        rec = cs.decode_lse_battery(torch.device("cuda"), cs.REPS, rate)
+        cs.log(f"shard_probe: B6's decode route with the LSE in "
+               f"{time.perf_counter() - t0:.3f} s: {json.dumps(rec)}")
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches, summary = cs.sharded_models_phase(step1, parts)
