@@ -305,7 +305,18 @@ nothing falls back to the CPU):
      Per part and rank: the wall, peak memory, staged bytes, the staging's
      share of the wall and the collectives by kind; the warm step's
      tokens/s for (b) and (e), the wall a token for (g) beside one rank's
-     (``tools/shard_probe.py`` runs this phase alone).
+     (``tools/shard_probe.py`` runs this phase alone).  (h) A9-dryrun:
+     the dry run (``repro_torch.launch.dryrun``: meta tensors, rank 0 of a
+     fake world of the part's mesh, no kernel) of (a)'s prefill, (b)'s
+     first step and (g3)'s first token at their own meshes, shapes and
+     depths, each in a subprocess that sees no card, beside the command
+     line on danube's ``train_4k``, ``prefill_32k`` and ``decode_32k``
+     cells on 16 x 16 (``chiprun_out/dryrun/``); all six start together
+     before the kernel build (niced, a thread each: they read nothing of
+     the run) and are read once the ranks end: each call's collectives by
+     kind (count and bytes) and argument bytes equal to what rank 0
+     measured around exactly that call, each cell ``ok``; the predicted
+     peak printed beside the call's ``max_memory_allocated`` (no gate).
 
 Each kernel's launches are counted over the two studies' first runs, the
 first chunked run (with prefetch), the spec corpus, the timed pipelined
@@ -4716,17 +4727,20 @@ PARTS = ("prefill", "train", "pipe", "families", "rg_train", "pod",
          "decode")
 
 
-def _part_stats(t0: float, launches=None) -> dict:
+def _part_stats(t0: float, launches=None, call=None) -> dict:
     """A part's wall from ``t0``, this rank's peak device memory (GiB) and
-    the collectives and staging since ``comm.reset_stats``."""
+    the collectives and staging since ``comm.reset_stats``; ``call``: the
+    part's call that part (h) dry-runs (``_call_start``), whose peak
+    counts."""
     import torch
 
     from repro_torch.distributed import comm
 
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out = dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated()
-               / 2 ** 30, comm=dict(comm.stats),
+    peak = max(torch.cuda.max_memory_allocated(),
+               call["part_peak"] if call else 0)
+    out = dict(wall_s=wall, peak_gib=peak / 2 ** 30, comm=dict(comm.stats),
                staging_share=comm.stats["staging_s"] / wall)
     if launches is not None:
         out["launches"] = launches
@@ -4743,6 +4757,40 @@ def _part_start() -> float:
     torch.cuda.reset_peak_memory_stats()
     comm.reset_stats()
     return time.perf_counter()
+
+
+def _call_start() -> dict:
+    """Before the one call of a part that part (h) dry-runs: the
+    collectives so far and the part's device peak so far; the device's
+    peak counts from here."""
+    import torch
+
+    from repro_torch.distributed import comm
+
+    torch.cuda.synchronize()
+    out = dict(comm=dict(comm.stats),
+               part_peak=torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def _call_end(start: dict, argument_bytes: int) -> dict:
+    """After that call: its collectives by kind (count and bytes, as the
+    dry run counts them), ``argument_bytes`` (the bytes of all the inputs
+    the rank holds for the call, ``dryrun.tree_bytes`` of them before it;
+    ``dryrun_phase`` says why not only those it reads), its device peak
+    and the part's peak before it."""
+    import torch
+
+    from repro_torch.distributed import comm
+    from repro_torch.launch.dryrun import collective_counts
+
+    torch.cuda.synchronize()
+    return dict(collectives=collective_counts(
+        {k: v - start["comm"][k] for k, v in comm.stats.items()}),
+        argument_bytes=argument_bytes,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        part_peak=start["part_peak"])
 
 
 def _grad_err(got, want) -> float:
@@ -4771,6 +4819,7 @@ def shard_prefill(group, device, twin_layers: int) -> dict:
 
     from repro_torch.distributed import hints, launch as dl
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.models import get_bundle
     from repro_torch.models.registry import ModelBundle
     from repro_torch.train.optimizer import tree_leaves
@@ -4788,12 +4837,14 @@ def shard_prefill(group, device, twin_layers: int) -> dict:
     held = sum(t.numel() for t in tree_leaves(params))
     with hints.use_mesh(mesh), torch.no_grad():
         reset_launch_counts()
+        call = _call_start()
         t1 = time.perf_counter()
         logits = bundle.prefill(params, batch, engine="cuda")
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t1
+        call = _call_end(call, tree_bytes((params, batch)))
         launches = dict(launch_counts)
-        out = _part_stats(t0, launches)
+        out = _part_stats(t0, launches, call)
         twin = ModelBundle(dataclasses.replace(cfg, n_layers=twin_layers))
         cut = twin.prefill(dict(params, layers=params["layers"][
             :twin.cfg.n_layers]), batch, engine="cuda")
@@ -4805,7 +4856,8 @@ def shard_prefill(group, device, twin_layers: int) -> dict:
     with hints.use_mesh(mesh), torch.no_grad():
         l32 = b32.prefill(p32, batch, engine="cuda")
     del p32
-    out.update(init_s=init_s, prefill_s=prefill_s, params_held=held)
+    out.update(init_s=init_s, prefill_s=prefill_s, params_held=held,
+               call=call)
     if rank == 0:
         single = b32.init(0, device)
         with torch.no_grad():
@@ -4837,6 +4889,7 @@ def shard_train(group, device, arch: str = DANUBE, layers=None,
     from repro_torch.configs import get_config
     from repro_torch.distributed import hints, launch as dl, sharding
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.launch.train import claims_token_stream
     from repro_torch.models.registry import ModelBundle
     from repro_torch.train import AdamWConfig, init_train_state, \
@@ -4863,23 +4916,28 @@ def shard_train(group, device, arch: str = DANUBE, layers=None,
     step = make_train_step(bundle, AdamWConfig(
         total_steps=SHARD_TRAIN_STEPS + 2, **TRAIN_OPT))
     setup_s = time.perf_counter() - t0
-    losses, walls, per_step, first = [], [], [], None
+    losses, walls, per_step, first, call = [], [], [], None, None
     with hints.use_mesh(mesh):
         for _ in range(SHARD_TRAIN_STEPS):
             batch = next(stream)
             first = batch if first is None else first
             reset_launch_counts()
+            own = mine(batch)
+            start = None if call else (_call_start(),       # step 1
+                                       tree_bytes((state, own)))
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            state, m = step(state, mine(batch))
+            state, m = step(state, own)
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t1)
+            if start:
+                call = _call_end(*start)
             per_step.append({k: launch_counts[k] for k in (
                 "flash_attention", "flash_attention_bwd", "flash_decode")})
     out = _part_stats(t0, {k: sum(s[k] for s in per_step)
-                           for k in per_step[0]})
-    out.update(losses=losses, step_s=walls, per_step=per_step,
+                           for k in per_step[0]}, call)
+    out.update(losses=losses, step_s=walls, per_step=per_step, call=call,
                setup_s=setup_s, grad_norm=float(m["grad_norm"]),
                tokens_per_s=TRAIN_BATCH * seq / walls[-1])
     del state, stream
@@ -5188,6 +5246,33 @@ DECODE_CHUNK = 4096          # slots of a seeded chunk of a decode cache
 DECODE_SEED = 5              # the caches' draws
 DECODE_GATE = 1e-3           # fp32 cut against one rank: logits, slots, states
 DECODE_KINDS = ("flash_attention", "flash_decode", "flash_decode_lse")
+# part (h), A9-dryrun: the calls of parts (a), (b) and (g3) that the dry run
+# (``repro_torch.launch.dryrun``) traces on meta tensors in a fake world of
+# their mesh's ranks, each at its part's mesh, shapes and depth (g3: its
+# main bf16 run's first token); then danube's production cells on 16 x 16
+DRYRUN_DECODE = ("g3", "bf16")
+DRYRUN_CALLS = {
+    "a": dict(arch=SHARD_MOE, kind="prefill", mesh=(1, 4), batch=1,
+              seq_len=SHARD_PREFILL),
+    "b": dict(arch=DANUBE, kind="train", mesh=(2, 2), batch=TRAIN_BATCH,
+              seq_len=TRAIN_SEQ, loss_mask=True),
+    "g3": dict(arch=DECODE_PARTS["g3"]["arch"], kind="decode",
+               mesh=DECODE_PARTS["g3"]["shape"],
+               batch=DECODE_PARTS["g3"]["batch"],
+               seq_len=DECODE_PARTS["g3"]["kv_len"],
+               pos=DECODE_PARTS["g3"]["positions"][0]),
+}
+DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_BUDGET = 90.0         # the subprocesses' wall, printed beside it
+DRYRUN_WAIT = 300.0          # left to them once phase 17 ends, then a fault
+DRYRUN_NICE = 10             # below the build and the phases they overlap
+DRYRUN_CODE = """
+import json, sys
+from repro_torch.launch import dryrun as D
+kw = json.loads(sys.argv[1])
+kw["mesh"] = tuple(kw["mesh"])
+print(json.dumps(D.trace_call(D.Call(**kw))))
+"""
 
 
 def _decode_leaves(cache, specs=None) -> list:
@@ -5337,17 +5422,19 @@ def predicted_decode(cfg, cache, specs, mesh, pos: int) -> dict:
 
 
 def decode_steps(bundle, params, cache, toks, positions, mesh, device,
-                 engine: str = "cuda", keep: bool = True):
+                 engine: str = "cuda", keep: bool = True, measured=None):
     """``make_serve_step`` at each position (``toks``: the whole batch's
     tokens a step, cut to the rank's rows under ``mesh``); the whole batch's
     logits a step (fp32, on the device; none unless ``keep``), the host
-    wall a step (to ``synchronize``), B6's launches a step, the cache."""
+    wall a step (to ``synchronize``), B6's launches a step, the cache.
+    ``measured`` (a dict): filled with the first step's ``_call_end``."""
     import contextlib
 
     import torch
 
     from repro_torch.distributed import hints, launch as dl
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.dryrun import tree_bytes
     from repro_torch.serving.serve_step import make_serve_step
 
     step = make_serve_step(bundle, engine=engine)
@@ -5360,11 +5447,17 @@ def decode_steps(bundle, params, cache, toks, positions, mesh, device,
                 if mesh is not None else {"tokens": torch.from_numpy(
                     tok).to(device)}
             reset_launch_counts()
+            # the dry run's position is an int32 scalar (4 bytes), the
+            # step's here a Python int
+            start = (_call_start(), tree_bytes((params, cache, b)) + 4) \
+                if measured is not None and not measured else None
             torch.cuda.synchronize()
             t = time.perf_counter()
             logits, cache = step(params, cache, dict(b, pos=int(pos)))
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
+            if start:
+                measured.update(_call_end(*start))
             launches.append({k: launch_counts[k] for k in DECODE_KINDS})
             if mesh is not None:
                 logits = dl._rows_whole(logits, bundle.cfg, mesh, len(tok))
@@ -5394,10 +5487,12 @@ def _max_diff(a, b) -> float:
     return max([float((x - y).abs().max()) for x, y in zip(a, b)] + [0.0])
 
 
-def _decode_run(group, device, cfg, cell, toks, mesh, keep: bool) -> dict:
+def _decode_run(group, device, cfg, cell, toks, mesh, keep: bool,
+                measured=None) -> dict:
     """One sharded run of a part (g) cell: blocks drawn, cache seeded, the
     steps; its stats, launches against the prediction, the rank's seeded
-    error and (``keep``) the logits, written slots and states."""
+    error and (``keep``) the logits, written slots and states
+    (``measured``: ``decode_steps``')."""
     import torch
 
     from repro_torch.distributed import sharding
@@ -5415,8 +5510,10 @@ def _decode_run(group, device, cfg, cell, toks, mesh, keep: bool) -> dict:
             for p in cell["positions"]]
     logits, walls, launches, cache = decode_steps(
         bundle, params, cache, toks, cell["positions"], mesh, device,
-        keep=keep)
-    rec = _part_stats(t0, launches)
+        keep=keep, measured=measured)
+    rec = _part_stats(t0, launches, measured)
+    if measured:
+        rec["call"] = measured
     slots = _kv_slots(cfg, cache, specs, mesh, cell["positions"])
     kv = {j: logical_slots(t, spec, mesh, slots[j]) for j, (t, spec, _, _)
           in enumerate(_decode_leaves(cache, specs)) if j in slots}
@@ -5493,8 +5590,9 @@ def decode_part(group, device, name: str) -> dict:
                                else []) + [("fp32", cut)]
     rec, kept = {}, {}
     for tag, cfg in runs:
-        rec[tag], kept[tag] = _decode_run(group, device, cfg, cell, toks,
-                                          mesh, keep=rank == 0)
+        rec[tag], kept[tag] = _decode_run(
+            group, device, cfg, cell, toks, mesh, keep=rank == 0,
+            measured={} if (name, tag) == DRYRUN_DECODE else None)
     rec["launches"] = {k: sum(s[k] for s in rec["bf16"]["launches"])
                        for k in DECODE_KINDS}
     if rank:
@@ -5872,6 +5970,14 @@ def sharded_models_phase(step1_loss: float, parts=PARTS):
     if "decode" in parts:        # (g) A9-sp
         summary["decode"] = decode_gates(ranks, bad, show)
 
+    # rank 0's calls that part (h) dry-runs
+    r0 = ranks[0]
+    summary["dryrun_calls"] = {name: call for name, call in (
+        ("a", r0.get("prefill", {}).get("call")),
+        ("b", r0.get("train", {}).get("call")),
+        ("g3", r0.get("decode", {}).get("g3", {}).get("bf16", {})
+         .get("call"))) if call}
+
     launches = {k: sum(r[part]["launches"].get(k, 0) for r in ranks
                        for part in parts)
                 for k in KERNELS}
@@ -5955,6 +6061,139 @@ def decode_gates(ranks, bad: list, show) -> dict:
     return out
 
 
+def dryrun_start() -> dict:
+    """Part (h)'s subprocesses, started together before the kernel build:
+    the dry run of each call of ``DRYRUN_CALLS`` (each starts its own fake
+    world, never inside the gloo ranks) and the command line on danube's
+    production cells (records under ``chiprun_out/dryrun/``).  None sees a
+    card (``CUDA_VISIBLE_DEVICES`` empty) and none reads what phase 17
+    measures, so they run while the build and the first phases leave the
+    host's cores idle, niced below them, one thread each, and end long
+    before ``dryrun_phase`` reads them; every one still running at exit is
+    killed."""
+    import atexit
+    import os
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    out_dir = REPO / "chiprun_out" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmds = {name: [sys.executable, "-c", DRYRUN_CODE, json.dumps(kw)]
+            for name, kw in DRYRUN_CALLS.items()}
+    cmds.update({shape: [sys.executable, "-m", "repro_torch.launch.dryrun",
+                         "--arch", DANUBE, "--shape", shape, "--out",
+                         str(out_dir)] for shape in DRYRUN_CELLS})
+    started = dict(t0=time.perf_counter(), out_dir=out_dir, procs={},
+                   ends={})
+
+    def stop():
+        for p in started["procs"].values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def watch(k, p):
+        p.wait()
+        started["ends"][k] = time.perf_counter()
+
+    atexit.register(stop)
+    for k, cmd in cmds.items():
+        with open(out_dir / f"{k}.out", "w") as o, \
+                open(out_dir / f"{k}.err", "w") as e:
+            p = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=o, stderr=e)
+        os.setpriority(os.PRIO_PROCESS, p.pid, DRYRUN_NICE)
+        started["procs"][k] = p
+        threading.Thread(target=watch, args=(k, p), daemon=True).start()
+    return started
+
+
+def dryrun_phase(started: dict, measured: dict) -> dict:
+    """Part (h) of phase 17, A9-dryrun, once its ranks end: the results of
+    ``dryrun_start``'s subprocesses (``measured``: rank 0's calls from phase
+    17).  Gates: each call's collectives by kind, count and bytes, and its
+    argument bytes equal to rank 0's exactly; each production cell ``ok``.
+    The dry run's argument bytes are those of the inputs the traced call
+    reads; rank 0's are those of all the inputs it holds for the call
+    (``_call_end``), as timing the call under a dispatch mode that sees its
+    reads would move the part's walls.  The reads are a subset of the
+    holdings, so the equality shows that these three calls read every
+    input they hold, as ``tests/test_torch_dryrun.py`` shows on real CPU
+    ranks for calls of the same kinds.  The predicted peak (argument bytes
+    and ``temp_bytes``) is printed beside the call's measured
+    ``max_memory_allocated``, with no gate."""
+    t0 = time.perf_counter()
+    out_dir, done = started["out_dir"], {}
+    try:
+        for k, p in started["procs"].items():
+            left = DRYRUN_WAIT - (time.perf_counter() - t0)
+            p.wait(timeout=max(left, 1.0))
+            done[k] = (p.returncode, (out_dir / f"{k}.out").read_text(),
+                       (out_dir / f"{k}.err").read_text())
+    except subprocess.TimeoutExpired as e:
+        fail(f"part (h): a dry run still runs {DRYRUN_WAIT} s after phase "
+             f"17 ended: {e.cmd}")
+    ends = {k: started["ends"].get(k, time.perf_counter())
+            for k in started["procs"]}
+    wall = max(ends.values()) - started["t0"]
+    bad, summary = [], {"wall_s": wall, "budget_s": DRYRUN_BUDGET,
+                        "waited_s": time.perf_counter() - t0,
+                        "ends_s": {k: v - started["t0"]
+                                   for k, v in ends.items()}}
+    for name in (n for n in DRYRUN_CALLS if n in measured):
+        rc, o, e = done[name]
+        if rc:
+            bad.append(f"dry run of part ({name}) exited {rc}: {e[-2000:]}")
+            continue
+        dry = json.loads(o.strip().splitlines()[-1])
+        got = measured[name]
+        mem = dry["memory"]
+        predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        summary[name] = rec = dict(
+            collectives_equal=dry["collectives"] == got["collectives"],
+            argument_bytes=mem["argument_bytes"],
+            measured_argument_bytes=got["argument_bytes"],
+            predicted_peak_gib=predicted / 2 ** 30,
+            measured_peak_gib=got["peak_bytes"] / 2 ** 30,
+            flops=dry["cost"]["flops"], lower_s=dry["lower_s"],
+            compile_s=dry["compile_s"])
+        log(f"dry run (h) part ({name}) {json.dumps(DRYRUN_CALLS[name])}: "
+            f"collectives {json.dumps(dry['collectives'])}, rank 0 "
+            f"measured {json.dumps(got['collectives'])}; argument bytes "
+            f"{mem['argument_bytes']}, rank 0 held {got['argument_bytes']}; "
+            f"peak predicted {rec['predicted_peak_gib']:.3f} GiB (arguments "
+            f"+ temp_bytes), measured max_memory_allocated "
+            f"{rec['measured_peak_gib']:.3f} GiB (no gate); {dry['cost']} "
+            f"in {dry['lower_s']:.1f} + {dry['compile_s']:.1f} s")
+        if not (rec["collectives_equal"] and mem["argument_bytes"]
+                == got["argument_bytes"]):
+            bad.append(f"dry run of part ({name}) against rank 0: "
+                       f"{json.dumps(dry['collectives'])} / "
+                       f"{json.dumps(got['collectives'])}, argument bytes "
+                       f"{mem['argument_bytes']} / {got['argument_bytes']}")
+    for shape in DRYRUN_CELLS:
+        rc, o, e = done[shape]
+        path = out_dir / f"{DANUBE}__{shape}__16x16.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        summary[shape] = dict(ok=bool(rec.get("ok")),
+                              total_s=rec.get("total_s"))
+        log(f"dry run (h) {DANUBE} {shape} on 16x16 (the command line): "
+            f"rc {rc}, {o.strip()}")
+        if rc or not rec.get("ok"):
+            bad.append(f"dry run of {DANUBE} {shape}: rc {rc}, "
+                       f"{rec.get('error')} {e[-1000:]}")
+    missing = [n for n in DRYRUN_CALLS if n not in measured]
+    if missing:
+        bad.append(f"phase 17 measured no call of parts {missing}")
+    log(f"dry run (h): the subprocesses' wall {wall:.3f} s from their start "
+        f"(budget {DRYRUN_BUDGET} s), each's end {json.dumps(summary['ends_s'])}"
+        f"; {summary['waited_s']:.3f} s waited after phase 17")
+    if bad:
+        fail(" | ".join(bad))
+    return summary
+
+
 KERNELS = {
     "predicate_bitset": ("src/repro_torch/csrc/predicate.cu",
                          "src/repro/kernels/predicate.py:358"),
@@ -6022,6 +6261,8 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, card {name}, {smi}")
     from repro_torch.kernels import build
 
+    # part (h)'s dry runs need no card and nothing that runs before them
+    dry_started = dryrun_start()
     t0 = time.perf_counter()
     build.library()
     info = build.build_info()
@@ -6158,6 +6399,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     p_launches, shard_models = timed("sharded_models", sharded_models_phase,
                                      training["run"]["losses"][0])
+    dryrun = timed("dryrun", dryrun_phase, dry_started,
+                   shard_models.pop("dryrun_calls"))
     # B1-B3 are timed at the quickstart's (larger) shapes, B4 at the cohort
     # study's, B6's prefill kernel at the prefill's and its decode route at
     # the batcher's full-ring shape (L2 cleared); launches are summed over
@@ -6189,6 +6432,7 @@ def main() -> int:
         f"{json.dumps(b_timing)}")
     log(f"training: {json.dumps(training)}")
     log(f"sharded models: {json.dumps(shard_models)}")
+    log(f"dry run: {json.dumps(dryrun)}")
     log(f"serving: gates prefill {prefill_err}, teacher-forced "
         f"{json.dumps(tf)}, card vs CPU {cpu_err}; gemma3 prefill "
         f"{json.dumps(gemma_err)}, ring decode {json.dumps(ring_err)}")

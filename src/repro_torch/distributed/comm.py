@@ -12,8 +12,12 @@ device), so under gloo a CUDA tensor is staged through pinned host memory
 around the collective.  That is the collective's transport, not a fallback:
 every kernel still runs on the card.  ``stats`` counts the collectives (in
 all and by kind; ``objects`` are the small pickled host objects the sharded
-query service agrees on) and the staging's bytes and host seconds
-(``reset_stats`` sets them to 0).
+query service agrees on), each tensor kind's bytes (``<kind>_bytes``: the
+bytes of its results, as the reference's dry run sums an HLO collective's
+result shape: a gather's whole output, a ppermute's tensor on every rank,
+whether or not one was sent to it) and the staging's bytes and host
+seconds (``reset_stats`` sets them to 0).  A collective on meta tensors is
+counted like any other (the dry run, ``launch.dryrun``).
 
 The differentiable ones follow Megatron's convention for a tensor that is
 whole on every rank of a model group (replicated) and the rank-specific
@@ -26,6 +30,7 @@ already replicated, which multiplies them by the group's size.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Sequence, Tuple
 
@@ -39,19 +44,29 @@ __all__ = ["world_size", "group_key", "all_to_all", "all_reduce_sum",
            "ppermute",
            "stats", "reset_stats"]
 
-stats = {"collectives": 0, "all_to_all": 0, "all_reduce": 0,
-         "all_gather": 0, "ppermute": 0, "objects": 0, "staged_bytes": 0,
-         "staging_s": 0.0}
+KINDS = ("all_to_all", "all_reduce", "all_gather", "ppermute")
+
+stats = {}
 
 
 def reset_stats() -> None:
-    stats.update(collectives=0, all_to_all=0, all_reduce=0, all_gather=0,
-                 ppermute=0, objects=0, staged_bytes=0, staging_s=0.0)
+    stats.update(collectives=0, **{k: 0 for k in KINDS}, objects=0,
+                 staged_bytes=0, staging_s=0.0,
+                 **{k + "_bytes": 0 for k in KINDS})
 
 
-def _count(kind: str) -> None:
+reset_stats()
+
+
+def _count(kind: str, nbytes: int = 0) -> None:
     stats["collectives"] += 1
     stats[kind] += 1
+    if kind in KINDS:
+        stats[kind + "_bytes"] += nbytes
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def world_size(group) -> int:
@@ -118,7 +133,7 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise sum over ranks (``jax.lax.psum``), as a new tensor."""
-    _count("all_reduce")
+    _count("all_reduce", _nbytes(x))
     if _staged(x, group):
         host = _to_host(x)
         dist.all_reduce(host, group=group)
@@ -130,7 +145,7 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max over ranks (``jax.lax.pmax``), as a new tensor."""
-    _count("all_reduce")
+    _count("all_reduce", _nbytes(x))
     if _staged(x, group):
         host = _to_host(x)
         dist.all_reduce(host, op=dist.ReduceOp.MAX, group=group)
@@ -143,8 +158,8 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather_cat(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated in rank order along
     the leading axis."""
-    _count("all_gather")
     n = dist.get_world_size(group)
+    _count("all_gather", n * _nbytes(x))
     x = x.contiguous()
     if _staged(x, group):
         send = _to_host(x)
@@ -172,13 +187,16 @@ def _own_chunk(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 
 def _exchange(x: torch.Tensor, group, send: Sequence[int],
-              recv: Sequence[int], kind: str = "all_to_all") -> torch.Tensor:
+              recv: Sequence[int], kind: str = "all_to_all",
+              nbytes: int = None) -> torch.Tensor:
     """An all-to-all over the leading axis with uneven splits: rank ``t``
     gets the next ``send[t]`` rows of ``x``; the result holds ``recv[s]``
-    rows from each rank ``s``, in rank order."""
-    _count(kind)
+    rows from each rank ``s``, in rank order.  ``nbytes``: the bytes to
+    count for it (default: the result's)."""
     x = x.contiguous()
     shape = (sum(recv),) + tuple(x.shape[1:])
+    _count(kind, sum(recv) * math.prod(x.shape[1:]) * x.element_size()
+           if nbytes is None else nbytes)
     staged = _staged(x, group)
     src = _to_host(x) if staged else x
     out = torch.empty(shape, dtype=x.dtype, device=src.device,
@@ -199,7 +217,7 @@ def _ppermute(x: torch.Tensor, group, pairs: Sequence[Tuple[int, int]]
     out = _exchange(flat if dst else flat[:0], group,
                     [int(bool(dst) and t == dst[0]) for t in range(n)],
                     [int(bool(src) and t == src[0]) for t in range(n)],
-                    kind="ppermute")
+                    kind="ppermute", nbytes=_nbytes(x))
     return out.reshape(x.shape) if src else torch.zeros_like(x)
 
 

@@ -30,7 +30,8 @@ the mesh's first rank (None elsewhere): ``moe_rank`` (the MoE layer),
 save and restores onto other meshes), ``gpipe_rank``
 (``pipeline_transformer``), ``shard_gather_rank`` and ``decode_rank`` (the
 sharded decode: ``make_serve_step`` steps on the rank's blocks of a
-cache).
+cache).  ``dryrun_rank`` runs the calls that the dry run traces
+(``launch.dryrun.Call``) on real blocks, to hold the dry run against.
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ __all__ = ["spawn", "tasks_rank", "study_rank", "service_rank",
            "flatten_rank", "exposures_rank", "result_to_numpy", "blocks",
            "make_mesh", "moe_rank", "loss_grads_rank", "train_step_rank",
            "checkpoint_rank", "gpipe_rank", "shard_gather_rank",
-           "decode_rank"]
+           "decode_rank", "dryrun_rank"]
 
 
 def _rank_main(rank: int, n: int, store_path: str, device: str,
@@ -556,6 +557,53 @@ def decode_rank(group, device, cfg, shape, params: Mapping, cache: Mapping,
     return {"out": [o.float().cpu().numpy() if not sample else
                     o.cpu().numpy() for o in outs],
             "cache": _numpy_tree(whole), "block_err": err, "comm": stats}
+
+
+def dryrun_rank(group, device, calls: Sequence, seed: int = 0) -> Any:
+    """Each of ``calls`` (``launch.dryrun.Call``) on this rank: seeded
+    weights or train state, a zeroed cache, seeded batch blocks (tokens in
+    ``[3, vocab)``, a loss mask of ones, normal frontend inputs), the step
+    once.  On the mesh's first rank each call's collectives
+    (``comm.stats`` around exactly that call, as the dry run counts them)
+    and the bytes of the inputs the call reads and of all it holds; None
+    elsewhere."""
+    from repro_torch.distributed import comm, sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.train.train_step import init_train_state
+
+    out = []
+    for call in calls:
+        bundle, mesh = call.bundle(), make_mesh(group, call.mesh)
+        specs = {k: v for k, v in call.specs(bundle).items() if k != "pos"}
+        shard = sharding.batch_shardings(bundle.cfg, mesh, specs)
+        gen = torch.Generator().manual_seed(seed + 1)
+        batch = {}
+        for name, s in specs.items():
+            if name == "tokens":
+                x = torch.randint(3, bundle.cfg.vocab_size, tuple(s.shape),
+                                  generator=gen, dtype=torch.int64)
+            elif name == "loss_mask":
+                x = torch.ones(tuple(s.shape))
+            else:
+                x = torch.randn(tuple(s.shape), generator=gen)
+            batch[name] = sharding.own_block(x.to(s.dtype), shard[name],
+                                             mesh).to(device)
+        if call.kind == "train":
+            args = (init_train_state(bundle, seed, device, mesh), batch)
+        else:
+            args = (bundle.init(seed, device, mesh), batch)
+        if call.kind == "decode":
+            cache = bundle.init_cache(call.batch, call.seq_len, device, mesh)
+            batch["pos"] = dryrun.decode_position(call.seq_len, call.pos)
+            args = (args[0], cache, batch)
+        traced = dryrun.Traced(dryrun.make_step(bundle, call.kind), args,
+                               mesh, call.kind == "train")
+        comm.reset_stats()
+        reads = dryrun.read_bytes(traced)
+        out.append({"collectives": dryrun.collective_counts(comm.stats),
+                    "argument_bytes": reads,
+                    "held_bytes": dryrun.tree_bytes(args)})
+    return out if dist.get_rank(group) == 0 else None
 
 
 def _tensors(tree) -> list:

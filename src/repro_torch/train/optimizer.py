@@ -36,8 +36,8 @@ from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import axes_of, block, spec_leaves
 from repro_torch.interop import tree_map
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
-           "tree_leaves", "tree_unflatten"]
+__all__ = ["AdamWConfig", "adamw_init", "abstract_opt_state",
+           "adamw_update", "cosine_lr", "tree_leaves", "tree_unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +110,18 @@ def adamw_init(params: Any, mesh=None, specs: Any = None) -> Dict[str, Any]:
         "step": torch.zeros((), dtype=torch.int32,
                             device=tree_leaves(params)[0].device),
     }
+
+
+def abstract_opt_state(params_abstract: Any) -> Dict[str, Any]:
+    """The state's logical shapes and dtypes as meta tensors: fp32 master,
+    m and v shaped as ``params_abstract``'s leaves, an int32 ``step``."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return {"master": tree_map(f32, params_abstract),
+            "m": tree_map(f32, params_abstract),
+            "v": tree_map(f32, params_abstract),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def _global_norm(grads: Any, mesh=None, specs: List = None

@@ -37,9 +37,9 @@ from repro_torch.distributed import comm, hints, sharding
 from repro_torch.interop import tree_map
 from repro_torch.models.registry import ModelBundle
 from repro_torch.train.grad_compression import compress_grads_crosspod
-from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
-                                         adamw_update, tree_leaves,
-                                         tree_unflatten)
+from repro_torch.train.optimizer import (AdamWConfig, abstract_opt_state,
+                                         adamw_init, adamw_update,
+                                         tree_leaves, tree_unflatten)
 
 __all__ = ["TrainState", "make_train_step", "init_train_state",
            "abstract_train_state", "loss_and_grads", "state_shardings",
@@ -51,15 +51,7 @@ TrainState = Dict[str, Any]  # {"params": ..., "opt": adamw state}
 def abstract_train_state(bundle: ModelBundle) -> TrainState:
     """A train state's logical shapes and dtypes as meta tensors."""
     params = bundle.abstract_params()
-
-    def f32(p):
-        return torch.empty(p.shape, dtype=torch.float32, device="meta")
-
-    return {"params": params,
-            "opt": {"master": tree_map(f32, params),
-                    "m": tree_map(f32, params), "v": tree_map(f32, params),
-                    "step": torch.empty((), dtype=torch.int32,
-                                        device="meta")}}
+    return {"params": params, "opt": abstract_opt_state(params)}
 
 
 def state_shardings(bundle: ModelBundle, mesh) -> Dict[str, Any]:

@@ -11,7 +11,10 @@ bf16 gate) and danube's step-1 loss on the claims stream's first batch
 backward at danube's training shape (phase 16's call); with part (g),
 runs phase 9's battery and timings of B6's decode route with the LSE; then
 phase 17's parts on 4 gloo ranks of the card: all of them, or those of
-``--parts`` (letters a-g).  Exits nonzero when a check fails.
+``--parts`` (letters a-g); with ``h``, part (h) (the dry run of the calls
+of parts (a), (b) and (g3), and danube's production cells, started before
+the build and held against the calls that ran).  Exits nonzero when a
+check fails.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ sys.path.insert(0, str(ROOT / "src"))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--no-fp32-backward", action="store_true")
-    ap.add_argument("--parts", default="abcdefg")
+    ap.add_argument("--parts", default="abcdefgh")
     args = ap.parse_args()
     import torch
 
@@ -49,7 +52,8 @@ def main() -> int:
     rate = cs.mem_rate(name)
     cs.log(cs.nvidia_smi_line())
     parts = tuple(cs.PARTS[ord(c) - ord("a")] for c in args.parts
-                  if c != ",")
+                  if c not in ",h")
+    started = cs.dryrun_start() if "h" in args.parts else None
     build.library()
     archs = ([cs.SHARD_MOE] if "prefill" in parts else []) + (
         list(cs.SHARD_FAMILIES) if "families" in parts else [])
@@ -89,6 +93,12 @@ def main() -> int:
     launches, summary = cs.sharded_models_phase(step1, parts)
     cs.log(f"shard_probe: phase 17 in {time.perf_counter() - t0:.3f} s; "
            f"launches {json.dumps(launches)}")
+    calls = summary.pop("dryrun_calls")
+    if started:
+        t0 = time.perf_counter()
+        rec = cs.dryrun_phase(started, calls)
+        cs.log(f"shard_probe: part (h) in {time.perf_counter() - t0:.3f} "
+               f"s: {json.dumps(rec)}")
     cs.log(f"shard_probe: {json.dumps(summary)}")
     return 0
 
