@@ -204,13 +204,16 @@ nothing falls back to the CPU):
      launches), and B6 timed at phi-3-vision's prefill shape and at
      seamless's cross-attention (4,096 queries over 1,024 frames) as in
      phase 10.
-  16. training: B6's backward (``csrc/swa_backward.cu``) against its plain
-     backward over the forward's sweep, every head dim with ragged Sq,
+  16. training: B6's backward (``csrc/swa_backward_bf16.cu`` in bf16,
+     ``csrc/swa_backward.cu`` in fp32) against its plain backward over the
+     forward's sweep, every head dim with ragged Sq,
      Skv and kv_len and a window edge inside a tile, GQA 1-10, non-causal
      and cross calls, rows that see no key, fp32 and bf16 (within
      ATTN_TOL of each gradient's largest |value| and ATTN_ROW_TOL a row),
      and autograd through ``FlashAttention`` against autograd through the
-     plain forward; h2o-danube-1.8b at full width (bf16, remat, seeded
+     plain forward; both backwards twice on the same inputs, bit for bit;
+     the fp32 kernels' tile plans against their Python twins;
+     h2o-danube-1.8b at full width (bf16, remat, seeded
      random weights) trained by ``launch.train.train`` from the claims
      stream, 4 AdamW steps of 2 x 8,192 tokens: finite losses, B6's
      forward 48 and backward 24 launches a step (the decode route never),
@@ -228,8 +231,10 @@ nothing falls back to the CPU):
      restore + 3, bit for bit); and B6's backward timed at danube's
      training shape beside its plain version, the backward of SDPA with a
      boolean mask and its bound (10 D flops a visible pair and head), in
-     bf16 and, since PR 25, in fp32 (``csrc/swa_backward.cu``, the CUDA
-     cores, 5 reps a median).
+     bf16 and in fp32 (``csrc/swa_backward.cu``, the CUDA cores, 5 reps a
+     median), with the fp32 forward (``csrc/swa_attention.cu``'s
+     ``flash_f32`` writing the LSE) beside its plain version and SDPA with
+     the boolean mask, 5 reps a median.
   17. sharded models: one ``spawn`` of 4 gloo ranks on the card, the
      parts in turn (no fallback: a failing rank fails the run).
      (a) deepseek-moe-16b at full width and depth (28 layers, 64 routed
@@ -331,9 +336,12 @@ route; its record's launches are those calls less the decode route's
 (``flash_decode``), which has a record of its own; ``flash_decode_lse``
 counts the decode-route launches that also write the LSE (phase 17's (g),
 in ``flash_decode`` too); its backward (``flash_attention_bwd``) launches
-only in training.  B2b runs on none of these paths (no caller
-compacts by a bool mask): its count is 0.  The last lines of standard output
-are the card's name and power limit, one JSON line with the kernel records,
+only in training.  B6's fp32 kernels count under ``flash_attention_f32``
+and ``flash_attention_bwd_f32`` too (their main path: phase 17's fp32 pod
+step), and their launches over the whole run, the fp32 gates and phase
+17's ranks included, are printed beside.  B2b runs on none of these paths
+(no caller compacts by a bool mask): its count is 0.  The last lines of
+standard output are the card's name and power limit, one JSON line with the kernel records,
 and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2165,6 +2173,7 @@ def attention_battery(device) -> None:
     worst = {}
     n_decode = 0
     prefill_dims = set()       # head dims that reached the bf16 prefill kernel
+    f32_dims = set()           # and the fp32 one
     cases = ATTN_CASES
     for i, case in enumerate(cases):
         errs = []
@@ -2180,8 +2189,15 @@ def attention_battery(device) -> None:
                            for x in (q, k, v))
             kw = _attn_kwargs(case)
             before = launch_counts["flash_decode"]
+            f32 = launch_counts["flash_attention_f32"]
             got = swa.flash_swa_attention(q, k, v, **kw)
             decode = (Hq // Hkv) * Sq <= swa.DECODE_ROWS
+            moved = launch_counts["flash_attention_f32"] - f32
+            if moved != int(dt == torch.float32 and not decode):
+                fail(f"flash_attention {case} {dname}: the fp32 kernel's "
+                     f"count moved by {moved}")
+            if dt == torch.float32 and not decode:
+                f32_dims.add(D)
             if launch_counts["flash_decode"] != before + int(decode):
                 fail(f"flash_attention {case}: the decode route was "
                      f"{'not ' if decode else ''}taken")
@@ -2195,9 +2211,10 @@ def attention_battery(device) -> None:
             errs.append(f"{dname} {err[0]:.3g} / {err[1]:.3g}")
             del q, k, v, got, want
         log(f"attention: {case}: max abs / worst row error {', '.join(errs)}")
-    if prefill_dims != set(swa.HEAD_DIMS):
-        fail(f"attention: the bf16 prefill kernel ran at head dims "
-             f"{sorted(prefill_dims)}, not at every one of {swa.HEAD_DIMS}")
+    for what, dims in (("bf16 prefill", prefill_dims), ("fp32", f32_dims)):
+        if dims != set(swa.HEAD_DIMS):
+            fail(f"attention: the {what} kernel ran at head dims "
+                 f"{sorted(dims)}, not at every one of {swa.HEAD_DIMS}")
     n = len(cases)
     log(f"attention: {2 * n} flash_attention kernel-vs-plain checks "
         f"({n_decode} on the decode route), max abs "
@@ -4104,12 +4121,16 @@ def zero_rows(got, want, what: str) -> float:
 
 
 def check_bwd_tiles() -> None:
-    """The Python twins of the bf16 backward's tile plan (the walks that the
-    CPU tests hold against the mask) against the kernel's own, at every
-    head dim."""
+    """The Python twins of the bf16 backward's tile plan and of the fp32
+    kernels' (the walks that the CPU tests hold against the mask) against
+    the kernels' own, at every head dim."""
     from repro_torch.kernels import swa_attention as swa
 
     for D in swa.HEAD_DIMS:
+        twin = swa.f32_backward_tiles(D) + swa.f32_forward_tiles(D)
+        if swa.f32_kernel_tiles(D) != twin:
+            fail(f"flash_attention fp32 D={D}: the kernels' tiles "
+                 f"{swa.f32_kernel_tiles(D)}, the Python twins' {twin}")
         twin = (swa.BWD_DQ_ROWS, swa.backward_dq_keys(D),
                 swa.backward_dkdv_keys(D), swa.backward_dkdv_rows(D))
         if swa.backward_kernel_tiles(D) != twin:
@@ -4212,17 +4233,18 @@ def backward_battery(device) -> dict:
     if not decode_sized:
         fail("attention backward: no case took the decode route with the "
              "LSE")
-    # no atomics: a rerun gives the same bits
-    q, k, v, do = _bwd_inputs(BWD_CASES[-1], torch.bfloat16, device, 5, True)
-    kw = _attn_kwargs(BWD_CASES[-1])
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
-    o = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
-    runs = [swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse, **kw)
-            for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*runs)):
-        fail(f"flash_attention backward (bf16, {BWD_CASES[-1]}): two runs "
-             f"differ")
-    del q, k, v, do, o, runs, lse
+    # no atomics: a rerun gives the same bits, in both types
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = _bwd_inputs(BWD_CASES[-1], dt, device, 5, True)
+        kw = _attn_kwargs(BWD_CASES[-1])
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
+        o = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
+        runs = [swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse,
+                                                 **kw) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            fail(f"flash_attention backward ({dt}, {BWD_CASES[-1]}): two "
+                 f"runs differ")
+        del q, k, v, do, o, runs, lse
     auto = 0.0
     for i, case in enumerate(BWD_CASES):
         B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
@@ -4255,8 +4277,9 @@ def backward_battery(device) -> dict:
         f"{len(BWD_CASES)} cases on the decode route); rows 0 in the "
         f"plain backward, largest |value| over the tensor's "
         f"{json.dumps(zero_worst)} (gate {BWD_ZERO_ROW_TOL}); "
-        f"the bf16 tile plan's Python twins equal the kernel's; the bf16 "
-        f"backward twice, bit for bit; autograd through FlashAttention vs "
+        f"the bf16 and fp32 tile plans' Python twins equal the kernels'; the "
+        f"bf16 and fp32 backward twice, bit for bit; autograd through "
+        f"FlashAttention vs "
         f"through the plain forward (fp32): max {auto}")
     worst["lse"] = lse_worst
     worst["zero_rows"] = zero_worst
@@ -4671,10 +4694,14 @@ def training_phase(reps: int, rate: float):
                              torch.device("cuda"), 3, True)
     timing = time_attention_backward("danube training", q, k, v,
                                      _attn_kwargs(BWD_DANUBE), reps, rate)
-    # the fp32 backward (csrc/swa_backward.cu, CUDA cores) at the same
-    # shape: what the fp32 gates of phases 16 and 17 run
+    # the fp32 kernels (csrc/swa_attention.cu's flash_f32 writing the LSE,
+    # csrc/swa_backward.cu; CUDA cores) at the same shape: what the fp32
+    # gates of phases 15-17 and fp32 training run
     q, k, v, _ = _bwd_inputs(BWD_DANUBE, torch.float32, torch.device("cuda"),
                              3, True)
+    fwd32 = time_attention("danube training, fp32", q, k, v,
+                           _attn_kwargs(BWD_DANUBE), BWD_LIBRARY_REPS, rate,
+                           lse=True)
     fp32 = time_attention_backward("danube training, fp32", q, k, v,
                                    _attn_kwargs(BWD_DANUBE),
                                    BWD_LIBRARY_REPS, rate)
@@ -4686,7 +4713,7 @@ def training_phase(reps: int, rate: float):
     torch.cuda.empty_cache()
     return launches, timing, dict(run=info, engines=engines, card_vs_cpu=cpu,
                                   battery=worst, backward_d256=wide,
-                                  backward_fp32=fp32)
+                                  backward_fp32=fp32, forward_fp32=fwd32)
 
 
 # ---------------------------------------------------------------------------
@@ -5083,7 +5110,8 @@ def shard_pod(group, device) -> dict:
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t1
         launches = {k: launch_counts[k] for k in (
-            "flash_attention", "flash_attention_bwd", "flash_decode")}
+            "flash_attention", "flash_attention_bwd", "flash_decode",
+            *F32_KINDS)}
         out = _part_stats(t0, launches)
         got = {k: sharding.gather_tree(state["opt"][k], specs[k], mesh)
                for k in ("master", "m")}
@@ -5669,7 +5697,10 @@ def sharded_models_rank(group, device, twin_layers: int,
                SHARD_RG_FP32),
            "pod": lambda: shard_pod(group, device),
            "decode": lambda: shard_decode(group, device)}
-    return {part: run[part]() for part in parts}
+    read = tally_launches()
+    out = {part: run[part]() for part in parts}
+    out["f32_launches"] = read()
+    return out
 
 
 def loss_gate(bundle, batch) -> dict:
@@ -5933,6 +5964,10 @@ def sharded_models_phase(step1_loss: float, parts=PARTS):
             log(f"sharded models (f) pod step, rank {i}: step "
                 f"{r['pod']['step_s']:.3f} s, B6 {r['pod']['launches']}; "
                 + show(r["pod"]))
+            # the fp32 step runs B6's fp32 forward and backward kernels
+            if any(r["pod"]["launches"][k] <= 0 for k in F32_KINDS):
+                bad.append(f"pod step, rank {i}: B6's fp32 kernels "
+                           f"{r['pod']['launches']}, not launched")
         keys = ("loss_rel", "grad_norm_rel", "grad_rel", "scale_rel",
                 "grid", "flip_share", "bin_err", "master_same",
                 "master_flip", "lr")
@@ -5981,6 +6016,9 @@ def sharded_models_phase(step1_loss: float, parts=PARTS):
     launches = {k: sum(r[part]["launches"].get(k, 0) for r in ranks
                        for part in parts)
                 for k in KERNELS}
+    # the fp32 kernels' launches over the ranks' whole run (fp32 cuts too)
+    summary["f32_launches"] = {k: sum(r["f32_launches"][k] for r in ranks)
+                               for k in F32_KINDS}
     log(f"sharded models: {SHARDS} ranks in {wall:.3f} s; B6 launches "
         f"summed over ranks {json.dumps(launches)}")
     if bad:
@@ -6219,7 +6257,34 @@ KERNELS = {
     # bf16 at every head dim; fp32 runs src/repro_torch/csrc/swa_backward.cu
     "flash_attention_bwd": ("src/repro_torch/csrc/swa_backward_bf16.cu",
                             "src/repro/models/layers.py:130"),
+    # B6's fp32 kernels on the CUDA cores (counted in flash_attention and
+    # flash_attention_bwd too): the fp32 gates and fp32 training run them
+    "flash_attention_f32": ("src/repro_torch/csrc/swa_attention.cu",
+                            "src/repro/kernels/swa_attention.py:98"),
+    "flash_attention_bwd_f32": ("src/repro_torch/csrc/swa_backward.cu",
+                                "src/repro/models/layers.py:130"),
 }
+F32_KINDS = ("flash_attention_f32", "flash_attention_bwd_f32")
+
+
+def tally_launches():
+    """Count the fp32 kernels' launches over the rest of this process's
+    run, through every ``reset_launch_counts`` (which the phases call
+    before each main path): returns a function that reads the counts since
+    this call."""
+    from repro_torch import kernels
+
+    counts = kernels.launch_counts
+    tally = {k: -counts[k] for k in F32_KINDS}
+    reset = kernels.reset_launch_counts
+
+    def counted_reset():
+        for k in tally:
+            tally[k] += counts[k]
+        reset()
+
+    kernels.reset_launch_counts = counted_reset
+    return lambda: {k: tally[k] + counts[k] for k in tally}
 
 
 def main() -> int:
@@ -6261,6 +6326,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, card {name}, {smi}")
     from repro_torch.kernels import build
 
+    f32_launches = tally_launches()
     # part (h)'s dry runs need no card and nothing that runs before them
     dry_started = dryrun_start()
     t0 = time.perf_counter()
@@ -6301,9 +6367,11 @@ def main() -> int:
             log(f"ptxas: B6 backward {kern}<{D}>: {rep}")
             if "0 bytes spill stores, 0 bytes spill loads" not in rep:
                 fail(f"B6's bf16 backward {kern}<{D}> spills: {rep}")
-    for D in (80, 256):
-        for kern in ("bwd_dq", "bwd_dkdv"):
-            log(f"ptxas: B6 fp32 backward {kern}<{D}>: "
+    # B6's fp32 kernels on the CUDA cores (the forward, the backward's two
+    # launches) at every head dim
+    for D in HEAD_DIMS:
+        for kern in ("flash_f32", "bwd_dq", "bwd_dkdv"):
+            log(f"ptxas: B6 fp32 {kern}<{D}>: "
                 + kernel_registers(info["log"], kern, D))
     # B1 must keep its whole state in registers and shared memory
     for rows in (16, 8):
@@ -6411,7 +6479,9 @@ def main() -> int:
                    "hash_partition_plan": h_timing,
                    "filter_compact_mask": mask_timing,
                    "flash_attention_bwd": b_timing,
-                   "flash_decode_lse": lse_timing["gemma3 block"]})
+                   "flash_decode_lse": lse_timing["gemma3 block"],
+                   "flash_attention_f32": training["forward_fp32"],
+                   "flash_attention_bwd_f32": training["backward_fp32"]})
     log(f"launches: quickstart {q_launches}, chunked {k_launches}, spec "
         f"corpus {f_launches}, service {v_launches}, cohort study "
         f"{c_launches}, serving {s_launches}, gemma3 prefill "
@@ -6438,6 +6508,11 @@ def main() -> int:
         f"{json.dumps(gemma_err)}, ring decode {json.dumps(ring_err)}")
     log(f"phases: {json.dumps({k: round(v, 3) for k, v in seconds.items()})}"
         f", total {time.perf_counter() - t_all:.3f} s")
+    whole = f32_launches()
+    ranks = shard_models["f32_launches"]
+    log(f"launches: B6's fp32 kernels over the whole run (every phase, the "
+        f"gates too): {json.dumps({k: whole[k] + ranks[k] for k in whole})}"
+        f" ({json.dumps(ranks)} of them in phase 17's ranks)")
 
     launches = {k: sum(ph.get(k, 0) for ph in (
         q_launches, k_launches, f_launches, v_launches, c_launches,

@@ -23,31 +23,46 @@
 // per KV head never reach this file (csrc/swa_decode.cu).  This file holds
 // the fp32 kernel and the one C entry point.
 //
-// Design (fp32): one CUDA block per (batch, KV head, tile of 16 query rows).
-// The rows of a tile are (query position, head of the KV head's group)
-// pairs, position-major, so the whole GQA group shares each staged KV tile.
-// The block loops over 32-key tiles in dynamic shared memory from the first
-// key any of its rows can see (window) to the last (causal, kv_len) and
-// skips the rest, as the Pallas kernel's cull does; the loop takes the place
-// of the Pallas grid's sequential KV axis.  Full fp32 on the CUDA cores, no
-// TF32 (the 2e-5 gate is against fp32): 4 warps of 4 rows; lane j scores
-// key j, the warp reduces max and sum with shuffles, and each lane
-// accumulates output columns d = lane + 32 i (an online softmax per row).
-// The tiles take 16 D + 32 (2 D + 1) floats, 81 KB at D = 256, past the
-// 48 KB of static shared memory.
+// Design (fp32, flash_f32): one block of 128 threads per (batch, KV head,
+// tile of BM query rows).  The rows of a tile are (query position, head of
+// the KV head's group) pairs, position-major, so the whole GQA group shares
+// each staged K/V tile.  The block walks the BN-key tiles from the first key
+// any of its rows can see (window) to the last (causal, kv_len), as the
+// Pallas kernel's cull does; the loop takes the place of the Pallas grid's
+// sequential KV axis.  Full fp32 on the CUDA cores, no TF32 (the 2e-5 gate is
+// against fp32).  csrc/simt_f32.cuh holds the tiles and products:
+//   - Q stays in shared memory d-major; K (d-major) and V (key-major, in
+//     16-byte copies where its rows are 16-byte aligned) tiles come through
+//     a two-stage cp.async ring, the next tile's copies in flight while the
+//     block computes on the current one (one stage at D = 96, where a second
+//     would cost a block an SM: the other block covers the copies).
+//   - S = Q K^T: each thread a TM x KN register micro-tile, 8 x 4 up to
+//     D = 96 (32 FMAs for three 16-byte loads a d step).
+//   - An online softmax a row, in the log2 domain (ex2.approx of the
+//     scores scaled by D**-0.5 log2 e): the row's max over its 8 key groups
+//     by shuffles, each thread's share of the row's sum kept apart until
+//     the end.  P goes to shared memory, key-major.
+//   - O += P V: each thread TM rows by D / 8 columns, reading P's rows and
+//     V's columns as 16- or 8-byte loads (80 FMAs for 18 floats at D = 80).
+//   - Tiles of class kFullTile (hopper.cuh's tile_class) evaluate no mask;
+//     only kEdge tiles (the causal diagonal, the window's edge, kv_len) do.
+// Tiles (FwdCfg): BM = 128 rows by BN = 32 keys up to D = 96 (100 KB of
+// shared memory at D = 80, two blocks an SM, 205 registers), 64 by 32 from
+// D = 128 on (O's registers; one block an SM above 128).
 //
 // Bound: operations, 4 D flops per visible (query, key) pair and query
-// head, at the 67 TFLOP/s of fp32 outside the tensor cores.
+// head, at the 67 TFLOP/s of fp32 outside the tensor cores.  At danube's
+// training shape (2 x 32 x 8,192 x 80, window 4,096) it reaches about half
+// of it (PERF.md); the first design (16-row blocks, a key a lane, scalar
+// shared loads) reached an eighth.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
+#include "simt_f32.cuh"
 
-constexpr float kMasked = -1e30f;  // score of a hidden key (never exponentiated)
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 128;
-constexpr int kBM = 16, kBK = 32;  // query rows and keys a tile
+namespace {
 
 struct Args {
   const void* q;
@@ -58,172 +73,170 @@ struct Args {
   long long q_offset;
   long long rows;  // group * Sq rows per (batch, KV head)
   int Hkv, group, causal, window, kv_len;
-  float scale;  // D ** -0.5
-  float* lse;   // (B, Hq, Sq) fp32, each row's log-sum-exp; null: not kept
+  int vec16;         // v's rows 16-byte aligned: 16-byte copies
+  float scale_log2;  // D ** -0.5 * log2(e)
+  float* lse;        // (B, Hq, Sq) fp32, each row's log-sum-exp; null: not kept
 };
 
-__device__ __forceinline__ bool visible(int key, long long qpos, const Args& a) {
-  if (key >= a.kv_len) return false;
-  if (a.causal && key > qpos) return false;
-  if (a.window > 0 && (long long)key <= qpos - a.window) return false;
-  return true;
-}
-
-// Keys [*begin, *end) that any of the rows [r0, r1) can see; empty when
-// *end <= *begin.
-__device__ __forceinline__ void key_range(const Args& a, long long r0, long long r1,
-                                          long long* begin, long long* end) {
-  const long long q_lo = a.q_offset + r0 / a.group;
-  const long long q_hi = a.q_offset + (r1 - 1) / a.group;
-  long long b = 0;
-  if (a.window > 0) b = max(0LL, q_lo - a.window + 1);
-  long long e = a.kv_len;
-  if (a.causal) e = min(e, q_hi + 1);
-  *begin = b;
-  *end = e;
-}
-
-// ---------------------------------------------------------------------------
-// fp32: CUDA cores
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-
 template <int D>
-constexpr size_t f32_smem() {  // Qs[kBM][D], Ks[kBK][D + 1], Vs[kBK][D]
-  return sizeof(float) * (kBM * D + kBK * (D + 1) + kBK * D);
-}
+__global__ void __launch_bounds__(kF32Threads, FwdCfg<D>::BLOCKS) flash_f32(const Args a) {
+  using C = FwdCfg<D>;
+  constexpr int TM = C::TM, KN = C::KN, BM = C::BM, BN = C::BN;
+  constexpr int NC = D / 8, VW = NC % 4 == 0 ? 4 : 2;  // O columns a thread, vector width
+  extern __shared__ __align__(16) float smem[];
+  float* Qt = smem + C::Q;
+  float* Ps = smem + C::P;
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_f32(const Args a) {
-  constexpr int BM = kBM, BK = kBK, RPW = 4, DV = (D + 31) / 32;
-  extern __shared__ float smem[];
-  float(*Qs)[D] = reinterpret_cast<float(*)[D]>(smem);
-  // Ks rows padded by one: lane j reads row j without bank conflicts
-  float(*Ks)[D + 1] = reinterpret_cast<float(*)[D + 1]>(smem + BM * D);
-  float(*Vs)[D] = reinterpret_cast<float(*)[D]>(smem + BM * D + BK * (D + 1));
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, rg = tid >> 3, kg = tid & 7;
   const int b = blockIdx.y / a.Hkv, kvh = blockIdx.y % a.Hkv;
   const long long r0 = (long long)blockIdx.x * BM;
   const long long r1 = min(r0 + BM, a.rows);
-  const float* q = static_cast<const float*>(a.q);
-  float* o = static_cast<float*>(a.o);
   const float* kbase = static_cast<const float*>(a.k) + b * a.skb + kvh * a.skh;
   const float* vbase = static_cast<const float*>(a.v) + b * a.svb + kvh * a.svh;
 
-  for (int c = tid; c < BM * D; c += kThreads) {
-    const int rr = c / D, d = c % D;
-    const long long r = r0 + rr;
-    float x = 0.f;
-    if (r < a.rows) {
-      const long long head = (long long)kvh * a.group + r % a.group;
-      x = q[b * a.sqb + head * a.sqh + (r / a.group) * a.sqs + d];
-    }
-    Qs[rr][d] = x;
-  }
+  load_dmajor<D, BM, C::LQ>(Qt, static_cast<const float*>(a.q) + b * a.sqb, (int)(r1 - r0),
+                            [&](int l) { return row_offset(r0 + l, kvh, a.group, a.sqh, a.sqs); });
+  cp_commit();
 
-  bool rvalid[RPW];
-  long long qpos[RPW];
-  float m[RPW], l[RPW], acc[RPW][DV];
+  const long long qlo = a.q_offset + r0 / a.group, qhi = a.q_offset + (r1 - 1) / a.group;
+  long long kb, ke;
+  visible_keys(a.causal, a.window, a.kv_len, qlo, qhi, &kb, &ke);
+  const int t_begin = (int)(kb / BN);
+  const int t_end = ke > kb ? (int)((ke + BN - 1) / BN) : t_begin;
+  auto stage = [&](int t) {  // keys [t BN, t BN + BN) into ring slot t % STAGES
+    const int k0 = t * BN, n = min(BN, a.kv_len - k0), slot = t % C::STAGES;
+    load_dmajor<D, BN, C::LK>(smem + C::K + slot * D * C::LK, kbase, n,
+                              [&](int j) { return (long long)(k0 + j) * a.sks; });
+    load_rowmajor<D, BN>(smem + C::V + slot * BN * D, vbase, n, a.vec16,
+                         [&](int j) { return (long long)(k0 + j) * a.svs; });
+  };
+  if (C::STAGES > 1 && t_begin < t_end) stage(t_begin);
+  cp_commit();
+
+  float o[TM][NC], m[TM], l[TM];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const long long r = r0 + warp * RPW + i;
-    rvalid[i] = r < a.rows;
-    qpos[i] = a.q_offset + (rvalid[i] ? r / a.group : 0);
+  for (int i = 0; i < TM; ++i) {
     m[i] = kMasked;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DV; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < NC; ++c) o[i][c] = 0.f;
   }
-
-  long long kb, ke;
-  key_range(a, r0, r1, &kb, &ke);
-  const int t_begin = (int)(kb / BK);
-  const int t_end = ke > kb ? (int)((ke + BK - 1) / BK) : t_begin;
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // Qs is written / the previous tile is consumed
-    for (int c = tid; c < BK * D; c += kThreads) {
-      const int row = c / D, d = c % D;
-      const int key = k0 + row;
-      float kx = 0.f, vx = 0.f;
-      if (key < a.kv_len) {
-        kx = kbase[(long long)key * a.sks + d];
-        vx = vbase[(long long)key * a.svs + d];
-      }
-      Ks[row][d] = kx;
-      Vs[row][d] = vx;
+    if (C::STAGES == 1) {
+      __syncthreads();  // the previous tile is consumed
+      stage(t);
+      cp_commit();
     }
-    __syncthreads();
-    const int key = k0 + lane;
+    cp_wait<0>();
+    __syncthreads();  // tile t (and Q) landed; tile t - 1's slot and Ps are free
+    if (C::STAGES > 1 && t + 1 < t_end) stage(t + 1);
+    cp_commit();
+    const int slot = t % C::STAGES;
+    const float* Kt = smem + C::K + slot * D * C::LK;
+    const float* Vk = smem + C::V + slot * BN * D;
+    const int k0 = t * BN;
+    const bool edge = tile_class(a.causal, a.window, a.kv_len, qlo, qhi, k0, BN) != kFullTile;
+
+    float s[TM][KN];
+    zero(s);
+    score_product<D, TM, KN, C::LQ, C::LK>(s, Qt, Kt, rg, kg);
+
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      if (!rvalid[i]) continue;  // uniform across the warp
-      const float* qr = Qs[warp * RPW + i];
-      float sc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) sc = fmaf(qr[d], Ks[lane][d], sc);
-      const bool vis = visible(key, qpos[i], a);
-      const float x = vis ? sc * a.scale : kMasked;
-      const float mnew = fmaxf(m[i], warp_max(x));
-      const float p = vis ? expf(x - mnew) : 0.f;
-      const float alpha = expf(m[i] - mnew);
-      l[i] = l[i] * alpha + warp_sum(p);
+    for (int i = 0; i < TM; ++i) {
+      int lo = 0, hi = 0;
+      if (edge) {
+        const long long r = r0 + 4 * rg + 64 * (i / 4) + i % 4;
+        if (r < a.rows)
+          row_keys(a.q_offset + r / a.group, a.causal, a.window, a.kv_len, &lo, &hi);
+        else
+          lo = 1, hi = 0;
+      }
+      float mx = kMasked;
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        const int key = k0 + 4 * kg + 32 * (j / 4) + j % 4;
+        float x = s[i][j] * a.scale_log2;
+        if (edge && (key < lo || key > hi)) x = kMasked;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float mnew = fmaxf(m[i], group_max(mx));
+      const float alpha = ex2(m[i] - mnew);  // 1 while the row has seen no key
       m[i] = mnew;
+      float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < DV; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < KN; ++j) {
+        const float p = edge && s[i][j] == kMasked ? 0.f : ex2(s[i][j] - mnew);
+        s[i][j] = p;
+        sum += p;
+      }
+      l[i] = l[i] * alpha + sum;  // this thread's share of the row's sum
+#pragma unroll
+      for (int c = 0; c < NC; ++c) o[i][c] *= alpha;
+    }
+    // P to shared memory, key-major: Ps[key][row]
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int h = 0; h < TM / 4; ++h)
+        *reinterpret_cast<float4*>(Ps + (4 * kg + 32 * (j / 4) + j % 4) * C::LQ + 4 * rg +
+                                   64 * h) =
+            make_float4(s[4 * h][j], s[4 * h + 1][j], s[4 * h + 2][j], s[4 * h + 3][j]);
+    __syncthreads();
+
+    // O += P V: rows as above, columns VW * kg + 8 VW c' + e
 #pragma unroll 4
-      for (int j = 0; j < BK; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
+    for (int j = 0; j < BN; ++j) {
+      float p[TM];
+      load_owned<TM, 64>(p, Ps + j * C::LQ + 4 * rg);
+      const float* vrow = Vk + j * D + VW * kg;
 #pragma unroll
-        for (int jj = 0; jj < DV; ++jj) {
-          const int d = lane + 32 * jj;
-          if (d < D) acc[i][jj] = fmaf(pj, Vs[j][d], acc[i][jj]);
+      for (int c = 0; c < NC / VW; ++c) {
+        float v[VW];
+        if constexpr (VW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vrow + 32 * c);
+          v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(vrow + 16 * c);
+          v[0] = x.x, v[1] = x.y;
         }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int e = 0; e < VW; ++e) o[i][VW * c + e] = fmaf(p[i], v[e], o[i][VW * c + e]);
       }
     }
   }
 
+  float* out = static_cast<float*>(a.o) + b * a.sob;
+  const long long Sq = a.rows / a.group;
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    if (!rvalid[i]) continue;
-    const long long r = r0 + warp * RPW + i;
-    const long long head = (long long)kvh * a.group + r % a.group;
-    float* orow = o + b * a.sob + head * a.soh + (r / a.group) * a.sos;
+  for (int i = 0; i < TM; ++i) {
+    const float sum = group_sum(l[i]);
+    const long long r = r0 + 4 * rg + 64 * (i / 4) + i % 4;
+    if (r >= a.rows) continue;
+    float* orow = out + row_offset(r, kvh, a.group, a.soh, a.sos);
+#pragma unroll
+    for (int c = 0; c < NC / VW; ++c)
+#pragma unroll
+      for (int e = 0; e < VW; ++e)
+        orow[VW * kg + 8 * VW * c + e] = sum > 0.f ? o[i][VW * c + e] / sum : 0.f;
     // the row's log-sum-exp for the backward, 0 for a row with no visible key
-    if (a.lse != nullptr && lane == 0)
-      a.lse[((long long)b * a.Hkv * a.group + head) * (a.rows / a.group) + r / a.group] =
-          l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DV; ++jj) {
-      const int d = lane + 32 * jj;
-      if (d < D) orow[d] = l[i] > 0.f ? acc[i][jj] / l[i] : 0.f;
-    }
+    if (a.lse != nullptr && kg == 0)
+      a.lse[lse_offset(r, b, kvh, a.Hkv, a.group, Sq)] =
+          sum > 0.f ? (m[i] + log2f(sum)) * kLn2 : 0.f;
   }
 }
 
 template <int D>
 int launch_f32(const Args& a, int n_bh, cudaStream_t st) {
-  constexpr size_t bytes = f32_smem<D>();
-  static const cudaError_t attr =
-      bytes > 48 * 1024 ? cudaFuncSetAttribute(flash_f32<D>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)bytes)
-                        : cudaSuccess;
+  constexpr size_t bytes = FwdCfg<D>::BYTES;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((unsigned)((a.rows + kBM - 1) / kBM), (unsigned)n_bh);
-  flash_f32<D><<<grid, kThreads, bytes, st>>>(a);
+  const dim3 grid((unsigned)((a.rows + FwdCfg<D>::BM - 1) / FwdCfg<D>::BM), (unsigned)n_bh);
+  flash_f32<D><<<grid, kF32Threads, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -273,7 +286,8 @@ extern "C" int repro_flash_attention(
   a.causal = causal;
   a.window = window;
   a.kv_len = kv_len;
-  a.scale = (float)(1.0 / sqrt((double)D));
+  a.scale_log2 = (float)(1.0 / sqrt((double)D) * 1.4426950408889634);
+  a.vec16 = (uintptr_t)v % 16 == 0 && svb % 4 == 0 && svh % 4 == 0 && svs % 4 == 0;
   a.lse = lse;
   cudaStream_t st = (cudaStream_t)stream;
   const int n_bh = B * Hkv;

@@ -25,7 +25,11 @@ launch_counts = {"predicate_bitset": 0, "filter_compact": 0, "bitset_op": 0,
                  "segmented_scan": 0, "flash_attention": 0,
                  "filter_compact_mask": 0, "hash_partition_plan": 0,
                  "flash_decode": 0, "flash_decode_lse": 0,
-                 "flash_attention_bwd": 0}
+                 "flash_attention_bwd": 0,
+                 # B6's fp32 kernels (csrc/swa_attention.cu's flash_f32 and
+                 # csrc/swa_backward.cu), counted in flash_attention and
+                 # flash_attention_bwd too
+                 "flash_attention_f32": 0, "flash_attention_bwd_f32": 0}
 
 
 def reset_launch_counts() -> None:

@@ -28,8 +28,8 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("predicate.cu", "filter_compact.cu", "bitset_ops.cu",
            "segment_scan.cu", "swa_attention.cu", "swa_prefill.cu",
-           "swa_decode.cu", "swa_backward.cu", "swa_backward_bf16.cu",
-           "hash_partition.cu")
+           "swa_decode.cu", "swa_backward.cu", "swa_backward_wide.cu",
+           "swa_backward_bf16.cu", "hash_partition.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -155,6 +155,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = _I32
     lib.repro_flash_attention_bwd_bf16_tiles.argtypes = [_I32, _P]
     lib.repro_flash_attention_bwd_bf16_tiles.restype = _I32
+    lib.repro_flash_f32_tiles.argtypes = [_I32, _P]
+    lib.repro_flash_f32_tiles.restype = _I32
 
 
 def _load(info: dict) -> ctypes.CDLL:

@@ -28,7 +28,9 @@ unnormalised output), and a second launch combines them (and, given an
 PyTorch.  Larger calls (prefill) run ``csrc/swa_prefill.cu`` in bf16 (TMA
 loads, ``wgmma`` products, warp-specialised; ``prefill_tile_class`` repeats
 its sorting of (query tile, key tile) pairs into skipped, full and edge
-tiles) and ``csrc/swa_attention.cu`` in fp32.  Both routes take head dims
+tiles) and ``csrc/swa_attention.cu`` in fp32 (CUDA cores, register-blocked
+products over a ``cp.async`` ring; ``f32_forward_tiles`` and
+``f32_key_tiles`` repeat its tiles and walk).  Both routes take head dims
 ``HEAD_DIMS``; bf16 operands need 16-byte aligned bases and strides that
 are multiples of 8 elements (TMA's rule), else the call raises.
 
@@ -45,7 +47,11 @@ two kernels on CUDA tensors (dQ, then dK and dV; no atomics): bf16 runs
 ``csrc/swa_backward_bf16.cu`` on the tensor cores (TMA, ``wgmma``;
 ``backward_dq_tiles`` and ``backward_dkdv_tiles`` repeat its walks, and
 ``backward_kernel_tiles`` reads its tile plan from the library), fp32
-``csrc/swa_backward.cu`` on the CUDA cores.  On CPU tensors both directions
+``csrc/swa_backward.cu`` on the CUDA cores (``f32_backward_tiles``,
+``f32_key_tiles`` and ``f32_dkdv_tiles`` repeat its tiles and walks;
+``f32_kernel_tiles`` reads both fp32 kernels' plan from the library).  The
+fp32 kernels count their launches under ``flash_attention_f32`` and
+``flash_attention_bwd_f32`` too.  On CPU tensors both directions
 run their plain versions (``flash_swa_attention_plain(...,
 return_lse=True)``, ``flash_swa_attention_backward_plain(..., lse=)``).
 """
@@ -67,7 +73,9 @@ __all__ = ["HEAD_DIMS", "DECODE_ROWS", "DECODE_KEYS", "PREFILL_ROWS",
            "prefill_tile_class", "prefill_tiles", "BWD_DQ_ROWS",
            "backward_dq_keys", "backward_dkdv_keys", "backward_dkdv_rows",
            "backward_dq_tiles", "backward_dkdv_class", "backward_dkdv_tiles",
-           "backward_kernel_tiles"]
+           "backward_kernel_tiles", "f32_forward_tiles",
+           "f32_backward_tiles", "f32_key_tiles", "f32_dkdv_tiles",
+           "f32_kernel_tiles"]
 
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 240, 256)  # every route's instantiations
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -317,6 +325,85 @@ def backward_kernel_tiles(D: int) -> Tuple[int, int, int, int]:
     return tuple(tiles)
 
 
+def f32_forward_tiles(D: int) -> Tuple[int, int]:
+    """(query rows of a block, keys of a tile) of the fp32 forward kernel
+    (``csrc/simt_f32.cuh:FwdCfg``): 128 rows (8 a thread) by 32 keys up to
+    D = 96, 64 by 32 from 128 on (O's registers).  Rows are a KV head's
+    (position, head of the group) pairs, position-major.  Held to the
+    kernel on the card through ``f32_kernel_tiles``."""
+    return (128 if D < 128 else 64), 32
+
+
+def f32_backward_tiles(D: int) -> Tuple[int, int, int, int]:
+    """(query rows of a dq block, keys of a dq tile, keys of a dkdv block,
+    query rows of a dkdv tile) of the fp32 backward
+    (``csrc/simt_f32.cuh:DqCfg``, ``KvCfg``): dq 64 rows by 64 keys up to
+    D = 80, by 32 from 96 on; dkdv 64 keys up to 96, 32 from 128 on, by
+    tiles of 64 rows.  Held to the kernel on the card through
+    ``f32_kernel_tiles``."""
+    return 64, (64 if D < 96 else 32), (64 if D < 128 else 32), 64
+
+
+def f32_key_tiles(r0: int, block_rows: int, keys: int, rows: int,
+                  group: int, causal: bool, window: int, q_offset: int,
+                  kv_len: int):
+    """``[(key tile, class), ...]`` that an fp32 forward or dq block walks:
+    the block of ``block_rows`` rows from row ``r0`` of a KV head's ``rows``
+    (= group * Sq, position-major), tiles of ``keys`` keys over
+    ``decode_key_range`` of its positions, classed by
+    ``prefill_tile_class`` (the kernels evaluate a mask on the ``EDGE``
+    ones; the dq kernel also on a block cut short by ``rows``)."""
+    r1 = min(r0 + block_rows, rows)
+    if r1 <= r0:
+        return []
+    qlo, qhi = q_offset + r0 // group, q_offset + (r1 - 1) // group
+    begin, end = decode_key_range(qhi - qlo + 1, causal, window, qlo, kv_len)
+    if end <= begin:
+        return []
+    return [(t, prefill_tile_class(qlo, qhi, t * keys, keys, causal, window,
+                                   kv_len))
+            for t in range(begin // keys, -(-end // keys))]
+
+
+def f32_dkdv_tiles(k0: int, keys: int, block_rows: int, Sq: int, group: int,
+                   causal: bool, window: int, q_offset: int, kv_len: int):
+    """``[(first row, end row, class), ...]`` that the fp32 backward's dkdv
+    block of the ``keys`` keys from ``k0`` walks: tiles of ``block_rows``
+    rows (a KV head's (position, head) pairs, position-major) from the
+    first row whose position can see one of its keys to the last, the last
+    tile cut short there; a tile cut short is ``EDGE`` (its missing rows
+    are masked)."""
+    k_last = min(k0 + keys, kv_len) - 1
+    if k_last < k0:
+        return []
+    p_lo = max(0, k0 - q_offset) if causal else 0
+    p_hi = min(Sq - 1, k_last + window - 1 - q_offset) if window > 0 \
+        else Sq - 1
+    if p_hi < p_lo:
+        return []
+    r_begin, r_end = p_lo * group, (p_hi + 1) * group
+    out = []
+    for r0 in range(r_begin, r_end, block_rows):
+        r1 = min(r0 + block_rows, r_end)
+        cls = prefill_tile_class(q_offset + r0 // group,
+                                 q_offset + (r1 - 1) // group, k0, keys,
+                                 causal, window, kv_len)
+        out.append((r0, r1, EDGE if r1 - r0 < block_rows else cls))
+    return out
+
+
+def f32_kernel_tiles(D: int) -> Tuple[int, ...]:
+    """The fp32 kernels' own tile plan at head dim ``D``, read from the
+    built library (``repro_flash_f32_tiles``): ``f32_backward_tiles(D) +
+    f32_forward_tiles(D)`` when the twins hold; needs the CUDA toolchain."""
+    from repro_torch.kernels.build import check, library
+
+    tiles = (ctypes.c_int * 6)()
+    check(library().repro_flash_f32_tiles(D, tiles), "flash_attention fp32 "
+          "tiles")
+    return tuple(tiles)
+
+
 def _rows(x: torch.Tensor, Hkv: int) -> torch.Tensor:
     """(B, Hq, Sq, D) -> (B, Hkv, group * Sq, D), rows position-major (row
     r is query r // group of head r % group of the KV head's group), as the
@@ -507,6 +594,8 @@ def flash_swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.c_longlong(q_offset), kv_len,
         int(bf16), None if lse is None else lse.data_ptr(), stream)
     launch_counts["flash_attention"] += 1
+    if not bf16:
+        launch_counts["flash_attention_f32"] += 1
     check(status, "flash_attention")
     return out if out_dtype is None else out.to(out_dtype)
 
@@ -659,6 +748,8 @@ def flash_swa_attention_backward(
     status = launch(*ptrs, *st, *tail,
                     torch.cuda.current_stream(q.device).cuda_stream)
     launch_counts["flash_attention_bwd"] += 1
+    if q.dtype == torch.float32:
+        launch_counts["flash_attention_bwd_f32"] += 1
     check(status, "flash_attention backward")
     return dq, dk, dv
 

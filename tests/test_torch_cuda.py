@@ -903,6 +903,74 @@ def test_backward_tile_twins_match_the_kernel(device, D):
         swa.backward_dkdv_rows(D))
 
 
+@pytest.mark.parametrize("D", swa.HEAD_DIMS)
+def test_f32_tile_twins_match_the_kernels(device, D):
+    """The Python twins of the fp32 kernels' tile plans, which the CPU
+    tests hold against the mask, equal the kernels' own (``FwdCfg``,
+    ``DqCfg``, ``KvCfg``)."""
+    assert swa.f32_kernel_tiles(D) == (swa.f32_backward_tiles(D)
+                                       + swa.f32_forward_tiles(D))
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len): B6's fp32
+# kernels at every head dim; GQA groups of 1, 2, 3, 4 and 8; causal,
+# non-causal and windowed; odd lengths, kv_len < Skv, negative and positive
+# query offsets (rows that see no key)
+F32_CASES = [(2, 8, 1, 77, 77, 16, True, 0, None, None),
+             (1, 6, 3, 131, 140, 32, False, 0, 0, 120),
+             (2, 4, 4, 257, 257, 64, True, 33, None, None),
+             (1, 32, 8, 300, 333, 80, True, 50, None, 317),
+             (1, 8, 1, 129, 129, 96, True, 0, -5, None),
+             (2, 6, 2, 70, 260, 128, False, 16, 0, 250),
+             (1, 16, 8, 100, 300, 240, True, 64, 150, None),
+             (1, 10, 1, 200, 200, 256, True, 2048, None, None)]
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=str)
+def test_flash_attention_f32_kernel_matches_plain(device, case):
+    """The fp32 forward (``flash_f32``) through transposed (B, S, H, D)
+    views, asked for the LSE: one ``flash_attention_f32`` launch, the output
+    within 2e-5 and the LSE within 1e-5 (relative) of the plain version's,
+    a row that sees no key exactly 0 with LSE 0."""
+    q, k, v, _, kw = _bwd_case(case, torch.float32, device)
+    lse = torch.full(q.shape[:3], float("nan"), device=device)
+    before = launch_counts["flash_attention_f32"]
+    got = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
+    assert launch_counts["flash_attention_f32"] == before + 1
+    assert got.stride() == q.stride()
+    want, plse = swa.flash_swa_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert float(((lse - plse).abs() / plse.abs().clamp_min(1.0)).max()) \
+        <= 1e-5
+    rows, _ = _unseen(case)
+    assert torch.count_nonzero(got[:, :, rows.to(device)]) == 0
+    assert torch.count_nonzero(lse[:, :, rows.to(device)]) == 0
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=str)
+def test_flash_attention_backward_f32_matches_plain(device, case):
+    """The fp32 backward (``bwd_dq``, ``bwd_dkdv``) on the forward kernel's
+    output and LSE: one ``flash_attention_bwd_f32`` launch, each gradient
+    within 2e-5 of its largest |value|, rows that see no key and keys no
+    row sees exactly 0, and a second call bit for bit equal (no atomics)."""
+    q, k, v, do, kw = _bwd_case(case, torch.float32, device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=device)
+    o = swa.flash_swa_attention(q, k, v, lse=lse, **kw)
+    before = launch_counts["flash_attention_bwd_f32"]
+    got = swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse, **kw)
+    assert launch_counts["flash_attention_bwd_f32"] == before + 1
+    want = swa.flash_swa_attention_backward_plain(q, k, v, o, do, **kw)
+    for a, b in zip(got, want):
+        top = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2e-5 * top
+    rows, keys = _unseen(case)
+    assert torch.count_nonzero(got[0][:, :, rows.to(device)]) == 0
+    for g in got[1:]:
+        assert torch.count_nonzero(g[:, :, keys.to(device)]) == 0
+    again = swa.flash_swa_attention_backward(q, k, v, o, do, lse=lse, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def _unseen(case):
     """(query rows that see no key, keys that no row sees), bool masks."""
     B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset, kv_len = case
